@@ -1,0 +1,50 @@
+"""srack_tpu_torch -- the PyTorch and CUDA port of srack_tpu.
+
+Patch graphs of oscillators, filters, envelopes, mixers and math modules
+compile into one per-sample step.  On the CPU the scan engine runs that
+step in a loop; batched renders on a CUDA device run a hand-written CUDA
+kernel generated from the plan, one thread per voice.  ``srack_tpu`` (JAX)
+is the reference this package is tested against; this package imports
+neither it nor jax.
+
+Quick start::
+
+    import srack_tpu_torch as stt
+
+    cfg = stt.AudioConfig(sample_rate=48000, channels=1)
+    patch = stt.presets.subtractive_voice(cfg)
+    params = stt.presets.farm_params(patch, 1024)
+    audio, _, state = stt.compile_patch(patch).render(
+        48000, params=params, batched=True, device="cuda")
+"""
+
+from .config import AudioConfig
+from .patch import Patch, ModuleHandle
+from .planner import plan_execution
+from .compiler import CompiledPatch, compile_patch
+from .engine import render, render_batch, stack_params, replicate_params
+from .modules import CATALOG, ModuleDef
+from .modules import register as register_module
+from .modules import unregister as unregister_module
+from . import interop, presets
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "AudioConfig",
+    "Patch",
+    "ModuleHandle",
+    "plan_execution",
+    "CompiledPatch",
+    "compile_patch",
+    "render",
+    "render_batch",
+    "stack_params",
+    "replicate_params",
+    "CATALOG",
+    "ModuleDef",
+    "register_module",
+    "unregister_module",
+    "interop",
+    "presets",
+]

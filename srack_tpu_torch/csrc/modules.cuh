@@ -1,0 +1,403 @@
+// Per-sample module steps of the fused voice kernel, one inline function per
+// module type, callable from host code (the test build with g++) and device
+// code (the kernel built with nvcc).
+//
+// Each function mirrors the torch step of srack_tpu_torch/modules/*.py and
+// the JAX step of srack_tpu/modules/*.py expression by expression, in f32,
+// so the three agree to the rounding: build with `--fmad=false` (nvcc) or
+// `-ffp-contract=off` (g++), and never with fast math, so that a*b+c stays
+// two roundings and divisions stay IEEE.
+//
+// Calling convention, followed by ops/fused.py's generator:
+//
+//   fn<CONN, statics...>(params..., state..., const float* in, float* out)
+//
+// * CONN: bit i set when input port i is connected.  An unconnected input
+//   arrives as 0.0f and the function applies the module's fallback.
+// * statics: the module's integer and boolean statics, in order.
+// * params: the module's derived params in sorted key order, by value
+//   (a vector param as a pointer).  Which params exist depends on the
+//   connectivity (ModuleDef.derive hoists loop-invariant chains), and the
+//   overloads below take the hoisted path exactly when the torch step does.
+// * state: the module's state leaves in sorted key order, by reference
+//   (a vector leaf as a pointer); bool state is carried as int.
+// * in / out: the input ports and output ports, in port order.
+//
+// The generated file defines SRK_SAMPLE_RATE before including this header.
+
+#pragma once
+
+#include <stdint.h>
+#include <math.h>
+#include <string.h>
+
+#ifndef SRK_SAMPLE_RATE
+#error "define SRK_SAMPLE_RATE (the patch's sample rate in Hz) before including modules.cuh"
+#endif
+
+#ifdef __CUDACC__
+#define SRK_HD __host__ __device__ __forceinline__
+#else
+#define SRK_HD inline
+#endif
+
+// 440 / sample_rate, computed in double and rounded to f32 once, as the
+// Python steps fold it.
+#define SRK_K440_SR ((float)(440.0 / (double)(SRK_SAMPLE_RATE)))
+
+// ---------------------------------------------------------------------------
+// fast-mode helpers (srack_tpu_torch/ops/basic.py)
+// ---------------------------------------------------------------------------
+
+SRK_HD float srk_int_as_float(int x) {
+#ifdef __CUDA_ARCH__
+  return __int_as_float(x);
+#else
+  float f;
+  memcpy(&f, &x, sizeof f);
+  return f;
+#endif
+}
+
+// int32 add that wraps mod 2^32 (signed overflow is undefined in C++)
+SRK_HD int srk_iadd(int a, int b) {
+  return (int)((uint32_t)a + (uint32_t)b);
+}
+
+// jnp.clip / torch.clamp: a NaN passes through
+SRK_HD float srk_clip(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// jnp.mod(x, 1.0): the C remainder, moved into [0, 1) when negative.
+// x - truncf(x) is exact and equals fmodf(x, 1.0f) for every finite x but
+// the sign of a zero result, which the int conversion in
+// srk_delta_to_fixed drops; fmodf is a libdevice loop with branches, 6.7 %
+// slower on the subtractive voice (H100 80GB HBM3, 700 W).
+SRK_HD float srk_mod1(float x) {
+  float r = x - truncf(x);
+  return r < 0.0f ? r + 1.0f : r;
+}
+
+// f32 cycles per sample -> fixed-point int32 phase increment.  Only the
+// value in int32 range is converted: float-to-int of a value >= 2^31 is
+// undefined in C++.
+SRK_HD int srk_delta_to_fixed(float delta) {
+  float d = srk_mod1(delta);
+  float u = d * 4294967296.0f;
+  return d < 0.5f ? (int)u : (int)(u - 4294967296.0f);
+}
+
+// int32 fixed-point phase -> signed turns in [-1, 1)
+SRK_HD float srk_signed_turns(int pos) {
+  return (float)pos * 4.656612873077393e-10f;  // 2^-31
+}
+
+// sin(pi*s) on [-1, 1]: 5-term odd minimax polynomial, Horner form
+SRK_HD float srk_fast_sinpi(float s) {
+  float z = s * s;
+  float p = 0.0640261396169806f;
+  p = p * z + -0.5818593382178273f;
+  p = p * z + 2.5427129265355948f;
+  p = p * z + -5.166401774862824f;
+  p = p * z + 3.1415278983587682f;
+  return s * p;
+}
+
+// 2**x: deg-6 polynomial on the fractional part, times 2**floor(x) built
+// as float exponent bits
+SRK_HD float srk_fast_exp2(float x) {
+  x = srk_clip(x, -126.0f, 126.0f);
+  float xi = floorf(x);
+  float f = x - xi;
+  float p = 0.00021702400581973962f;
+  p = p * f + 0.0012439646470418081f;
+  p = p * f + 0.009678845362499107f;
+  p = p * f + 0.05548333989618637f;
+  p = p * f + 0.24022983671380171f;
+  p = p * f + 0.6931469838082407f;
+  p = p * f + 1.0000000018561317f;
+  int e = ((int)xi + 127) << 23;
+  return p * srk_int_as_float(e);
+}
+
+// polyBLEP in the signed-phase domain: sign(-u) * (1 - |u|)^2 for |u| < 1
+SRK_HD float srk_poly_blep_signed(float u) {
+  float au = fabsf(u);
+  float w = 1.0f - au;
+  float mag = au < 1.0f ? w * w : 0.0f;
+  return u >= 0.0f ? -mag : mag;
+}
+
+// ---------------------------------------------------------------------------
+// Oscillator (modules/oscillator.py), fast precision.
+// in: CV, Sync.  out: Sine, Square, Sawtooth.
+// state (sorted): pos (int32 fixed-point phase), pos_g (float shadow phase),
+// sync_last (bool as int).
+// ---------------------------------------------------------------------------
+
+template <int CONN, int ANTIALIAS>
+SRK_HD void srk_osc_core(float delta, int dfix, int& pos, float& pos_g,
+                         int& sync_last, const float* in, float* out) {
+  bool fired = false;
+  if constexpr ((CONN & 2) != 0) {
+    bool above = in[1] > 0.0f;
+    fired = above && !sync_last;
+    sync_last = above;
+  } else {
+    sync_last = 0;  // Sync unconnected: the detector state becomes False
+  }
+  const int pos_i = fired ? 0 : pos;
+  const float acc = fired ? 0.0f : pos_g;
+  pos = srk_iadd(pos_i, dfix);
+  pos_g = acc + delta;
+
+  const float s = srk_signed_turns(pos_i);
+  out[0] = srk_fast_sinpi(s);
+  const float naive_square = pos_i >= 0 ? -1.0f : 1.0f;
+  const float naive_saw = s + naive_square;
+  if constexpr (ANTIALIAS != 0) {
+    const float inv2dt = 0.5f / delta;
+    const float blep0 = srk_poly_blep_signed(s * inv2dt);
+    const float blep_half = srk_poly_blep_signed(naive_saw * inv2dt);
+    out[1] = naive_square - (blep0 - blep_half);
+    out[2] = naive_saw - blep0;
+  } else {
+    out[1] = naive_square;
+    out[2] = naive_saw;
+  }
+}
+
+// CV unconnected: the pitch chain was hoisted (params delta, dfix, val)
+template <int CONN, int ANTIALIAS>
+SRK_HD void srk_oscillator(float delta, int dfix, float val, int& pos,
+                           float& pos_g, int& sync_last, const float* in,
+                           float* out) {
+  static_assert((CONN & 1) == 0, "hoisted pitch needs CV unconnected");
+  srk_osc_core<CONN, ANTIALIAS>(delta, dfix, pos, pos_g, sync_last, in, out);
+}
+
+// pitch computed per sample (params: val)
+template <int CONN, int ANTIALIAS>
+SRK_HD void srk_oscillator(float val, int& pos, float& pos_g, int& sync_last,
+                           const float* in, float* out) {
+  const float octs = (CONN & 1) != 0 ? in[0] + val : val;
+  const float delta = srk_fast_exp2(octs) * SRK_K440_SR;
+  const int dfix = srk_delta_to_fixed(delta);
+  srk_osc_core<CONN, ANTIALIAS>(delta, dfix, pos, pos_g, sync_last, in, out);
+}
+
+// ---------------------------------------------------------------------------
+// Add / Subtract / Multiply / Non-Linear (modules/math.py).
+// in: In1 (fallback 0.0), In2 (fallback: the constant param).  out: 1.
+// ---------------------------------------------------------------------------
+
+template <int CONN>
+SRK_HD float srk_math_a(const float* in) {
+  return (CONN & 1) != 0 ? in[0] : 0.0f;
+}
+
+template <int CONN>
+SRK_HD float srk_math_b(float constant, const float* in) {
+  return (CONN & 2) != 0 ? in[1] : constant;
+}
+
+template <int CONN>
+SRK_HD void srk_add(float constant, const float* in, float* out) {
+  out[0] = srk_math_a<CONN>(in) + srk_math_b<CONN>(constant, in);
+}
+
+template <int CONN>
+SRK_HD void srk_subtract(float constant, const float* in, float* out) {
+  out[0] = srk_math_a<CONN>(in) - srk_math_b<CONN>(constant, in);
+}
+
+template <int CONN>
+SRK_HD void srk_multiply(float constant, const float* in, float* out) {
+  out[0] = srk_math_a<CONN>(in) * srk_math_b<CONN>(constant, in);
+}
+
+template <int CONN>
+SRK_HD void srk_non_linear(float constant, const float* in, float* out) {
+  const float a = srk_math_a<CONN>(in);
+  const float b = srk_math_b<CONN>(constant, in);
+  out[0] = a > 0.0f ? powf(a, b) : -powf(-a, b);
+}
+
+// ---------------------------------------------------------------------------
+// Moog Filter (modules/filter.py).  in: Audio, CV.  out: lp, bp, hp.
+// state: b, the 5-stage vector.
+// ---------------------------------------------------------------------------
+
+SRK_HD void srk_moog_coefs(float frequency, float res, float& p, float& f,
+                           float& q) {
+  const float q0 = 1.0f - frequency;
+  p = frequency + 0.8f * frequency * q0;
+  f = p * 2.0f - 1.0f;
+  q = res * (1.0f + 0.5f * q0 * (1.0f - q0 + 5.6f * q0 * q0));
+}
+
+SRK_HD void srk_moog_stage(float* b, float audio, float p, float f, float q,
+                           float* out) {
+  const float x = audio - q * b[4];
+  const float nb1 = (x + b[0]) * p - b[1] * f;
+  const float nb2 = (nb1 + b[1]) * p - b[2] * f;
+  const float nb3 = (nb2 + b[2]) * p - b[3] * f;
+  float nb4 = (nb3 + b[3]) * p - b[4] * f;
+  nb4 = nb4 - nb4 * nb4 * nb4 * 0.166667f;
+  b[0] = srk_clip(x, -1.0f, 1.0f);
+  b[1] = srk_clip(nb1, -1.0f, 1.0f);
+  b[2] = srk_clip(nb2, -1.0f, 1.0f);
+  b[3] = srk_clip(nb3, -1.0f, 1.0f);
+  b[4] = srk_clip(nb4, -1.0f, 1.0f);
+  out[0] = b[4];                  // lowpass
+  out[1] = 3.0f * (b[3] - b[4]);  // bandpass
+  out[2] = x - b[4];              // highpass
+}
+
+// CV unconnected: coefficients hoisted
+// (params exp_amt, freq, moog_f, moog_p, moog_q, res, res_clip)
+template <int CONN>
+SRK_HD void srk_moog_filter(float exp_amt, float freq, float moog_f,
+                            float moog_p, float moog_q, float res,
+                            float res_clip, float* b, const float* in,
+                            float* out) {
+  static_assert((CONN & 2) == 0, "hoisted coefficients need CV unconnected");
+  const float audio = (CONN & 1) != 0 ? in[0] : 0.0f;
+  srk_moog_stage(b, audio, moog_p, moog_f, moog_q, out);
+}
+
+// coefficients per sample (params exp_amt, freq, res, res_clip)
+template <int CONN>
+SRK_HD void srk_moog_filter(float exp_amt, float freq, float res,
+                            float res_clip, float* b, const float* in,
+                            float* out) {
+  const float audio = (CONN & 1) != 0 ? in[0] : 0.0f;
+  const float cv = (CONN & 2) != 0 ? in[1] : 0.0f;
+  const float frequency = srk_clip(freq + cv * exp_amt, 0.0f, 0.9f);
+  float p, f, q;
+  srk_moog_coefs(frequency, res_clip, p, f, q);
+  srk_moog_stage(b, audio, p, f, q, out);
+}
+
+// ---------------------------------------------------------------------------
+// ADSR (modules/adsr.py).  in: Gate.  out: 1.
+// params (derived): a_sec, d_sec, inc_a, inc_d, inc_r, r_sec, s_val.
+// state (sorted): from_a_val, gate_last (bool as int), k, mode, p0, r_val.
+// Every mode's update is computed and the current mode's selected, as in
+// the torch step.
+// ---------------------------------------------------------------------------
+
+SRK_HD float srk_adsr_out_law(int mode, float phase, float r_mid,
+                              float s_val) {
+  if (mode == 0) return 0.0f;
+  if (mode == 1) return r_mid + (1.0f - r_mid) * phase;
+  if (mode == 2) return s_val + (1.0f - s_val) * (1.0f - phase);
+  if (mode == 3) return s_val;
+  return s_val * (1.0f - phase);
+}
+
+template <int CONN>
+SRK_HD void srk_adsr(float a_sec, float d_sec, float inc_a, float inc_d,
+                     float inc_r, float r_sec, float s_val,
+                     float& from_a_val, int& gate_last, int& k, int& mode,
+                     float& p0, float& r_val, const float* in, float* out) {
+  const float gate = (CONN & 1) != 0 ? in[0] : 0.0f;
+  const bool gate_hi = gate > 0.0f;
+  const bool fired = gate_hi && !gate_last;
+  const int k1 = srk_iadd(k, 1);
+  const float kf = (float)k1;
+
+  // candidate next phase per stage: phase = p0 + (k+1)*inc
+  const float pa = p0 + kf * inc_a;
+  const float pd = p0 + kf * inc_d;
+  const float pr = gate_hi ? inc_r : p0 + kf * inc_r;
+
+  int new_mode, new_k;
+  float new_p0, phase, r_mid = r_val;
+  if (mode == 0) {  // idle
+    new_mode = gate_hi ? 1 : 0;
+    new_k = gate_hi ? 0 : k;
+    new_p0 = gate_hi ? 0.0f : p0;
+    phase = 0.0f;
+  } else if (mode == 1) {  // attack
+    const bool a_done = pa >= 1.0f;
+    const bool retrig = !a_done && fired;
+    const bool leave = a_done || retrig;
+    new_mode = a_done ? 2 : 1;
+    new_k = leave ? 0 : k1;
+    new_p0 = leave ? 0.0f : p0;
+    phase = leave ? 0.0f : pa;
+    r_mid = retrig ? from_a_val : r_val;
+  } else if (mode == 2) {  // decay
+    const bool d_done = pd >= 1.0f;
+    const bool leave = fired || d_done;
+    new_mode = fired ? 1 : (d_done ? 3 : 2);
+    new_k = leave ? 0 : k1;
+    new_p0 = leave ? 0.0f : p0;
+    phase = leave ? 0.0f : pd;
+  } else if (mode == 3) {  // sustain
+    const bool leave = !gate_hi || fired;
+    new_mode = fired ? 1 : (!gate_hi ? 4 : 3);
+    new_k = leave ? 0 : k;
+    new_p0 = leave ? 0.0f : p0;
+    phase = 0.0f;
+  } else {  // release
+    const bool r_done = pr >= 1.0f;
+    new_mode = r_done ? 0 : (gate_hi ? 1 : 4);
+    // a gate-high retrigger keeps the release increment as the attack
+    // entry offset: phase' = inc_r, counted from k' = 0
+    new_k = (r_done || gate_hi) ? 0 : k1;
+    new_p0 = r_done ? 0.0f : (gate_hi ? pr : p0);
+    phase = r_done ? 0.0f : pr;
+    r_mid = r_done ? 0.0f : r_val;
+  }
+
+  const float o = srk_adsr_out_law(new_mode, phase, r_mid, s_val);
+  r_val = new_mode != 1 ? o : r_mid;
+  from_a_val = new_mode == 1 ? o : from_a_val;
+  mode = new_mode;
+  k = new_k;
+  p0 = new_p0;
+  gate_last = gate_hi;
+  out[0] = o;
+}
+
+// ---------------------------------------------------------------------------
+// VCA (modules/vca.py).  in: Audio, CV.  out: 1.  statics: negative.
+// ---------------------------------------------------------------------------
+
+template <int CONN, int NEGATIVE>
+SRK_HD void srk_vca(const float* in, float* out) {
+  if constexpr ((CONN & 3) != 3) {
+    out[0] = 0.0f;  // either input unconnected: silence
+  } else if constexpr (NEGATIVE != 0) {
+    out[0] = in[0] * in[1];
+  } else {
+    out[0] = in[1] > 0.0f ? in[0] * in[1] : 0.0f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Mono Mixer (modules/mixer.py).  in: N signals.  out: 1.  statics: N.
+// params: gain, a vector of N.  Unconnected inputs are skipped.
+// ---------------------------------------------------------------------------
+
+template <int CONN, int N>
+SRK_HD void srk_mono_mixer(const float* gain, const float* in, float* out) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (((CONN >> i) & 1) != 0) acc = acc + in[i] * gain[i];
+  }
+  out[0] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// Output (modules/output.py): the audio write.  `channel` is this voice's
+// row of one channel, [n] floats; an unconnected channel writes 0.0f.
+// ---------------------------------------------------------------------------
+
+SRK_HD void srk_output(float* channel, int t, float value) {
+  channel[t] = value;
+}

@@ -1,0 +1,37 @@
+"""Carry params and state between the JAX package and this one.
+
+Both packages key params as ``{mid: {name: leaf}}`` and state as
+``{"states": {mid: {name: leaf}}, "fb": {(src, port): leaf}}``, with the
+same module ids for a patch built the same way.  These helpers move such
+trees across as numpy arrays: ``np.asarray`` of a JAX tree goes in, and
+:func:`to_numpy` of a torch tree comes out.  Bool leaves stay bool.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .compiler import tree_map
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree: dict, device="cpu") -> dict:
+    """``{mid: {name: array}}`` -> the same tree of tensors on ``device``."""
+    return tree_map(lambda a: _tensor(a, device), tree)
+
+
+def state_from_numpy(tree: dict, device="cpu") -> dict:
+    """A render state ``{"states": ..., "fb": {(src, port): array}}`` of
+    arrays -> the same tree of tensors on ``device``."""
+    return {"states": tree_map(lambda a: _tensor(a, device), tree["states"]),
+            "fb": {tuple(k): _tensor(a, device)
+                   for k, a in tree["fb"].items()}}
+
+
+def to_numpy(tree):
+    """A tree of tensors (params, state or audio) -> numpy arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

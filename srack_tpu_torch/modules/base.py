@@ -1,0 +1,102 @@
+"""Module contract for the PyTorch port (counterpart: ``srack_tpu/modules/base.py``).
+
+A module *type* is pure data plus pure functions on tensors:
+
+* ``make``        -- construction: kwargs -> (statics, params)
+* ``init_state``  -- the per-voice state dict
+* ``step``        -- per-sample transition:
+                     (cfg, statics, params, state, ins, x) -> (state, outs)
+
+Every function is elementwise over any leading voice axis, so one ``step``
+serves a single voice (0-d tensors) and a batch (``[V]`` tensors) alike;
+vector leaves (the Moog stage vector, the mixer gains) keep their own axis
+last.  Unconnected inputs arrive as ``None`` and each ``step`` reproduces
+the reference's fallback for them.
+
+``cuda_fn`` names the module's device function in ``csrc/modules.cuh``:
+the fused CUDA kernel (``ops/fused.py``) emits one call to it per module
+per sample.  ``None`` means the type is not kernel-eligible and patches
+holding it run on the scan engine only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+
+from ..config import AudioConfig
+
+CV_DTYPE = torch.float32
+
+Params = dict
+State = dict
+Statics = Any  # hashable
+Ins = Sequence[Optional[torch.Tensor]]
+Outs = tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModuleDef:
+    """A module type: pure construction + state-transition functions."""
+
+    type_name: str
+    # (cfg, **kwargs) -> (statics, params)
+    make: Callable[..., tuple]
+    # (cfg, statics) -> int
+    num_inputs: Callable[[AudioConfig, Statics], int]
+    num_outputs: Callable[[AudioConfig, Statics], int]
+    # (cfg, statics) -> tuple of Optional[str]
+    input_labels: Callable[[AudioConfig, Statics], tuple]
+    output_labels: Callable[[AudioConfig, Statics], tuple]
+    # (cfg, statics) -> State
+    init_state: Callable[[AudioConfig, Statics], State]
+    # (cfg, statics, params, state, ins, x) -> (state, outs)
+    step: Callable[..., tuple]
+    # Per-render derived params, computed once outside the sample loop and
+    # merged into params: (cfg, statics, params, connected) -> dict
+    derive: Optional[Callable[..., dict]] = None
+    # Step variant for engines that are never differentiated: bit-identical
+    # primal outputs and state, without gradient-only ops
+    step_nograd: Optional[Callable[..., tuple]] = None
+    # Name of the device function in csrc/modules.cuh (None: scan only)
+    cuda_fn: Optional[str] = None
+
+    def port_index(self, cfg: AudioConfig, statics: Statics, port, *, output: bool) -> int:
+        """Resolve a port given by index or label to an index."""
+        labels = (self.output_labels if output else self.input_labels)(cfg, statics)
+        n = (self.num_outputs if output else self.num_inputs)(cfg, statics)
+        if isinstance(port, str):
+            matches = [i for i, l in enumerate(labels) if l == port]
+            if not matches:
+                raise KeyError(
+                    f"{self.type_name} has no {'output' if output else 'input'} "
+                    f"named {port!r}; labels are {labels}"
+                )
+            return matches[0]
+        idx = int(port)
+        if not 0 <= idx < n:
+            raise IndexError(
+                f"{self.type_name} {'output' if output else 'input'} index {idx} "
+                f"out of range (0..{n - 1})"
+            )
+        return idx
+
+
+def const_ports(n: int, labels: tuple) -> tuple:
+    """Helpers for modules whose port count doesn't depend on cfg/statics."""
+    if len(labels) != n:
+        raise ValueError(f"{len(labels)} labels for {n} ports")
+    return (lambda cfg, s: n), (lambda cfg, s: labels)
+
+
+def cv(value, device=None) -> torch.Tensor:
+    return torch.as_tensor(value, dtype=CV_DTYPE, device=device)
+
+
+def in_or(x: Optional[torch.Tensor], fallback) -> torch.Tensor:
+    """Reference's unconnected-input fallback (``match buf { None => ... }``)."""
+    if x is None:
+        return cv(fallback)
+    return x

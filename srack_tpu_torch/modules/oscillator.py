@@ -1,0 +1,133 @@
+"""Oscillator module, fast precision (counterpart:
+``srack_tpu/modules/oscillator.py``).
+
+Pitch convention 1.0 CV = 1 octave with 0.0 -> 440 Hz; sine, square and saw
+outputs with polyBLEP band-limiting; a Sync input that resets phase on a
+rising edge.  Phase is an int32 fixed-point accumulator that wraps mod 2^32
+(zero drift over long renders), with ``pos_g``, a float shadow of the phase
+whose primal contribution cancels exactly (straight-through) and which
+carries d(phase)/d(pitch) for autograd.
+
+Exact precision (f64 phase) is slice 4 of the port; Noise is slice 2.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import AudioConfig
+from ..ops.basic import (delta_to_fixed, fast_exp2, fast_sinpi,
+                         phase_fixed_init, poly_blep_signed, signed_turns,
+                         transition, transition_init)
+from .base import CV_DTYPE, ModuleDef, const_ports, cv
+
+
+def _require_fast(cfg: AudioConfig) -> None:
+    if cfg.exact:
+        raise NotImplementedError(
+            "exact precision is not ported yet: slice 4 of the port "
+            "(ROADMAP.md); use precision='fast'")
+
+
+def _osc_make(cfg: AudioConfig, val: float = 0.0, antialiasing: bool = True):
+    _require_fast(cfg)
+    return ("antialias", bool(antialiasing)), {"val": cv(val)}
+
+
+def _osc_init_state(cfg: AudioConfig, statics):
+    _require_fast(cfg)
+    return {"pos": phase_fixed_init(),
+            "pos_g": torch.tensor(0.0, dtype=CV_DTYPE),
+            "sync_last": transition_init()}
+
+
+def _pitch(cfg: AudioConfig, octs: torch.Tensor):
+    """``440 * 2^octs / sr`` as f32 cycles per sample, and its fixed-point
+    increment.  ``440 / sr`` is folded in double and rounded to f32 once."""
+    delta = fast_exp2(octs) * (440.0 / cfg.sample_rate)
+    return delta, delta_to_fixed(delta)
+
+
+def _osc_derive(cfg: AudioConfig, statics, params, connected):
+    """With the CV input unconnected the pitch chain is loop-invariant."""
+    if connected and connected[0]:
+        return {}
+    delta, dfix = _pitch(cfg, params["val"])
+    return {"delta": delta, "dfix": dfix}
+
+
+def _osc_step(cfg: AudioConfig, statics, params, state, ins, x=None,
+              with_ste: bool = True):
+    (_, antialias) = statics
+    cv_in, sync_in = ins
+    if sync_in is None:
+        # Sync unconnected: no edge detector, and the stored detector state
+        # becomes False (what transition() gives on a constant-0 input)
+        sync_last, fired = torch.zeros((), dtype=torch.bool), None
+    else:
+        sync_last, fired = transition(state["sync_last"], sync_in)
+
+    def reset(v):
+        return v if fired is None else torch.where(fired, 0, v)
+
+    pos_i = reset(state["pos"])
+    if cv_in is None and "dfix" in params:
+        delta, dfix = params["delta"], params["dfix"]  # hoisted by derive
+    else:
+        octs = params["val"] if cv_in is None else cv_in + params["val"]
+        delta, dfix = _pitch(cfg, octs)
+    acc = reset(state["pos_g"])
+    # straight-through phase tangent: exactly 0 in the primal, but
+    # d(ste)/d(delta-history) == 1.  Engines that are never differentiated
+    # skip it; outputs are bit-identical either way.
+    ste = acc - acc.detach() if with_ste else None
+    new_pos = pos_i + dfix  # int32 add, wraps mod 2^32
+    new_acc = acc + delta
+    sine, square, saw = _fast_waves(pos_i, delta, ste, antialias)
+    new_state = {"pos": new_pos, "pos_g": new_acc, "sync_last": sync_last}
+    return new_state, (sine, square, saw)
+
+
+def _fast_waves(pos_i, delta, ste, antialias: bool):
+    """Waveforms in the signed-turns domain, s = signed_turns(pos) in [-1, 1):
+    sine = sinpi(s); square = -1 where pos >= 0 else +1; saw = s + square;
+    both polyBLEP corrections are sign(-u)(1-|u|)^2 in units of dt, and the
+    half-phase discontinuity's signed distance is exactly the naive saw."""
+    s = signed_turns(pos_i)
+    if ste is not None:
+        s = s + 2.0 * ste
+    sine = fast_sinpi(s)
+    naive_square = torch.where(pos_i >= 0, -1.0, 1.0)
+    naive_saw = s + naive_square
+    if antialias:
+        inv2dt = 0.5 / delta
+        blep0 = poly_blep_signed(s * inv2dt)
+        blep_half = poly_blep_signed(naive_saw * inv2dt)
+        square = naive_square - (blep0 - blep_half)
+        saw = naive_saw - blep0
+    else:
+        square = naive_square
+        saw = naive_saw
+    return sine, square, saw
+
+
+def _osc_step_nograd(cfg: AudioConfig, statics, params, state, ins, x=None):
+    return _osc_step(cfg, statics, params, state, ins, x, with_ste=False)
+
+
+_osc_nin, _osc_inlabels = const_ports(2, ("CV", "Sync"))
+_osc_nout, _osc_outlabels = const_ports(3, ("Sine", "Square", "Sawtooth"))
+
+OSCILLATOR = ModuleDef(
+    type_name="Oscillator",
+    make=_osc_make,
+    num_inputs=_osc_nin,
+    num_outputs=_osc_nout,
+    input_labels=_osc_inlabels,
+    output_labels=_osc_outlabels,
+    init_state=_osc_init_state,
+    step=_osc_step,
+    step_nograd=_osc_step_nograd,
+    derive=_osc_derive,
+    cuda_fn="srk_oscillator",
+)
