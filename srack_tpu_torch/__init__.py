@@ -1,11 +1,13 @@
 """srack_tpu_torch -- the PyTorch and CUDA port of srack_tpu.
 
-Patch graphs of oscillators, filters, envelopes, mixers and math modules
-compile into one per-sample step.  On the CPU the scan engine runs that
-step in a loop; batched renders on a CUDA device run a hand-written CUDA
-kernel generated from the plan, one thread per voice.  ``srack_tpu`` (JAX)
-is the reference this package is tested against; this package imports
-neither it nor jax.
+Patch graphs of oscillators, noise, sequencers, filters, envelopes, mixers,
+math and external inputs compile into one per-sample step.  On the CPU the
+scan engine runs that step in a loop; batched renders on a CUDA device run
+a hand-written CUDA kernel generated from the plan, one thread per voice
+(in buffer-feedback mode, its delayed-feedback twin).  Entry points render
+on the card unless given ``device="cpu"``.  ``srack_tpu`` (JAX) is the
+reference this package is tested against; this package imports neither it
+nor jax.
 
 Quick start::
 
@@ -14,21 +16,21 @@ Quick start::
     cfg = stt.AudioConfig(sample_rate=48000, channels=1)
     patch = stt.presets.subtractive_voice(cfg)
     params = stt.presets.farm_params(patch, 1024)
-    audio, _, state = stt.compile_patch(patch).render(
-        48000, params=params, batched=True, device="cuda")
+    audio, _, state = stt.render_batch(patch, 48000, params=params)
 """
 
 from .config import AudioConfig
 from .patch import Patch, ModuleHandle
 from .planner import plan_execution
-from .compiler import CompiledPatch, compile_patch
-from .engine import render, render_batch, stack_params, replicate_params
+from .compiler import CompiledPatch, compile_patch, migrate_state
+from .engine import (render, render_batch, render_long, render_many,
+                     render_stream, stack_params, replicate_params)
 from .modules import CATALOG, ModuleDef
 from .modules import register as register_module
 from .modules import unregister as unregister_module
-from . import interop, presets
+from . import interop, presets, utils
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = [
     "AudioConfig",
@@ -37,8 +39,12 @@ __all__ = [
     "plan_execution",
     "CompiledPatch",
     "compile_patch",
+    "migrate_state",
     "render",
     "render_batch",
+    "render_long",
+    "render_many",
+    "render_stream",
     "stack_params",
     "replicate_params",
     "CATALOG",
@@ -47,4 +53,5 @@ __all__ = [
     "unregister_module",
     "interop",
     "presets",
+    "utils",
 ]

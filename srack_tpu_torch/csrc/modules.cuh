@@ -16,11 +16,16 @@
 //   arrives as 0.0f and the function applies the module's fallback.
 // * statics: the module's integer and boolean statics, in order.
 // * params: the module's derived params in sorted key order, by value
-//   (a vector param as a pointer).  Which params exist depends on the
-//   connectivity (ModuleDef.derive hoists loop-invariant chains), and the
-//   overloads below take the hoisted path exactly when the torch step does.
+//   (a float vector param as a pointer, an int table as an srk_rows view
+//   into the packed int rows).  Which params exist depends on the
+//   connectivity (ModuleDef.derive hoists loop-invariant chains) and on
+//   automation (an automated module skips derive), and the overloads below
+//   take the hoisted path exactly when the torch step does.  An automated
+//   param arrives as this sample's lane value in the param's place.
 // * state: the module's state leaves in sorted key order, by reference
 //   (a vector leaf as a pointer); bool state is carried as int.
+// * x: for a module with a hoisted lane (Noise, an Input with a driver),
+//   this sample of the lane, after the state.
 // * in / out: the input ports and output ports, in port order.
 //
 // The generated file defines SRK_SAMPLE_RATE before including this header.
@@ -119,6 +124,29 @@ SRK_HD float srk_fast_exp2(float x) {
   p = p * f + 1.0000000018561317f;
   int e = ((int)xi + 127) << 23;
   return p * srk_int_as_float(e);
+}
+
+// One voice's int table param, [K] or [R, K] row-major, in the packed int
+// rows: entry j is the j-th row after the table's first, V ints apart.
+// A warp's 32 voices read 32 neighbouring ints.
+struct srk_rows {
+  const int* p;
+  size_t stride;
+  SRK_HD int operator[](int j) const { return p[(size_t)j * stride]; }
+};
+
+// table[idx] as the JAX package's binary select tree answers it: the tree
+// reads the low log2(P) bits of idx (P = K rounded up to a power of two)
+// and pads the table with its last entry.  For idx in [0, K) it is
+// table[idx].  One load, not a select chain.
+template <int K>
+SRK_HD int srk_table(const srk_rows& table, int idx) {
+  constexpr int P = K <= 1 ? 1 : (K <= 2 ? 2 : (K <= 4 ? 4 : (K <= 8 ? 8 :
+                    (K <= 16 ? 16 : (K <= 32 ? 32 : (K <= 64 ? 64 :
+                    (K <= 128 ? 128 : 256)))))));
+  static_assert(K <= 256, "sequencer tables hold at most 64 steps");
+  const int j = idx & (P - 1);
+  return table[j < K ? j : K - 1];
 }
 
 // polyBLEP in the signed-phase domain: sign(-u) * (1 - |u|)^2 for |u| < 1
@@ -280,6 +308,15 @@ SRK_HD void srk_moog_filter(float exp_amt, float freq, float res,
   srk_moog_stage(b, audio, p, f, q, out);
 }
 
+// automated (derive skipped): res clipped per sample (params exp_amt,
+// freq, res)
+template <int CONN>
+SRK_HD void srk_moog_filter(float exp_amt, float freq, float res, float* b,
+                            const float* in, float* out) {
+  srk_moog_filter<CONN>(exp_amt, freq, res, srk_clip(res, 0.0f, 1.0f), b,
+                        in, out);
+}
+
 // ---------------------------------------------------------------------------
 // ADSR (modules/adsr.py).  in: Gate.  out: 1.
 // params (derived): a_sec, d_sec, inc_a, inc_d, inc_r, r_sec, s_val.
@@ -363,6 +400,18 @@ SRK_HD void srk_adsr(float a_sec, float d_sec, float inc_a, float inc_d,
   out[0] = o;
 }
 
+// automated (derive skipped): the stage increments 1 / (sr * t_sec) per
+// sample (params a_sec, d_sec, r_sec, s_val)
+template <int CONN>
+SRK_HD void srk_adsr(float a_sec, float d_sec, float r_sec, float s_val,
+                     float& from_a_val, int& gate_last, int& k, int& mode,
+                     float& p0, float& r_val, const float* in, float* out) {
+  const float sr = (float)SRK_SAMPLE_RATE;
+  srk_adsr<CONN>(a_sec, d_sec, 1.0f / (sr * a_sec), 1.0f / (sr * d_sec),
+                 1.0f / (sr * r_sec), r_sec, s_val, from_a_val, gate_last, k,
+                 mode, p0, r_val, in, out);
+}
+
 // ---------------------------------------------------------------------------
 // VCA (modules/vca.py).  in: Audio, CV.  out: 1.  statics: negative.
 // ---------------------------------------------------------------------------
@@ -391,6 +440,105 @@ SRK_HD void srk_mono_mixer(const float* gain, const float* in, float* out) {
     if (((CONN >> i) & 1) != 0) acc = acc + in[i] * gain[i];
   }
   out[0] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// Grid and Pattern sequencers (modules/sequencer.py), per-sample steps.
+// in: Step, Sync (an unconnected input is the constant 0.0f).
+// state (sorted): current_step, [last_cv,] step_last, sync_last (bools as
+// int).  statics: grid (octaves, capacity), pattern (rows, capacity).
+// ---------------------------------------------------------------------------
+
+// the shared step pointer: count Step edges, reset on a Sync edge, wrap at
+// n_steps (the int32 add wraps, as jnp's)
+SRK_HD int srk_advance_step(int& current_step, int& step_last,
+                            int& sync_last, float step_in, float sync_in,
+                            int n_steps) {
+  const bool step_above = step_in > 0.0f;
+  const bool step_fired = step_above && !step_last;
+  const bool sync_above = sync_in > 0.0f;
+  const bool sync_fired = sync_above && !sync_last;
+  step_last = step_above;
+  sync_last = sync_above;
+  int cs = srk_iadd(current_step, step_fired ? 1 : 0);
+  cs = sync_fired ? 0 : cs;
+  return cs >= n_steps ? 0 : cs;
+}
+
+// The grid's packed entry is note * 4 + cell.  jnp splits it with floor
+// semantics (packed % 4, packed // 4); C's % and / truncate, so they would
+// split a negative note differently.  & 3 and >> 2 are the floor forms in
+// two's complement.
+SRK_HD void srk_grid_emit(int packed, int cs, float inv_spo, float step_in,
+                          float& last_cv, float* out) {
+  const int cell = packed & 3;
+  const int note = packed >> 2;
+  const float note_cv = (float)note * inv_spo;
+  const bool on = cell > 0;
+  last_cv = on ? note_cv : last_cv;
+  out[0] = last_cv;
+  out[1] = on ? (cell == 2 ? 1.0f : step_in) : 0.0f;
+  out[2] = cs == 0 ? 1.0f : 0.0f;
+}
+
+// hoisted (params cells, inv_spo, n_steps, notes, packed_tbl,
+// steps_per_octave): one table load per sample
+template <int CONN, int OCTAVES, int CAP>
+SRK_HD void srk_grid_sequencer(const srk_rows& cells, float inv_spo,
+                               int n_steps, const srk_rows& notes,
+                               const srk_rows& packed_tbl,
+                               int steps_per_octave, int& current_step,
+                               float& last_cv, int& step_last,
+                               int& sync_last, const float* in, float* out) {
+  const float step_in = (CONN & 1) != 0 ? in[0] : 0.0f;
+  const float sync_in = (CONN & 2) != 0 ? in[1] : 0.0f;
+  const int cs = srk_advance_step(current_step, step_last, sync_last,
+                                  step_in, sync_in, n_steps);
+  current_step = cs;
+  srk_grid_emit(srk_table<CAP>(packed_tbl, cs), cs, inv_spo, step_in,
+                last_cv, out);
+}
+
+// Pattern: 8 rows packed 2 bits each into one table entry.  Row r's cell
+// is (packed >> 2r) & 3 (an arithmetic shift, as jnp's on int32).
+template <int CONN, int ROWS, int CAP>
+SRK_HD void srk_pattern_sequencer(const srk_rows& cells, int n_steps,
+                                  const srk_rows& packed_tbl,
+                                  int& current_step, int& step_last,
+                                  int& sync_last, const float* in,
+                                  float* out) {
+  const float step_in = (CONN & 1) != 0 ? in[0] : 0.0f;
+  const float sync_in = (CONN & 2) != 0 ? in[1] : 0.0f;
+  const int cs = srk_advance_step(current_step, step_last, sync_last,
+                                  step_in, sync_in, n_steps);
+  current_step = cs;
+  const int packed = srk_table<CAP>(packed_tbl, cs);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int col = (packed >> (2 * r)) & 3;
+    out[r] = col == 2 ? 1.0f : (col == 1 ? step_in : 0.0f);
+  }
+  out[ROWS] = cs == 0 ? 1.0f : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// Input (modules/input.py): the driver lane when one is bound, else the
+// constant param.  Noise (modules/oscillator.py): its lane of draws.
+// ---------------------------------------------------------------------------
+
+template <int CONN>
+SRK_HD void srk_input(float value, const float* in, float* out) {
+  out[0] = value;
+}
+
+template <int CONN>
+SRK_HD void srk_input(float value, float x, const float* in, float* out) {
+  out[0] = x;
+}
+
+template <int CONN>
+SRK_HD void srk_noise(float x, const float* in, float* out) {
+  out[0] = x;
 }
 
 // ---------------------------------------------------------------------------

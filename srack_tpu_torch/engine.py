@@ -4,41 +4,230 @@
 * :func:`render_batch` -- V voices of one topology in parallel, from params
   stacked along a leading voice axis; on a CUDA device this runs the fused
   kernel.
+* :func:`render_long` -- arbitrarily long renders in segments with the
+  state carried, assembled on the host.
+* :func:`render_stream` -- a generator of ``block_size`` blocks with the
+  state carried, following live edits of the patch.
+* :func:`render_many` -- many patches of possibly different topologies,
+  grouped by topology into batched renders.
+
+Every entry point renders on the CUDA card unless it is given
+``device="cpu"`` (or another device); without a card and without a device
+it raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 
-from .compiler import compile_patch, tree_map
+from .compiler import (compile_patch, migrate_state, resolve_device,
+                       tree_leaves, tree_map)
+from .ops.basic import fold_in
 from .patch import Patch
 
 
 def render(patch: Patch, n_samples: int, *, params: Optional[dict] = None,
-           state: Optional[dict] = None, engine: str = "auto", device=None):
+           state: Optional[dict] = None, key: Optional[int] = None,
+           drivers=None, automation: Optional[dict] = None,
+           probes: Sequence = (), engine: str = "auto", device=None,
+           segment: Optional[int] = None):
     """Render ``n_samples`` of a patch offline.
 
     Returns ``(audio, probes, final_state)``; ``audio`` is ``[channels, n]``
-    float32 and ``probes`` is ``{}``.
+    float32.  ``automation``: ``{(module, "param"): [n] array}``, per-sample
+    values for scalar float params.  ``segment``: render in
+    ``segment``-sample pieces with the state carried (see
+    :meth:`CompiledPatch.render`).
     """
-    return compile_patch(patch).render(n_samples, params=params, state=state,
-                                       engine=engine, device=device)
+    compiled = compile_patch(patch, probes=probes,
+                             automation=tuple(automation or ()))
+    return compiled.render(n_samples, params=params, state=state, key=key,
+                           drivers=drivers, automation=automation,
+                           engine=engine, device=device, segment=segment)
 
 
 def render_batch(patch: Patch, n_samples: int, *, params: dict,
-                 state: Optional[dict] = None, engine: str = "auto",
-                 device=None):
+                 state: Optional[dict] = None, key: Optional[int] = None,
+                 drivers=None, automation: Optional[dict] = None,
+                 probes: Sequence = (), engine: str = "auto", device=None,
+                 segment: Optional[int] = None):
     """Render a batch of voices of one topology in parallel.
 
     ``params`` carries a leading voice axis on every leaf (see
     :func:`stack_params` / :func:`replicate_params`).  Returns audio of
-    shape ``[voices, channels, n]``.
+    shape ``[voices, channels, n]``.  Driver and automation lanes may be
+    shared ``[n]`` (broadcast over voices) or per voice ``[V, n]``.
     """
-    return compile_patch(patch).render(n_samples, params=params, state=state,
-                                       batched=True, engine=engine,
+    compiled = compile_patch(patch, probes=probes,
+                             automation=tuple(automation or ()))
+    return compiled.render(n_samples, params=params, state=state, key=key,
+                           drivers=drivers, automation=automation,
+                           batched=True, engine=engine, device=device,
+                           segment=segment)
+
+
+def render_long(patch: Patch, n_samples: int, *, segment: int = 48000 * 20,
+                params: Optional[dict] = None, state: Optional[dict] = None,
+                key: Optional[int] = None, batched: bool = False,
+                automation: Optional[dict] = None, out=None,
+                engine: str = "auto", device=None):
+    """Render arbitrarily long audio in fixed segments with carried state.
+
+    Loops ``render`` over ``segment``-sample pieces (the last may be
+    shorter), carries the module state between them -- bit-identical to
+    one long render for patches without Noise -- and assembles the audio
+    into a CPU tensor (or a preallocated ``out``), so the device holds one
+    segment at a time.  Segment ``i`` draws its noise from
+    ``fold_in(key, i)``, as ``render(..., segment=)`` does.  Returns
+    ``(audio, final_state)``.
+    """
+    compiled = compile_patch(patch, automation=tuple(automation or ()))
+    if automation:
+        for arr in automation.values():
+            if torch.as_tensor(arr).shape[-1] != n_samples:
+                raise ValueError(
+                    "render_long automation lanes must cover the whole "
+                    f"render: lane has {torch.as_tensor(arr).shape[-1]} "
+                    f"samples, n_samples={n_samples}")
+    device = resolve_device(device)
+    key = 0 if key is None else int(key)
+    done = 0
+    seg_idx = 0
+    while done < n_samples:
+        m = min(segment, n_samples - done)
+        autos_seg = ({k: torch.as_tensor(v)[..., done:done + m]
+                      for k, v in automation.items()}
+                     if automation else None)
+        audio, _, state = compiled.render(
+            m, params=params, state=state, key=fold_in(key, seg_idx),
+            batched=batched, automation=autos_seg, engine=engine,
+            device=device)
+        seg_idx += 1
+        if out is None:
+            out = torch.zeros(tuple(audio.shape[:-1]) + (n_samples,),
+                              dtype=audio.dtype)
+        out[..., done:done + m] = audio.to(out.device)
+        done += m
+    return out, state
+
+
+def render_stream(patch: Patch, *, params: Optional[dict] = None,
+                  state: Optional[dict] = None, key: Optional[int] = None,
+                  n_blocks: Optional[int] = None,
+                  automation: Optional[dict] = None, probes: Sequence = (),
+                  voices: Optional[int] = None, engine: str = "auto",
+                  device=None) -> Iterator:
+    """Yield ``(audio_block, probe_block, state)`` tuples of
+    ``block_size`` samples forever (or for ``n_blocks``).
+
+    ``automation`` lanes are consumed block by block; a stream that
+    outlives its lanes holds each lane's last value.  ``voices=V`` streams
+    V voices at once (audio blocks ``[V, channels, block]``), on the fused
+    kernel on a CUDA device.  The stream re-reads ``patch`` every block:
+    a topology edit re-plans and migrates the state (:func:`migrate_state`),
+    and with the default ``params=None`` slider edits go live on the next
+    block.  Block ``i`` draws its noise from ``fold_in(key, i)``.
+    """
+    compiled = compile_patch(patch, probes=probes,
+                             automation=tuple(automation or ()))
+    device = resolve_device(device)
+    block = compiled.cfg.block_size
+    batched = voices is not None
+    pinned_params = params is not None
+    if batched:
+        if params is not None:
+            v_have = tree_leaves(params)[0].shape[0]
+            if v_have != voices:
+                raise ValueError(
+                    f"params carry {v_have} voices, stream asked for "
+                    f"{voices}")
+        else:
+            params = replicate_params(compiled.default_params, voices)
+    elif params is None:
+        params = compiled.default_params
+    if state is None:
+        state = compiled.init_state()
+        if batched:
+            state = replicate_params(state, voices)
+    state = tree_map(lambda a: a.to(device), state)
+    key = 0 if key is None else int(key)
+
+    def lane_block(arr, start, block):
+        # ``start`` is the consumed-sample cursor, not i * block: a block
+        # size change mid-stream continues the lanes where they left off
+        arr = torch.as_tensor(arr)
+        if start + block <= arr.shape[-1]:
+            return arr[..., start:start + block]
+        tail = arr[..., start:] if start < arr.shape[-1] else arr[..., -1:]
+        pad = block - tail.shape[-1]
+        hold = arr[..., -1:].expand(arr.shape[:-1] + (pad,))
+        return torch.cat([tail, hold], dim=-1)
+
+    i = 0
+    consumed = 0
+    while n_blocks is None or i < n_blocks:
+        if patch.topology_key() != compiled.topology_key:
+            new_compiled = compile_patch(patch, probes=probes,
+                                         automation=tuple(automation or ()))
+            state = migrate_state(compiled, new_compiled, state)
+            compiled = new_compiled
+            block = compiled.cfg.block_size
+            defaults = (replicate_params(compiled.default_params, voices)
+                        if batched else compiled.default_params)
+            if not pinned_params:
+                params = defaults
+            else:
+                # pinned params follow the edit: surviving modules keep
+                # their values, added modules start from the defaults
+                params = {mid: params.get(mid, defaults[mid])
+                          for mid in defaults}
+        elif not pinned_params:
+            live = patch.params()
+            params = replicate_params(live, voices) if batched else live
+        autos_b = ({k: lane_block(v, consumed, block)
+                    for k, v in automation.items()}
+                   if automation else None)
+        audio, probe_vals, state = compiled.render(
+            block, params=params, state=state, key=fold_in(key, i),
+            automation=autos_b, batched=batched, engine=engine,
+            device=device)
+        yield audio, probe_vals, state
+        consumed += block
+        i += 1
+
+
+def render_many(patches: Sequence[Patch], n_samples: int, *,
+                key: Optional[int] = None, device=None) -> list:
+    """Render many patches of possibly different topologies.
+
+    Patches are grouped by topology; each group renders in one batched
+    call (one patch alone renders unbatched), group ``g`` drawing its noise
+    from ``fold_in(key, g)``.  Returns a list of ``[channels, n]`` tensors
+    in input order.  Placing groups over several cards (the JAX package's
+    ``mesh=``) is slice 6 of the port.
+    """
+    groups: dict = {}
+    for i, p in enumerate(patches):
+        groups.setdefault(p.topology_key(), []).append(i)
+    results: list = [None] * len(patches)
+    key = 0 if key is None else int(key)
+    for gi, idxs in enumerate(groups.values()):
+        sub = fold_in(key, gi)
+        if len(idxs) == 1:
+            i = idxs[0]
+            audio, _, _ = render(patches[i], n_samples, key=sub,
+                                 params=patches[i].params(), device=device)
+            results[i] = audio
+        else:
+            stacked = stack_params([patches[i].params() for i in idxs])
+            audio, _, _ = render_batch(patches[idxs[0]], n_samples,
+                                       params=stacked, key=sub,
                                        device=device)
+            for j, i in enumerate(idxs):
+                results[i] = audio[j]
+    return results
 
 
 def _stack(trees: Sequence):

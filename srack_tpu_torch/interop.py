@@ -4,7 +4,9 @@ Both packages key params as ``{mid: {name: leaf}}`` and state as
 ``{"states": {mid: {name: leaf}}, "fb": {(src, port): leaf}}``, with the
 same module ids for a patch built the same way.  These helpers move such
 trees across as numpy arrays: ``np.asarray`` of a JAX tree goes in, and
-:func:`to_numpy` of a torch tree comes out.  Bool leaves stay bool.
+:func:`to_numpy` of a torch tree comes out.  Bool leaves stay bool.  In
+buffer-feedback mode an ``fb`` leaf is ``[block]`` (batched:
+``[V, block]``) in both packages.
 """
 
 from __future__ import annotations
@@ -30,6 +32,14 @@ def state_from_numpy(tree: dict, device="cpu") -> dict:
     return {"states": tree_map(lambda a: _tensor(a, device), tree["states"]),
             "fb": {tuple(k): _tensor(a, device)
                    for k, a in tree["fb"].items()}}
+
+
+def drivers_from_numpy(drivers: dict, device="cpu") -> dict:
+    """Driver or automation lanes (``[n]`` shared or ``[V, n]`` per voice)
+    keyed by module, module id or ``(module, param)`` -> the same keys with
+    float32 tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(a, dtype=np.float32).copy()).to(
+        device) for k, a in drivers.items()}
 
 
 def to_numpy(tree):

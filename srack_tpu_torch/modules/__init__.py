@@ -1,17 +1,19 @@
 """The DSP module library and catalog (counterpart:
 ``srack_tpu/modules/__init__.py``).
 
-Slice 1 of the port holds the module types of the subtractive voice and the
-feedback patch.  The rest of the reference catalog is queued in ROADMAP.md.
+Slices 1 and 2 of the port hold every module type of the fused engine.
+Sample and Freeverb are queued in ROADMAP.md (slice 3).
 """
 
 from .base import CV_DTYPE, ModuleDef
-from .oscillator import OSCILLATOR
+from .oscillator import OSCILLATOR, NOISE
 from .filter import MOOG_FILTER
 from .adsr import ADSR
 from .vca import VCA
 from .mixer import MONO_MIXER
 from .math import ADD, SUBTRACT, MULTIPLY, NON_LINEAR
+from .sequencer import GRID_SEQUENCER, PATTERN_SEQUENCER
+from .input import INPUT
 from .output import OUTPUT
 
 # Creatable module types, in the reference catalog's order.
@@ -19,6 +21,9 @@ CATALOG: dict[str, ModuleDef] = {
     d.type_name: d
     for d in (
         OSCILLATOR,
+        NOISE,
+        GRID_SEQUENCER,
+        PATTERN_SEQUENCER,
         ADSR,
         VCA,
         MOOG_FILTER,
@@ -28,14 +33,12 @@ CATALOG: dict[str, ModuleDef] = {
         MULTIPLY,
         NON_LINEAR,
         OUTPUT,
+        INPUT,
     )
 }
 
 # Types of the reference catalog that the port does not carry yet.
-NOT_PORTED = frozenset({
-    "Noise", "Input", "Grid Sequencer", "Pattern Sequencer", "Sample",
-    "Freeverb",
-})
+NOT_PORTED = frozenset({"Sample", "Freeverb"})
 
 # Catalog entries present at import time; :func:`unregister` refuses to
 # remove these.
@@ -86,6 +89,7 @@ __all__ = [
     "register",
     "unregister",
     "OSCILLATOR",
+    "NOISE",
     "MOOG_FILTER",
     "ADSR",
     "VCA",
@@ -94,5 +98,8 @@ __all__ = [
     "SUBTRACT",
     "MULTIPLY",
     "NON_LINEAR",
+    "GRID_SEQUENCER",
+    "PATTERN_SEQUENCER",
+    "INPUT",
     "OUTPUT",
 ]

@@ -171,7 +171,7 @@ def adsr_out_law(mode, phase, r_mid, s_val):
 
 
 def _step(cfg: AudioConfig, statics, params, state, ins, x=None):
-    gate = in_or(ins[0], 0.0)
+    gate = in_or(ins[0], 0.0, state["mode"])
     new_state, out = adsr_step_core(params, state, gate, cfg.sample_rate)
     return new_state, (out,)
 

@@ -6,6 +6,8 @@ A module *type* is pure data plus pure functions on tensors:
 * ``init_state``  -- the per-voice state dict
 * ``step``        -- per-sample transition:
                      (cfg, statics, params, state, ins, x) -> (state, outs)
+                     where ``x`` is this sample of the module's hoisted lane
+                     (Noise draws, an Input driver) or None
 
 Every function is elementwise over any leading voice axis, so one ``step``
 serves a single voice (0-d tensors) and a batch (``[V]`` tensors) alike;
@@ -62,6 +64,12 @@ class ModuleDef:
     step_nograd: Optional[Callable[..., tuple]] = None
     # Name of the device function in csrc/modules.cuh (None: scan only)
     cuda_fn: Optional[str] = None
+    # Hoisted per-sample source, drawn once per render outside the sample
+    # loop: (cfg, statics, params, generator, n) -> [..., n] lane, which
+    # the step receives sample by sample as ``x``
+    make_xs: Optional[Callable[..., torch.Tensor]] = None
+    # Params read only on the host (to make lanes), never by a kernel
+    host_params: frozenset = frozenset()
 
     def port_index(self, cfg: AudioConfig, statics: Statics, port, *, output: bool) -> int:
         """Resolve a port given by index or label to an index."""
@@ -95,8 +103,11 @@ def cv(value, device=None) -> torch.Tensor:
     return torch.as_tensor(value, dtype=CV_DTYPE, device=device)
 
 
-def in_or(x: Optional[torch.Tensor], fallback) -> torch.Tensor:
-    """Reference's unconnected-input fallback (``match buf { None => ... }``)."""
+def in_or(x: Optional[torch.Tensor], fallback,
+          like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reference's unconnected-input fallback (``match buf { None => ... }``),
+    on the device of ``like`` when given (ops such as ``logical_and`` do
+    not mix a CPU scalar with CUDA tensors)."""
     if x is None:
-        return cv(fallback)
+        return cv(fallback, None if like is None else like.device)
     return x

@@ -8,7 +8,8 @@ rising edge.  Phase is an int32 fixed-point accumulator that wraps mod 2^32
 whose primal contribution cancels exactly (straight-through) and which
 carries d(phase)/d(pitch) for autograd.
 
-Exact precision (f64 phase) is slice 4 of the port; Noise is slice 2.
+Noise is a hoisted lane of uniform draws (``make_xs``).  Exact precision
+(f64 phase) is slice 4 of the port.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..config import AudioConfig
-from ..ops.basic import (delta_to_fixed, fast_exp2, fast_sinpi,
+from ..ops.basic import (delta_to_fixed, fast_exp2, fast_sinpi, fold_in,
                          phase_fixed_init, poly_blep_signed, signed_turns,
                          transition, transition_init)
 from .base import CV_DTYPE, ModuleDef, const_ports, cv
@@ -130,4 +131,64 @@ OSCILLATOR = ModuleDef(
     step_nograd=_osc_step_nograd,
     derive=_osc_derive,
     cuda_fn="srk_oscillator",
+)
+
+
+# ---------------------------------------------------------------------------
+# Noise
+# ---------------------------------------------------------------------------
+
+def _noise_make(cfg: AudioConfig, seed: int = 0):
+    # int64 holds the JAX package's uint32 seeds; the seed only seeds a
+    # generator on the host and never reaches a kernel
+    return ("noise",), {"seed": torch.tensor(int(seed), dtype=torch.int64)}
+
+
+def _noise_init_state(cfg: AudioConfig, statics):
+    return {}
+
+
+def _noise_make_xs(cfg: AudioConfig, statics, params, key: int, n: int):
+    """White noise in [-1, 1): ``u ~ U[0, 1)`` in f32 from a
+    ``torch.Generator`` on the params' device, as ``(u - 0.5) * 2.0``.
+
+    ``key`` is the render's key already folded with this module's index.
+    Voices that share a seed draw their rows from one generator seeded with
+    ``fold_in(key, seed)``, in voice order.  What holds: the same key,
+    seeds and voice count give the same lanes (on one device); different
+    seeds, keys or voices give independent lanes.  The draws are not JAX's
+    threefry bits: parity tests feed both packages one numpy lane as a
+    driver instead."""
+    seed = params["seed"]
+    device = seed.device
+    seeds = seed.reshape(-1).tolist()
+    u = torch.empty((len(seeds), n), dtype=CV_DTYPE, device=device)
+    for s in dict.fromkeys(seeds):
+        rows = [i for i, x in enumerate(seeds) if x == s]
+        gen = torch.Generator(device=device)
+        gen.manual_seed(fold_in(key, s))
+        u[rows] = torch.rand((len(rows), n), generator=gen, dtype=CV_DTYPE,
+                             device=device)
+    return ((u - 0.5) * 2.0).reshape(tuple(seed.shape) + (n,))
+
+
+def _noise_step(cfg: AudioConfig, statics, params, state, ins, x=None):
+    return state, (x,)
+
+
+_noise_nin, _noise_inlabels = const_ports(0, ())
+_noise_nout, _noise_outlabels = const_ports(1, (None,))
+
+NOISE = ModuleDef(
+    type_name="Noise",
+    make=_noise_make,
+    num_inputs=_noise_nin,
+    num_outputs=_noise_nout,
+    input_labels=_noise_inlabels,
+    output_labels=_noise_outlabels,
+    init_state=_noise_init_state,
+    step=_noise_step,
+    make_xs=_noise_make_xs,
+    host_params=frozenset({"seed"}),
+    cuda_fn="srk_noise",
 )

@@ -1,0 +1,253 @@
+"""Grid and Pattern sequencers, per-sample steps (counterpart:
+``srack_tpu/modules/sequencer.py``).
+
+Grid Sequencer: a piano roll of up to 64 steps.  The step pointer advances
+on a rising edge of the Step input, resets to 0 on a rising edge of Sync,
+and wraps when it reaches ``n_steps``.  A cell is off (0), a slide note (1)
+or a held note (2): a note cell emits cv = note / steps_per_octave with
+gate 1.0 when held, or the Step input itself as the gate when it slides;
+an empty cell holds the last CV with gate 0.  Sync out is 1.0 on step 0.
+
+Pattern Sequencer: 8 trigger rows over the same step pointer; per row an
+on cell emits 1.0, a slide cell passes the Step input through, an empty
+cell emits 0.0.
+
+The sequence is an int32 param table of a static capacity (a multiple of 8,
+at most 64) with ``n_steps`` a param, so edits within the capacity reuse
+the compiled plan.  ``derive`` packs the grid's notes and cells into one
+table (``note * 4 + cell``) and the pattern's 8 rows into one table of
+2-bit fields, so a sample reads one entry.  The block implementations are
+slice 3 of the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import AudioConfig
+from ..ops.basic import table_lookup, transition, transition_init
+from .base import CV_DTYPE, ModuleDef, const_ports, in_or
+
+MAX_STEPS = 64
+N_ROWS = 8
+
+
+def _capacity(n_steps: int, requested) -> int:
+    """Static table capacity: the smallest multiple of 8 (at most
+    ``MAX_STEPS``) that holds the sequence."""
+    cap = int(requested) if requested else 0
+    cap = max(cap, int(n_steps), 1)
+    return min(-(-cap // 8) * 8, MAX_STEPS)
+
+
+def _i32(a) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=torch.int32)
+
+
+def _advance_step(state, step_in, sync_in, n_steps):
+    """The shared step-pointer update: count Step edges, reset on a Sync
+    edge, wrap at ``n_steps``."""
+    step_last, step_fired = transition(state["step_last"], step_in)
+    sync_last, sync_fired = transition(state["sync_last"], sync_in)
+    cs = state["current_step"] + step_fired.to(torch.int32)
+    cs = torch.where(sync_fired, 0, cs)
+    cs = torch.where(cs >= n_steps, 0, cs).to(torch.int32)
+    return cs, step_last, sync_last
+
+
+def _sync_out(cs):
+    return torch.where(cs == 0, 1.0, 0.0).to(CV_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# Grid sequencer
+# ---------------------------------------------------------------------------
+
+def _coerce_grid_sequence(sequence, capacity):
+    """``[None, (note, hold), ...]`` -> ``(notes[K], cells[K])`` int32."""
+    notes = np.zeros((capacity,), dtype=np.int32)
+    cells = np.zeros((capacity,), dtype=np.int32)
+    if sequence is not None:
+        if len(sequence) > capacity:
+            raise ValueError(f"sequence longer than capacity {capacity}")
+        for i, cell in enumerate(sequence):
+            if cell is None:
+                continue
+            note, hold = cell
+            notes[i] = int(note)
+            cells[i] = 2 if hold else 1
+    return notes, cells
+
+
+def _grid_make(cfg: AudioConfig, sequence=None, n_steps: int = None,
+               octaves: int = 2, steps_per_octave: int = 12,
+               capacity: int = None):
+    if n_steps is None:
+        n_steps = len(sequence) if sequence is not None else MAX_STEPS
+    cap = _capacity(max(n_steps, len(sequence) if sequence else 0), capacity)
+    notes, cells = _coerce_grid_sequence(sequence, cap)
+    params = {
+        "notes": torch.from_numpy(notes),
+        "cells": torch.from_numpy(cells),
+        "n_steps": _i32(int(n_steps)),
+        "steps_per_octave": _i32(int(steps_per_octave)),
+    }
+    return ("gridseq", int(octaves), cap), params
+
+
+def _grid_derive(cfg: AudioConfig, statics, params, connected):
+    """The packed table and the CV scale, once per render."""
+    return {"packed_tbl": params["notes"] * 4 + params["cells"],
+            "inv_spo": 1.0 / params["steps_per_octave"].to(CV_DTYPE)}
+
+
+def _grid_packed(params):
+    if "packed_tbl" not in params:  # a step outside a compiled render
+        params = _grid_derive(None, None, params, None)
+    return params["packed_tbl"], params["inv_spo"]
+
+
+def _grid_init_state(cfg: AudioConfig, statics):
+    return {
+        "current_step": _i32(0),
+        "step_last": transition_init(),
+        "sync_last": transition_init(),
+        "last_cv": torch.tensor(0.0, dtype=CV_DTYPE),
+    }
+
+
+def _grid_step(cfg: AudioConfig, statics, params, state, ins, x=None):
+    step_in = in_or(ins[0], 0.0, state["current_step"])
+    sync_in = in_or(ins[1], 0.0, state["current_step"])
+    cs, step_last, sync_last = _advance_step(state, step_in, sync_in,
+                                             params["n_steps"])
+    packed_tbl, inv_spo = _grid_packed(params)
+    packed = table_lookup(packed_tbl, cs)
+    cell = packed % 4      # floor semantics, as jnp's
+    note = packed // 4
+    note_cv = note.to(CV_DTYPE) * inv_spo
+    on = cell > 0
+    cv_out = torch.where(on, note_cv, state["last_cv"]).to(CV_DTYPE)
+    gate_out = torch.where(on, torch.where(cell == 2, 1.0, step_in), 0.0)
+    sync_out = _sync_out(cs)
+    new_state = {
+        "current_step": cs,
+        "step_last": step_last,
+        "sync_last": sync_last,
+        "last_cv": cv_out,
+    }
+    return new_state, (cv_out, gate_out, sync_out)
+
+
+_grid_nin, _grid_inlabels = const_ports(2, ("Step", "Sync"))
+_grid_nout, _grid_outlabels = const_ports(3, ("CV", "Gate", "Sync"))
+
+GRID_SEQUENCER = ModuleDef(
+    type_name="Grid Sequencer",
+    make=_grid_make,
+    num_inputs=_grid_nin,
+    num_outputs=_grid_nout,
+    input_labels=_grid_inlabels,
+    output_labels=_grid_outlabels,
+    init_state=_grid_init_state,
+    step=_grid_step,
+    derive=_grid_derive,
+    cuda_fn="srk_grid_sequencer",
+)
+
+
+# ---------------------------------------------------------------------------
+# Pattern sequencer
+# ---------------------------------------------------------------------------
+
+def _coerce_pattern(pattern, capacity):
+    """``[[None | True | False] * steps] * 8`` -> cells ``[8, K]``, with
+    the grid's 0/1/2 encoding."""
+    cells = np.zeros((N_ROWS, capacity), dtype=np.int32)
+    if pattern is not None:
+        if len(pattern) > N_ROWS:
+            raise ValueError(f"pattern has more than {N_ROWS} rows")
+        for r, row in enumerate(pattern):
+            if len(row) > capacity:
+                raise ValueError(f"pattern longer than capacity {capacity}")
+            for i, val in enumerate(row):
+                if val is None:
+                    continue
+                cells[r, i] = 2 if val else 1
+    return cells
+
+
+def _pat_make(cfg: AudioConfig, pattern=None, n_steps: int = None,
+              capacity: int = None):
+    max_row = max((len(r) for r in pattern), default=0) if pattern else 0
+    if n_steps is None:
+        n_steps = max_row if pattern else MAX_STEPS
+    cap = _capacity(max(n_steps, max_row), capacity)
+    params = {
+        "cells": torch.from_numpy(_coerce_pattern(pattern, cap)),
+        "n_steps": _i32(int(n_steps)),
+    }
+    return ("patseq", N_ROWS, cap), params
+
+
+def _pat_packed(params):
+    tbl = params.get("packed_tbl")
+    if tbl is not None:
+        return tbl
+    cells = params["cells"]  # [..., N_ROWS, K]
+    tbl = cells[..., 0, :]
+    for r in range(1, N_ROWS):
+        tbl = tbl + cells[..., r, :] * (4 ** r)
+    return tbl
+
+
+def _pat_derive(cfg: AudioConfig, statics, params, connected):
+    """The 8 rows packed 2 bits each into one table, once per render."""
+    return {"packed_tbl": _pat_packed(params)}
+
+
+def _pat_init_state(cfg: AudioConfig, statics):
+    return {
+        "current_step": _i32(0),
+        "step_last": transition_init(),
+        "sync_last": transition_init(),
+    }
+
+
+def _pat_step(cfg: AudioConfig, statics, params, state, ins, x=None):
+    step_in = in_or(ins[0], 0.0, state["current_step"])
+    sync_in = in_or(ins[1], 0.0, state["current_step"])
+    cs, step_last, sync_last = _advance_step(state, step_in, sync_in,
+                                             params["n_steps"])
+    packed = table_lookup(_pat_packed(params), cs)
+    sync_out = _sync_out(cs)
+    new_state = {
+        "current_step": cs,
+        "step_last": step_last,
+        "sync_last": sync_last,
+    }
+    outs = []
+    for r in range(N_ROWS):
+        col = (packed >> (2 * r)) & 3
+        outs.append(torch.where(col == 2, 1.0,
+                                torch.where(col == 1, step_in, 0.0)))
+    return new_state, tuple(outs) + (sync_out,)
+
+
+_pat_nin, _pat_inlabels = const_ports(2, ("Step", "Sync"))
+_pat_nout, _pat_outlabels = const_ports(
+    N_ROWS + 1, tuple(str(i) for i in range(N_ROWS)) + ("Sync",))
+
+PATTERN_SEQUENCER = ModuleDef(
+    type_name="Pattern Sequencer",
+    make=_pat_make,
+    num_inputs=_pat_nin,
+    num_outputs=_pat_nout,
+    input_labels=_pat_inlabels,
+    output_labels=_pat_outlabels,
+    init_state=_pat_init_state,
+    step=_pat_step,
+    derive=_pat_derive,
+    cuda_fn="srk_pattern_sequencer",
+)

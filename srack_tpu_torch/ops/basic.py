@@ -14,6 +14,21 @@ import torch
 _TWO32 = 4294967296.0  # 2**32
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 64-bit seed from ``key`` and ``data`` (the port's counterpart
+    of ``jax.random.fold_in`` for the ints that seed ``torch.Generator``):
+    the splitmix64 finaliser of ``key`` mixed with ``data``.  Distinct
+    ``data`` give unrelated seeds; it does not reproduce JAX's bits."""
+    z = (int(key) * 0x9E3779B97F4A7C15 + int(data) + 0x632BE59BD9B4E019)
+    z &= _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
 def transition(last_above: torch.Tensor, val: torch.Tensor):
     """Rising-edge detector: fires when ``val`` rises above 0.0 from <= 0.0.
 
@@ -92,6 +107,25 @@ def fast_exp2(x: torch.Tensor) -> torch.Tensor:
     e = (xi.to(torch.int32) + 127) << 23
     scale = e.view(torch.float32)
     return p * scale
+
+
+def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[..., idx]`` for a small table ``[..., K]`` and an int32
+    ``idx`` (per voice), the answer of the JAX package's binary select tree.
+
+    For ``idx`` in ``[0, K)`` it is the entry at ``idx``.  The tree reads
+    only the low ``ceil(log2 K)`` bits of ``idx`` and pads the table to a
+    power of two with its last entry, so any other ``idx`` (negative, or at
+    or past ``K``) reads ``table[min(idx & (P - 1), K - 1)]`` with ``P`` the
+    padded size.  Here that is one gather."""
+    k = table.shape[-1]
+    p = 1
+    while p < k:
+        p *= 2
+    j = torch.clamp(torch.bitwise_and(idx, p - 1), max=k - 1).to(torch.int64)
+    batch = torch.broadcast_shapes(table.shape[:-1], j.shape)
+    return torch.gather(table.expand(batch + (k,)), -1,
+                        j.expand(batch).unsqueeze(-1)).squeeze(-1)
 
 
 def poly_blep_signed(u: torch.Tensor) -> torch.Tensor:

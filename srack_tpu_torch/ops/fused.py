@@ -1,24 +1,32 @@
-"""The fused voice kernel in CUDA C++: the whole patch's per-sample step
+"""The fused voice kernels in CUDA C++: the whole patch's per-sample step
 for V voices over n samples.
 
-Replaces ``srack_tpu/ops/fused.py::make_fused_render`` (the Pallas kernel at
-``pallas_call`` in that function).  It computes what that kernel computes:
-params, state and the plan go in; audio ``[V, C, n]`` and the state after
-sample n-1 come out.  It carries none of the TPU layout over: no (8, 128)
-tiles, no 1,024-voice padding, no time chunks with a scratch carry and no
-padded-tail snapshot.
+* **K1, ``fused_voice``**, replaces ``srack_tpu/ops/fused.py::
+  make_fused_render`` (the Pallas kernel at ``pallas_call`` in that
+  function).  Params, state, the plan and the render's hoisted lanes go in;
+  audio ``[V, C, n]`` and the state after sample n-1 come out.
+* **K2, ``fused_voice_buffer``**, replaces ``srack_tpu/ops/fused.py::
+  make_fused_render_buffer`` (buffer-feedback compat mode): K1 with every
+  feedback read delayed by one ``block_size`` block, the reference
+  engine's previous-buffer feedback.
+
+Both are one source, generated per plan with a buffer-mode switch.  They
+carry none of the TPU layout over: no (8, 128) tiles, no 1,024-voice
+padding, no time chunks with a scratch carry, no padded-tail snapshot, and
+for K2 no outer scan of one kernel call per block.
 
 Design:
 
-* **One thread per voice.**  The whole sample loop runs in the thread; the
-  module state and the feedback carries live in registers, and the params
-  are loaded once.  Voices are independent, time is a recurrence, so the
-  kernel is bound by the serial chain of each thread, not by memory: per
-  voice-sample it reads nothing and writes 4 bytes per channel.  For the
-  subtractive voice a sample is ~512 SASS instructions, issued one after
-  another by the single warp a scheduler holds (IPC ~0.7, ~427 ns per
-  sample on an H100 80GB HBM3 at 700 W); unrolling the sample loop gains
-  nothing there, fewer instructions would.
+* **One thread per voice, one launch per render.**  The whole sample loop
+  runs in the thread; the module state and the sample-feedback carries
+  live in registers, and the params are loaded once.  Voices are
+  independent, time is a recurrence, so the kernels are bound by the
+  serial chain of each thread, not by memory: per voice-sample K1 reads
+  one float per lane and writes 4 bytes per channel.  For the subtractive
+  voice a sample is ~512 SASS instructions, issued one after another by
+  the single warp a scheduler holds (IPC ~0.7, ~427 ns per sample on an
+  H100 80GB HBM3 at 700 W); unrolling the sample loop gains nothing there,
+  fewer instructions would.
 * **Occupancy.**  V voices give V threads.  The headline's 1,024 voices fill
   1,024 threads, 32 warps, of a card with 132 SMs and room for 2,048
   threads on each: at most one warp per SM scheduler, nothing to hide
@@ -28,7 +36,31 @@ Design:
   16,384 voices give 512 one-warp blocks, about 4 per SM.  Measured on an
   H100 80GB HBM3 at 700 W: a 1 s render takes the same ~21 ms from 1,024
   to 16,384 voices; blockDim 32, 64 and 128 are within 1 %, 256 is 9 %
-  slower.
+  slower.  K2 keeps blockDim 32.
+* **Lanes** (Noise draws, bound Input drivers, automation arrays) come in
+  as one ``[L, n, V]`` f32 array, so a warp's 32 voices read 128
+  contiguous bytes per lane and sample.  The wrapper's transpose from the
+  ``[V, n]`` lanes costs one extra read and write of every lane
+  (``8 * L * V * n`` bytes, 3.9 GB for one lane at 1,024 x 480,000).
+  Which lanes exist depends on the render call (an Input with or without
+  a driver, an automated param with or without an array), so the lane set
+  is part of the generated source and of its build hash.
+* **Sequencer tables** stay in the packed int rows: a table param is an
+  ``srk_rows`` view, and a lookup is one load of ``tbl[(row + j) * V + v]``
+  (32 neighbouring ints per warp), not a select chain.
+* **K2's delayed feedback** lives in a per-voice ring in device memory,
+  ``[n_fb, block, V]`` f32, a warp's voices on 128 contiguous bytes.  At
+  sample t every fb read of key k takes ``ring[k][t % block]``, the value
+  that key's source wrote one block earlier; all fb slots are loaded at
+  the top of the sample and this sample's values stored at its end, which
+  keeps the order right whatever the plan order of sinks and sources.  The
+  ring starts as ``state["fb"]`` (``[V, block]``, transposed in) and, since
+  ``n % block == 0``, ends as the last block in time order: K2's final fb.
+  It bounds K2 like K1, by the serial chain, plus one ring load and one
+  ring store per fb key per sample.  At 1,024 voices and block 1,024 the
+  ring is 4 MiB per key and stays in the 50 MB L2; at 16,384 voices it is
+  64 MiB per key and does not, so its traffic goes to device memory
+  (4 + 4 bytes per key per voice-sample).
 * **The audio writes** go straight to ``[V, C, n]``: at each sample the 32
   threads of a warp store 32 floats that lie ``C * n * 4`` bytes apart, 32
   separate 32-byte sectors each carrying 4 useful bytes.  Each thread's
@@ -37,18 +69,20 @@ Design:
   store where a coalesced layout would need 4.
 * **Generated per plan.**  The module steps are the inline functions of
   ``csrc/modules.cuh``; this file emits a small ``.cu`` per compiled plan
-  that loads params and state, calls the steps in plan order with wires as
-  locals (a feedback read uses the carried local), writes the audio and
-  stores the final state.  Its one ``extern "C"`` entry launches the kernel
-  on the caller's stream and returns ``cudaGetLastError()``.
+  and lane set that loads params and state, calls the steps in plan order
+  with wires as locals (a feedback read uses the carried local, or K2's
+  ring slot), writes the audio and stores the final state.  Its one
+  ``extern "C"`` entry launches the kernel on the caller's stream and
+  returns ``cudaGetLastError()``.
 * **Numerics.**  Built with ``--fmad=false`` and without fast math, so the
   Horner polynomials, the ladder and the ADSR reciprocals round as the
   torch steps do; constants are f32 literals of the values the Python
   steps round to.
 
 The plain version is the scan engine with ``nograd=True``
-(``CompiledPatch.render_scan``).  The wrapper launches the kernel for CUDA
-tensors or raises; it never falls back.
+(``CompiledPatch.render_scan``; in buffer mode its block loop,
+``_render_buffer_mode``'s counterpart).  The wrapper launches the kernel
+for CUDA tensors or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -77,8 +111,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 def eligible(compiled) -> bool:
-    """Can this compiled patch run on the fused kernel?"""
-    if compiled.cfg.exact or compiled.cfg.buffer_feedback:
+    """Can this compiled patch run on the fused kernels?  (Fast precision,
+    no probes, every module type with a device function.)"""
+    if compiled.cfg.exact or compiled.probes:
         return False
     return all(mdef.cuda_fn is not None
                for mdef, _, _ in compiled.instances.values())
@@ -124,15 +159,19 @@ def _layout(entries):
 
 
 def _param_entries(compiled, params):
-    return [((mid, key), params[mid][key])
-            for mid in compiled.instances for key in sorted(params[mid])]
+    out = []
+    for mid, (mdef, _, _) in compiled.instances.items():
+        out += [((mid, key), params[mid][key]) for key in sorted(params[mid])
+                if key not in mdef.host_params]
+    return out
 
 
 def _state_entries(compiled, state):
     out = [(("states", mid, key), state["states"][mid][key])
            for mid in compiled.instances
            for key in sorted(state["states"][mid])]
-    out += [(("fb", k), state["fb"][k]) for k in compiled.fb_keys]
+    if not compiled.cfg.buffer_feedback:  # K2's fb is the ring instead
+        out += [(("fb", k), state["fb"][k]) for k in compiled.fb_keys]
     return out
 
 
@@ -169,59 +208,94 @@ def _var(path) -> str:
     return "p_" + _ident(*path)
 
 
+def _lane_var(lane) -> str:
+    return "x_" + _ident(lane)
+
+
 def _statics_args(statics) -> list:
     return [str(int(s)) for s in statics if isinstance(s, (bool, int))]
 
 
-def generate_source(compiled, layout: Layout = None) -> str:
-    """The ``.cu`` source of the fused kernel for ``compiled``'s plan.
+def generate_source(compiled, layout: Layout = None, lanes=()) -> str:
+    """The ``.cu`` source of the fused kernel for ``compiled``'s plan and
+    the lane set ``lanes`` (sorted lane keys: module ids of Noise and of
+    driven Inputs, ``mid~param`` of automation arrays).
 
-    Deterministic: the same plan gives the same text.  The same file builds
-    with g++ (``-x c++``) into a host loop over voices, ``srk_fused_host``,
-    which the tests use to check the generated code on the CPU."""
+    Deterministic: the same plan and lanes give the same text.  In buffer
+    mode (``cfg.buffer_feedback``) it is K2's counterpart.  The same file
+    builds with g++ (``-x c++``) into a host loop over voices,
+    ``srk_fused_host``, which the tests use to check the generated code on
+    the CPU."""
     cfg = compiled.cfg
     layout = layout or Layout.of(compiled)
+    lanes = tuple(lanes)
+    buffer = cfg.buffer_feedback
     n_ch = cfg.channels
+    lane_idx = {k: i for i, k in enumerate(lanes)}
 
     def row(arr, leaf, j):
         return f"{arr}[{leaf.row + j} * (size_t)V + v]"
 
     def load(leaf, arr, const):
         var, q = _var(leaf.path), "const " if const else ""
+        if leaf.rest and leaf.kind == "i":
+            # an int table: a view into the rows, read per sample
+            return (f"  const srk_rows {var}{{{arr} + {leaf.row} * (size_t)V"
+                    " + v, (size_t)V};")
         if leaf.rest:
             vals = ", ".join(row(arr, leaf, j) for j in range(leaf.rows))
             return f"  {q}{leaf.ctype} {var}[{leaf.rows}] = {{{vals}}};"
         return f"  {q}{leaf.ctype} {var} = {row(arr, leaf, 0)};"
 
-    by_mid = {}
+    params_of, state_of = {}, {}
     for leaf in layout.params:
-        by_mid.setdefault(("p", leaf.path[0]), []).append(_var(leaf.path))
+        params_of.setdefault(leaf.path[0], []).append(leaf.path[1])
     for leaf in layout.state:
         if leaf.path[0] == "states":
-            by_mid.setdefault(("s", leaf.path[1]), []).append(_var(leaf.path))
+            state_of.setdefault(leaf.path[1], []).append(_var(leaf.path))
 
+    def fb_slot(k):
+        return (f"ring[((size_t){compiled.fb_keys.index(k)} * SRK_FB_BLOCK "
+                "+ slot) * V + v]")
+
+    kind = "buffer-feedback kernel (K2)" if buffer else "voice kernel (K1)"
     L = [
-        "// Generated by srack_tpu_torch/ops/fused.py: the fused voice kernel",
+        f"// Generated by srack_tpu_torch/ops/fused.py: the fused {kind}",
         "// for one plan, " + ", ".join(
             f"{mid} ({compiled.instances[mid][0].type_name})"
             for mid in compiled.plan) + ".",
+        "// Lanes: " + (", ".join(lanes) if lanes else "none") + ".",
         f"#define SRK_SAMPLE_RATE {int(cfg.sample_rate)}",
         f"#define SRK_BLOCK {BLOCK_DIM}",
+    ]
+    if buffer:
+        L.append(f"#define SRK_FB_BLOCK {int(cfg.block_size)}")
+    L += [
         '#include "modules.cuh"',
         "",
         "SRK_HD void srk_voice(int v, int V, int n, "
         "const float* __restrict__ pf, const int* __restrict__ pi, "
         "const float* __restrict__ sf, const int* __restrict__ si, "
+        "const float* __restrict__ lanes, float* __restrict__ ring, "
         "float* __restrict__ audio, float* __restrict__ sf_out, "
         "int* __restrict__ si_out) {",
         "  // params, loaded once",
     ]
     L += [load(leaf, "p" + leaf.kind, True) for leaf in layout.params]
-    L.append("  // state and feedback carries, in registers")
+    L.append("  // state" + ("" if buffer else " and feedback carries")
+             + ", in registers")
     L += [load(leaf, "s" + leaf.kind, False) for leaf in layout.state]
     L += [f"  float* a{c} = audio + ((size_t)v * {n_ch} + {c}) * (size_t)n;"
           for c in range(n_ch)]
+    if buffer:
+        L.append("  int slot = 0;  // t % SRK_FB_BLOCK")
     L.append("  for (int t = 0; t < n; ++t) {")
+    L += [f"    const float {_lane_var(k)} = "
+          f"lanes[((size_t){i} * n + t) * V + v];"
+          for k, i in lane_idx.items()]
+    if buffer:
+        L += [f"    const float {_var(('fb', k))} = {fb_slot(k)};"
+              for k in compiled.fb_keys]
     for mid in compiled.plan:
         mdef, statics, inputs = compiled.instances[mid]
         ins, conn = [], 0
@@ -242,7 +316,15 @@ def generate_source(compiled, layout: Layout = None) -> str:
         w = f"w_{_ident(mid)}"
         n_out = mdef.num_outputs(cfg, statics)
         tmpl = ", ".join([str(conn)] + _statics_args(statics))
-        args = by_mid.get(("p", mid), []) + by_mid.get(("s", mid), [])
+        args = []
+        for key in params_of.get(mid, []):
+            auto = compiled._auto_key(mid, key)
+            # an automated param with an array reads this sample's value
+            args.append(_lane_var(auto) if auto in lane_idx
+                        else _var((mid, key)))
+        args += state_of.get(mid, [])
+        if mid in lane_idx:
+            args.append(_lane_var(mid))
         L.append(f"    float {w}[{max(n_out, 1)}];")
         if ins:
             L.append(f"    {{ const float in[{len(ins)}] = "
@@ -252,8 +334,13 @@ def generate_source(compiled, layout: Layout = None) -> str:
         else:
             L.append(f"    {mdef.cuda_fn}<{tmpl}>("
                      + ", ".join(args + ["nullptr", w]) + ");")
-    L += [f"    {_var(('fb', k))} = w_{_ident(k[0])}[{k[1]}];"
-          for k in compiled.fb_keys]
+    if buffer:
+        L += [f"    {fb_slot(k)} = w_{_ident(k[0])}[{k[1]}];"
+              for k in compiled.fb_keys]
+        L.append("    if (++slot == SRK_FB_BLOCK) slot = 0;")
+    else:
+        L += [f"    {_var(('fb', k))} = w_{_ident(k[0])}[{k[1]}];"
+              for k in compiled.fb_keys]
     L.append("  }")
     L.append("  // final state: after sample n-1")
     for leaf in layout.state:
@@ -262,9 +349,10 @@ def generate_source(compiled, layout: Layout = None) -> str:
             val = f"{var}[{j}]" if leaf.rest else var
             L.append(f"  {row('s' + leaf.kind + '_out', leaf, j)} = {val};")
     L.append("}")
-    args = "pf, pi, sf, si, audio, sf_out, si_out"
+    args = "pf, pi, sf, si, lanes, ring, audio, sf_out, si_out"
     decl = ("const float* pf, const int* pi, const float* sf, const int* si, "
-            "float* audio, float* sf_out, int* si_out, int V, int n")
+            "const float* lanes, float* ring, float* audio, float* sf_out, "
+            "int* si_out, int V, int n")
     L += [
         "",
         "#ifdef __CUDACC__",
@@ -340,7 +428,7 @@ def build(source: str, compiler=None, flags=NVCC_FLAGS,
 def _bind(lib_path, entry: str, extra=()):
     lib = ctypes.CDLL(str(lib_path))
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int] + list(
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int] + list(
         extra)
     fn.restype = ctypes.c_int
     return lib, fn
@@ -394,20 +482,65 @@ def state_tree(compiled, flat: dict) -> dict:
     return {"states": states, "fb": fb}
 
 
-class FusedKernel:
-    """The fused kernel of one compiled plan: its generated source, its
-    build, its launch wrapper and a count of launches."""
+def pack_lanes(lanes, xs: dict, v: int, n: int, device) -> torch.Tensor:
+    """The render's lanes ``{key: [V, n]}`` as one ``[L, n, V]`` f32 array
+    in the kernel's lane order (one dummy element when there are none)."""
+    if set(xs) != set(lanes):
+        raise ValueError(f"the kernel was generated for lanes "
+                         f"{sorted(lanes)}, the render has {sorted(xs)}")
+    if not lanes:
+        return torch.zeros((1,), dtype=CV_DTYPE, device=device)
+    for k in lanes:
+        a = xs[k]
+        if tuple(a.shape) != (v, n) or a.device != torch.device(device):
+            raise ValueError(f"lane {k}: expected [{v}, {n}] on {device}, "
+                             f"got {tuple(a.shape)} on {a.device}")
+    return torch.stack([xs[k].to(CV_DTYPE) for k in lanes]).transpose(
+        1, 2).contiguous()
 
-    def __init__(self, compiled):
+
+def pack_ring(compiled, state: dict, v: int, device) -> torch.Tensor:
+    """K2's fb ring: ``state["fb"][k]`` (``[V, block]``) stacked and
+    transposed into ``[n_fb, block, V]`` (one dummy element when the plan
+    has no feedback)."""
+    block = compiled.cfg.block_size
+    if not compiled.fb_keys:
+        return torch.zeros((1,), dtype=CV_DTYPE, device=device)
+    for k in compiled.fb_keys:
+        a = state["fb"][k]
+        if tuple(a.shape) != (v, block) or a.device != torch.device(device):
+            raise ValueError(f"fb {k}: expected [{v}, {block}] on {device}, "
+                             f"got {tuple(a.shape)} on {a.device}")
+    ring = torch.stack([state["fb"][k].to(CV_DTYPE)
+                        for k in compiled.fb_keys])
+    return ring.transpose(1, 2).contiguous()
+
+
+def unpack_ring(compiled, ring: torch.Tensor) -> dict:
+    """Inverse of :func:`pack_ring`: ``{k: [V, block]}``."""
+    return {k: ring[i].T.contiguous()
+            for i, k in enumerate(compiled.fb_keys)}
+
+
+class FusedKernel:
+    """The fused kernel of one compiled plan and lane set: its generated
+    source, its build, its launch wrapper and a count of launches.  In
+    buffer-feedback mode it is K2's counterpart (``fused_voice_buffer``),
+    else K1's (``fused_voice``)."""
+
+    def __init__(self, compiled, lanes=()):
         if not eligible(compiled):
             raise ValueError(
                 "patch not eligible for the fused kernel (needs fast "
-                "precision, sample feedback, and module types with a CUDA "
+                "precision, no probes, and module types with a CUDA "
                 "device function)")
         self.compiled = compiled
+        self.lanes = tuple(sorted(lanes))
+        self.buffer = compiled.cfg.buffer_feedback
+        self.name = "fused_voice_buffer" if self.buffer else "fused_voice"
         self.layout = Layout.of(compiled)
-        self.source = generate_source(compiled, self.layout)
-        self.launches = 0
+        self.source = generate_source(compiled, self.layout, self.lanes)
+        self.launches = 0  # the wrapper adds one where it launches
         self.build_log = ""
         self._fn = None
         self._lib = None
@@ -420,34 +553,59 @@ class FusedKernel:
                                         [ctypes.c_void_p])
         return self._fn
 
-    def render(self, params: dict, state: dict, n: int):
-        """Render ``n`` samples of V voices: ``params`` and ``state`` carry a
-        leading voice axis and lie on one CUDA device.  Returns
-        ``(audio [V, C, n], final_state)``."""
+    def pack(self, params: dict, state: dict, n: int, xs: dict):
+        """The kernel's operands for one render on ``params``' device:
+        ``(pf, pi, sf, si, lanes, ring, v)``."""
         compiled = self.compiled
         leaves = tree_leaves(params) + tree_leaves(state)
         if not leaves:
             raise ValueError("no param or state leaf gives the voice count")
         device = leaves[0].device
-        if device.type != "cuda":
-            raise ValueError(
-                f"the fused kernel renders CUDA tensors; these lie on "
-                f"{device} (the CPU runs engine='scan')")
-        if n < 0:
-            raise ValueError(f"n must be >= 0, got {n}")
         v = leaves[0].shape[0]
         if v < 1:
             raise ValueError("the fused kernel needs at least one voice")
+        if n < 0:
+            raise ValueError(f"n must be >= 0, got {n}")
+        if self.buffer and n % compiled.cfg.block_size:
+            raise ValueError(
+                f"buffer_feedback mode renders whole blocks: n={n} is not a "
+                f"multiple of block_size={compiled.cfg.block_size}")
         lay = self.layout
         derived = compiled.derived_params(params)
         pf, pi = pack(lay.params, lay.n_pf, lay.n_pi,
                       lambda p: _get(derived, p), v, device)
         sf, si = pack(lay.state, lay.n_sf, lay.n_si,
                       lambda p: _get(state, p), v, device)
-        audio = torch.empty((v, compiled.cfg.channels, n), dtype=CV_DTYPE,
-                            device=device)
+        lanes = pack_lanes(self.lanes, xs, v, n, device)
+        ring = (pack_ring(compiled, state, v, device) if self.buffer
+                else torch.zeros((1,), dtype=CV_DTYPE, device=device))
+        return pf, pi, sf, si, lanes, ring, v
+
+    def finish(self, sf_out, si_out, ring, v: int) -> dict:
+        """The final state tree from the kernel's outputs."""
+        final = state_tree(self.compiled,
+                           unpack(self.layout.state, sf_out, si_out, v))
+        if self.buffer:
+            final["fb"] = unpack_ring(self.compiled, ring)
+        return final
+
+    def render(self, params: dict, state: dict, n: int, xs: dict = None):
+        """Render ``n`` samples of V voices: ``params``, ``state`` and the
+        lanes ``xs`` (``{key: [V, n]}``, this kernel's lane set) carry a
+        leading voice axis and lie on one CUDA device.  Returns
+        ``(audio [V, C, n], final_state)``."""
+        leaves = tree_leaves(params) + tree_leaves(state)
+        device = leaves[0].device if leaves else torch.device("cpu")
+        if device.type != "cuda":
+            raise ValueError(
+                f"the fused kernel renders CUDA tensors; these lie on "
+                f"{device} (the CPU runs engine='scan')")
+        pf, pi, sf, si, lanes, ring, v = self.pack(params, state, n,
+                                                   xs or {})
+        audio = torch.empty((v, self.compiled.cfg.channels, n),
+                            dtype=CV_DTYPE, device=device)
         sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
-        for t in (pf, pi, sf, si, audio, sf_out, si_out):
+        for t in (pf, pi, sf, si, lanes, ring, audio, sf_out, si_out):
             if not t.is_contiguous() or t.device != device:
                 raise ValueError("kernel operands must be contiguous and on "
                                  "one device")
@@ -455,10 +613,10 @@ class FusedKernel:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(pf.data_ptr(), pi.data_ptr(), sf.data_ptr(),
-                     si.data_ptr(), audio.data_ptr(), sf_out.data_ptr(),
-                     si_out.data_ptr(), v, n, stream)
+                     si.data_ptr(), lanes.data_ptr(), ring.data_ptr(),
+                     audio.data_ptr(), sf_out.data_ptr(), si_out.data_ptr(),
+                     v, n, stream)
         if err != 0:
             raise RuntimeError(f"fused kernel launch failed: CUDA error {err}")
         self.launches += 1
-        final = state_tree(compiled, unpack(lay.state, sf_out, si_out, v))
-        return audio, final
+        return audio, self.finish(sf_out, si_out, ring, v)

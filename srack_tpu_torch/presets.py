@@ -3,11 +3,16 @@
 1. :func:`sine_patch`        -- single VCO -> Output sine, mono.
 2. :func:`subtractive_voice` -- VCO -> Moog LP -> VCA with ADSR + LFO pitch
    mod; the gate is a slow square-wave oscillator.
-3. :func:`feedback_patch`    -- cross-FM oscillator pair + filter feedback.
-4. :func:`farm_params`       -- randomized parameter stacks for batch
+3. :func:`sequencer_patch`   -- clock + grid and pattern sequencers driving
+   an 8-voice polyphonic subtractive synth.
+4. :func:`feedback_patch`    -- cross-FM oscillator pair + filter feedback.
+5. :func:`farm_params`       -- randomized parameter stacks for batch
    rendering, the same draws as the JAX package's.
 
-The sequencer, drum, sampler and reverb presets wait for their modules.
+Also :func:`gate_cv_voice` (a voice played through Input driver lanes) and
+the check patches :func:`kernel_check_patch` and :func:`lane_check_patch`,
+which drive every device function of the fused kernels.  The drum, sampler
+and reverb presets wait for their modules (slice 3).
 """
 
 from __future__ import annotations
@@ -52,6 +57,82 @@ def subtractive_voice(cfg: AudioConfig | None = None, *,
     p.connect(vca, 0, p.output, 0)
     if cfg.channels > 1:
         p.connect(vca, 0, p.output, 1)
+    return p
+
+
+def gate_cv_voice(cfg: AudioConfig | None = None, *, cutoff: float = 0.5,
+                  res: float = 0.3, a: float = 0.01, d: float = 0.1,
+                  s: float = 0.6, r: float = 0.2, wave: str = "Sawtooth"):
+    """Subtractive voice driven by external gate and pitch-CV Inputs: bind
+    driver lanes from ``utils.notes.note_track`` to the returned handles.
+    Returns ``(patch, gate_input, cv_input)``."""
+    cfg = cfg or AudioConfig(channels=1)
+    p = Patch(cfg)
+    gate = p.add("Input", name="gate")
+    cv = p.add("Input", name="cv")
+    osc = p.add("Oscillator", name="osc")
+    flt = p.add("Moog Filter", freq=cutoff, res=res)
+    env = p.add("ADSR", a_sec=a, d_sec=d, s_val=s, r_sec=r)
+    vca = p.add("VCA")
+    p.connect(cv, 0, osc, "CV")
+    p.connect(gate, 0, env, "Gate")
+    p.connect(osc, wave, flt, "Audio")
+    p.connect(flt, 0, vca, "Audio")
+    p.connect(env, 0, vca, "CV")
+    p.connect(vca, 0, p.output, 0)
+    if cfg.channels > 1:
+        p.connect(vca, 0, p.output, 1)
+    return p, gate, cv
+
+
+def sequencer_patch(cfg: AudioConfig | None = None) -> Patch:
+    """Clock and grid/pattern sequencers driving 8 subtractive voices."""
+    cfg = cfg or AudioConfig(channels=1)
+    p = Patch(cfg)
+    clk = p.add("Oscillator", val=-5.0, name="clock")  # ~13.75 Hz square
+
+    # melodic voice from the grid sequencer
+    seq = [(i * 3 % 24, i % 3 != 0) for i in range(16)]
+    grid = p.add("Grid Sequencer", sequence=seq, n_steps=16, name="grid")
+    p.connect(clk, "Square", grid, "Step")
+
+    lead_osc = p.add("Oscillator", val=-2.0, name="lead_vco")
+    p.connect(grid, "CV", lead_osc, "CV")
+    lead_env = p.add("ADSR", a_sec=0.005, d_sec=0.1, s_val=0.3, r_sec=0.05,
+                     name="lead_env")
+    p.connect(grid, "Gate", lead_env, "Gate")
+    lead_flt = p.add("Moog Filter", freq=0.4, res=0.5, name="lead_vcf")
+    p.connect(lead_osc, "Sawtooth", lead_flt, "Audio")
+    lead_vca = p.add("VCA", name="lead_vca")
+    p.connect(lead_flt, 0, lead_vca, "Audio")
+    p.connect(lead_env, 0, lead_vca, "CV")
+
+    # 7 percussive voices from the pattern sequencer rows
+    pattern = [[(True if (s % (r + 2) == 0) else None) for s in range(16)]
+               for r in range(8)]
+    pat = p.add("Pattern Sequencer", pattern=pattern, n_steps=16, name="pat")
+    p.connect(clk, "Square", pat, "Step")
+    p.connect(grid, "Sync", pat, "Sync")
+
+    # 4 voices per sub-mix at 0.25 each keeps every bus within full scale
+    mixers = [p.add("Mono Mixer", gains=(0.25, 0.25, 0.25, 0.25),
+                    name=f"mix{i}") for i in range(2)]
+    p.connect(lead_vca, 0, mixers[0], 0)
+    for r in range(7):
+        osc = p.add("Oscillator", val=-3.0 + r * 0.5, name=f"perc_vco{r}")
+        env = p.add("ADSR", a_sec=0.001, d_sec=0.05, s_val=0.0, r_sec=0.02,
+                    name=f"perc_env{r}")
+        vca = p.add("VCA", name=f"perc_vca{r}")
+        p.connect(pat, str(r), env, "Gate")
+        p.connect(osc, "Square" if r % 2 else "Sine", vca, "Audio")
+        p.connect(env, 0, vca, "CV")
+        p.connect(vca, 0, mixers[(r + 1) // 4], (r + 1) % 4)
+    final = p.add("Mono Mixer", gains=(0.5, 0.5, 0.0, 0.0), name="final_mix")
+    p.connect(mixers[0], 0, final, 0)
+    p.connect(mixers[1], 0, final, 1)
+    p.connect(final, 0, p.output, 0)
+    if cfg.channels > 1:
+        p.connect(final, 0, p.output, 1)
     return p
 
 
@@ -170,3 +251,63 @@ def kernel_check_patch(cfg: AudioConfig | None = None, *,
     if cfg.channels > 1:
         p.connect(shaper, 0, p.output, 1)
     return p
+
+
+def lane_check_patch(cfg: AudioConfig | None = None, *,
+                     patch_cls=Patch):
+    """A 2-channel patch that drives the lane, sequencer and automation
+    paths of the fused kernel: a driven Input (Step of the pattern
+    sequencer and Sync of the grid), an undriven Input (a constant pitch
+    offset), Noise, a Grid
+    Sequencer with slide cells and negative notes (capacity 8, 7 steps),
+    a Pattern Sequencer with its Sync unconnected (6 steps), and three
+    automated params that take the modules off their hoisted paths: the
+    VCO's ``val`` (an Oscillator with its CV connected), the envelope's
+    ``d_sec`` and the filter's ``freq`` (CV unconnected).
+
+    Returns ``(patch, automation)``: ``automation`` is the (module id,
+    param) pairs to pass to ``compile_patch(..., automation=)``.
+    ``patch_cls`` builds the same patch with another package's ``Patch``.
+    """
+    cfg = cfg or AudioConfig(channels=2)
+    p = patch_cls(cfg)
+    clk = p.add("Oscillator", val=-3.0, antialiasing=False, name="clock")
+    gate = p.add("Input", name="gate")
+    offset = p.add("Input", value=0.25, name="offset")
+    noise = p.add("Noise", seed=7, name="noise")
+    seq = [(0, True), None, (-5, False), (7, True), (-13, False), None,
+           (12, True)]
+    grid = p.add("Grid Sequencer", sequence=seq, n_steps=7, name="grid")
+    rows = [[True, None, False, True, None, False],
+            [None, True, True, None, None, None],
+            [False, False, None, None, True, None]]
+    pat = p.add("Pattern Sequencer", pattern=rows, n_steps=6, name="pat")
+    pitch = p.add("Add", name="pitch")
+    vco = p.add("Oscillator", val=-1.0, name="vco")
+    env = p.add("ADSR", a_sec=0.002, d_sec=0.02, s_val=0.5, r_sec=0.03,
+                name="env")
+    vcf = p.add("Moog Filter", freq=0.4, res=0.5, name="vcf")
+    vca = p.add("VCA", name="vca")
+    perc = p.add("VCA", name="perc")
+    mix = p.add("Mono Mixer", gains=(0.5, 0.4, 0.2, 0.1), name="mix")
+    p.connect(clk, "Square", grid, "Step")
+    p.connect(gate, 0, grid, "Sync")
+    p.connect(gate, 0, pat, "Step")
+    p.connect(grid, "CV", pitch, "In1")
+    p.connect(offset, 0, pitch, "In2")
+    p.connect(pitch, 0, vco, "CV")
+    p.connect(grid, "Gate", env, "Gate")
+    p.connect(vco, "Sawtooth", vcf, "Audio")
+    p.connect(vcf, 0, vca, "Audio")
+    p.connect(env, 0, vca, "CV")
+    p.connect(noise, 0, perc, "Audio")
+    p.connect(pat, "0", perc, "CV")
+    p.connect(vca, 0, mix, 0)
+    p.connect(perc, 0, mix, 1)
+    p.connect(pat, "1", mix, 2)
+    p.connect(grid, "Sync", mix, 3)
+    p.connect(mix, 0, p.output, 0)
+    if cfg.channels > 1:
+        p.connect(grid, "CV", p.output, 1)
+    automation = ((vco.id, "val"), (env.id, "d_sec"), (vcf.id, "freq"))
+    return p, automation

@@ -4,11 +4,15 @@
 has a host entry (``srk_fused_host``, a loop over voices) beside the CUDA
 launch.  Built with ``g++ -O2 -ffp-contract=off`` it runs the very
 per-voice loop the card runs, so its arithmetic and the generator's code
-(layout, wiring, feedback carries, unconnected inputs, the final state)
-are checked here against the kernel's plain version, the scan engine,
-with the tolerances the card run uses: audio within 1e-5, int32 and bool
-state bit-exact, float state within 1e-5.  The main path never uses this
-host build.
+(layout, wiring, feedback carries, unconnected inputs, sequencer tables,
+lanes and automation overlays, K2's feedback ring, the final state) are
+checked here against the kernels' plain version, the scan engine, with
+the tolerances the card run uses: audio within 1e-5, int32 and bool state
+bit-exact, float state within 1e-5.  The cases: K1 for the slice-1
+patches, ``sequencer_patch`` and ``lane_check_patch`` (a driven Input,
+Noise drawn by the port's generator and an automation lane), and K2 for
+``feedback_patch`` in buffer-feedback mode.  The main path never uses
+this host build.
 """
 
 import shutil
@@ -26,7 +30,8 @@ HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
               "-shared", "-fPIC")
 ATOL = 1e-5
 PATCHES = ("subtractive_voice", "sine_patch", "feedback_patch",
-           "kernel_check_patch")
+           "kernel_check_patch", "sequencer_patch", "lane_check_patch",
+           "feedback_buffer")
 
 
 @pytest.fixture(scope="module")
@@ -37,32 +42,54 @@ def gxx():
     return path
 
 
-def _patch(name):
+def _patch(name, n=256):
+    """``(patch, automation)`` for a case; ``feedback_buffer`` is
+    feedback_patch in buffer-feedback mode with a block that divides n."""
     if name == "kernel_check_patch":
         return stt.presets.kernel_check_patch(
-            stt.AudioConfig(sample_rate=4800, channels=3))
+            stt.AudioConfig(sample_rate=4800, channels=3)), ()
+    if name == "lane_check_patch":
+        return stt.presets.lane_check_patch(
+            stt.AudioConfig(sample_rate=4800, channels=2))
+    if name == "feedback_buffer":
+        block = 32 if n % 32 == 0 else 17
+        return stt.presets.feedback_patch(stt.AudioConfig(
+            sample_rate=4800, block_size=block, channels=1,
+            buffer_feedback=True)), ()
     return getattr(stt.presets, name)(
-        stt.AudioConfig(sample_rate=4800, channels=1))
+        stt.AudioConfig(sample_rate=4800, channels=1)), ()
 
 
-def host_render(kernel, lib_path, params, state, n):
+def _lanes(compiled, patch, params, v, n, seed):
+    """The lane check patch's lanes: a random step gate on the driven
+    Input, a pitch lane on the VCO's automated ``val``, and the Noise
+    module's own draws from the port's generator."""
+    if not compiled.xs_modules:
+        return {}
+    rng = np.random.default_rng(seed)
+    gate = next(i.id for i in patch if i.name == "gate")
+    vco = next(i.id for i in patch if i.name == "vco")
+    drivers = {
+        gate: torch.from_numpy(
+            (rng.uniform(size=(v, n)) < 0.3).astype(np.float32)),
+        compiled._auto_key(vco, "val"): torch.from_numpy(
+            rng.uniform(-1.5, 0.5, (v, n)).astype(np.float32)),
+    }
+    return compiled._make_xs(params, seed, n, drivers)
+
+
+def host_render(kernel, lib_path, params, state, n, xs=None):
     """The wrapper's packing around the host entry instead of the launch."""
-    compiled, lay = kernel.compiled, kernel.layout
-    v = next(iter(p for mp in params.values() for p in mp.values())).shape[0]
-    derived = compiled.derived_params(params)
-    pf, pi = fused.pack(lay.params, lay.n_pf, lay.n_pi,
-                        lambda p: fused._get(derived, p), v, "cpu")
-    sf, si = fused.pack(lay.state, lay.n_sf, lay.n_si,
-                        lambda p: fused._get(state, p), v, "cpu")
-    audio = torch.empty((v, compiled.cfg.channels, n), dtype=torch.float32)
+    pf, pi, sf, si, lanes, ring, v = kernel.pack(params, state, n, xs or {})
+    audio = torch.empty((v, kernel.compiled.cfg.channels, n),
+                        dtype=torch.float32)
     sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
     lib, fn = fused._bind(lib_path, "srk_fused_host")
     err = fn(pf.data_ptr(), pi.data_ptr(), sf.data_ptr(), si.data_ptr(),
-             audio.data_ptr(), sf_out.data_ptr(), si_out.data_ptr(), v, n)
+             lanes.data_ptr(), ring.data_ptr(), audio.data_ptr(),
+             sf_out.data_ptr(), si_out.data_ptr(), v, n)
     assert err == 0
-    final = fused.state_tree(compiled, fused.unpack(lay.state, sf_out,
-                                                    si_out, v))
-    return audio, final
+    return audio, kernel.finish(sf_out, si_out, ring, v)
 
 
 def assert_state_close(got, want):
@@ -83,31 +110,38 @@ def assert_state_close(got, want):
 @pytest.mark.parametrize("name", PATCHES)
 def test_generated_kernel_on_host_matches_plain_version(gxx, tmp_path, name,
                                                         n):
-    patch = _patch(name)
-    compiled = stt.compile_patch(patch)
-    kernel = compiled.fused()
-    lib_path, _ = fused.build(kernel.source, compiler=gxx, flags=HOST_FLAGS,
-                              root=tmp_path)
+    patch, autos = _patch(name, n)
+    compiled = stt.compile_patch(patch, automation=autos)
     v = 6
     params = stt.presets.farm_params(patch, v, seed=n)
     state = tree_map(lambda a: a.expand((v,) + a.shape).contiguous(),
                      compiled.init_state())
-    audio, final = host_render(kernel, lib_path, params, state, n)
-    want_audio, want_final = compiled.render_scan(params, state, n,
-                                                  batched=True, nograd=True)
+    xs = _lanes(compiled, patch, params, v, n, seed=n)
+    kernel = compiled.fused(xs)
+    lib_path, _ = fused.build(kernel.source, compiler=gxx, flags=HOST_FLAGS,
+                              root=tmp_path)
+    audio, final = host_render(kernel, lib_path, params, state, n, xs)
+    want_audio, want_final = compiled.render_scan(
+        params, state, n, batched=True, nograd=True, xs=xs)
     torch.testing.assert_close(audio, want_audio, atol=ATOL, rtol=0)
     assert_state_close(final, want_final)
     # a render continues from its final state: two halves equal the whole
-    half = n // 2
-    a1, s1 = host_render(kernel, lib_path, params, state, half)
-    a2, _ = host_render(kernel, lib_path, params, s1, n - half)
+    # (in buffer mode, cut at a block boundary)
+    block = compiled.cfg.block_size if compiled.cfg.buffer_feedback else 1
+    half = n // block // 2 * block
+    cut = {k: (x[..., :half].contiguous(), x[..., half:].contiguous())
+           for k, x in xs.items()}
+    a1, s1 = host_render(kernel, lib_path, params, state, half,
+                         {k: c[0] for k, c in cut.items()})
+    a2, _ = host_render(kernel, lib_path, params, s1, n - half,
+                        {k: c[1] for k, c in cut.items()})
     torch.testing.assert_close(torch.cat([a1, a2], dim=-1), audio, atol=0,
                                rtol=0)
     assert kernel.launches == 0  # the host entry is not a kernel launch
 
 
 def test_build_reuses_a_library_by_source_hash(gxx, tmp_path):
-    kernel = stt.compile_patch(_patch("sine_patch")).fused()
+    kernel = stt.compile_patch(_patch("sine_patch")[0]).fused()
     first, _ = fused.build(kernel.source, compiler=gxx, flags=HOST_FLAGS,
                            root=tmp_path)
     mtime = first.stat().st_mtime_ns
@@ -115,7 +149,7 @@ def test_build_reuses_a_library_by_source_hash(gxx, tmp_path):
                            root=tmp_path)
     assert again == first and again.stat().st_mtime_ns == mtime
     other, _ = fused.build(
-        stt.compile_patch(_patch("feedback_patch")).fused().source,
+        stt.compile_patch(_patch("feedback_patch")[0]).fused().source,
         compiler=gxx, flags=HOST_FLAGS, root=tmp_path)
     assert other.parent != first.parent
 
@@ -147,7 +181,8 @@ def test_module_without_device_function_is_not_kernel_eligible():
         with pytest.raises(ValueError, match="not eligible"):
             compiled.fused()
         params = stt.replicate_params(p.params(), 2)
-        audio, _, _ = compiled.render(8, params=params, batched=True)
+        audio, _, _ = compiled.render(8, params=params, batched=True,
+                                      device="cpu")
         assert tuple(audio.shape) == (2, 1, 8)
         assert np.isfinite(audio.numpy()).all()
     finally:

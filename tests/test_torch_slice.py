@@ -171,8 +171,18 @@ def test_import_and_render_without_jax():
         "for m in sys.modules if sys.modules[m] is not None)\n"
         "cfg = stt.AudioConfig(sample_rate=4800, channels=1)\n"
         "p = stt.presets.subtractive_voice(cfg)\n"
-        "audio, _, state = stt.render(p, 64)\n"
+        "audio, _, state = stt.render(p, 64, device='cpu')\n"
         "assert tuple(audio.shape) == (1, 64)\n"
+        "p = stt.presets.sequencer_patch(cfg)\n"
+        "audio, _, _ = stt.render_batch(p, 64, device='cpu',\n"
+        "    params=stt.presets.farm_params(p, 2))\n"
+        "assert tuple(audio.shape) == (2, 1, 64)\n"
+        "cfg = stt.AudioConfig(sample_rate=4800, block_size=16, channels=1,\n"
+        "                      buffer_feedback=True)\n"
+        "p = stt.presets.feedback_patch(cfg)\n"
+        "audio, _, state = stt.render(p, 64, device='cpu')\n"
+        "assert tuple(audio.shape) == (1, 64)\n"
+        "assert all(tuple(f.shape) == (16,) for f in state['fb'].values())\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=300)
@@ -188,10 +198,12 @@ def test_engine_choice_has_no_fallback():
     assert compiled.auto_engine(False, "cuda") == "scan"
     assert compiled.auto_engine(True, "cuda") == "fused"
     params = stt.presets.farm_params(patch, 2)
-    audio, _, _ = compiled.render(16, params=params, batched=True)
+    audio, _, _ = compiled.render(16, params=params, batched=True,
+                                  device="cpu")
     assert tuple(audio.shape) == (2, 1, 16)
     with pytest.raises(ValueError, match="CUDA"):
-        compiled.render(16, params=params, batched=True, engine="fused")
+        compiled.render(16, params=params, batched=True, engine="fused",
+                        device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         compiled.fused().render(params, compiled.init_state(), 16)
     assert compiled.fused().launches == 0
@@ -218,17 +230,17 @@ def test_generated_source_is_deterministic_and_in_plan_order():
 
 def test_unported_module_type_names_the_roadmap():
     p = stt.Patch(stt.AudioConfig(channels=1))
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        p.add("Noise")
+    for type_name in ("Sample", "Freeverb"):
+        with pytest.raises(KeyError, match="ROADMAP.md"):
+            p.add(type_name)
     with pytest.raises(NotImplementedError, match="slice 4"):
         stt.Patch(stt.AudioConfig(channels=1, precision="exact")).add(
             "Oscillator")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        stt.compile_patch(stt.Patch(stt.AudioConfig(buffer_feedback=True)))
-    patch = _port("sine_patch")
-    for kwargs in ({"probes": [(patch.output, 0)]},
-                   {"automation": [("m1", "val")]}):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            stt.compile_patch(patch, **kwargs)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        stt.compile_patch(patch).render(64, segment=32)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        stt.presets.sine_patch(stt.AudioConfig(channels=1,
+                                               precision="exact"))
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        stt.presets.subtractive_voice(
+            stt.AudioConfig(channels=1, precision="exact"))
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        stt.presets.feedback_patch(stt.AudioConfig(precision="exact"))
