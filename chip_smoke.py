@@ -35,10 +35,35 @@ Phases, each reported on its own lines with its seconds:
 8. buffer feedback at full width: stt.render_batch(feedback_patch(cfg with
    buffer_feedback=True, block 1,024), 491520, params=farm_params(patch,
    1024)) -- requires K2's launch count to move, finite audio, peak <=
-   1.002; timed.
+   1.002; timed;
+9. the block engine's main path: stt.render_batch(reverb_patch(cfg),
+   480000, params=farm_params(patch, 1024)), stereo, on the default
+   device -- requires the serial-stage kernel K3, the Freeverb kernel K8
+   and the ring-alignment kernel K9 to launch, finite audio, peak <=
+   1.002; timed, and each kernel timed alone at its shapes there; its
+   warm-up render holds K8 against its plain version on the very inputs
+   the render gives it, [1,024, 480,000];
+10. block_check_patch (mono, automated room_size and wet) the same way,
+   which also requires the row-scan kernel K4 (the VCO's whole-block
+   phase) to launch; its warm-up render holds K8 and each K4 call (int32
+   sum, fills, f32 sum over [1,024, 480,000]) against their plain
+   versions.
 
-Each main path (phases 4, 5, 7, 8) runs with the launch counts set to 0
-just before it and read just after.  Any failure raises and exits
+Phase 2 also builds K3 for the stages of reverb_patch and
+block_check_patch, K4, K8 and K9; phase 3 holds each against its plain
+version at 1,024 voices: K3 (the stage's torch loop) at n = 2048 and 2047,
+K4's kinds on [1,024, 48,000] random rows, K9 on every line length of a
+48 kHz Freeverb (rings to the Freeverb kernel's lines, back, and rings to
+rings), K8 (through its wrapper) at n = 2048 and 2047 and with automated
+room_size and wet, and the whole block engine against the scan engine on
+both patches at n = 2048 (audio within 5e-6, two halves with the state
+carried equal to one render).  Phase 6 times the new kernels, their plain
+versions and, for K4 and K9, the one PyTorch call that computes the same
+function; K8 is timed through its wrapper, as its plain version does the
+same work, and as its launch alone.
+
+Each main path (phases 4, 5, 7, 8, 9, 10) runs with the launch counts set
+to 0 just before it and read just after.  Any failure raises and exits
 non-zero.  The line before the last is a JSON record of the kernels; the
 last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -46,6 +71,8 @@ last line is
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -84,16 +111,26 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, repeats: int = 1) -> float:
-    """Mean device time of ``fn()`` over ``repeats`` runs, in ms."""
+def cuda_ms(fn, repeats: int = 1, warmup: int = 0) -> float:
+    """Mean device time of ``fn()`` over a run of ``repeats`` calls, in ms,
+    after ``warmup`` untimed calls (which leave the caching allocator
+    holding the outputs' memory): CUDA events around the whole run,
+    Python's garbage collector held off inside it."""
+    for _ in range(warmup):
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(repeats):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(repeats):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
     return start.elapsed_time(end) / repeats
 
 
@@ -218,15 +255,17 @@ def phase_build(stt):
             lanes = (ids["gate"], ids["noise"],
                      compiled._auto_key(ids["vco"], "val"))
         kernels[name] = (patch, compiled, compiled.fused(lanes))
+    jobs = {name: k for name, (_, _, k) in kernels.items()}
+    jobs.update(block_kernels(stt))
 
     def build(name):
         t0 = time.perf_counter()
-        kernels[name][2].build()
+        jobs[name].build()
         return name, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        for name, secs in pool.map(build, kernels):
-            kernel = kernels[name][2]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        for name, secs in pool.map(build, jobs):
+            kernel = jobs[name]
             log(f"[2 build] {name} ({kernel.name}): nvcc sm_90a built in "
                 f"{secs:.2f} s; {ptxas(kernel)}")
     return kernels
@@ -320,23 +359,42 @@ def _times(keep: dict) -> dict:
     return out
 
 
-def _timed_main(kernels, render, name):
-    """Warm up, then one render timed with CUDA events, with every
-    kernel's launch count set to 0 just before it and read just after."""
-    audio, _, _ = render()
+def _counters(kernels):
+    """Every kernel wrapper with a launch count: the fused kernels of phase
+    2's cases, the serial-stage kernels and the three fixed sources."""
+    from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+    out = [kernel for _, _, kernel in kernels.values()]
+    return out + list(STAGES.values()) + [ROW_SCAN, FREEVERB, RING_ALIGN]
+
+
+def _timed_main(kernels, render, names, warmup_within=None):
+    """Warm up (inside the context manager ``warmup_within``, if given),
+    then one render timed with CUDA events, with every kernel's launch
+    count set to 0 just before it and read just after.  Every kernel in
+    ``names`` must have launched, and no other.  Returns ``(audio, ms,
+    {name: launches})``."""
+    names = (names,) if isinstance(names, str) else tuple(names)
+    with warmup_within or contextlib.nullcontext():
+        audio, _, _ = render()
     del audio
     torch.cuda.synchronize()
     out = {}
-    for _, _, kernel in kernels.values():
+    counters = _counters(kernels)
+    for kernel in counters:
         kernel.launches = 0
     ms = cuda_ms(lambda: out.update(r=render()))
     counts = {}
-    for _, _, kernel in kernels.values():
+    for kernel in counters:
         counts[kernel.name] = counts.get(kernel.name, 0) + kernel.launches
-    launches = counts.pop(name)
-    check(launches >= 1, f"the main path did not launch {name}")
+    launches = {name: counts.pop(name) for name in names}
+    for name, k in launches.items():
+        check(k >= 1, f"the main path did not launch {name}")
     check(not any(counts.values()),
           f"the main path launched other kernels: {counts}")
+    if len(names) == 1:
+        return out["r"][0], ms, launches[names[0]]
     return out["r"][0], ms, launches
 
 
@@ -384,6 +442,8 @@ def phase_farm(stt, kernels, card):
         "fused_voice")
     peak = _check_audio(audio, (FARM_VOICES, 1, FARM_N), "farm")
     rate = FARM_VOICES * FARM_N / (ms / 1e3)
+    _log_bound("5 farm", "subtractive_voice", kernels["subtractive_voice"],
+               FARM_VOICES, FARM_N, ms)
     log(f"[5 farm] subtractive_voice V={FARM_VOICES} n={FARM_N}: "
         f"{launches} launches; {ms:.3f} ms/render, {rate / 1e9:.4f} G "
         f"samples/s, aggregate real-time {rate / SR:.0f}x, peak "
@@ -436,6 +496,749 @@ def phase_buffer(stt, kernels, card):
     torch.cuda.empty_cache()
     return launches, ms
 
+# -- slice 3a: the block engine and its kernels K3, K4, K8, K9 ---------------
+
+SCAN_ROWS, SCAN_N = 1024, 48000
+BLOCK_ATOL = 5e-6   # block-vs-scan audio (tests/test_block_engine.py)
+SCAN_TOL = {"sum": 2e-4, "affine": 3e-4}  # tests/test_scan_kernel.py
+FV_TOL = 2e-5       # K8 vs its chunked plain version
+# tests/test_freeverb_kernel.py; f32 operations per voice-sample of K8:
+# 16 combs x 6, 8 allpasses x 3, the input gain 2, the stereo mix 10
+FV_OPS = 16 * 6 + 8 * 3 + 2 + 10
+STAGES = {}         # case -> the StageKernel (K3) of its serial stage
+
+
+def _cuda(stt, tree):
+    return stt.compiler.tree_map(lambda a: a.cuda(), tree)
+
+
+def block_cases(stt):
+    """The slice's two patches at 48 kHz, compiled: reverb_patch (stereo)
+    and block_check_patch (mono, with its two automated Freeverb params)."""
+    reverb = stt.presets.reverb_patch(stt.AudioConfig(sample_rate=SR,
+                                                      channels=2))
+    check_patch, autos = stt.presets.block_check_patch(
+        stt.AudioConfig(sample_rate=SR, channels=1))
+    return {"reverb_patch": (reverb, stt.compile_patch(reverb)),
+            "block_check_patch": (check_patch, stt.compile_patch(
+                check_patch, automation=autos))}
+
+
+def block_kernels(stt) -> dict:
+    """The slice's kernels for phase 2's build: K3 for each case's stage
+    (registered in ``STAGES``), K4, K8 and K9."""
+    from srack_tpu_torch.block_engine import wire_key
+    from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+    jobs = {}
+    for name, (_, compiled) in block_cases(stt).items():
+        prog = compiled.block_program()
+        STAGES[name] = prog.stage_kernel([wire_key(w)
+                                          for w in prog.stage_in])
+        jobs[f"{name} stage"] = STAGES[name]
+    jobs.update(row_scan=ROW_SCAN, freeverb=FREEVERB, ring_align=RING_ALIGN)
+    return jobs
+
+
+def _random_state(stt, compiled, v, seed):
+    """The initial state of V voices with every oscillator at a random
+    phase and every Freeverb's lines, write indices and filter states
+    random: the voices sound from the first sample, and K9 rotates."""
+    rng = np.random.default_rng(seed)
+    state = stt.compiler.tree_map(
+        lambda a: a.expand((v,) + a.shape).contiguous(),
+        compiled.init_state())
+    for mid, (mdef, _, _) in compiled.instances.items():
+        sd = state["states"][mid]
+        if mdef.type_name == "Oscillator":
+            sd["pos"] = torch.from_numpy(rng.integers(
+                -2 ** 31, 2 ** 31 - 1, v, dtype=np.int64).astype(np.int32))
+        elif mdef.type_name == "Freeverb":
+            for k in list(sd):
+                if k.endswith("_idx"):
+                    sd[k] = torch.from_numpy(rng.integers(
+                        0, sd[k[:-4]].shape[-1], v).astype(np.int32))
+                else:
+                    sd[k] = torch.from_numpy((rng.standard_normal(
+                        tuple(sd[k].shape)) * 0.05).astype(np.float32))
+    return _cuda(stt, state)
+
+
+def _stage_inputs(stt, name, n, seed):
+    patch, compiled = block_cases(stt)[name]
+    prog = compiled.block_program()
+    from srack_tpu_torch.block_engine import wire_key
+    rng = np.random.default_rng(seed)
+    params = _cuda(stt, stt.presets.farm_params(patch, VOICES))
+    state = _random_state(stt, compiled, VOICES, seed)
+    stage_state = {"states": {m: state["states"][m]
+                              for m in prog.stage_plan},
+                   "fb": state["fb"]}
+    lanes = {wire_key(w): torch.from_numpy(rng.uniform(
+        -1, 1, (VOICES, n)).astype(np.float32)).cuda()
+        for w in prog.stage_in}
+    derived = compiled.derived_params(params)
+    plain_params = {m: derived[m] for m in prog.stage_plan}
+    return prog, params, stage_state, lanes, plain_params
+
+
+def compare_stage(stt, name, n):
+    """K3 against the stage's torch loop, same inputs: stage outputs within
+    1e-5 (expected bit-exact), int32/bool state bit-exact, float state
+    within 1e-5."""
+    t0 = time.perf_counter()
+    prog, params, stage_state, lanes, plain_params = _stage_inputs(
+        stt, name, n, n)
+    kernel = STAGES[name]
+    outs_k, final_k = kernel.run(params, stage_state, lanes, n)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        outs_p, final_p = prog.stage_plain(plain_params, stage_state, lanes,
+                                           n)
+    torch.cuda.synchronize()
+    err, exact = 0.0, True
+    for w in prog.stage_out:
+        check(bool(torch.isfinite(outs_p[w]).all()),
+              f"{name} stage plain version not finite")
+        err = max(err, (outs_k[w] - outs_p[w]).abs().max().item())
+        exact = exact and torch.equal(outs_k[w], outs_p[w])
+    check(err <= ATOL, f"{name} stage n={n}: outputs off by {err}")
+    serr = _state_diff(final_k, final_p, f"{name} stage n={n}")
+    log(f"[3 compare] {name} stage ({kernel.name}, {len(prog.stage_plan)} "
+        f"modules, {len(lanes)} input wires, {len(prog.stage_out)} output "
+        f"wires) V={VOICES} n={n}: max |out| err {err:.3e} (bit-exact: "
+        f"{exact}), max float-state err {serr:.3e}, int32/bool state "
+        f"bit-exact; {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def _scan_inputs():
+    rng = np.random.default_rng(0)
+    shape = (SCAN_ROWS, SCAN_N)
+
+    def dev(a):
+        return torch.from_numpy(a).cuda()
+    return {
+        "xf": dev(rng.standard_normal(shape).astype(np.float32)),
+        "xi": dev(rng.integers(-2 ** 31, 2 ** 31 - 1, shape,
+                               dtype=np.int64).astype(np.int32)),
+        "yf": dev(rng.standard_normal(shape).astype(np.float32)),
+        "mask": dev(rng.uniform(size=shape) < 1e-3),
+        "a": dev(rng.uniform(0.99, 1.0, shape).astype(np.float32)),
+        "b": dev(rng.standard_normal(shape).astype(np.float32)),
+    }
+
+
+def compare_scans():
+    """K4, each kind on [1,024, 48,000] random rows (48 chunks of 1,024 per
+    row, so the carried prefix is used): int32 sum, both maxes and the
+    fills exact (the fills where a value is defined), f32 sum within
+    2e-4 and affine within 3e-4 (abs + rel)."""
+    from srack_tpu_torch.ops import basic
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+    t0 = time.perf_counter()
+    x = _scan_inputs()
+    worst = 0.0
+    cases = [("sum f32", lambda: ROW_SCAN.run("sum", (x["xf"],)),
+              lambda: (basic.cumsum_plain(x["xf"]),), SCAN_TOL["sum"]),
+             ("sum i32", lambda: ROW_SCAN.run("sum", (x["xi"],)),
+              lambda: (basic.cumsum_plain(x["xi"]),), 0),
+             ("max f32", lambda: ROW_SCAN.run("max", (x["xf"],)),
+              lambda: (basic.cummax_plain(x["xf"]),), 0),
+             ("max i32", lambda: ROW_SCAN.run("max", (x["xi"],)),
+              lambda: (basic.cummax_plain(x["xi"]),), 0),
+             ("affine f32", lambda: ROW_SCAN.run("affine", (x["a"], x["b"])),
+              lambda: basic.affine_scan_plain(x["a"], x["b"]),
+              SCAN_TOL["affine"])]
+    for what, kern, plain, tol in cases:
+        got, want = kern(), plain()
+        for g, w in zip(got, want):
+            if tol:
+                d = (g - w).abs()
+                bad = (d > tol + tol * w.abs()).sum().item()
+                check(bad == 0, f"K4 {what}: {bad} elements off")
+                err = d.max().item()
+                worst = max(worst, err)
+            else:
+                check(torch.equal(g, w), f"K4 {what}: not exact")
+                err = 0.0
+        log(f"[3 compare] row_scan {what} [{SCAN_ROWS}, {SCAN_N}]: max abs "
+            f"err {err:.3e} (tolerance "
+            f"{f'{tol} abs + {tol} rel' if tol else 'exact'})")
+    for what, vals in (("fill f32 x2", (x["xf"], x["yf"])),
+                       ("fill i32 x1", (x["xi"],))):
+        got, ok = ROW_SCAN.fill(vals, x["mask"])
+        want, want_ok = basic.forward_fill_multi_plain(vals, x["mask"])
+        check(torch.equal(ok, want_ok), f"K4 {what}: validity differs")
+        for g, w in zip(got, want):
+            check(torch.equal(g[ok], w[ok]), f"K4 {what}: not exact")
+        log(f"[3 compare] row_scan {what} [{SCAN_ROWS}, {SCAN_N}]: exact "
+            f"where a value is defined ({ok.float().mean().item():.4f} of "
+            f"the elements)")
+    log(f"[3 compare] row_scan: {time.perf_counter() - t0:.1f} s")
+    return worst, x
+
+
+def _ring_inputs(stt):
+    """The 24 rings [1,024, L_j] of a 48 kHz Freeverb and their write
+    indices [24, 1,024], random."""
+    from srack_tpu_torch.ops.freeverb_kernel import all_lengths
+    rng = np.random.default_rng(1)
+    lens = all_lengths(stt.AudioConfig(sample_rate=SR))
+    rings = [torch.from_numpy(rng.standard_normal((VOICES, n)).astype(
+        np.float32)).cuda() for n in lens]
+    idx = torch.from_numpy(np.stack([rng.integers(0, n, VOICES)
+                                     for n in lens]).astype(np.int32)).cuda()
+    return lens, rings, idx
+
+
+def ring_to_lines(rings, lens, idx):
+    """K9 as the Freeverb wrapper calls it on entry: the rings in time
+    order, written as [L_j, V] lines.  Returns the lines."""
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN
+    lines = [torch.empty((n, VOICES), device="cuda") for n in lens]
+    RING_ALIGN.move(rings, lines, lens, VOICES, idx=idx, dst_lines=True)
+    return lines
+
+
+def compare_ring(stt):
+    """K9 on every line length of a 48 kHz Freeverb, [1,024, L] each, one
+    launch for all 24 lines: rings to the Freeverb kernel's [L, V] lines
+    with random write indices (the wrapper's entry), lines back to rings
+    with a shift per line (its exit), and rings to rings: exact against
+    the plain gather (and transpose)."""
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN, ring_align_plain
+    lens, rings, idx = _ring_inputs(stt)
+    lines = ring_to_lines(rings, lens, idx)
+    for j, (line, r) in enumerate(zip(lines, rings)):
+        check(torch.equal(line, ring_align_plain(r, idx[j]).T),
+              f"K9 rings -> lines differs from its plain version, line {j}")
+    shifts = [int(s) for s in np.random.default_rng(2).integers(0, 5000, 24)]
+    back = [torch.empty_like(r) for r in rings]
+    RING_ALIGN.move(lines, back, lens, VOICES, shifts=shifts, src_lines=True)
+    for j, (b, line, s) in enumerate(zip(back, lines, shifts)):
+        check(torch.equal(b, ring_align_plain(
+            line.T, torch.full((VOICES,), s, device="cuda"))),
+            f"K9 lines -> rings differs from its plain version, line {j}")
+    RING_ALIGN.move(rings, back, lens, VOICES, idx=idx)
+    for j, (b, r) in enumerate(zip(back, rings)):
+        check(torch.equal(b, ring_align_plain(r, idx[j])),
+              f"K9 rings -> rings differs from its plain version, line {j}")
+    log(f"[3 compare] ring_align: 24 lines x {VOICES} voices, lengths "
+        f"{min(lens)}..{max(lens)}, rings -> lines, lines -> rings, rings "
+        f"-> rings: exact")
+    return 0.0
+
+
+def _freeverb_inputs(stt, n, automated, seed):
+    from srack_tpu_torch.modules import freeverb as fv
+    cfg = stt.AudioConfig(sample_rate=SR, channels=2)
+    rng = np.random.default_rng(seed)
+    v = VOICES
+    state = {}
+    for k, length in zip(fv.LINE_KEYS, sum(fv.line_lengths(SR), ())):
+        state[k] = (rng.standard_normal((v, length)) * 0.1).astype(
+            np.float32)
+        state[f"{k}_idx"] = rng.integers(0, length, v).astype(np.int32)
+    for k in fv.FS_KEYS:
+        state[k] = (rng.standard_normal(v) * 0.1).astype(np.float32)
+    _, p0 = fv.FREEVERB.make(cfg, room_size=0.7, dampening=0.4, wet=0.3,
+                             dry=0.2)
+    params = {k: a.expand(v).clone().numpy() for k, a in p0.items()}
+    params["room_size"] = rng.uniform(0.3, 0.9, v).astype(np.float32)
+    if automated:
+        params["room_size"] = rng.uniform(0.3, 0.9, (v, n)).astype(
+            np.float32)
+        params["wet"] = rng.uniform(0.1, 0.5, (v, n)).astype(np.float32)
+    lanes = [(rng.standard_normal((v, n)) * 0.3).astype(np.float32)
+             for _ in range(2)]
+
+    def dev(tree):
+        return {k: torch.from_numpy(a).cuda() for k, a in tree.items()}
+    return (cfg, fv.block_gains(dev(params), v), dev(state),
+            *[torch.from_numpy(a).cuda() for a in lanes])
+
+
+def compare_freeverb(stt, n, automated):
+    """K8 through its wrapper (K9 on entry and exit) against the chunked
+    plain version, from random rings with non-zero write indices and
+    random filter states: audio, final filter states and lines (both in
+    time order, write index 0) within 2e-5 (abs + rel)."""
+    from srack_tpu_torch.modules import freeverb as fv
+    from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    t0 = time.perf_counter()
+    cfg, gains, state, l_in, r_in = _freeverb_inputs(stt, n, automated, n)
+    st_k, outs_k = FREEVERB.render(cfg, l_in, r_in, False, gains, state, n)
+    torch.cuda.synchronize()
+    st_p, outs_p = fv.block_plain(l_in, r_in, gains, state, n)
+    torch.cuda.synchronize()
+    err = 0.0
+    pairs = list(zip(outs_k, outs_p)) + [(st_k[k], st_p[k]) for k in st_p]
+    for g, w in pairs:
+        if w.dtype == torch.int32:
+            check(torch.equal(g, w), "K8: write indices differ")
+            continue
+        d = (g - w).abs()
+        check(bool((d <= FV_TOL + FV_TOL * w.abs()).all()),
+              f"K8 n={n}: off by {d.max().item()}")
+        err = max(err, d.max().item())
+    log(f"[3 compare] freeverb V={VOICES} n={n}"
+        f"{' automated room_size and wet' if automated else ''}: max abs "
+        f"err {err:.3e} (audio, 16 filter states, 24 lines); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def _canonical(stt, compiled, state):
+    """A state with every Freeverb ring in time order (write index 0), so
+    that the scan engine's rings and the block engine's compare."""
+    from srack_tpu_torch.modules.freeverb import LINE_KEYS
+    from srack_tpu_torch.ops.ring_roll import ring_align_plain
+    out = {"states": {}, "fb": state["fb"]}
+    for mid, sd in state["states"].items():
+        sd = dict(sd)
+        if compiled.instances[mid][0].type_name == "Freeverb":
+            for k in LINE_KEYS:
+                sd[k] = ring_align_plain(sd[k], sd[f"{k}_idx"])
+                sd[f"{k}_idx"] = torch.zeros_like(sd[f"{k}_idx"])
+        out["states"][mid] = sd
+    return out
+
+
+def compare_block_engine(stt, name, n, voices):
+    """The whole block engine (K3, K8, K9 and, for block_check_patch, K4)
+    against the scan engine on the card, from a random state: audio within
+    5e-6; a render in two halves with the state carried equals one render
+    within 5e-6 (tests/test_block_engine.py's continuity check); the
+    final states agree (rings in time order): int32/bool exact but the
+    Sync edge state of an oscillator whose Sync is unconnected (the step
+    writes False, the block form keeps it; it is never read), the float
+    phase shadow pos_g within rtol 1e-4 (an f32 sum in another order), other
+    float state within 1e-5."""
+    t0 = time.perf_counter()
+    patch, compiled = block_cases(stt)[name]
+    params = _cuda(stt, stt.presets.farm_params(patch, voices))
+    state = _random_state(stt, compiled, voices, 7)
+    audio_b, _, final_b = compiled.render(n, params=params, state=state,
+                                          batched=True, engine="block",
+                                          device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        audio_s, final_s = compiled.render_scan(params, state, n,
+                                                batched=True, nograd=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(bool(torch.isfinite(audio_s).all()), f"{name}: scan not finite")
+    err = (audio_b - audio_s).abs().max().item()
+    check(err <= BLOCK_ATOL, f"{name} block vs scan: audio off by {err}")
+    half = n // 2
+    a1, _, s1 = compiled.render(half, params=params, state=state,
+                                batched=True, engine="block", device="cuda")
+    a2, _, _ = compiled.render(n - half, params=params, state=s1,
+                               batched=True, engine="block", device="cuda")
+    cont = (torch.cat([a1, a2], dim=-1) - audio_b).abs().max().item()
+    check(cont <= BLOCK_ATOL, f"{name}: halves off one render by {cont}")
+    got, want = (_canonical(stt, compiled, final_b),
+                 _canonical(stt, compiled, final_s))
+    serr = 0.0
+    for mid, sd in want["states"].items():
+        mdef, _, inputs = compiled.instances[mid]
+        for k, w in sd.items():
+            g = got["states"][mid][k]
+            where = f"{name} state {mid}.{k}"
+            check(g.shape == w.shape and g.dtype == w.dtype, where)
+            if w.dtype in (torch.int32, torch.bool):
+                if k == "sync_last" and inputs[1] is None:
+                    continue
+                check(torch.equal(g, w), f"{where}: not exact")
+            elif k == "pos_g":
+                d = (g - w).abs()
+                check(bool((d <= 1e-4 * w.abs() + 1e-6).all()),
+                      f"{where}: off by {d.max().item()}")
+            else:
+                d = (g - w).abs().max().item() if w.numel() else 0.0
+                check(d <= ATOL, f"{where}: off by {d}")
+                serr = max(serr, d)
+    log(f"[3 compare] {name} block engine vs scan engine V={voices} n={n}: "
+        f"max |audio| err {err:.3e} (bit-exact: "
+        f"{torch.equal(audio_b, audio_s)}), halves vs one render "
+        f"{cont:.3e}, max float-state err {serr:.3e} (pos_g within rtol "
+        f"1e-4); block {t1 - t0:.1f} s, scan {t2 - t1:.1f} s, "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    return err
+
+
+def phase_compare_block(stt):
+    """Phase 3 for the slice's kernels; returns the largest error of each
+    and what the timing needs."""
+    errs = {}
+    errs["serial_stage"] = max(compare_stage(stt, name, n)
+                               for name in STAGES for n in CHECK_NS)
+    errs["row_scan"], scan_x = compare_scans()
+    errs["ring_align"] = compare_ring(stt)
+    errs["freeverb"] = max(compare_freeverb(stt, n, False)
+                           for n in CHECK_NS)
+    errs["freeverb"] = max(errs["freeverb"],
+                           compare_freeverb(stt, CHECK_NS[0], True))
+    for name in STAGES:
+        compare_block_engine(stt, name, CHECK_NS[0], VOICES)
+    return errs, scan_x
+
+
+def stage_bound(compiled, kernel, v, n):
+    """K3's bound for one run: params and state in, state out, input and
+    output wires; the stage modules' f32 operations."""
+    lay = kernel.layout
+    rows = lay.n_pf + lay.n_pi + 2 * (lay.n_sf + lay.n_si)
+    wires = len(kernel.lanes) + len(kernel.program.stage_out)
+    nbytes = 4 * v * (rows + wires * n)
+    ops = sum(module_ops(compiled, m) for m in kernel.program.stage_plan) \
+        * v * n
+    return _bound(nbytes, ops)
+
+
+def _bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return 1e3 * max(t_bytes, t_ops), by, nbytes, ops
+
+
+def freeverb_bound(lens, v, n, lanes_in, lanes_out):
+    """K8's bound for one render: its input and output lanes, the lines
+    and filter states in and out, once each; FV_OPS per voice-sample."""
+    nbytes = 4 * v * ((lanes_in + lanes_out) * n + 2 * (sum(lens) + 16))
+    return _bound(nbytes, FV_OPS * v * n)
+
+
+def k8_call(cfg, l_in, r_in, gains, fs, lines, n, skip_r=False):
+    """K8's launch with its operands made once, for timing the kernel
+    without the wrapper's per-call host work.  Returns ``(call, keep)``:
+    ``keep`` holds the tensors the launch points into."""
+    from srack_tpu_torch.ops import freeverb_kernel as fvk
+    tables = fvk.line_tables(fvk.all_lengths(cfg), fs.device)
+    args, keep, _, _ = fvk.operands(cfg, l_in, r_in, gains, fs, lines, n,
+                                    skip_r, tables)
+    return (lambda: fvk.FREEVERB.launch("srk_freeverb", fvk.ARGTYPES, args,
+                                        fs.device), keep)
+
+
+def block_times(stt, scan_x):
+    """The slice's kernels and their plain versions (and, where one
+    PyTorch call computes the same function, that call) at phase 3's
+    shapes."""
+    from srack_tpu_torch.modules import freeverb as fv
+    from srack_tpu_torch.ops import basic
+    from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops.ring_roll import ring_align_plain
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+    out = {}
+    n = CHECK_NS[0]
+    name = "reverb_patch"
+    prog, params, stage_state, lanes, plain_params = _stage_inputs(
+        stt, name, n, n)
+    kernel = STAGES[name]
+    k_ms = cuda_ms(lambda: kernel.run(params, stage_state, lanes, n),
+                   repeats=20)
+    with torch.no_grad():
+        p_ms = cuda_ms(lambda: prog.stage_plain(plain_params, stage_state,
+                                                lanes, n))
+    out["serial_stage"] = (k_ms, p_ms, None,
+                           stage_bound(prog.compiled, kernel, VOICES, n),
+                           f"{name} stage V={VOICES} n={n}")
+    xf = scan_x["xf"]
+    out["row_scan"] = (
+        cuda_ms(lambda: ROW_SCAN.run("sum", (xf,)), repeats=20),
+        cuda_ms(lambda: basic.cumsum_plain(xf), repeats=3),
+        cuda_ms(lambda: torch.cumsum(xf, dim=-1), repeats=20),
+        _bound(8 * xf.numel(), xf.numel()),
+        f"f32 sum [{SCAN_ROWS}, {SCAN_N}] (library: torch.cumsum)")
+    lens, rings, idx = _ring_inputs(stt)
+    # out[i, v] = ring[v, (idx[v] + i) % L]: one gather of the transposed
+    # ring per line
+    gidx = [((idx[j].to(torch.int64)
+              + torch.arange(length, device="cuda").unsqueeze(-1)) % length)
+            for j, length in enumerate(lens)]
+    out["ring_align"] = (
+        cuda_ms(lambda: ring_to_lines(rings, lens, idx), repeats=20,
+                warmup=1),
+        cuda_ms(lambda: [ring_align_plain(r, idx[j]).T.contiguous()
+                         for j, r in enumerate(rings)], repeats=5),
+        cuda_ms(lambda: [torch.gather(r.T, 0, g)
+                         for r, g in zip(rings, gidx)], repeats=20),
+        _bound(8 * VOICES * sum(lens) + 4 * idx.numel(), 0),
+        f"24 lines x {VOICES} voices, rings -> lines (library: "
+        f"torch.gather)")
+    cfg, gains, state, l_in, r_in = _freeverb_inputs(stt, n, False, n)
+    lines = torch.cat([state[k].T for k in fv.LINE_KEYS]).contiguous()
+    fs = torch.stack([state[k] for k in fv.FS_KEYS], dim=1).contiguous()
+    call, keep = k8_call(cfg, l_in, r_in, gains, fs, lines, n)
+    launch_ms = cuda_ms(call, repeats=20, warmup=1)
+    # the wrapper and the plain version do the same work: both take the
+    # rings with their write indices and return them in time order
+    out["freeverb"] = (
+        cuda_ms(lambda: FREEVERB.render(cfg, l_in, r_in, False, gains,
+                                        state, n), repeats=20, warmup=1),
+        cuda_ms(lambda: fv.block_plain(l_in, r_in, gains, state, n),
+                repeats=3),
+        None, freeverb_bound(lens, VOICES, n, 2, 2),
+        f"V={VOICES} n={n}, stereo in, the wrapper (K9 in, K8, K9 out)")
+    log(f"[6 plain] freeverb V={VOICES} n={n}: K8's launch alone "
+        f"{launch_ms:.3f} ms, the wrapper {out['freeverb'][0]:.3f} ms")
+    return out, launch_ms
+
+
+def _split(stt, name, patch, params, n, automation, total_ms, card):
+    """Each kernel of one full-width block render timed alone at its
+    shapes there: K3 on the stage, K9 (one launch, the wrapper makes two),
+    K8, and the rest (block phases, transposes, the wrapper) as the
+    difference."""
+    from srack_tpu_torch.block_engine import wire_key
+    from srack_tpu_torch.modules import freeverb as fv
+    from srack_tpu_torch.ops.freeverb_kernel import all_lengths
+    compiled = block_cases(stt)[name][1]
+    prog = compiled.block_program()
+    kernel = STAGES[name]
+    p = _cuda(stt, params)
+    state = _cuda(stt, stt.compiler.tree_map(
+        lambda a: a.expand((VOICES,) + a.shape).contiguous(),
+        compiled.init_state()))
+    stage_state = {"states": {m: state["states"][m]
+                              for m in prog.stage_plan}, "fb": state["fb"]}
+    lanes = {wire_key(w): torch.zeros((VOICES, n), device="cuda")
+             for w in prog.stage_in}
+    k3_ms = cuda_ms(lambda: kernel.run(p, stage_state, lanes, n), warmup=1)
+    lanes.clear()
+    verb = next(m for m in compiled.plan
+                if compiled.instances[m][0].type_name == "Freeverb")
+    lens = all_lengths(compiled.cfg)
+    sd = state["states"][verb]
+    rings = [sd[k] for k in fv.LINE_KEYS]
+    idx = torch.zeros((24, VOICES), dtype=torch.int32, device="cuda")
+    k9_ms = cuda_ms(lambda: ring_to_lines(rings, lens, idx), repeats=20,
+                    warmup=1)
+    pv = dict(p[verb])
+    for (mid, pname), lane in (automation or {}).items():
+        pv[pname] = lane
+    gains = fv.block_gains(pv, VOICES)
+    lines = torch.cat(ring_to_lines(rings, lens, idx))
+    fs = torch.stack([sd[k] for k in fv.FS_KEYS], dim=1).contiguous()
+    lane = torch.zeros((VOICES, n), device="cuda")
+    call, keep = k8_call(compiled.cfg, lane, lane, gains, fs, lines, n,
+                         not prog._outs_used.get(verb, (True, True))[1])
+    k8_ms = cuda_ms(call, warmup=1)
+    del lane, lines, call, keep
+    torch.cuda.empty_cache()
+    out = {"serial_stage": k3_ms, "ring_align": k9_ms, "freeverb": k8_ms}
+    # K8 reads one lane in both patches (reverb_patch is mono in: the VCA
+    # feeds Left and Right) and writes one or two
+    right = 2 if prog._outs_used.get(verb, (True, True))[1] else 1
+    bounds = {"serial_stage": stage_bound(compiled, kernel, VOICES, n),
+              "ring_align": _bound(8 * VOICES * sum(lens) + 4 * 24 * VOICES,
+                                   0),
+              "freeverb": freeverb_bound(lens, VOICES, n, 1, right)}
+    if name == "block_check_patch":
+        from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+        x = torch.ones((VOICES, n), dtype=torch.int32, device="cuda")
+        out["row_scan"] = cuda_ms(lambda: ROW_SCAN.run("sum", (x,)),
+                                  warmup=1)
+        bounds["row_scan"] = _bound(8 * x.numel(), x.numel())
+        del x
+        torch.cuda.empty_cache()
+    for k, (b_ms, b_by, nbytes, ops) in bounds.items():
+        log(f"[bound] {k} in {name} V={VOICES} n={n}: {nbytes} bytes, {ops} "
+            f"f32 operations -> {b_ms:.4f} ms ({b_by}); alone it takes "
+            f"{out[k]:.3f} ms, {out[k] / b_ms:.1f}x its bound")
+    rest = total_ms - k3_ms - 2 * k9_ms - k8_ms
+    log(f"[split] {name} V={VOICES} n={n}: K3 {k3_ms:.3f} ms, K9 "
+        f"{k9_ms:.3f} ms x 2, K8 {k8_ms:.3f} ms, the rest (block phases, "
+        f"K4, transposes, wrappers) {rest:.3f} ms of {total_ms:.3f} "
+        + (f"(K4 alone: {out['row_scan']:.3f} ms per i32 sum over [{VOICES}, "
+           f"{n}]) " if "row_scan" in out else "") + f"[{card}]")
+
+
+def _held(pairs, tol, what) -> float:
+    """Kernel results against their plain versions: int32 and bool exact,
+    floats within ``tol`` abs + ``tol`` rel (``tol`` 0: exact); ``pairs``
+    of ``(got, want, where)``, ``where`` a bool mask of the elements that
+    are defined or None.  Returns the largest float difference."""
+    worst = 0.0
+    for got, want, where in pairs:
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{what}: {tuple(got.shape)} {got.dtype} vs "
+              f"{tuple(want.shape)} {want.dtype}")
+        if where is not None:
+            got = torch.where(where, got, torch.zeros_like(got))
+            want = torch.where(where, want, torch.zeros_like(want))
+        if tol == 0 or not want.dtype.is_floating_point:
+            check(torch.equal(got, want), f"{what}: not exact")
+            continue
+        d = (got - want).abs()
+        bad = (d > tol + tol * want.abs()).sum().item()
+        check(bad == 0, f"{what}: {bad} elements off, the largest by "
+              f"{d.max().item()}")
+        worst = max(worst, d.max().item())
+        del d
+    return worst
+
+
+@contextlib.contextmanager
+def held_against_plain(found: dict):
+    """While open, each call of K8's wrapper and of K4's two entries also
+    runs its plain version on the very inputs the main path gave it and
+    holds its result to it: K8 (block_plain) audio, filter states and
+    lines within 2e-5 abs + rel, write indices exact; K4 (the log-doubling
+    forms) int32 sums, maxes and fills exact (fills where a value is
+    defined), f32 sum within 2e-4 and affine within 3e-4 abs + rel.
+    ``found[kernel]`` gathers ``(what, shape, max abs err, plain s)``."""
+    from srack_tpu_torch.modules import freeverb as fv
+    from srack_tpu_torch.ops import basic
+    from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+
+    def render(cfg, l_in, r_in, mono, gains, state, n, skip_r=False):
+        new_state, outs = k8_render(cfg, l_in, r_in, mono, gains, state,
+                                    n, skip_r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, device = state["cl0"].shape[0], state["cl0"].device
+        left = basic.block_lane(l_in, v, n, device=device)
+        right = left if mono else basic.block_lane(r_in, v, n, device=device)
+        want_state, want = fv.block_plain(left, right, gains, state, n)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        pairs = [(outs[0], want[0], None)]
+        if not skip_r:
+            pairs.append((outs[1], want[1], None))
+        pairs += [(new_state[k], w, None) for k, w in want_state.items()]
+        err = _held(pairs, FV_TOL, f"K8 at [{v}, {n}]")
+        found.setdefault("freeverb", []).append(
+            ("audio, 16 filter states, 24 lines", (v, n), err, secs))
+        return new_state, outs
+
+    def run(kind, arrs):
+        got = scan_run(kind, arrs)
+        t0 = time.perf_counter()
+        if kind == "affine":
+            want = basic.affine_scan_plain(*arrs)
+        else:
+            want = ((basic.cumsum_plain if kind == "sum"
+                     else basic.cummax_plain)(arrs[0]),)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        exact = kind == "max" or arrs[0].dtype == torch.int32
+        what = f"{kind} {str(arrs[0].dtype)[6:]}"
+        err = _held([(g, w, None) for g, w in zip(got, want)],
+                    0 if exact else SCAN_TOL[kind], f"K4 {what}")
+        found.setdefault("row_scan", []).append(
+            (what, tuple(arrs[0].shape), err, secs))
+        return got
+
+    def fill(values, mask):
+        got, ok = scan_fill(values, mask)
+        t0 = time.perf_counter()
+        want, want_ok = basic.forward_fill_multi_plain(tuple(values), mask)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        what = f"fill {str(values[0].dtype)[6:]} x{len(values)}"
+        _held([(ok, want_ok, None)] + [(g, w, ok) for g, w in zip(got, want)],
+              0, f"K4 {what}")
+        found.setdefault("row_scan", []).append(
+            (what, tuple(mask.shape), 0.0, secs))
+        return got, ok
+
+    k8_render = FREEVERB.render
+    scan_run, scan_fill = ROW_SCAN.run, ROW_SCAN.fill
+    FREEVERB.render, ROW_SCAN.run, ROW_SCAN.fill = render, run, fill
+    try:
+        yield found
+    finally:
+        del FREEVERB.render, ROW_SCAN.run, ROW_SCAN.fill
+
+
+def _log_held(phase, found, card) -> dict:
+    """Log what :func:`held_against_plain` found; returns the largest error
+    of each kernel."""
+    errs = {}
+    for name, rows in found.items():
+        for what, shape, err, secs in rows:
+            log(f"[{phase}] {name} {what} at the main path's shape "
+                f"{list(shape)} against its plain version: max abs err "
+                f"{err:.3e} (plain version {secs:.1f} s) [{card}]")
+            errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def phase_reverb(stt, kernels, card):
+    """The slice's main path: reverb_patch, 1,024 voices x 10 s, stereo,
+    through render_batch on the default device.  The warm-up render holds
+    K8 against its plain version at the shapes it gets there."""
+    patch = stt.presets.reverb_patch(stt.AudioConfig(sample_rate=SR,
+                                                     channels=2))
+    params = stt.presets.farm_params(patch, VOICES)
+    found = {}
+    audio, ms, launches = _timed_main(
+        kernels, lambda: stt.render_batch(patch, HEADLINE_N, params=params),
+        ("serial_stage", "freeverb", "ring_align"),
+        held_against_plain(found))
+    check("freeverb" in found, "the reverb render did not call K8's wrapper")
+    held = _log_held("9 reverb", found, card)
+    check(audio.device.type == "cuda", "render_batch did not default to "
+          "the card")
+    peak = _check_audio(audio, (VOICES, 2, HEADLINE_N), "reverb")
+    del audio
+    torch.cuda.empty_cache()
+    rate = VOICES * HEADLINE_N / (ms / 1e3)
+    _split(stt, "reverb_patch", patch, params, HEADLINE_N, None, ms, card)
+    log(f"[9 reverb] reverb_patch V={VOICES} n={HEADLINE_N} stereo via "
+        f"render_batch -> block engine, launches {launches}; {ms:.3f} "
+        f"ms/render, {rate / 1e9:.4f} G samples/s, aggregate real-time "
+        f"{rate / SR:.0f}x, peak {peak:.5f} [{card}]")
+    return launches, held
+
+
+def block_check_automation(stt, patch, n, seed=3):
+    """block_check_patch's automation lanes on the card: room_size in
+    [0.5, 0.8] and wet in [0.05, 0.15], per voice and sample."""
+    rng = np.random.default_rng(seed)
+    verb = next(i.id for i in patch if i.name == "verb")
+    return {(verb, "room_size"): torch.from_numpy(rng.uniform(
+                0.5, 0.8, (VOICES, n)).astype(np.float32)).cuda(),
+            (verb, "wet"): torch.from_numpy(rng.uniform(
+                0.05, 0.15, (VOICES, n)).astype(np.float32)).cuda()}
+
+
+def phase_block_check(stt, kernels, card):
+    """block_check_patch (mono), 1,024 voices x 10 s, with its two
+    automation lanes, through render_batch on the default device.  The
+    warm-up render holds K8 and K4 against their plain versions at the
+    shapes they get there."""
+    patch, _ = stt.presets.block_check_patch(
+        stt.AudioConfig(sample_rate=SR, channels=1))
+    params = stt.presets.farm_params(patch, VOICES)
+    automation = block_check_automation(stt, patch, HEADLINE_N)
+    found = {}
+    audio, ms, launches = _timed_main(
+        kernels, lambda: stt.render_batch(patch, HEADLINE_N, params=params,
+                                          automation=automation),
+        ("row_scan", "serial_stage", "freeverb", "ring_align"),
+        held_against_plain(found))
+    check(set(found) == {"freeverb", "row_scan"},
+          f"the block check render called the wrappers of {sorted(found)}")
+    held = _log_held("10 block check", found, card)
+    peak = _check_audio(audio, (VOICES, 1, HEADLINE_N), "block check")
+    del audio
+    torch.cuda.empty_cache()
+    rate = VOICES * HEADLINE_N / (ms / 1e3)
+    _split(stt, "block_check_patch", patch, params, HEADLINE_N, automation,
+           ms, card)
+    log(f"[10 block check] block_check_patch V={VOICES} n={HEADLINE_N} "
+        f"mono, 2 automation lanes, via render_batch -> block engine, "
+        f"launches {launches}; {ms:.3f} ms/render, {rate / 1e9:.4f} G "
+        f"samples/s, peak {peak:.5f} [{card}]")
+    return launches, held
+
 
 def main() -> int:
     card = phase_device()
@@ -446,6 +1249,8 @@ def main() -> int:
     log(f"[2 build] all kernels built in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     errs, keep = phase_compare(stt, kernels)
+    block_errs, scan_x = phase_compare_block(stt)
+    errs.update(block_errs)
     log(f"[3 compare] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     main_launches, _ = phase_main(stt, kernels, card,
@@ -461,6 +1266,13 @@ def main() -> int:
         log(f"[6 plain] {name} V={VOICES} n={k['n']}: plain version (scan "
             f"engine) {plain_ms:.3f} ms, kernel {kernel_ms:.3f} ms (mean "
             f"of 5) [{card}]")
+    btimes, k8_launch_ms = block_times(stt, scan_x)
+    del scan_x
+    torch.cuda.empty_cache()
+    for name, (kernel_ms, plain_ms, lib_ms, _, shape) in btimes.items():
+        lib = "" if lib_ms is None else f", library call {lib_ms:.3f} ms"
+        log(f"[6 plain] {name} {shape}: plain version {plain_ms:.3f} ms, "
+            f"kernel {kernel_ms:.3f} ms{lib} [{card}]")
     log(f"[6 plain] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     seq_launches, _ = phase_sequencer(stt, kernels, card)
@@ -468,6 +1280,15 @@ def main() -> int:
     t0 = time.perf_counter()
     buf_launches, _ = phase_buffer(stt, kernels, card)
     log(f"[8 buffer] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rev_launches, rev_held = phase_reverb(stt, kernels, card)
+    log(f"[9 reverb] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    chk_launches, chk_held = phase_block_check(stt, kernels, card)
+    log(f"[10 block check] {time.perf_counter() - t0:.1f} s")
+    for held in (rev_held, chk_held):  # the full-width comparisons
+        for name, err in held.items():
+            errs[name] = max(errs[name], err)
 
     entries = []
     meta = {
@@ -499,6 +1320,49 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": None,
         })
+    sources = {
+        "serial_stage": ("srack_tpu_torch/ops/fused.py",
+                         "srack_tpu/ops/serial_kernel.py:65",
+                         rev_launches["serial_stage"],
+                         {"9 reverb": rev_launches["serial_stage"],
+                          "10 block check": chk_launches["serial_stage"]}),
+        "row_scan": ("srack_tpu_torch/csrc/row_scan.cu",
+                     "srack_tpu/ops/scan_kernel.py:138",
+                     chk_launches["row_scan"],
+                     {"10 block check": chk_launches["row_scan"]}),
+        "freeverb": ("srack_tpu_torch/csrc/freeverb.cu",
+                     "srack_tpu/ops/freeverb_kernel.py:100",
+                     rev_launches["freeverb"],
+                     {"9 reverb": rev_launches["freeverb"],
+                      "10 block check": chk_launches["freeverb"]}),
+        "ring_align": ("srack_tpu_torch/csrc/ring_align.cu",
+                       "srack_tpu/ops/ring_roll.py:61",
+                       rev_launches["ring_align"],
+                       {"9 reverb": rev_launches["ring_align"],
+                        "10 block check": chk_launches["ring_align"]}),
+    }
+    for name, (source, replaces, launches, by_phase) in sources.items():
+        kernel_ms, plain_ms, lib_ms, (b_ms, b_by, nbytes, ops), shape = \
+            btimes[name]
+        log(f"[bound] {name} {shape}: {nbytes} bytes, {ops} f32 operations "
+            f"-> {b_ms:.4f} ms ({b_by}); the kernel takes "
+            f"{kernel_ms / b_ms:.1f}x its bound")
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches,
+            "launches_by_phase": by_phase,
+            "max_abs_err": errs[name],
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib_ms,
+        })
+        if name == "freeverb":
+            entries[-1]["launch_ms"] = k8_launch_ms
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,486 @@
+"""Stage-partition block engine (counterpart: ``srack_tpu/block_engine.py``).
+
+The scan engine and the fused kernels walk the whole plan once per sample.
+This engine shrinks the per-sample region to what needs it:
+
+1. **Classify.**  A module is *serial* if its recurrence has no parallel
+   form here (``SERIAL_TYPES``: the Moog ladder, the ADSR), if an
+   automated param of it is not one its block form takes as a lane, if it
+   sits on a feedback cycle, or if it has state but no whole-block form.
+   Everything else is block-capable: elementwise (VCA, Mixer, math,
+   Output, ...), a prefix scan (the Oscillator's phase) or chunk-parallel
+   (the Freeverb's delay lines).
+2. **Partition.**  The serial *stage* is the serial set plus the modules
+   sandwiched between serial ones; ``pre`` is what the stage depends on,
+   ``post`` the rest.  A patch with no serial core seeds a stage from the
+   kernel-safe ancestors of its other modules, and a stage of kernel-safe
+   modules absorbs its kernel-safe neighbours (the same rules, in the same
+   order, as the JAX package, so both partition a patch alike).
+3. **Execute.**  ``pre`` and ``post`` run module by module over whole
+   ``[V, n]`` rows (``ModuleDef.block``, or the step applied to whole
+   rows); the stage runs sample by sample over its input wires: kernel K3
+   (``ops/fused.py::StageKernel``) for CUDA tensors, its plain version, a
+   torch loop over :meth:`BlockProgram._stage_step`, for CPU tensors.
+
+Wires are ``[V, n]`` tensors, one row per voice; there is no ``vmap``.
+Per-voice params are ``[V]`` (``[V, *rest]`` for vectors) and an automated
+param's lane ``[V, n]``; a module without a block form sees its params as
+``[V, 1, *rest]`` columns so that its step broadcasts over the rows.
+
+Not yet ported (ROADMAP.md, slice 3b): buffer-feedback mode
+(``block_engine.py:576-744``) and the whole-block forms of the Grid and
+Pattern sequencers and of the Sample player; a patch that needs them
+raises ``NotImplementedError`` here rather than being partitioned unlike
+the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .compiler import _like, _probe_key, tree_leaves
+from .config import AudioConfig
+from .modules.base import CV_DTYPE
+
+# module types the block engine runs per sample in the serial stage
+SERIAL_TYPES = frozenset({"Moog Filter", "ADSR"})
+
+# types whose JAX counterpart has a whole-block form that the port lacks yet
+BLOCK_FORM_TODO = frozenset({"Grid Sequencer", "Pattern Sequencer",
+                             "Sample"})
+
+
+def kernel_safe(mdef) -> bool:
+    """Can kernels K1 and K3 run this type?  (It names a device function;
+    the counterpart of the JAX package's ``PALLAS_SAFE`` set and
+    ``register_safe`` flag.)"""
+    return mdef.cuda_fn is not None
+
+
+def _sccs(nodes, deps):
+    """Tarjan strongly-connected components (iterative)."""
+    index, low, on_stack, stack, result = {}, {}, set(), [], []
+    counter = 0
+    for start in nodes:
+        if start in index:
+            continue
+        work = [(start, 0)]
+        while work:
+            node, pi = work[-1]
+            if pi == 0:
+                index[node] = low[node] = counter
+                counter += 1
+                stack.append(node)
+                on_stack.add(node)
+            recurse = False
+            succs = deps[node]
+            for i in range(pi, len(succs)):
+                s = succs[i]
+                if s not in index:
+                    work[-1] = (node, i + 1)
+                    work.append((s, 0))
+                    recurse = True
+                    break
+                if s in on_stack:
+                    low[node] = min(low[node], index[s])
+            if recurse:
+                continue
+            work.pop()
+            if low[node] == index[node]:
+                comp = []
+                while True:
+                    w = stack.pop()
+                    on_stack.discard(w)
+                    comp.append(w)
+                    if w == node:
+                        break
+                result.append(comp)
+            if work:
+                parent = work[-1][0]
+                low[parent] = min(low[parent], low[node])
+    return result
+
+
+def wire_key(w) -> str:
+    """A stage lane's key for a wire ``(src, port)``."""
+    return f"{w[0]}#{w[1]}"
+
+
+def _eval_key(key: str):
+    """A stage lane key -> the ``_stage_step`` value key: a wire ``(src,
+    port)``, ``("auto", mid, param)`` or ``("x", mid)``."""
+    if "#" in key:
+        mid, port = key.rsplit("#", 1)
+        return (mid, int(port))
+    if "~" in key:
+        mid, p = key.rsplit("~", 1)
+        return ("auto", mid, p)
+    return ("x", key)
+
+
+class BlockProgram:
+    """The partitioned execution plan of one compiled patch."""
+
+    def __init__(self, compiled):
+        self.compiled = compiled
+        self.cfg: AudioConfig = compiled.cfg
+        insts = compiled.instances
+        plan = compiled.plan
+        plan_pos = compiled.plan_pos
+        todo = sorted({m[0].type_name for m in insts.values()}
+                      & BLOCK_FORM_TODO)
+        if todo:
+            raise NotImplementedError(
+                f"the block engine of srack_tpu_torch has no whole-block "
+                f"form for {todo} yet: slice 3b of the port (ROADMAP.md); "
+                f"use engine='fused' or 'scan'")
+        # buffer-feedback mode: a feedback edge carries a whole block-delayed
+        # lane and is no dependency within a block
+        self.buffer_mode = self.cfg.buffer_feedback
+
+        def is_fb(conn, mid):
+            return plan_pos[conn[0]] >= plan_pos[mid]
+
+        deps = {mid: [c[0] for c in insts[mid][2]
+                      if c is not None
+                      and not (self.buffer_mode and is_fb(c, mid))]
+                for mid in insts}
+        consumers = {mid: [] for mid in insts}
+        for mid, ds in deps.items():
+            for d in ds:
+                consumers[d].append(mid)
+
+        serial = {mid for mid, (mdef, _, _) in insts.items()
+                  if mdef.type_name in SERIAL_TYPES}
+        # an automated param that the module's block form cannot take as a
+        # lane puts the module into the stage (the lane streams per sample)
+        autos = dict(compiled._auto_by_mid)
+        for mid, pnames in autos.items():
+            if not set(pnames) <= insts[mid][0].auto_block_params:
+                serial.add(mid)
+        # feedback cycles run per sample, every member
+        for comp in _sccs(list(insts), deps):
+            if len(comp) > 1 or comp[0] in deps[comp[0]]:
+                serial.update(comp)
+        # block-capable only with a block form or no state (elementwise)
+        for mid, (mdef, statics, _) in insts.items():
+            if mid in serial:
+                continue
+            if mdef.block is None and mdef.init_state(self.cfg, statics):
+                serial.add(mid)
+
+        def reach(seed, adj):
+            seen, frontier = set(seed), list(seed)
+            while frontier:
+                for s in adj[frontier.pop()]:
+                    if s not in seen:
+                        seen.add(s)
+                        frontier.append(s)
+            return seen
+
+        def safe(mid):
+            return kernel_safe(insts[mid][0])
+
+        def has_carry(mids):
+            return any(tree_leaves(insts[m][0].init_state(self.cfg,
+                                                          insts[m][1]))
+                       for m in mids)
+
+        # a patch with no serial core: seed a stage from the kernel-safe
+        # ancestors of the other modules, if that stage is all safe and
+        # carries state
+        if not serial and not self.cfg.exact:
+            unsafe = {m for m in insts if not safe(m)}
+            safe_anc = {m for m in reach(unsafe, deps) - unsafe
+                        if safe(m) and m != compiled.output_id}
+            if safe_anc and has_carry(safe_anc):
+                cand = safe_anc | ((reach(safe_anc, consumers)
+                                    & reach(safe_anc, deps)) - safe_anc)
+                if all(safe(m) for m in cand):
+                    serial = safe_anc
+
+        desc = reach(serial, consumers)
+        anc = reach(serial, deps)
+        self.stage_set = serial | ((desc & anc) - serial)
+        pre_set = {m for m in plan if m in anc and m not in self.stage_set}
+        post_set = {m for m in plan
+                    if m not in self.stage_set and m not in pre_set}
+
+        # stage absorption over kernel-safe neighbours: a pre module whose
+        # consumers are all stage/post-side (reverse plan order), a post
+        # module whose producers are all pre/stage-side (plan order); the
+        # Output module never joins
+        if (self.stage_set and not self.cfg.exact
+                and all(safe(m) for m in self.stage_set)):
+            for m in reversed(plan):
+                if (m in pre_set and safe(m) and m != compiled.output_id
+                        and all(c in self.stage_set or c in post_set
+                                for c in consumers[m])):
+                    pre_set.discard(m)
+                    self.stage_set.add(m)
+            for m in plan:
+                if (m in post_set and safe(m) and m != compiled.output_id
+                        and all(d in pre_set or d in self.stage_set
+                                for d in deps[m])):
+                    post_set.discard(m)
+                    self.stage_set.add(m)
+
+        self.pre_plan = [m for m in plan if m in pre_set]
+        self.stage_plan = [m for m in plan if m in self.stage_set]
+        self.post_plan = [m for m in plan if m in post_set]
+        self.stage_in = sorted({
+            c for mid in self.stage_plan for c in insts[mid][2]
+            if c is not None and c[0] in pre_set
+            and not (self.buffer_mode and is_fb(c, mid))})
+        self.stage_fb_in = sorted({
+            c for mid in self.stage_plan for c in insts[mid][2]
+            if c is not None and is_fb(c, mid)}) if self.buffer_mode else []
+        stage_out = {
+            c for mid in self.post_plan for c in insts[mid][2]
+            if c is not None and c[0] in self.stage_set
+            and not (self.buffer_mode and is_fb(c, mid))}
+        # probe taps on stage modules become extra stage outputs
+        self.probe_wires = list(compiled.probes)
+        stage_out.update(w for w in self.probe_wires
+                         if w[0] in self.stage_set)
+        if self.buffer_mode:
+            stage_out.update(k for k in compiled.fb_keys
+                             if k[0] in self.stage_set)
+        self.stage_out = sorted(stage_out)
+
+        # dead outputs of block_outs_hint modules: no wire, probe or audio
+        # channel reads them
+        used = set(self.probe_wires)
+        for mid in plan:
+            used.update(c for c in insts[mid][2] if c is not None)
+        self._outs_used = {}
+        for mid in plan:
+            mdef, statics, _ = insts[mid]
+            if mdef.block_outs_hint:
+                self._outs_used[mid] = tuple(
+                    mid == compiled.output_id or (mid, p) in used
+                    for p in range(mdef.num_outputs(self.cfg, statics)))
+
+        # the stage can run on kernel K3: every module has a device function
+        self.kernel_ok = all(safe(m) for m in self.stage_plan) \
+            and not self.cfg.exact
+
+        # automation: stage modules read their lanes per sample, block-phase
+        # modules get [V, n] lanes in place of the params
+        self.stage_autos = tuple(
+            (mid, p) for mid in self.stage_plan for p in autos.get(mid, ()))
+        self._stage_autos_by_mid = {mid: tuple(ps) for mid, ps in autos.items()
+                                    if mid in self.stage_set}
+        self._block_autos = {mid: tuple(ps) for mid, ps in autos.items()
+                             if mid not in self.stage_set}
+        self._stage_kernels: dict = {}
+
+    # -- block phases --------------------------------------------------------
+
+    def _run_block_phase(self, plan_subset, params, states, values, xs,
+                         n: int, v: int, device):
+        """Run block-capable modules over whole ``[V, n]`` wires.  Returns
+        ``(new_states, channels)``; ``channels`` is the Output module's
+        ``[V, n]`` rows if it is in ``plan_subset``."""
+        cfg = self.cfg
+        compiled = self.compiled
+        new_states, channels = {}, None
+        for mid in plan_subset:
+            mdef, statics, inputs = compiled.instances[mid]
+            ins = [None if c is None else values[c] for c in inputs]
+            lanes = {p: xs[compiled._auto_key(mid, p)]
+                     for p in self._block_autos.get(mid, ())
+                     if compiled._auto_key(mid, p) in xs}
+            pd = {**params[mid], **lanes}
+            if mdef.block is not None:
+                kw = ({"outs_used": self._outs_used[mid]}
+                      if mid in self._outs_used else {})
+                new_state, outs = mdef.block(cfg, statics, pd, states[mid],
+                                             ins, xs.get(mid), n, **kw)
+            else:
+                # stateless: the step over whole rows, params as columns
+                cols = {k: a if k in lanes else a.unsqueeze(1)
+                        for k, a in pd.items()}
+                _, outs = mdef.step(cfg, statics, cols, {}, ins, xs.get(mid))
+                new_state = states[mid]
+            outs = tuple(torch.as_tensor(o).to(device=device,
+                                               dtype=CV_DTYPE).expand(v, n)
+                         for o in outs)
+            new_states[mid] = new_state
+            for p, o in enumerate(outs):
+                values[(mid, p)] = o
+            if mid == compiled.output_id:
+                channels = outs
+        return new_states, channels
+
+    # -- serial stage --------------------------------------------------------
+
+    def _stage_step(self, params, states, fb, ext):
+        """One sample through the serial stage.  ``ext``: this sample's
+        stage-in wires ``{(src, port): [V]}``, automation values
+        ``{("auto", mid, p): [V]}`` and lane values ``{("x", mid): [V]}``.
+        Returns ``(new_states, fb_out, outs)``."""
+        cfg = self.cfg
+        compiled = self.compiled
+        plan_pos = compiled.plan_pos
+        values = dict(ext)
+        new_states = {}
+        for mid in self.stage_plan:
+            mdef, statics, inputs = compiled.instances[mid]
+            ins = []
+            for c in inputs:
+                if c is None:
+                    ins.append(None)
+                elif (c[0] in self.stage_set
+                      and plan_pos[c[0]] >= plan_pos[mid]):
+                    ins.append(fb[c])
+                else:
+                    ins.append(values[c])
+            pd = params[mid]
+            auto = [p for p in self._stage_autos_by_mid.get(mid, ())
+                    if ("auto", mid, p) in values]
+            if auto:
+                pd = {**pd, **{p: values[("auto", mid, p)] for p in auto}}
+            # the block engine is never differentiated: the nograd steps
+            new_state, outs = (mdef.step_nograd or mdef.step)(
+                cfg, statics, pd, states[mid], ins, values.get(("x", mid)))
+            new_states[mid] = new_state
+            for p, o in enumerate(outs):
+                values[(mid, p)] = o
+        fb_out = {k: values[k] for k in fb}
+        outs = {w: values[w] for w in self.stage_out}
+        return new_states, fb_out, outs
+
+    def stage_plain(self, params: dict, state: dict, lanes: dict, n: int):
+        """Kernel K3's plain version: :meth:`_stage_step` in a torch loop
+        over ``n`` samples.  ``params``: the stage modules' derived params
+        ``[V, ...]``; ``state``: ``{"states": {mid: ...}, "fb": ...}`` of
+        the stage; ``lanes``: ``{stage lane key: [V, n]}``.  Returns
+        ``({wire: [V, n]}, final stage state)``."""
+        states = {mid: state["states"][mid] for mid in self.stage_plan}
+        fb = state["fb"]
+        v = tree_leaves(params)[0].shape[0] if tree_leaves(params) else \
+            next(iter(lanes.values())).shape[0]
+        device = (tree_leaves(state) + tree_leaves(params)
+                  + list(lanes.values()))[0].device
+        # a module that writes its state in place (Freeverb's rings) works
+        # on a copy
+        for mid in self.stage_plan:
+            if self.compiled.instances[mid][0].step_in_place:
+                states[mid] = {k: a.clone() for k, a in states[mid].items()}
+        outs = {w: torch.empty((v, n), dtype=CV_DTYPE, device=device)
+                for w in self.stage_out}
+        keys = {k: _eval_key(k) for k in lanes}
+        for t in range(n):
+            ext = {keys[k]: lane[:, t] for k, lane in lanes.items()}
+            states, fb, o = self._stage_step(params, states, fb, ext)
+            for w, val in o.items():
+                outs[w][:, t] = val
+        final = _like({"states": states, "fb": fb},
+                      {"states": {m: state["states"][m]
+                                  for m in self.stage_plan},
+                       "fb": state["fb"]})
+        return outs, final
+
+    def stage_kernel(self, lanes):
+        """Kernel K3 for this stage and lane set (generated on first use)."""
+        lanes = tuple(sorted(lanes))
+        kernel = self._stage_kernels.get(lanes)
+        if kernel is None:
+            from .ops.fused import StageKernel
+            kernel = self._stage_kernels[lanes] = StageKernel(self, lanes)
+        return kernel
+
+    def stage_lanes(self, values: dict, xs: dict) -> dict:
+        """The stage's input lanes: the stage-in wires, the automation
+        lanes of stage modules and the hoisted lanes of stage modules."""
+        lanes = {wire_key(w): values[w] for w in self.stage_in}
+        for mid, p in self.stage_autos:
+            key = self.compiled._auto_key(mid, p)
+            if key in xs:
+                lanes[key] = xs[key]
+        for mid in self.stage_plan:
+            if mid in xs:
+                lanes[mid] = xs[mid]
+        return lanes
+
+    # -- full program --------------------------------------------------------
+
+    def run(self, params: dict, state: dict, xs: dict, n: int):
+        """Render ``n`` samples of V voices: ``params`` and ``state`` carry
+        a leading voice axis, ``xs`` is the render's lanes (``[V, n]``).
+        Returns ``(audio [V, C, n], probes {"mid:port": [V, n]},
+        final_state)``."""
+        compiled = self.compiled
+        if self.buffer_mode:
+            raise NotImplementedError(
+                "the block engine's buffer-feedback mode is not ported yet: "
+                "slice 3b of the port (ROADMAP.md); use engine='fused' or "
+                "'scan'")
+        if compiled.output_id in self.stage_set:
+            raise NotImplementedError(
+                "Output module inside a feedback cycle is not supported by "
+                "the block engine")
+        leaves = tree_leaves(params) + tree_leaves(state)
+        v, device = leaves[0].shape[0], leaves[0].device
+        derived = compiled.derived_params(params)
+        states = state["states"]
+        values: dict = {}
+        pre_states, pre_channels = self._run_block_phase(
+            self.pre_plan, derived, states, values, xs, n, v, device)
+        stage_final = {"states": {}, "fb": state["fb"]}
+        if self.stage_plan:
+            lanes = self.stage_lanes(values, xs)
+            stage_state = {"states": {m: states[m] for m in self.stage_plan},
+                           "fb": state["fb"]}
+            if device.type == "cuda":
+                outs, stage_final = self.stage_kernel(lanes).run(
+                    params, stage_state, lanes, n)
+            else:
+                outs, stage_final = self.stage_plain(
+                    {m: derived[m] for m in self.stage_plan}, stage_state,
+                    lanes, n)
+            values.update(outs)
+        post_states, channels = self._run_block_phase(
+            self.post_plan, derived, states, values, xs, n, v, device)
+        channels = channels if channels is not None else pre_channels
+        audio = torch.stack(channels, dim=1)
+        probes = {_probe_key(mid, p): values[(mid, p)]
+                  for mid, p in self.probe_wires}
+        final = {"states": {**pre_states, **stage_final["states"],
+                            **post_states},
+                 "fb": stage_final["fb"]}
+        return audio, probes, _like(final, state)
+
+
+def eligible(compiled) -> bool:
+    """Can the port's block engine render this patch?  Fast precision, no
+    buffer-feedback mode, no type whose block form is still to port, no
+    Output module in the stage, and a stage that kernel K3 can run (on the
+    card the stage has no plain fallback)."""
+    if compiled.cfg.exact or compiled.cfg.buffer_feedback:
+        return False
+    try:
+        prog = compiled.block_program()
+    except NotImplementedError:
+        return False
+    return prog.kernel_ok and compiled.output_id not in prog.stage_set
+
+
+def run_unbatched(prog: BlockProgram, params, state, xs, n: int):
+    """:meth:`BlockProgram.run` of one voice: a voice axis of 1 added and
+    taken off again."""
+    def add(t):
+        return {k: add(a) for k, a in t.items()} if isinstance(t, dict) \
+            else t.unsqueeze(0)
+
+    def drop(t):
+        return {k: drop(a) for k, a in t.items()} if isinstance(t, dict) \
+            else t[0]
+
+    audio, probes, final = prog.run(add(params), add(state), add(xs), n)
+    return audio[0], drop(probes), drop(final)
+
+
+__all__ = ["BlockProgram", "SERIAL_TYPES", "BLOCK_FORM_TODO", "eligible",
+           "kernel_safe", "run_unbatched", "wire_key"]

@@ -9,6 +9,10 @@ the render.
   the plain version of the fused kernels.
 * ``"fused"``: the hand-written CUDA kernel generated from the plan
   (``ops/fused.py``); batched renders of CUDA tensors only.
+* ``"block"``: the stage-partition block engine (``block_engine.py``):
+  whole-block module forms over ``[V, n]`` rows around a per-sample serial
+  stage, which runs on kernel K3 for CUDA tensors; the Freeverb runs on
+  kernel K8.  It takes the patches the fused kernel cannot (a Freeverb).
 
 Feedback: the planner deletes back-edges, and an input whose source is
 planned at or after its sink reads the carried value ``fb`` instead of this
@@ -160,6 +164,7 @@ class CompiledPatch:
         for mid, pname in self.automation:
             self._auto_by_mid.setdefault(mid, []).append(pname)
         self._fused: dict = {}
+        self._block_prog = None
 
     @staticmethod
     def _auto_key(mid: str, pname: str) -> str:
@@ -287,6 +292,11 @@ class CompiledPatch:
         # lanes, while ``block_fb`` collects this block's, sample by sample
         fb, block_fb = state["fb"], None
         block = self.cfg.block_size if self.cfg.buffer_feedback else None
+        # a module that writes its state in place (Freeverb's rings) works
+        # on a copy, made once per render
+        states = {mid: ({k: a.clone() for k, a in sd.items()}
+                        if self.instances[mid][0].step_in_place else sd)
+                  for mid, sd in states.items()}
         if block is not None and n % block:
             raise ValueError(
                 f"buffer_feedback mode renders whole blocks: n={n} is not a "
@@ -346,12 +356,28 @@ class CompiledPatch:
         from .ops import fused
         return fused.eligible(self)
 
+    def block_program(self):
+        """The block engine's partition of this patch (made on first
+        use)."""
+        if self._block_prog is None:
+            from .block_engine import BlockProgram
+            self._block_prog = BlockProgram(self)
+        return self._block_prog
+
+    def block_eligible(self) -> bool:
+        """True when the patch can run on the block engine's kernels."""
+        from . import block_engine
+        return block_engine.eligible(self)
+
     def auto_engine(self, batched: bool, device) -> str:
-        """Pick the engine by device: the fused kernel for a batched render
-        on a CUDA device of a kernel-eligible patch, else the scan engine."""
-        if (batched and torch.device(device).type == "cuda"
-                and self.fused_eligible()):
-            return "fused"
+        """Pick the engine by device: for a batched render on a CUDA device
+        the fused kernel if the patch is eligible, else the block engine if
+        it is eligible; the scan engine otherwise."""
+        if batched and torch.device(device).type == "cuda":
+            if self.fused_eligible():
+                return "fused"
+            if self.block_eligible():
+                return "block"
         return "scan"
 
     def _render_once(self, n: int, params, state, key: int, drivers: dict,
@@ -364,6 +390,12 @@ class CompiledPatch:
             return audio, {}, final
         if engine == "scan":
             return self._run(params, state, xs, n, batched)
+        if engine == "block":
+            from .block_engine import run_unbatched
+            prog = self.block_program()
+            if batched:
+                return prog.run(params, state, xs, n)
+            return run_unbatched(prog, params, state, xs, n)
         raise ValueError(f"unknown engine {engine!r}")
 
     def render(self, n_samples: int, *, params: Optional[dict] = None,
@@ -376,17 +408,20 @@ class CompiledPatch:
 
         Returns ``(audio, probes, final_state)`` where audio is
         ``[channels, n]`` (batched: ``[V, channels, n]``) and probes maps
-        ``"mid:port"`` to ``[n]`` (``[V, n]``) values, scan engine only.
+        ``"mid:port"`` to ``[n]`` (``[V, n]``) values (scan and block
+        engines).
         Pass the returned state back in to continue a render.
 
         ``device``: where to render, the CUDA card by default (it raises
         when there is none); params, state and lanes are moved there.
         ``engine``: ``"scan"``, ``"fused"`` (batched CUDA renders of
-        kernel-eligible patches), or ``"auto"`` (fused on CUDA when
-        eligible, else scan).  ``key``: an int that seeds the Noise lanes
-        (0 by default).  ``drivers``: ``{Input or Noise module: [n] or
-        [V, n] array}``.  ``automation``: ``{(module, "param"): [n] or
-        [V, n] array}`` for pairs declared at compile time.  ``segment``:
+        kernel-eligible patches), ``"block"`` (the block engine; on the CPU
+        its kernels' plain versions), or ``"auto"`` (on CUDA, batched: fused
+        when eligible, else block when eligible; else scan).  ``key``: an
+        int that seeds the Noise lanes (0 by default).  ``drivers``:
+        ``{Input or Noise module: [n] or [V, n] array}``.
+        ``automation``: ``{(module, "param"): [n] or [V, n] array}`` for
+        pairs declared at compile time.  ``segment``:
         render in ``segment``-sample pieces with the state carried, one
         kernel launch each (must divide ``n_samples``); segment ``i`` draws
         its noise from ``fold_in(key, i)``.
@@ -545,7 +580,8 @@ def compile_patch(patch: Patch, probes: Sequence = (),
     """Compile a patch, cached by topology (module types, statics and
     wiring; param values excluded, so slider edits reuse the plan and its
     built kernel), probes and automated params.  ``probes``: (module, port)
-    pairs whose values the render returns per sample (scan engine).
+    pairs whose values the render returns per sample (scan and block
+    engines).
     ``automation``: (module, param) pairs whose values stream per sample;
     the arrays go to ``render``."""
     probes_key = tuple((_mid(m), p) for m, p in probes)

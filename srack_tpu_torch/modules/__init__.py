@@ -1,8 +1,9 @@
 """The DSP module library and catalog (counterpart:
 ``srack_tpu/modules/__init__.py``).
 
-Slices 1 and 2 of the port hold every module type of the fused engine.
-Sample and Freeverb are queued in ROADMAP.md (slice 3).
+Slices 1 and 2 of the port hold every module type of the fused engine;
+slice 3a adds the Freeverb.  The Sample player is queued in ROADMAP.md
+(slice 3b).
 """
 
 from .base import CV_DTYPE, ModuleDef
@@ -15,6 +16,7 @@ from .math import ADD, SUBTRACT, MULTIPLY, NON_LINEAR
 from .sequencer import GRID_SEQUENCER, PATTERN_SEQUENCER
 from .input import INPUT
 from .output import OUTPUT
+from .freeverb import FREEVERB
 
 # Creatable module types, in the reference catalog's order.
 CATALOG: dict[str, ModuleDef] = {
@@ -32,13 +34,14 @@ CATALOG: dict[str, ModuleDef] = {
         SUBTRACT,
         MULTIPLY,
         NON_LINEAR,
+        FREEVERB,
         OUTPUT,
         INPUT,
     )
 }
 
 # Types of the reference catalog that the port does not carry yet.
-NOT_PORTED = frozenset({"Sample", "Freeverb"})
+NOT_PORTED = frozenset({"Sample"})
 
 # Catalog entries present at import time; :func:`unregister` refuses to
 # remove these.
@@ -102,4 +105,5 @@ __all__ = [
     "PATTERN_SEQUENCER",
     "INPUT",
     "OUTPUT",
+    "FREEVERB",
 ]

@@ -70,6 +70,22 @@ class ModuleDef:
     make_xs: Optional[Callable[..., torch.Tensor]] = None
     # Params read only on the host (to make lanes), never by a kernel
     host_params: frozenset = frozenset()
+    # Whole-block form for the block engine, over ``[V, n]`` rows:
+    # (cfg, statics, params, state, ins, x, n[, outs_used]) -> (state, outs)
+    # with ins and outs ``[V, n]`` (an input may be None) and per-voice
+    # params ``[V]`` (an automated one a ``[V, n]`` lane)
+    block: Optional[Callable[..., tuple]] = None
+    # Params whose per-sample automation the block engine can run without
+    # putting the module into its serial stage: the module is stateless or
+    # its ``block`` takes ``[V, n]`` lanes for them
+    auto_block_params: frozenset = frozenset()
+    # ``block`` takes ``outs_used`` (one bool per output port: does any
+    # wire, probe or output channel read it?) and may skip dead outputs'
+    # work, returning placeholders for them
+    block_outs_hint: bool = False
+    # ``step`` writes its state tensors in place (Freeverb's delay lines);
+    # an engine clones such a module's state once per render
+    step_in_place: bool = False
 
     def port_index(self, cfg: AudioConfig, statics: Statics, port, *, output: bool) -> int:
         """Resolve a port given by index or label to an index."""

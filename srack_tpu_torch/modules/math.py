@@ -56,6 +56,8 @@ def math_module_def(op: str) -> ModuleDef:
         output_labels=_outlabels1,
         init_state=_math_init_state,
         step=_math_step,
+        # stateless: an automated constant is a [V, n] lane elementwise
+        auto_block_params=frozenset({"constant"}),
         cuda_fn=f"srk_{op.lower()}",
     )
 
@@ -89,5 +91,6 @@ NON_LINEAR = ModuleDef(
     output_labels=_outlabels1,
     init_state=_math_init_state,
     step=_nl_step,
+    auto_block_params=frozenset({"constant"}),
     cuda_fn="srk_non_linear",
 )

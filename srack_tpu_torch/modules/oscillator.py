@@ -17,9 +17,10 @@ from __future__ import annotations
 import torch
 
 from ..config import AudioConfig
-from ..ops.basic import (delta_to_fixed, fast_exp2, fast_sinpi, fold_in,
+from ..ops.basic import (block_transitions, delta_to_fixed, fast_cumsum,
+                         fast_exp2, fast_sinpi, fold_in, forward_fill,
                          phase_fixed_init, poly_blep_signed, signed_turns,
-                         transition, transition_init)
+                         t_index, transition, transition_init, wrap_i32)
 from .base import CV_DTYPE, ModuleDef, const_ports, cv
 
 
@@ -116,6 +117,66 @@ def _osc_step_nograd(cfg: AudioConfig, statics, params, state, ins, x=None):
     return _osc_step(cfg, statics, params, state, ins, x, with_ste=False)
 
 
+def _osc_block(cfg: AudioConfig, statics, params, state, ins, x, n: int):
+    """Whole-block oscillator over ``[V, n]`` rows: the phase by a
+    (segmented) prefix sum.
+
+    ``pos += dfix`` is a prefix sum of int32 increments, exact under
+    two's-complement wrap; a Sync reset makes it segmented (the phase
+    restarts at the last rising edge), solved with :func:`forward_fill`.  A
+    constant rate (no CV, ``val`` not automated: LFOs, clocks) takes the
+    closed form ``dfix * t`` and no scan.  The waves are :func:`_fast_waves`
+    of the same phases, so they equal the per-sample step bit for bit; the
+    end value of the float shadow ``pos_g`` is an f32 sum and is only
+    close.  Scans launch kernel K4 on CUDA tensors (``ops/basic.py``)."""
+    (_, antialias) = statics
+    cv_in, sync_in = ins
+    tidx = t_index(n, state["pos"].device)
+    # an automated ``val`` arrives as a [V, n] lane: the rate varies
+    val_varies = params["val"].dim() == 2
+    const_rate = cv_in is None and not val_varies
+    if const_rate and "dfix" in params:
+        delta_f = params["delta"].unsqueeze(-1)
+        dfix = params["dfix"].unsqueeze(-1)
+    else:
+        val = params["val"] if val_varies else params["val"].unsqueeze(-1)
+        delta_f, dfix = _pitch(cfg, val if cv_in is None else cv_in + val)
+    full = (state["pos"].shape[0], n)
+    if const_rate:
+        excl = wrap_i32(dfix.to(torch.int64) * tidx)  # mod 2^32, as int32
+        incl = excl + dfix
+    else:
+        dfix = dfix.expand(full).contiguous()
+        incl = fast_cumsum(dfix)  # int32 adds wrap mod 2^32
+        excl = incl - dfix
+    delta_f = delta_f.expand(full)
+    dfix = dfix.expand(full)
+    pos0 = state["pos"].unsqueeze(-1)
+    if sync_in is None:
+        sync_last = state["sync_last"]
+        pos_acc = pos0 + excl
+        next_pos = pos0[:, 0] + incl[:, -1]
+    else:
+        sync_last, fires = block_transitions(state["sync_last"], sync_in)
+        excl_at_fire, fired_yet = forward_fill(excl.contiguous(), fires)
+        pos_acc = torch.where(fired_yet, excl - excl_at_fire, pos0 + excl)
+        next_pos = pos_acc[:, -1] + dfix[:, -1]
+    # the float shadow's end value, by the step's reset-then-accumulate law
+    acc0 = state["pos_g"]
+    if sync_in is None:
+        acc_end = acc0 + delta_f.sum(dim=-1)
+    else:
+        cum_f = fast_cumsum(delta_f.contiguous())
+        excl_f = cum_f - delta_f
+        excl_f_fire, fired_yet_f = forward_fill(excl_f, fires)
+        acc_end = torch.where(fired_yet_f[:, -1],
+                              cum_f[:, -1] - excl_f_fire[:, -1],
+                              acc0 + cum_f[:, -1])
+    sine, square, saw = _fast_waves(pos_acc, delta_f, None, antialias)
+    new_state = {"pos": next_pos, "pos_g": acc_end, "sync_last": sync_last}
+    return new_state, (sine, square, saw)
+
+
 _osc_nin, _osc_inlabels = const_ports(2, ("CV", "Sync"))
 _osc_nout, _osc_outlabels = const_ports(3, ("Sine", "Square", "Sawtooth"))
 
@@ -129,7 +190,11 @@ OSCILLATOR = ModuleDef(
     init_state=_osc_init_state,
     step=_osc_step,
     step_nograd=_osc_step_nograd,
+    block=_osc_block,
     derive=_osc_derive,
+    # per-sample pitch automation: the block form takes the prefix-sum path
+    # when ``val`` arrives as a [V, n] lane
+    auto_block_params=frozenset({"val"}),
     cuda_fn="srk_oscillator",
 )
 

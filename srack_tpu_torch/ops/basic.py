@@ -5,6 +5,11 @@ elementwise over any shape and evaluates the same f32 expression, in the
 same order, as its JAX twin; ``csrc/modules.cuh`` holds the CUDA copies.
 Python float constants combine with f32 tensors as f32 (rounded once), the
 same rule jnp applies to its weak-typed constants.
+
+Below them, the block engine's whole-block primitives over ``[V, n]`` rows
+and the scan wrappers, which launch kernel K4 for CUDA tensors and run
+their plain versions, the JAX package's log-doubling passes, for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -136,3 +141,166 @@ def poly_blep_signed(u: torch.Tensor) -> torch.Tensor:
     w = 1.0 - au
     mag = torch.where(au < 1.0, w * w, 0.0)
     return torch.where(u >= 0.0, -mag, mag)
+
+
+# ---------------------------------------------------------------------------
+# Whole-block primitives (the block engine's ``[V, n]`` rows: one row per
+# voice, time on the last axis, where the JAX package scans axis 0 of a
+# vmapped ``[n]``)
+# ---------------------------------------------------------------------------
+
+def t_index(n: int, device=None) -> torch.Tensor:
+    """``arange(n)`` as int32, to broadcast against ``[V, n]`` rows."""
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def block_lane(x, v: int, n: int, fill=0.0, device=None) -> torch.Tensor:
+    """A per-sample input as ``[V, n]`` f32 (a view where it broadcasts);
+    ``None`` becomes the constant ``fill`` (the unconnected fallback)."""
+    if x is None:
+        return torch.full((v, n), fill, dtype=torch.float32, device=device)
+    return torch.as_tensor(x).to(device).expand(v, n)
+
+
+def block_transitions(last_above: torch.Tensor, vals: torch.Tensor):
+    """:func:`transition` folded over ``[V, n]`` rows with one shift:
+    returns ``(new_last_above [V], fired [V, n])``."""
+    above = vals > 0.0
+    prev = torch.cat([last_above.reshape(-1, 1).expand(above.shape[0], 1)
+                      .to(above.dtype), above[:, :-1]], dim=1)
+    return above[:, -1], torch.logical_and(above, torch.logical_not(prev))
+
+
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor reduced mod 2^32 into int32 (two's complement)."""
+    return ((x + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def _shifted(x: torch.Tensor, shift: int, fill) -> torch.Tensor:
+    """``x`` shifted ``shift < n`` positions later along the last axis,
+    front-filled with ``fill``."""
+    pad = torch.full(x.shape[:-1] + (shift,), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([pad, x[..., :x.shape[-1] - shift]], dim=-1)
+
+
+def _log_scan(op, x: torch.Tensor, identity) -> torch.Tensor:
+    """Inclusive scan along the last axis by log-step doubling
+    (Hillis-Steele), pass for pass as the JAX package's ``_log_scan``.
+    Exact for int32 (adds wrap); for floats it reassociates the sum."""
+    shift = 1
+    while shift < x.shape[-1]:
+        x = op(x, _shifted(x, shift, identity))
+        shift <<= 1
+    return x
+
+
+# The plain versions of the row-scan kernel K4 (``ops/scan_kernel.py``):
+# the log-doubling forms.  The public wrappers below launch K4 for CUDA
+# tensors and run these for CPU tensors.
+
+def cumsum_plain(x: torch.Tensor) -> torch.Tensor:
+    return _log_scan(torch.add, x, 0)
+
+
+def cummax_plain(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype.is_floating_point:
+        ident = float("-inf")
+    else:
+        ident = torch.iinfo(x.dtype).min
+    return _log_scan(torch.maximum, x, ident)
+
+
+def forward_fill_multi_plain(values: tuple, mask: torch.Tensor):
+    vals, ok = list(values), mask
+    shift = 1
+    while shift < mask.shape[-1]:
+        s_ok = _shifted(ok, shift, False)
+        for i, v in enumerate(vals):
+            vals[i] = torch.where(ok, v, _shifted(v, shift, 0))
+        ok = torch.logical_or(ok, s_ok)
+        shift <<= 1
+    return tuple(vals), ok
+
+
+def affine_scan_plain(a, b: torch.Tensor):
+    A = torch.as_tensor(a, dtype=b.dtype, device=b.device).expand(b.shape)
+    B = b
+    shift = 1
+    while shift < b.shape[-1]:
+        A_s = _shifted(A, shift, 1.0)
+        B_s = _shifted(B, shift, 0.0)
+        B = A * B_s + B
+        A = A * A_s
+        shift <<= 1
+    return A, B
+
+
+def linear_recurrence_plain(a, b: torch.Tensor):
+    A = torch.as_tensor(a, dtype=b.dtype, device=b.device).expand(b.shape)
+    Y = b
+    shift = 1
+    while shift < b.shape[-1]:
+        A_s = _shifted(A, shift, 1.0)
+        Y_s = _shifted(Y, shift, 0.0)
+        Y = Y_s * A + Y
+        A = A_s * A
+        shift <<= 1
+    return A, Y
+
+
+def _k4():
+    from . import scan_kernel
+    return scan_kernel.ROW_SCAN
+
+
+def fast_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumsum along the last axis (f32 or int32, wrapping)."""
+    return _k4().run("sum", (x,))[0] if x.is_cuda else cumsum_plain(x)
+
+
+def fast_cummax(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running max along the last axis."""
+    return _k4().run("max", (x,))[0] if x.is_cuda else cummax_plain(x)
+
+
+def forward_fill_multi(values: tuple, mask: torch.Tensor):
+    """For each position, each array's most recent entry where ``mask``
+    held (inclusive), along the last axis.  Returns ``(filled_tuple,
+    any_valid)``; where ``any_valid`` is False the filled values are
+    unspecified (the kernel gives 0, the plain version what its passes
+    leave)."""
+    if not mask.is_cuda:
+        return forward_fill_multi_plain(tuple(values), mask)
+    return _k4().fill(tuple(values), mask)
+
+
+def forward_fill(values: torch.Tensor, mask: torch.Tensor):
+    """:func:`forward_fill_multi` of one array: ``(filled, any_valid)``."""
+    (filled,), ok = forward_fill_multi((values,), mask)
+    return filled, ok
+
+
+def monotone_fill(values: torch.Tensor, mask: torch.Tensor):
+    """:func:`forward_fill` for non-decreasing, non-negative ``values``: the
+    running max of the masked entries; -1 before the first masked entry."""
+    neg = torch.tensor(-1, dtype=values.dtype, device=values.device)
+    filled = fast_cummax(torch.where(mask, values, neg))
+    return filled, filled >= 0
+
+
+def affine_scan(a, b: torch.Tensor):
+    """Compose ``y -> a[t]*y + b[t]`` inclusively along the last axis:
+    ``(A, B)`` with ``y[t] = A[t]*y0 + B[t]``."""
+    if not b.is_cuda:
+        return affine_scan_plain(a, b)
+    A = torch.as_tensor(a, dtype=b.dtype, device=b.device).expand(b.shape)
+    return _k4().run("affine", (A, b))
+
+
+def linear_recurrence(a, b: torch.Tensor):
+    """``y[t] = a*y[t-1] + b[t]`` from a zero start: ``(A, Y)`` with
+    ``A[t] = a^(t+1)``, so ``A*y0 + Y`` solves any start ``y0``."""
+    if not b.is_cuda:
+        return linear_recurrence_plain(a, b)
+    return affine_scan(a, b)

@@ -1,0 +1,176 @@
+"""The Freeverb on CUDA: kernel K8 (counterpart:
+``srack_tpu/ops/freeverb_kernel.py``, the Pallas kernel built by ``_build``).
+
+``csrc/freeverb.cu`` runs the module's exact per-sample comb and allpass
+ticks, one thread per voice and channel, with the input gain folded in and
+the stereo wet/dry mix as a second elementwise pass; its source note states
+the launch shape, what bounds it and the design question its line traffic
+leaves open.
+
+The wrapper (:meth:`FreeverbKernel.render`, called by the module's
+``_block`` for CUDA tensors):
+
+1. brings the 24 rings ``[V, L_j]`` into time order with kernel K9
+   (``ops/ring_roll.py``), which writes them straight into the kernel's
+   ``[rows, V]`` layout, line j at rows ``offs[j]``;
+2. launches K8, which updates the lines and the comb filter states in
+   place and writes the two output lanes;
+3. moves the lines back into rings with K9, rotated by ``n % L``, so they
+   return as the module's block form returns them: time order, write
+   index 0, the 24 rings views of one new buffer.
+
+Its plain version is ``modules/freeverb.py::block_plain``, the chunked
+form.  The wrapper launches the kernel for CUDA tensors or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..modules.base import CV_DTYPE
+from ..modules.freeverb import FS_KEYS, LINE_KEYS, line_lengths
+from .cuda_lib import CudaLib, I, P, csrc, require_cuda
+from .ring_roll import RING_ALIGN
+
+# the entry's argument types, without the stream
+ARGTYPES = [P, P, P, I, P, I, P, P, I, P, I, P, I, P, P, P, P, P, P, P, I, I,
+            I]
+
+
+def all_lengths(cfg) -> tuple:
+    """The 24 line lengths in the kernel's order: combs left, right;
+    allpasses left, right."""
+    cl, cr, al, ar = line_lengths(cfg.sample_rate)
+    return cl + cr + al + ar
+
+
+def _gain(x: torch.Tensor, v: int, n: int):
+    """A gain of :func:`~..modules.freeverb.block_gains` as the kernel takes
+    it: ``([V], 0)`` per voice or ``([V, n], 1)`` as a lane."""
+    if x.shape[-1] == n and n > 1:
+        return x.expand(v, n).contiguous(), 1
+    return x.expand(v, 1).reshape(v).contiguous(), 0
+
+
+def operands(cfg, l_in, r_in, gains, fs, lines, n: int, skip_r: bool,
+             tables):
+    """The entry's arguments (stream excluded) for one render, and its
+    outputs: ``(args, keep, out_l, out_r)``; ``keep`` holds the tensors
+    the pointers point into.  ``l_in``, ``r_in``: ``[V, n]`` f32 or None
+    (silence); ``fs``: ``[V, 16]`` and ``lines``: ``[sum L, V]``, both
+    updated in place; ``tables``: the int32 ``(lens, offsets)`` of the
+    lines."""
+    cl, cr, _, _ = line_lengths(cfg.sample_rate)
+    lens = all_lengths(cfg)
+    v = fs.shape[0]
+    chunk = max(min(min(cl), min(cr), n), 1)
+    damp, feed, in_gain, wet1, wet2, dry = gains
+    g = [_gain(x, v, n) for x in (damp, feed)]
+    ing, _ = _gain(in_gain, v, 1)
+    mix = [_gain(x, v, n) for x in (wet1, wet2, dry)]
+    device = fs.device
+    raw = torch.empty((2, v, n), dtype=CV_DTYPE, device=device)
+    out_l = torch.empty((v, n), dtype=CV_DTYPE, device=device)
+    out_r = None if skip_r else torch.empty_like(out_l)
+    for x in (l_in, r_in):
+        if x is not None and (tuple(x.shape) != (v, n)
+                              or x.dtype != CV_DTYPE
+                              or not x.is_contiguous()):
+            raise ValueError(f"Freeverb input lane {tuple(x.shape)} "
+                             f"{x.dtype}, expected contiguous [{v}, {n}] f32")
+    if tuple(fs.shape) != (v, 16) or tuple(lines.shape) != (sum(lens), v):
+        raise ValueError("Freeverb state in the wrong layout")
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    args = (ptr(l_in), ptr(r_in), g[0][0].data_ptr(), g[0][1],
+            g[1][0].data_ptr(), g[1][1], ing.data_ptr(),
+            mix[0][0].data_ptr(), mix[0][1], mix[1][0].data_ptr(),
+            mix[1][1], mix[2][0].data_ptr(), mix[2][1], fs.data_ptr(),
+            lines.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
+            raw.data_ptr(), out_l.data_ptr(), ptr(out_r), v, n, chunk)
+    keep = [x for x in (l_in, r_in, ing, raw, out_l, out_r, *tables)
+            if x is not None] + [a for a, _ in g + mix]
+    return args, keep, out_l, out_r
+
+
+def line_tables(lens, device) -> tuple:
+    """``(lens, row offsets)`` of the lines as int32 on ``device``."""
+    offs, off = [], 0
+    for length in lens:
+        offs.append(off)
+        off += length
+    return (torch.tensor(lens, dtype=torch.int32, device=device),
+            torch.tensor(offs, dtype=torch.int32, device=device))
+
+
+class FreeverbKernel(CudaLib):
+    """K8 and its wrapper."""
+
+    def __init__(self):
+        super().__init__("freeverb", csrc("freeverb.cu"),
+                         "Freeverb kernel (K8)")
+        self._tables: dict = {}  # (lens, device) -> line_tables
+
+    def launch_lines(self, cfg, l_in, r_in, gains, fs, lines, n: int,
+                     skip_r: bool = False):
+        """One K8 launch on operands in the kernel's layout (see
+        :func:`operands`).  Returns ``(out_l, out_r or None)``."""
+        lens = all_lengths(cfg)
+        device = require_cuda(fs, lines,
+                              *[x for x in (l_in, r_in) if x is not None])
+        key = (lens, str(device))
+        if key not in self._tables:
+            self._tables[key] = line_tables(lens, device)
+        args, keep, out_l, out_r = operands(cfg, l_in, r_in, gains, fs,
+                                            lines, n, skip_r,
+                                            self._tables[key])
+        require_cuda(*keep)
+        self.launch("srk_freeverb", ARGTYPES, args, device)
+        return out_l, out_r
+
+    def render(self, cfg, l_in, r_in, mono: bool, gains, state: dict,
+               n: int, skip_r: bool = False):
+        """The module's block form on CUDA tensors: ``(new_state, (out_l,
+        out_r))`` with the rings in time order and write index 0.  With
+        ``skip_r`` (the Right output feeds nothing) ``out_r`` is a
+        placeholder that holds no memory of its own."""
+        lens = all_lengths(cfg)
+        v = state["cl0"].shape[0]
+        device = state["cl0"].device
+
+        def lane(x):
+            return None if x is None else x.to(CV_DTYPE).expand(v, n) \
+                .contiguous()
+
+        l_in = lane(l_in)
+        r_in = l_in if mono else lane(r_in)
+        lines = torch.empty((sum(lens), v), dtype=CV_DTYPE, device=device)
+        line_rows = torch.split(lines, list(lens))
+        idx = torch.stack([state[f"{k}_idx"] for k in LINE_KEYS]).to(
+            torch.int32).contiguous()
+        RING_ALIGN.move([state[k].contiguous() for k in LINE_KEYS],
+                        line_rows, lens, v, idx=idx, dst_lines=True)
+        fs = torch.stack([state[k] for k in FS_KEYS], dim=1).contiguous()
+        out_l, out_r = self.launch_lines(cfg, l_in, r_in, gains, fs, lines,
+                                         n, skip_r)
+        rings = [b.view(v, length) for b, length in zip(torch.split(
+            torch.empty(v * sum(lens), dtype=CV_DTYPE, device=device),
+            [v * x for x in lens]), lens)]
+        RING_ALIGN.move(line_rows, rings, lens, v,
+                        shifts=[n % length for length in lens],
+                        src_lines=True)
+        new_state = dict(state)
+        for k, ring in zip(LINE_KEYS, rings):
+            new_state[k] = ring
+            new_state[f"{k}_idx"] = torch.zeros_like(state[f"{k}_idx"])
+        for j, k in enumerate(FS_KEYS):
+            new_state[k] = fs[:, j].contiguous()
+        if out_r is None:
+            out_r = torch.zeros((), dtype=CV_DTYPE, device=device).expand(
+                v, n)
+        return new_state, (out_l, out_r)
+
+
+FREEVERB = FreeverbKernel()

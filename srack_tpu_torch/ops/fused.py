@@ -9,8 +9,13 @@ for V voices over n samples.
   make_fused_render_buffer`` (buffer-feedback compat mode): K1 with every
   feedback read delayed by one ``block_size`` block, the reference
   engine's previous-buffer feedback.
+* **K3, ``serial_stage``** (:class:`StageKernel`), replaces
+  ``srack_tpu/ops/serial_kernel.py::make_serial_kernel``: the block
+  engine's serial stage, its input wires streamed in as lanes and its
+  output wires streamed out.
 
-Both are one source, generated per plan with a buffer-mode switch.  They
+All three are one source, generated per plan with a buffer-mode and a
+stage-mode switch.  They
 carry none of the TPU layout over: no (8, 128) tiles, no 1,024-voice
 padding, no time chunks with a scratch carry, no padded-tail snapshot, and
 for K2 no outer scan of one kernel call per block.
@@ -87,27 +92,17 @@ for CUDA tensors or raises; it never falls back.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import hashlib
-import os
 import re
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
 from ..compiler import tree_leaves
 from ..modules.base import CV_DTYPE
+from .cuda_lib import (BUILD_ROOT, CSRC, NVCC_FLAGS, CudaLib, I,  # noqa: F401
+                       P, build, require_cuda)
 
 BLOCK_DIM = 32
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "srack_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
 
 
 def eligible(compiled) -> bool:
@@ -158,17 +153,18 @@ def _layout(entries):
     return tuple(leaves), nxt["f"], nxt["i"]
 
 
-def _param_entries(compiled, params):
+def _param_entries(compiled, params, mids):
     out = []
-    for mid, (mdef, _, _) in compiled.instances.items():
+    for mid in mids:
+        mdef = compiled.instances[mid][0]
         out += [((mid, key), params[mid][key]) for key in sorted(params[mid])
                 if key not in mdef.host_params]
     return out
 
 
-def _state_entries(compiled, state):
+def _state_entries(compiled, state, mids):
     out = [(("states", mid, key), state["states"][mid][key])
-           for mid in compiled.instances
+           for mid in mids
            for key in sorted(state["states"][mid])]
     if not compiled.cfg.buffer_feedback:  # K2's fb is the ring instead
         out += [(("fb", k), state["fb"][k]) for k in compiled.fb_keys]
@@ -187,10 +183,13 @@ class Layout:
     n_si: int
 
     @classmethod
-    def of(cls, compiled) -> "Layout":
+    def of(cls, compiled, mids=None) -> "Layout":
+        """The layout of every module, or of the modules ``mids`` (a serial
+        stage: its modules and the feedback carries)."""
+        mids = list(compiled.instances if mids is None else mids)
         derived = compiled.derived_params(compiled.default_params)
-        p = _layout(_param_entries(compiled, derived))
-        s = _layout(_state_entries(compiled, compiled.init_state()))
+        p = _layout(_param_entries(compiled, derived, mids))
+        s = _layout(_state_entries(compiled, compiled.init_state(), mids))
         return cls(*p, *s)
 
 
@@ -216,10 +215,16 @@ def _statics_args(statics) -> list:
     return [str(int(s)) for s in statics if isinstance(s, (bool, int))]
 
 
-def generate_source(compiled, layout: Layout = None, lanes=()) -> str:
+def generate_source(compiled, layout: Layout = None, lanes=(),
+                    stage=None) -> str:
     """The ``.cu`` source of the fused kernel for ``compiled``'s plan and
     the lane set ``lanes`` (sorted lane keys: module ids of Noise and of
     driven Inputs, ``mid~param`` of automation arrays).
+
+    With ``stage`` (a ``block_engine.BlockProgram``) it is the serial-stage
+    kernel K3 instead: the stage's plan only, its input wires read from
+    lanes keyed ``src#port`` and its output wires stored to ``audio`` as
+    ``[O, n, V]`` (O = ``len(stage.stage_out)``) in place of the audio.
 
     Deterministic: the same plan and lanes give the same text.  In buffer
     mode (``cfg.buffer_feedback``) it is K2's counterpart.  The same file
@@ -227,9 +232,13 @@ def generate_source(compiled, layout: Layout = None, lanes=()) -> str:
     ``srk_fused_host``, which the tests use to check the generated code on
     the CPU."""
     cfg = compiled.cfg
-    layout = layout or Layout.of(compiled)
+    plan = compiled.plan if stage is None else stage.stage_plan
+    layout = layout or Layout.of(compiled, None if stage is None else plan)
     lanes = tuple(lanes)
     buffer = cfg.buffer_feedback
+    if stage is not None and (buffer or compiled.output_id in plan):
+        raise ValueError("the serial-stage kernel runs sample mode without "
+                         "the Output module")
     n_ch = cfg.channels
     lane_idx = {k: i for i, k in enumerate(lanes)}
 
@@ -258,12 +267,16 @@ def generate_source(compiled, layout: Layout = None, lanes=()) -> str:
         return (f"ring[((size_t){compiled.fb_keys.index(k)} * SRK_FB_BLOCK "
                 "+ slot) * V + v]")
 
-    kind = "buffer-feedback kernel (K2)" if buffer else "voice kernel (K1)"
+    if stage is not None:
+        kind = "serial-stage kernel (K3)"
+    else:
+        kind = ("fused buffer-feedback kernel (K2)" if buffer
+                else "fused voice kernel (K1)")
     L = [
-        f"// Generated by srack_tpu_torch/ops/fused.py: the fused {kind}",
+        f"// Generated by srack_tpu_torch/ops/fused.py: the {kind}",
         "// for one plan, " + ", ".join(
             f"{mid} ({compiled.instances[mid][0].type_name})"
-            for mid in compiled.plan) + ".",
+            for mid in plan) + ".",
         "// Lanes: " + (", ".join(lanes) if lanes else "none") + ".",
         f"#define SRK_SAMPLE_RATE {int(cfg.sample_rate)}",
         f"#define SRK_BLOCK {BLOCK_DIM}",
@@ -285,8 +298,9 @@ def generate_source(compiled, layout: Layout = None, lanes=()) -> str:
     L.append("  // state" + ("" if buffer else " and feedback carries")
              + ", in registers")
     L += [load(leaf, "s" + leaf.kind, False) for leaf in layout.state]
-    L += [f"  float* a{c} = audio + ((size_t)v * {n_ch} + {c}) * (size_t)n;"
-          for c in range(n_ch)]
+    if stage is None:
+        L += [f"  float* a{c} = audio + ((size_t)v * {n_ch} + {c}) * "
+              "(size_t)n;" for c in range(n_ch)]
     if buffer:
         L.append("  int slot = 0;  // t % SRK_FB_BLOCK")
     L.append("  for (int t = 0; t < n; ++t) {")
@@ -296,7 +310,7 @@ def generate_source(compiled, layout: Layout = None, lanes=()) -> str:
     if buffer:
         L += [f"    const float {_var(('fb', k))} = {fb_slot(k)};"
               for k in compiled.fb_keys]
-    for mid in compiled.plan:
+    for mid in plan:
         mdef, statics, inputs = compiled.instances[mid]
         ins, conn = [], 0
         for i, c in enumerate(inputs):
@@ -307,6 +321,9 @@ def generate_source(compiled, layout: Layout = None, lanes=()) -> str:
             src, sport = c
             if compiled.plan_pos[src] >= compiled.plan_pos[mid]:
                 ins.append(_var(("fb", (src, sport))))
+            elif stage is not None and src not in stage.stage_set:
+                # a stage input wire, streamed in as a lane
+                ins.append(_lane_var(f"{src}#{sport}"))
             else:
                 ins.append(f"w_{_ident(src)}[{sport}]")
         if mid == compiled.output_id:
@@ -341,6 +358,10 @@ def generate_source(compiled, layout: Layout = None, lanes=()) -> str:
     else:
         L += [f"    {_var(('fb', k))} = w_{_ident(k[0])}[{k[1]}];"
               for k in compiled.fb_keys]
+    if stage is not None:
+        L += [f"    audio[((size_t){j} * n + t) * V + v] = "
+              f"w_{_ident(src)}[{port}];"
+              for j, (src, port) in enumerate(stage.stage_out)]
     L.append("  }")
     L.append("  // final state: after sample n-1")
     for leaf in layout.state:
@@ -378,60 +399,9 @@ def generate_source(compiled, layout: Layout = None, lanes=()) -> str:
     return "\n".join(L) + "\n"
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME")
-    if cuda_home and Path(cuda_home, "bin", "nvcc").exists():
-        return str(Path(cuda_home, "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
-        return str(Path(CUDA_HOME, "bin", "nvcc"))
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the fused "
-        "kernel is built from source at first use")
-
-
-def build(source: str, compiler=None, flags=NVCC_FLAGS,
-          root: Path = BUILD_ROOT) -> tuple:
-    """Compile ``source`` (with ``csrc/`` on the include path) into a shared
-    library under ``root/<hash>/``; reuse it when the hash matches.  Returns
-    ``(path, compiler_log)``."""
-    compiler = compiler or _nvcc()
-    header = (CSRC / "modules.cuh").read_text()
-    key = hashlib.sha256("\0".join(
-        [source, header, Path(compiler).name, *flags]).encode()).hexdigest()
-    out_dir = root / key[:16]
-    lib = out_dir / "fused.so"
-    log_path = out_dir / "build.log"
-    if lib.exists():
-        return lib, log_path.read_text() if log_path.exists() else ""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    src = out_dir / "fused.cu"
-    src.write_text(source)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [compiler, *flags, "-I", str(CSRC), "-o", tmp, str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"building the fused kernel failed ({' '.join(cmd)}):\n"
-            f"{proc.stdout}{proc.stderr}")
-    log = proc.stdout + proc.stderr
-    log_path.write_text(log)
-    os.replace(tmp, lib)
-    return lib, log
-
-
-def _bind(lib_path, entry: str, extra=()):
-    lib = ctypes.CDLL(str(lib_path))
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int] + list(
-        extra)
-    fn.restype = ctypes.c_int
-    return lib, fn
+# the entry's argument types, without the stream: the nine operand
+# pointers of :meth:`FusedKernel._launch`, then V and n
+ARGTYPES = [P] * 9 + [I, I]
 
 
 def pack(leaves, n_f, n_i, tree_get, v: int, device):
@@ -522,11 +492,13 @@ def unpack_ring(compiled, ring: torch.Tensor) -> dict:
             for i, k in enumerate(compiled.fb_keys)}
 
 
-class FusedKernel:
+class FusedKernel(CudaLib):
     """The fused kernel of one compiled plan and lane set: its generated
     source, its build, its launch wrapper and a count of launches.  In
     buffer-feedback mode it is K2's counterpart (``fused_voice_buffer``),
     else K1's (``fused_voice``)."""
+
+    plain = "engine='scan'"  # what the CPU runs instead
 
     def __init__(self, compiled, lanes=()):
         if not eligible(compiled):
@@ -537,21 +509,11 @@ class FusedKernel:
         self.compiled = compiled
         self.lanes = tuple(sorted(lanes))
         self.buffer = compiled.cfg.buffer_feedback
-        self.name = "fused_voice_buffer" if self.buffer else "fused_voice"
         self.layout = Layout.of(compiled)
-        self.source = generate_source(compiled, self.layout, self.lanes)
-        self.launches = 0  # the wrapper adds one where it launches
-        self.build_log = ""
-        self._fn = None
-        self._lib = None
-
-    def build(self):
-        """Build (or reuse) the library and bind its entry point."""
-        if self._fn is None:
-            path, self.build_log = build(self.source)
-            self._lib, self._fn = _bind(path, "srk_fused_launch",
-                                        [ctypes.c_void_p])
-        return self._fn
+        super().__init__(
+            "fused_voice_buffer" if self.buffer else "fused_voice",
+            generate_source(compiled, self.layout, self.lanes),
+            "fused kernel")
 
     def pack(self, params: dict, state: dict, n: int, xs: dict):
         """The kernel's operands for one render on ``params``' device:
@@ -589,34 +551,84 @@ class FusedKernel:
             final["fb"] = unpack_ring(self.compiled, ring)
         return final
 
+    def _launch(self, params: dict, state: dict, n: int, xs: dict,
+                out_shape):
+        """One launch on CUDA tensors: the packed operands, an output of
+        ``out_shape(V)`` f32 and the state outputs.  Returns ``(out,
+        final_state)``."""
+        leaves = tree_leaves(params) + tree_leaves(state)
+        device = leaves[0].device if leaves else torch.device("cpu")
+        if device.type != "cuda":
+            raise ValueError(
+                f"the {self.what} runs CUDA tensors; these lie on {device} "
+                f"(the CPU runs {self.plain})")
+        pf, pi, sf, si, lanes, ring, v = self.pack(params, state, n, xs)
+        out = torch.empty(out_shape(v), dtype=CV_DTYPE, device=device)
+        sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
+        operands = (pf, pi, sf, si, lanes, ring, out, sf_out, si_out)
+        require_cuda(*operands)
+        self.launch("srk_fused_launch", ARGTYPES,
+                    tuple(t.data_ptr() for t in operands) + (v, n), device)
+        return out, self.finish(sf_out, si_out, ring, v)
+
     def render(self, params: dict, state: dict, n: int, xs: dict = None):
         """Render ``n`` samples of V voices: ``params``, ``state`` and the
         lanes ``xs`` (``{key: [V, n]}``, this kernel's lane set) carry a
         leading voice axis and lie on one CUDA device.  Returns
         ``(audio [V, C, n], final_state)``."""
-        leaves = tree_leaves(params) + tree_leaves(state)
-        device = leaves[0].device if leaves else torch.device("cpu")
-        if device.type != "cuda":
+        channels = self.compiled.cfg.channels
+        return self._launch(params, state, n, xs or {},
+                            lambda v: (v, channels, n))
+
+
+class StageKernel(FusedKernel):
+    """Kernel K3, ``serial_stage``: the block engine's serial stage on
+    CUDA, for one stage plan and lane set.  Replaces
+    ``srack_tpu/ops/serial_kernel.py::make_serial_kernel`` (the Pallas
+    kernel at its ``pallas_call``), which the JAX block engine runs on a
+    TPU only.
+
+    The same generated source as K1 in a stage mode: one thread per voice,
+    the stage modules' state and the in-stage feedback carries in
+    registers; the stage's input wires, its modules' automation lanes and
+    hoisted lanes stream in from ``[W, n, V]`` (a warp's 32 voices read 128
+    contiguous bytes per lane and sample), and each stage output wire
+    streams out to ``[O, n, V]``.  Like K1 it is bound by each thread's
+    serial chain, not by memory: per voice-sample it moves ``4 * (W + O)``
+    bytes.  Its plain version is ``BlockProgram.stage_plain``, a torch loop
+    over the same module steps, which it equals bit for bit (``--fmad=
+    false``)."""
+
+    plain = "BlockProgram.stage_plain"
+
+    def __init__(self, program, lanes=()):
+        if not program.kernel_ok:
             raise ValueError(
-                f"the fused kernel renders CUDA tensors; these lie on "
-                f"{device} (the CPU runs engine='scan')")
-        pf, pi, sf, si, lanes, ring, v = self.pack(params, state, n,
-                                                   xs or {})
-        audio = torch.empty((v, self.compiled.cfg.channels, n),
-                            dtype=CV_DTYPE, device=device)
-        sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
-        for t in (pf, pi, sf, si, lanes, ring, audio, sf_out, si_out):
-            if not t.is_contiguous() or t.device != device:
-                raise ValueError("kernel operands must be contiguous and on "
-                                 "one device")
-        fn = self.build()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(pf.data_ptr(), pi.data_ptr(), sf.data_ptr(),
-                     si.data_ptr(), lanes.data_ptr(), ring.data_ptr(),
-                     audio.data_ptr(), sf_out.data_ptr(), si_out.data_ptr(),
-                     v, n, stream)
-        if err != 0:
-            raise RuntimeError(f"fused kernel launch failed: CUDA error {err}")
-        self.launches += 1
-        return audio, self.finish(sf_out, si_out, ring, v)
+                "the serial stage holds a module type without a CUDA device "
+                "function; kernel K3 cannot run it")
+        compiled = program.compiled
+        self.compiled = compiled
+        self.program = program
+        self.lanes = tuple(sorted(lanes))
+        missing = sorted(f"{s}#{p}" for s, p in program.stage_in
+                         if f"{s}#{p}" not in self.lanes)
+        if missing:
+            raise ValueError(f"stage input wires without a lane: {missing}")
+        self.buffer = False
+        self.layout = Layout.of(compiled, program.stage_plan)
+        CudaLib.__init__(self, "serial_stage", generate_source(
+            compiled, self.layout, self.lanes, stage=program),
+            "serial-stage kernel")
+
+    def run(self, params: dict, state: dict, lanes: dict, n: int):
+        """Run the stage over ``n`` samples of V voices: ``params`` (every
+        module's, ``[V, ...]``), ``state`` (``{"states": {stage mid: ...},
+        "fb": ...}``) and ``lanes`` (``{key: [V, n]}``, this kernel's lane
+        set) lie on one CUDA device.  Returns ``({wire: [V, n]},
+        final stage state)``."""
+        outs_key = self.program.stage_out
+        outs, final = self._launch(params, state, n, lanes,
+                                   lambda v: (max(len(outs_key), 1), n, v))
+        final["states"] = {m: final["states"][m]
+                           for m in self.program.stage_plan}
+        return ({w: outs[j].T for j, w in enumerate(outs_key)}, final)

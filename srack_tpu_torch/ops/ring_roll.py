@@ -1,0 +1,89 @@
+"""Ring alignment on CUDA: kernel K9 (counterpart:
+``srack_tpu/ops/ring_roll.py``, the Pallas kernel ``_align_rows``).
+
+Freeverb keeps each delay line as a ring with a per-voice write index, so
+that its state stays interchangeable with the per-sample step.  The block
+path wants the lines in time order, oldest first: ``chrono[i] =
+buf[(idx + i) % L]``.  ``csrc/ring_align.cu`` does that for every line of
+a Freeverb in one launch, and moves each line between the module's ring
+layout ``[V, L]`` and the Freeverb kernel's ``[L, V]`` on the way (its
+source note states the launch shape and the bound, bytes).
+
+The plain version is :func:`ring_align_plain`, a ``torch.gather`` with the
+rotated index (and a transpose where the layout changes); that gather is
+also the one PyTorch call that computes the same function.
+:func:`ring_align` launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cuda_lib import CudaLib, I, P, csrc, require_cuda
+
+MAX_LINES = 32  # SRK_RING_MAX_LINES
+
+
+def ring_align_plain(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``[..., L]`` rings and ``[...]`` write indices -> time order."""
+    length = buf.shape[-1]
+    pos = (idx.to(torch.int64).unsqueeze(-1)
+           + torch.arange(length, device=buf.device)) % length
+    return torch.gather(buf, -1, pos.expand(buf.shape))
+
+
+class RingAlign(CudaLib):
+    """K9: :meth:`move` of up to 32 lines in one launch."""
+
+    def __init__(self):
+        super().__init__("ring_align", csrc("ring_align.cu"),
+                         "ring-alignment kernel (K9)")
+
+    def move(self, src: list, dst: list, lens, v: int, idx=None,
+             shifts=None, src_lines: bool = False,
+             dst_lines: bool = False) -> None:
+        """Line j of ``src`` in time order into line j of ``dst``:
+        ``dst[j][v, i] = src[j][v, (idx[j, v] + shifts[j] + i) % lens[j]]``.
+        Each line is its own contiguous f32 tensor, a ``[V, L_j]`` ring or,
+        with ``src_lines`` / ``dst_lines``, an ``[L_j, V]`` block;
+        ``idx``: ``[n_lines, V]`` int32 or None (0); ``shifts``: ints or
+        None (0)."""
+        n = len(lens)
+        if not (len(src) == len(dst) == n <= MAX_LINES):
+            raise ValueError(f"ring alignment of {len(src)} into {len(dst)} "
+                             f"lines of {n} lengths (at most {MAX_LINES})")
+        for t, length in zip(list(src) + list(dst), list(lens) * 2):
+            if t.numel() != v * length or t.dtype != torch.float32:
+                raise ValueError(f"a line of {t.numel()} {t.dtype} for "
+                                 f"{v} voices of length {length}")
+        if idx is not None and (tuple(idx.shape) != (n, v)
+                                or idx.dtype != torch.int32):
+            raise ValueError(f"write indices {tuple(idx.shape)} {idx.dtype}, "
+                             f"expected [{n}, {v}] int32")
+        device = require_cuda(*src, *dst,
+                              *([] if idx is None else [idx]))
+        shifts = [0] * n if shifts is None else [int(s) for s in shifts]
+        self.launch("srk_ring_align", [P, P, P, P, P, I, I, I, I],
+                    ((P * n)(*[t.data_ptr() for t in src]),
+                     (P * n)(*[t.data_ptr() for t in dst]),
+                     (ctypes.c_int * n)(*lens), (ctypes.c_int * n)(*shifts),
+                     None if idx is None else idx.data_ptr(), n, v,
+                     int(src_lines), int(dst_lines)), device)
+
+
+RING_ALIGN = RingAlign()
+
+
+def ring_align(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``[R, L]`` rings and ``[R]`` indices -> ``[R, L]`` in time order: one
+    K9 launch for CUDA tensors, the plain gather for CPU tensors."""
+    if not buf.is_cuda:
+        return ring_align_plain(buf, idx)
+    r, length = buf.shape
+    out = torch.empty((r, length), dtype=buf.dtype, device=buf.device)
+    RING_ALIGN.move([buf.contiguous()], [out], (length,), r,
+                    idx=idx.to(torch.int32).reshape(1, r).contiguous())
+    return out

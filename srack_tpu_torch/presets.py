@@ -9,10 +9,14 @@
 5. :func:`farm_params`       -- randomized parameter stacks for batch
    rendering, the same draws as the JAX package's.
 
+6. :func:`reverb_patch`      -- the subtractive voice into a stereo
+   Freeverb; the fused kernel cannot take it, the block engine does.
+
 Also :func:`gate_cv_voice` (a voice played through Input driver lanes) and
 the check patches :func:`kernel_check_patch` and :func:`lane_check_patch`,
-which drive every device function of the fused kernels.  The drum, sampler
-and reverb presets wait for their modules (slice 3).
+which drive every device function of the fused kernels, and
+:func:`block_check_patch`, which drives every phase of the block engine.
+The drum and sampler presets wait for the Sample player (slice 3b).
 """
 
 from __future__ import annotations
@@ -157,6 +161,25 @@ def feedback_patch(cfg: AudioConfig | None = None) -> Patch:
     p.connect(flt, 0, p.output, 0)
     if cfg.channels > 1:
         p.connect(flt, 1, p.output, 1)
+    return p
+
+
+def reverb_patch(cfg: AudioConfig | None = None) -> Patch:
+    """Subtractive voice into Freeverb (stereo): exercises delay lines.
+
+    Freeverb's 8 feedback combs sum coherently at room_size 0.7 (~6x gain
+    on sustained input); wet/dry are set for the worst-case farm voice
+    (randomized cutoff/resonance) to stay inside full scale."""
+    cfg = cfg or AudioConfig(channels=2)
+    p = subtractive_voice(cfg)
+    vca = next(i for i in p if i.name == "vca")
+    rev = p.add("Freeverb", room_size=0.7, dampening=0.4, wet=0.12, dry=0.3,
+                name="verb")
+    p.connect(p.handle(vca.id), 0, rev, "Left")
+    p.connect(p.handle(vca.id), 0, rev, "Right")
+    p.connect(rev, "Left", p.output, 0)
+    if cfg.channels > 1:
+        p.connect(rev, "Right", p.output, 1)
     return p
 
 
@@ -311,3 +334,48 @@ def lane_check_patch(cfg: AudioConfig | None = None, *,
         p.connect(grid, "CV", p.output, 1)
     automation = ((vco.id, "val"), (env.id, "d_sec"), (vcf.id, "freq"))
     return p, automation
+
+
+def block_check_patch(cfg: AudioConfig | None = None, *,
+                      patch_cls=Patch):
+    """A mono patch that drives every phase of the block engine: an LFO
+    Oscillator into a Multiply that gives a VCO's pitch CV, the LFO's
+    Square also on the VCO's Sync (so the VCO's whole-block phase takes
+    the segmented prefix-sum path); the VCO into a Freeverb's Left, whose
+    Right output feeds nothing; the Freeverb into a Moog Filter, a VCA and
+    Output; an ADSR gated by a clock Oscillator on the VCA's CV; and two
+    automated Freeverb params, ``room_size`` (held per chunk) and ``wet``
+    (per sample).
+
+    The block engine puts the LFO, the Multiply, the VCO and the Freeverb
+    in its pre phase and the clock, the ADSR, the filter and the VCA in a
+    stage whose input wire is the Freeverb's Left.
+
+    Returns ``(patch, automation)``: ``automation`` is the (module id,
+    param) pairs to pass to ``compile_patch(..., automation=)``.
+    ``patch_cls`` builds the same patch with another package's ``Patch``.
+    """
+    cfg = cfg or AudioConfig(channels=1)
+    p = patch_cls(cfg)
+    lfo = p.add("Oscillator", val=-6.5, name="lfo")
+    depth = p.add("Multiply", constant=0.05, name="lfo_depth")
+    vco = p.add("Oscillator", val=-1.0, name="vco")
+    verb = p.add("Freeverb", room_size=0.6, dampening=0.5, wet=0.1, dry=0.3,
+                 name="verb")
+    vcf = p.add("Moog Filter", freq=0.4, res=0.4, name="vcf")
+    clk = p.add("Oscillator", val=-5.5, antialiasing=False, name="clock")
+    env = p.add("ADSR", a_sec=0.01, d_sec=0.08, s_val=0.5, r_sec=0.15,
+                name="env")
+    vca = p.add("VCA", name="vca")
+    p.connect(lfo, "Sine", depth, "In1")
+    p.connect(depth, 0, vco, "CV")
+    p.connect(lfo, "Square", vco, "Sync")
+    p.connect(vco, "Sawtooth", verb, "Left")
+    p.connect(verb, "Left", vcf, "Audio")
+    p.connect(clk, "Square", env, "Gate")
+    p.connect(vcf, 0, vca, "Audio")
+    p.connect(env, 0, vca, "CV")
+    p.connect(vca, 0, p.output, 0)
+    for c in range(1, cfg.channels):
+        p.connect(vca, 0, p.output, c)
+    return p, ((verb.id, "room_size"), (verb.id, "wet"))

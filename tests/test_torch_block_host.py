@@ -1,0 +1,296 @@
+"""The block engine's CUDA sources, checked on the CPU.
+
+Each kernel source has a host build (g++, ``-ffp-contract=off``) that runs
+the very per-voice or per-row body the card runs, in a loop.  Here each is
+held against its plain version on the same inputs:
+
+* K3, the serial stage (``ops/fused.py`` in stage mode), for the stages of
+  ``reverb_patch``, ``block_check_patch`` (an input wire) and
+  ``feedback_patch`` (feedback carries inside the stage): bit-exact
+  against ``BlockProgram.stage_plain`` (output lanes and state);
+* K4, the row scans (``csrc/row_scan.cu``): int32 sum, max and fill exact
+  against the log-doubling plain versions, f32 sum within ``2e-4`` and
+  affine within ``3e-4`` (``tests/test_scan_kernel.py``'s tolerances: both
+  reassociate), rows longer than one chunk so the carried prefix is used;
+* K9, the ring alignment (``csrc/ring_align.cu``), rings to rings and
+  to and from the Freeverb kernel's ``[L, V]`` lines: exact;
+* K8, the Freeverb (``csrc/freeverb.cu``) with the wrapper's layout around
+  it: within ``2e-5`` of the chunked block form, from rings with non-zero
+  write indices, with and without an automated ``room_size`` lane.
+
+The main path never uses these host builds.
+"""
+
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import srack_tpu_torch as stt
+from srack_tpu_torch.compiler import tree_map
+from srack_tpu_torch.modules import freeverb as fv
+from srack_tpu_torch.ops import basic, freeverb_kernel as fvk, fused
+from srack_tpu_torch.ops.cuda_lib import build
+from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+from srack_tpu_torch.ops.ring_roll import RING_ALIGN, ring_align_plain
+from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+              "-shared", "-fPIC")
+SR = 4800
+P, I = ctypes.c_void_p, ctypes.c_int
+
+
+@pytest.fixture(scope="module")
+def gxx():
+    path = shutil.which("g++")
+    if path is None:
+        pytest.skip("g++ unavailable")
+    return path
+
+
+def _host(lib, gxx, root):
+    path, _ = build(lib.source, compiler=gxx, flags=HOST_FLAGS, root=root)
+    return ctypes.CDLL(str(path))
+
+
+def _fn(lib, name, argtypes):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = I
+    return fn
+
+
+# -- K3 ----------------------------------------------------------------------
+
+def _stage_case(name):
+    if name == "reverb_patch":
+        patch = stt.presets.reverb_patch(stt.AudioConfig(sample_rate=SR,
+                                                         channels=2))
+        return patch, stt.compile_patch(patch)
+    if name == "feedback_patch":
+        patch = stt.presets.feedback_patch(stt.AudioConfig(sample_rate=SR,
+                                                           channels=1))
+        return patch, stt.compile_patch(patch)
+    patch, autos = stt.presets.block_check_patch(
+        stt.AudioConfig(sample_rate=SR, channels=1))
+    return patch, stt.compile_patch(patch, automation=autos)
+
+
+@pytest.mark.parametrize("n", [256, 255])
+@pytest.mark.parametrize("name", ["reverb_patch", "block_check_patch",
+                                  "feedback_patch"])
+def test_stage_kernel_on_host_matches_stage_loop(gxx, tmp_path, name, n):
+    patch, compiled = _stage_case(name)
+    prog = compiled.block_program()
+    v = 5
+    params = stt.presets.farm_params(patch, v, seed=n)
+    state = tree_map(lambda a: a.expand((v,) + a.shape).contiguous(),
+                     compiled.init_state())
+    rng = np.random.default_rng(n)
+    # the stage's input wires as random lanes (the Freeverb's Left for the
+    # block check patch; reverb_patch's stage has none)
+    lanes = {f"{s}#{p}": torch.from_numpy(
+        rng.uniform(-1, 1, (v, n)).astype(np.float32))
+        for s, p in prog.stage_in}
+    kernel = prog.stage_kernel(lanes)
+    assert kernel.name == "serial_stage"
+    lib = _fn(ctypes.CDLL(str(build(kernel.source, compiler=gxx,
+                                    flags=HOST_FLAGS, root=tmp_path)[0])),
+              "srk_fused_host", fused.ARGTYPES)
+    stage_state = {"states": {m: state["states"][m] for m in prog.stage_plan},
+                   "fb": state["fb"]}
+    pf, pi, sf, si, lanes_p, ring, _ = kernel.pack(params, stage_state, n,
+                                                   lanes)
+    outs = torch.empty((max(len(prog.stage_out), 1), n, v))
+    sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
+    assert lib(pf.data_ptr(), pi.data_ptr(), sf.data_ptr(), si.data_ptr(),
+               lanes_p.data_ptr(), ring.data_ptr(), outs.data_ptr(),
+               sf_out.data_ptr(), si_out.data_ptr(), v, n) == 0
+    final = kernel.finish(sf_out, si_out, ring, v)
+    derived = compiled.derived_params(params)
+    want, want_final = prog.stage_plain(
+        {m: derived[m] for m in prog.stage_plan}, stage_state, lanes, n)
+    assert prog.stage_out
+    for j, w in enumerate(prog.stage_out):
+        assert torch.equal(outs[j].T, want[w]), w
+    for mid in prog.stage_plan:
+        for key, wv in want_final["states"][mid].items():
+            assert torch.equal(final["states"][mid][key], wv), (mid, key)
+    assert set(final["fb"]) == set(want_final["fb"])
+    for k, wv in want_final["fb"].items():
+        assert torch.equal(final["fb"][k], wv), k
+    assert kernel.launches == 0
+
+
+# -- K4 ----------------------------------------------------------------------
+
+def _rows(dtype, shape, rng):
+    if dtype == torch.int32:
+        return torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, shape,
+                                             dtype=np.int64)
+                                .astype(np.int32))
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 2500])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("kind", ["sum", "max"])
+def test_row_scan_on_host_matches_plain(gxx, tmp_path, kind, dtype, n):
+    rng = np.random.default_rng(n)
+    x = _rows(dtype, (3, n), rng)
+    lib = _host(ROW_SCAN, gxx, tmp_path)
+    dt = "f32" if dtype == torch.float32 else "i32"
+    y = torch.empty_like(x)
+    assert _fn(lib, f"srk_scan_{kind}_{dt}", [P, P, I, I])(
+        x.data_ptr(), y.data_ptr(), 3, n) == 0
+    want = (basic.cumsum_plain if kind == "sum" else basic.cummax_plain)(x)
+    if dtype == torch.int32 or kind == "max":
+        assert torch.equal(y, want)
+    else:
+        torch.testing.assert_close(y, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_row_fill_on_host_matches_plain(gxx, tmp_path, dtype, k):
+    rng = np.random.default_rng(k)
+    n = 2300
+    vals = _rows(dtype, (k, 3, n), rng)
+    mask = torch.from_numpy(rng.uniform(size=(3, n)) < 0.01)
+    mask[1] = False          # a row that never fills
+    mask[2, 1500:] = False   # a fill held across chunks
+    lib = _host(ROW_SCAN, gxx, tmp_path)
+    dt = "f32" if dtype == torch.float32 else "i32"
+    out, ok = torch.empty_like(vals), torch.empty((3, n), dtype=torch.int32)
+    m = mask.to(torch.int32)
+    assert _fn(lib, f"srk_scan_fill_{dt}", [P, P, P, P, I, I, I])(
+        vals.data_ptr(), m.data_ptr(), out.data_ptr(), ok.data_ptr(), k, 3,
+        n) == 0
+    want, want_ok = basic.forward_fill_multi_plain(tuple(vals), mask)
+    assert torch.equal(ok != 0, want_ok)
+    for j in range(k):
+        # where nothing held yet the value is unspecified
+        assert torch.equal(out[j][want_ok], want[j][want_ok])
+
+
+@pytest.mark.parametrize("n", [7, 2500])
+def test_row_affine_on_host_matches_plain(gxx, tmp_path, n):
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.uniform(0.9, 1.0, (3, n)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((3, n)).astype(np.float32))
+    lib = _host(ROW_SCAN, gxx, tmp_path)
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    assert _fn(lib, "srk_scan_affine_f32", [P, P, P, P, I, I])(
+        a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), 3,
+        n) == 0
+    want_a, want_b = basic.affine_scan_plain(a, b)
+    torch.testing.assert_close(out_a, want_a, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(out_b, want_b, rtol=3e-4, atol=3e-4)
+
+
+# -- K9 ----------------------------------------------------------------------
+
+def _ring_align_host(lib, src, dst, lens, v, idx, shifts, src_lines,
+                     dst_lines):
+    """The host entry of K9 with the wrapper's arguments."""
+    n = len(lens)
+    return _fn(lib, "srk_ring_align", [P, P, P, P, P, I, I, I, I])(
+        (P * n)(*[t.data_ptr() for t in src]),
+        (P * n)(*[t.data_ptr() for t in dst]), (I * n)(*lens),
+        (I * n)(*shifts), None if idx is None else idx.data_ptr(), n, v,
+        int(src_lines), int(dst_lines))
+
+
+@pytest.mark.parametrize("src_lines,dst_lines",
+                         [(False, False), (False, True), (True, False)])
+def test_ring_align_on_host_matches_plain(gxx, tmp_path, src_lines,
+                                          dst_lines):
+    """Rings to rings, rings to the Freeverb kernel's ``[L, V]`` lines (the
+    wrapper's entry) and back (its exit), with per-voice indices and a
+    per-line shift: exact."""
+    rng = np.random.default_rng(0)
+    lens, v = (5, 121, 24, 1), 7
+    rings = [torch.from_numpy(rng.standard_normal((v, n)).astype(np.float32))
+             for n in lens]
+    idx = torch.from_numpy(rng.integers(-300, 300, (len(lens), v))
+                           .astype(np.int32))
+    shifts = [int(s) for s in rng.integers(0, 1000, len(lens))]
+    src = [r.T.contiguous() if src_lines else r for r in rings]
+    dst = [torch.empty((n, v) if dst_lines else (v, n)) for n in lens]
+    lib = _host(RING_ALIGN, gxx, tmp_path)
+    assert _ring_align_host(lib, src, dst, lens, v, idx, shifts, src_lines,
+                            dst_lines) == 0
+    for j, (d, r, n) in enumerate(zip(dst, rings, lens)):
+        want = ring_align_plain(r, (idx[j] + shifts[j]) % n)
+        assert torch.equal(d.T if dst_lines else d, want), j
+    assert _ring_align_host(lib, src, dst, lens, v, None, [0] * len(lens),
+                            src_lines, dst_lines) == 0
+    for d, r in zip(dst, rings):
+        assert torch.equal(d.T if dst_lines else d, r)
+    assert RING_ALIGN.launches == 0
+
+
+# -- K8 ----------------------------------------------------------------------
+
+def _freeverb_inputs(v, n, seed, automated):
+    cfg = stt.AudioConfig(sample_rate=SR, channels=2)
+    rng = np.random.default_rng(seed)
+    state = {}
+    for k, length in zip(fv.LINE_KEYS, fvk.all_lengths(cfg)):
+        state[k] = torch.from_numpy(
+            (rng.standard_normal((v, length)) * 0.1).astype(np.float32))
+        state[f"{k}_idx"] = torch.from_numpy(
+            rng.integers(0, length, v).astype(np.int32))
+    for k in fv.FS_KEYS:
+        state[k] = torch.from_numpy(
+            (rng.standard_normal(v) * 0.1).astype(np.float32))
+    _, p0 = fv.FREEVERB.make(cfg, room_size=0.7, dampening=0.4, wet=0.3,
+                             dry=0.2)
+    params = {k: a.expand(v).clone() for k, a in p0.items()}
+    params["room_size"] = torch.from_numpy(
+        rng.uniform(0.3, 0.9, v).astype(np.float32))
+    if automated:
+        params["room_size"] = torch.from_numpy(
+            rng.uniform(0.3, 0.9, (v, n)).astype(np.float32))
+        params["wet"] = torch.from_numpy(
+            rng.uniform(0.1, 0.5, (v, n)).astype(np.float32))
+    l_in = torch.from_numpy((rng.standard_normal((v, n)) * 0.3)
+                            .astype(np.float32))
+    r_in = torch.from_numpy((rng.standard_normal((v, n)) * 0.3)
+                            .astype(np.float32))
+    return cfg, params, state, l_in, r_in
+
+
+@pytest.mark.parametrize("automated", [False, True])
+@pytest.mark.parametrize("n", [512, 300])
+def test_freeverb_kernel_on_host_matches_block_form(gxx, tmp_path, n,
+                                                    automated):
+    v = 3
+    cfg, params, state, l_in, r_in = _freeverb_inputs(v, n, n, automated)
+    gains = fv.block_gains(params, v)
+    want_state, (want_l, want_r) = fv.block_plain(l_in, r_in, gains,
+                                                  state, n)
+    # the wrapper's steps, with the plain alignment and transpose for K9
+    lens = fvk.all_lengths(cfg)
+    lines = torch.cat([ring_align_plain(state[k], state[f"{k}_idx"]).T
+                       for k in fv.LINE_KEYS]).contiguous()
+    fs = torch.stack([state[k] for k in fv.FS_KEYS], dim=1).contiguous()
+    args, _keep, out_l, out_r = fvk.operands(
+        cfg, l_in, r_in, gains, fs, lines, n, False,
+        fvk.line_tables(lens, "cpu"))
+    lib = _host(FREEVERB, gxx, tmp_path)
+    assert _fn(lib, "srk_freeverb", fvk.ARGTYPES)(*args) == 0
+    torch.testing.assert_close(out_l, want_l, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(out_r, want_r, atol=2e-5, rtol=2e-5)
+    for j, k in enumerate(fv.FS_KEYS):
+        torch.testing.assert_close(fs[:, j], want_state[k], atol=2e-5,
+                                   rtol=2e-5)
+    for k, rows, length in zip(fv.LINE_KEYS, torch.split(lines, list(lens)),
+                               lens):
+        back = ring_align_plain(rows.T, torch.full((v,), n % length,
+                                                 dtype=torch.int32))
+        torch.testing.assert_close(back, want_state[k], atol=2e-5, rtol=2e-5)
+        assert not want_state[f"{k}_idx"].any()

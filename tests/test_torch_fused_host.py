@@ -15,6 +15,7 @@ Noise drawn by the port's generator and an automation lane), and K2 for
 this host build.
 """
 
+import ctypes
 import shutil
 
 import numpy as np
@@ -84,7 +85,9 @@ def host_render(kernel, lib_path, params, state, n, xs=None):
     audio = torch.empty((v, kernel.compiled.cfg.channels, n),
                         dtype=torch.float32)
     sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
-    lib, fn = fused._bind(lib_path, "srk_fused_host")
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.srk_fused_host
+    fn.argtypes, fn.restype = fused.ARGTYPES, ctypes.c_int
     err = fn(pf.data_ptr(), pi.data_ptr(), sf.data_ptr(), si.data_ptr(),
              lanes.data_ptr(), ring.data_ptr(), audio.data_ptr(),
              sf_out.data_ptr(), si_out.data_ptr(), v, n)
@@ -177,7 +180,10 @@ def test_module_without_device_function_is_not_kernel_eligible():
         p.connect(vca, 0, p.output, 0)
         compiled = stt.compile_patch(p)
         assert not compiled.fused_eligible()
-        assert compiled.auto_engine(True, "cuda") == "scan"
+        # a stateless module without a device function runs in a block
+        # phase of the block engine, as torch ops over whole rows
+        assert compiled.auto_engine(True, "cuda") == "block"
+        assert compiled.auto_engine(True, "cpu") == "scan"
         with pytest.raises(ValueError, match="not eligible"):
             compiled.fused()
         params = stt.replicate_params(p.params(), 2)

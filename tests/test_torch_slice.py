@@ -183,6 +183,14 @@ def test_import_and_render_without_jax():
         "audio, _, state = stt.render(p, 64, device='cpu')\n"
         "assert tuple(audio.shape) == (1, 64)\n"
         "assert all(tuple(f.shape) == (16,) for f in state['fb'].values())\n"
+        "cfg = stt.AudioConfig(sample_rate=4800, channels=2)\n"
+        "p = stt.presets.reverb_patch(cfg)\n"
+        "audio, _, _ = stt.render_batch(\n"
+        "    p, 300, device='cpu', engine='block',\n"
+        "    params=stt.presets.farm_params(p, 2))\n"
+        "assert tuple(audio.shape) == (2, 2, 300)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') "
+        "for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=300)
@@ -230,9 +238,14 @@ def test_generated_source_is_deterministic_and_in_plan_order():
 
 def test_unported_module_type_names_the_roadmap():
     p = stt.Patch(stt.AudioConfig(channels=1))
-    for type_name in ("Sample", "Freeverb"):
+    for type_name in ("Sample",):
         with pytest.raises(KeyError, match="ROADMAP.md"):
             p.add(type_name)
+    # the block engine's buffer-feedback mode is slice 3b
+    fb = stt.presets.feedback_patch(stt.AudioConfig(
+        sample_rate=4800, block_size=16, channels=1, buffer_feedback=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        stt.render(fb, 32, engine="block", device="cpu")
     with pytest.raises(NotImplementedError, match="slice 4"):
         stt.Patch(stt.AudioConfig(channels=1, precision="exact")).add(
             "Oscillator")

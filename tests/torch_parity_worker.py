@@ -18,6 +18,25 @@ lanes, audio, probes and final state to ``OUT.npz`` (keys
 * ``feedback_buffer``: feedback_patch in buffer-feedback mode, block 32,
   the scan engine at n=128 and kernel K2 in interpret mode at n=64.
 
+The block engine's cases (slice 3a) make their inputs here from numpy
+seeds and save them beside the results:
+
+* ``reverb_patch`` and ``block_check_patch`` (with ``@block`` appended):
+  the JAX block engine at n=512 (block_check_patch with automation lanes
+  on the Freeverb's ``room_size`` and ``wet``), and the stage on kernel
+  K3 in interpret mode (``make_serial_kernel``, t_chunk=64, unroll=4) at
+  n=70 and n=64, from random oscillator phases and random stage-in lanes;
+* ``freeverb``: the Freeverb ``_step`` over 256 samples from random rings
+  with non-zero write indices; ``_block`` at n=512 and n=300 with
+  automated ``room_size`` and ``wet``; and kernel K8 in interpret mode
+  (``freeverb_kernel.entry`` at the shapes of
+  ``tests/test_freeverb_kernel.py``);
+* ``osc_block``: the Oscillator's ``_osc_block`` free-running, with a CV,
+  with a Sync, with both, and with an automated ``val``;
+* ``scan``: the ``ops/basic`` scan wrappers off the TPU (log-doubling) and
+  kernel K4 in interpret mode (``scan_kernel._scan_rows``), four kinds;
+* ``ring_roll``: kernel K9 in interpret mode (``ring_roll._align_rows``).
+
 It runs in its own process because XLA's CPU backend contracts ``a*b+c``
 into one fused multiply-add when the host has FMA, which rounds the
 polynomials once where the port (and the TPU) round twice, and the XLA flag
@@ -104,9 +123,293 @@ def flat(prefix: str, tree, out: dict) -> None:
         out[prefix] = np.asarray(tree)
 
 
+BLOCK_N, STAGE_NS = 512, (70, 64)
+
+
+def _seeded_state(compiled, v, rng):
+    """init_state for V voices with every oscillator at a random phase."""
+    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
+                         compiled.init_state())
+    for mid, (mdef, _, _) in compiled.instances.items():
+        if mdef.type_name == "Oscillator":
+            state["states"][mid]["pos"] = jnp.asarray(rng.integers(
+                -2 ** 31, 2 ** 31 - 1, v, dtype=np.int64).astype(np.int32))
+    return state
+
+
+def block_case(name: str, out: dict) -> None:
+    """The JAX block engine and kernel K3 in interpret mode."""
+    from srack_tpu import block_engine
+    from srack_tpu.ops import serial_kernel
+    from srack_tpu_torch.presets import block_check_patch
+    if name == "reverb_patch":
+        cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=2,
+                             precision="fast")
+        patch, autos = presets.reverb_patch(cfg), ()
+    else:
+        cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
+                             precision="fast")
+        patch, autos = block_check_patch(cfg, patch_cls=st.Patch)
+    tag = f"{name}@block"
+    compiled = st.compile_patch(patch, automation=autos)
+    rng = np.random.default_rng(99)
+    params = presets.farm_params(patch, VOICES)
+    state = _seeded_state(compiled, VOICES, rng)
+    drivers = {}
+    for mid, p in autos:
+        lo, hi = (0.3, 0.9) if p == "room_size" else (0.05, 0.3)
+        drivers[f"{mid}~{p}"] = rng.uniform(
+            lo, hi, (VOICES, BLOCK_N)).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(0), VOICES)
+    flat(f"{tag}/params", params, out)
+    flat(f"{tag}/state", state, out)
+    flat(f"{tag}/drivers", drivers, out)
+    out[f"{tag}/plan"] = np.asarray(compiled.plan)
+    audio, _, final = compiled._get_fn(BLOCK_N, True, "block")(
+        params, state, keys, {k: jnp.asarray(a) for k, a in drivers.items()})
+    flat(f"{tag}/block{BLOCK_N}/audio", audio, out)
+    flat(f"{tag}/block{BLOCK_N}/final", final, out)
+
+    prog = compiled.block_program()
+
+    def wire_key(w):
+        return f"{w[0]}#{w[1]}"
+
+    def eval_key(k):
+        mid, port = k.rsplit("#", 1)
+        return (mid, int(port))
+
+    def kernel_step(k_params, k_state, ins_dict):
+        # as block_engine.BlockProgram.make_run makes it (sample mode)
+        ext = {eval_key(k): v for k, v in ins_dict.items()}
+        new_states, fb_out, outs, _ = prog._stage_step(
+            k_params, k_state["states"], k_state["fb"], ext)
+        return ({"states": new_states, "fb": fb_out},
+                {wire_key(w): outs[w] for w in prog.stage_out})
+
+    derived = compiled.derived_params(params)
+    stage_params = {m: derived[m] for m in prog.stage_plan}
+    stage_state = {"states": {m: state["states"][m]
+                              for m in prog.stage_plan},
+                   "fb": state["fb"]}
+    assert block_engine.PALLAS_SAFE and prog.pallas_ok
+    for n in STAGE_NS:
+        lanes = {wire_key(w): rng.uniform(-1, 1, (VOICES, n)).astype(
+            np.float32) for w in prog.stage_in}
+        kern = serial_kernel.make_serial_kernel(
+            kernel_step, n, [wire_key(w) for w in prog.stage_out],
+            t_chunk=64, unroll=4, interpret=True)
+        outs, final = jax.jit(kern)(
+            stage_params, stage_state,
+            {k: jnp.asarray(a) for k, a in lanes.items()})
+        flat(f"{tag}/k3_{n}/lanes", lanes, out)
+        flat(f"{tag}/k3_{n}/outs", outs, out)
+        flat(f"{tag}/k3_{n}/final", final, out)
+
+
+def freeverb_case(out: dict) -> None:
+    """The Freeverb's step and block form, and K8 in interpret mode."""
+    from srack_tpu.modules import freeverb as jfv
+    from srack_tpu.ops import freeverb_kernel as fvk
+    cfg = st.AudioConfig(sample_rate=4800, channels=2, precision="fast")
+    statics, p0 = jfv.FREEVERB.make(cfg, room_size=0.7, dampening=0.4,
+                                    wet=0.3, dry=0.2)
+    rng = np.random.default_rng(5)
+    v = VOICES
+    state = {}
+    for k, a in jfv._init_state(cfg, statics).items():
+        if k.endswith("_idx"):
+            continue
+        state[k] = (rng.standard_normal((v,) + a.shape) * 0.1).astype(
+            np.float32)
+        if a.ndim:
+            state[f"{k}_idx"] = rng.integers(0, a.shape[0], v).astype(
+                np.int32)
+    params = {k: np.broadcast_to(np.asarray(a), (v,)).copy()
+              for k, a in p0.items()}
+    params["room_size"] = rng.uniform(0.3, 0.9, v).astype(np.float32)
+    params["dampening"] = rng.uniform(0.0, 1.0, v).astype(np.float32)
+    flat("freeverb/state", state, out)
+    flat("freeverb/params", params, out)
+
+    n = 256
+    lanes = (rng.standard_normal((2, v, n)) * 0.3).astype(np.float32)
+    out["freeverb/step/lanes"] = lanes
+
+    def run_steps(p, s, lr):
+        def body(carry, x):
+            carry, outs = jfv.FREEVERB.step(cfg, statics, p, carry,
+                                            [x[0], x[1]])
+            return carry, jnp.stack(outs)
+        final, ys = jax.lax.scan(body, s, lr.T)
+        return ys.T, final
+
+    audio, final = jax.jit(jax.vmap(run_steps, in_axes=(0, 0, 1)))(
+        params, state, jnp.asarray(lanes))
+    flat("freeverb/step/audio", audio, out)
+    flat("freeverb/step/final", final, out)
+
+    for n in (512, 300):
+        lanes = (rng.standard_normal((2, v, n)) * 0.3).astype(np.float32)
+        autos = {"room_size": rng.uniform(0.3, 0.9, (v, n)).astype(
+                     np.float32),
+                 "wet": rng.uniform(0.1, 0.5, (v, n)).astype(np.float32)}
+        out[f"freeverb/block{n}/lanes"] = lanes
+        flat(f"freeverb/block{n}/autos", autos, out)
+
+        def run_block(p, a, s, lr, n=n):
+            return jfv._block(cfg, statics, {**p, **a}, s, [lr[0], lr[1]],
+                              None, n)
+
+        final, audio = jax.jit(jax.vmap(run_block, in_axes=(0, 0, 0, 1)))(
+            params, autos, state, jnp.asarray(lanes))
+        flat(f"freeverb/block{n}/audio", jnp.stack(audio, axis=1), out)
+        flat(f"freeverb/block{n}/final", final, out)
+
+    # K8 in interpret mode, one voice, tests/test_freeverb_kernel.py shapes
+    comb_lens = (202, 215, 231, 246, 258, 270, 282, 293,
+                 206, 219, 235, 250, 262, 274, 286, 297)
+    ap_lens = (100, 80, 61, 40, 104, 84, 65, 44)
+    n, t_c = 256, 128
+    mixed = (rng.normal(size=n) * 0.1).astype(np.float32)
+    fs0 = (rng.normal(size=16) * 0.1).astype(np.float32)
+    damp, feed = np.float32(0.35), np.float32(0.84)
+    hists = [(rng.normal(size=length) * 0.1).astype(np.float32)
+             for length in comb_lens + ap_lens]
+    outs = fvk.entry(comb_lens, ap_lens, n, t_c)(
+        jnp.asarray(mixed), jnp.asarray(fs0), jnp.asarray(damp),
+        jnp.asarray(feed), *[jnp.asarray(h) for h in hists])
+    out["freeverb/k8/mixed"] = mixed
+    out["freeverb/k8/fs0"] = fs0
+    out["freeverb/k8/damp_feed"] = np.asarray([damp, feed], np.float32)
+    for j, h in enumerate(hists):
+        out[f"freeverb/k8/hist{j}"] = h
+    out["freeverb/k8/out"] = np.stack([np.asarray(outs[0]),
+                                       np.asarray(outs[1])])
+    out["freeverb/k8/fs"] = np.asarray(outs[2])
+    for j, h in enumerate(outs[3:]):
+        out[f"freeverb/k8/final{j}"] = np.asarray(h)
+
+
+def osc_block_case(out: dict) -> None:
+    """``_osc_block`` over [V, n] rows for each input combination."""
+    from srack_tpu.modules import oscillator as josc
+    cfg = st.AudioConfig(sample_rate=4800, precision="fast")
+    rng = np.random.default_rng(11)
+    v, n = VOICES, 300
+    statics = ("antialias", True)
+    for case in ("free", "cv", "sync", "cv_sync", "auto_val"):
+        state = {
+            "pos": rng.integers(-2 ** 31, 2 ** 31 - 1, v,
+                                dtype=np.int64).astype(np.int32),
+            "pos_g": rng.uniform(0, 3, v).astype(np.float32),
+            "sync_last": rng.uniform(size=v) < 0.5}
+        params = {"val": rng.uniform(-3, 1, v).astype(np.float32)}
+        cv = (rng.uniform(-1, 1, (v, n)).astype(np.float32)
+              if "cv" in case else None)
+        sync = None
+        if "sync" in case:
+            sync = np.where(rng.uniform(size=(v, n)) < 0.05, 1.0,
+                            -0.5).astype(np.float32)
+        if case == "auto_val":
+            params["val"] = rng.uniform(-3, 1, (v, n)).astype(np.float32)
+        flat(f"osc_block/{case}/state", state, out)
+        flat(f"osc_block/{case}/params", params, out)
+        if cv is not None:
+            out[f"osc_block/{case}/cv"] = cv
+        if sync is not None:
+            out[f"osc_block/{case}/sync"] = sync
+
+        def one(p, s, c, y, case=case):
+            if case == "free":
+                p = {**p, **josc._osc_derive(cfg, statics, p, (False, False))}
+            return josc._osc_block(cfg, statics, p, s, (c, y), None, n)
+
+        final, waves = jax.jit(jax.vmap(one, in_axes=(
+            0, 0, None if cv is None else 0, None if sync is None else 0)))(
+            params, state, None if cv is None else jnp.asarray(cv),
+            None if sync is None else jnp.asarray(sync))
+        flat(f"osc_block/{case}/waves", jnp.stack(waves, axis=1), out)
+        flat(f"osc_block/{case}/final", final, out)
+
+
+def scan_case(out: dict) -> None:
+    """The scan wrappers off the TPU and K4 in interpret mode."""
+    from srack_tpu.ops import basic, scan_kernel
+    rng = np.random.default_rng(13)
+    shape = (3, 2500)
+    xf = rng.standard_normal(shape).astype(np.float32)
+    xi = rng.integers(-2 ** 31, 2 ** 31 - 1, shape,
+                      dtype=np.int64).astype(np.int32)
+    yf = rng.standard_normal(shape).astype(np.float32)
+    mask = rng.uniform(size=shape) < 0.01
+    mask[1] = False
+    a = rng.uniform(0.9, 1.0, shape).astype(np.float32)
+    b = rng.standard_normal(shape).astype(np.float32)
+    mono = np.cumsum(rng.integers(0, 7, shape), axis=-1).astype(np.int32)
+    ins = dict(xf=xf, xi=xi, yf=yf, mask=mask, a=a, b=b, mono=mono)
+    for k, arr in ins.items():
+        out[f"scan/in/{k}"] = arr
+    j = {k: jnp.asarray(arr) for k, arr in ins.items()}
+    wrap = {
+        "sum_f32": (basic.fast_cumsum(j["xf"], axis=-1),),
+        "sum_i32": (basic.fast_cumsum(j["xi"], axis=-1),),
+        "max_f32": (basic.fast_cummax(j["xf"], axis=-1),),
+        "max_i32": (basic.fast_cummax(j["xi"], axis=-1),),
+        "fill_f32": basic.forward_fill_multi((j["xf"], j["yf"]), j["mask"],
+                                             axis=-1),
+        "fill_i32": basic.forward_fill(j["xi"], j["mask"], axis=-1),
+        "affine_f32": basic.affine_scan(j["a"], j["b"], axis=-1),
+        "monotone_i32": basic.monotone_fill(j["mono"], j["mask"], axis=-1),
+        "linrec_f32": basic.linear_recurrence(jnp.float32(0.95), j["b"],
+                                              axis=-1),
+    }
+    for k, v in wrap.items():
+        flat(f"scan/wrap/{k}", {str(i): x for i, x in enumerate(
+            jax.tree.leaves(v))}, out)
+    m32 = j["mask"].astype(jnp.int32)
+    kern = {
+        "sum_f32": ("sum", (j["xf"],)),
+        "sum_i32": ("sum", (j["xi"],)),
+        "max_f32": ("max", (j["xf"],)),
+        "max_i32": ("max", (j["xi"],)),
+        "fill_f32": ("fill", (j["xf"], j["yf"], m32)),
+        "fill_i32": ("fill", (j["xi"], m32)),
+        "affine_f32": ("affine", (j["a"], j["b"])),
+    }
+    for k, (kind, arrs) in kern.items():
+        idents = tuple(scan_kernel._idents(kind, list(arrs)))
+        res = scan_kernel._scan_rows(kind, tuple(arrs), idents, True)
+        flat(f"scan/k4/{k}", {str(i): x for i, x in enumerate(res)}, out)
+
+
+def ring_roll_case(out: dict) -> None:
+    """K9 in interpret mode on several lengths and row counts."""
+    from srack_tpu.ops import ring_roll
+    rng = np.random.default_rng(17)
+    for rows, length in ((3, 5), (33, 121), (7, 178), (4, 1)):
+        buf = rng.standard_normal((rows, length)).astype(np.float32)
+        idx = rng.integers(0, length, rows).astype(np.int32)
+        res = ring_roll._align_rows(jnp.asarray(buf), jnp.asarray(idx),
+                                    True)
+        out[f"ring_roll/{rows}x{length}/buf"] = buf
+        out[f"ring_roll/{rows}x{length}/idx"] = idx
+        out[f"ring_roll/{rows}x{length}/out"] = np.asarray(res)
+
+
+SPECIAL = {"freeverb": freeverb_case, "osc_block": osc_block_case,
+           "scan": scan_case, "ring_roll": ring_roll_case}
+
+
 def main(path: str, names) -> None:
     out = {}
     for name in names:
+        if name in SPECIAL:
+            SPECIAL[name](out)
+            continue
+        if name.endswith("@block"):
+            block_case(name[:-len("@block")], out)
+            continue
         patch, autos = build(name)
         compiled = st.compile_patch(patch, automation=autos)
         params = presets.farm_params(patch, VOICES)
