@@ -48,6 +48,18 @@ Phases, each reported on its own lines with its seconds:
    phase) to launch; its warm-up render holds K8 and each K4 call (int32
    sum, fills, f32 sum over [1,024, 480,000]) against their plain
    versions.
+11. drums: stt.render_batch(drum_machine(cfg), 480000,
+   params=farm_params(patch, 1024)), mono, on the default device --
+   requires K3 and the Sample-player kernel K7 to launch, finite audio,
+   peak <= 1.002; timed, each kernel timed alone at its shapes there;
+12. sampler: sampler_kit the same way (three 48,000-frame Samples: K3
+   once, K7 three times); prints the device memory peak;
+13. kit check: kit_check_patch the same way, which also requires K4 and
+   the row-gather kernel K5 (the sequencers' whole-block forms) to
+   launch.  The warm-up render of each of 11-13 holds every K7 call
+   against its unfused form (K4's scans and the row gather's long entry
+   K6) bit for bit and every K5 call against torch.gather, at the shapes
+   the main path gives them.
 
 Phase 2 also builds K3 for the stages of reverb_patch and
 block_check_patch, K4, K8 and K9; phase 3 holds each against its plain
@@ -57,12 +69,21 @@ K4's kinds on [1,024, 48,000] random rows, K9 on every line length of a
 rings), K8 (through its wrapper) at n = 2048 and 2047 and with automated
 room_size and wet, and the whole block engine against the scan engine on
 both patches at n = 2048 (audio within 5e-6, two halves with the state
-carried equal to one render).  Phase 6 times the new kernels, their plain
+carried equal to one render).  For slice 3b phase 2 also builds K3 for
+the stages of drum_machine, sampler_kit and kit_check_patch (at 48 kHz,
+and at 4,800 Hz for phase 3, with feedback_patch and drum_machine in
+buffer mode), the row gather (K5, and K6 as its second entry) and K7;
+phase 3 holds K5 and K6 against the plain gather on [1,024, 48,000]
+(exact), K7 against its unfused form (bit-exact) and its plain version
+at n = 2048 and 2047 for tables of 400, 4,000 and 48,000 frames, and the
+block engine against the scan engine at 4,800 Hz, n = 2,048, on the three
+kit patches and, in buffer mode (block 256), on feedback_patch and
+drum_machine.  Phase 6 times the new kernels, their plain
 versions and, for K4 and K9, the one PyTorch call that computes the same
 function; K8 is timed through its wrapper, as its plain version does the
 same work, and as its launch alone.
 
-Each main path (phases 4, 5, 7, 8, 9, 10) runs with the launch counts set
+Each main path (phases 4, 5, 7-13) runs with the launch counts set
 to 0 just before it and read just after.  Any failure raises and exits
 non-zero.  The line before the last is a JSON record of the kernels; the
 last line is
@@ -92,6 +113,7 @@ FARM_VOICES, FARM_N = 16384, 192000
 BUFFER_N = 491520  # 480 blocks of 1,024, 10.24 s
 ATOL = 1e-5  # fused-vs-scan audio tolerance of the JAX package's tests
 PEAK_MAX = 1.002
+PEAK = {}  # device memory peaks of the last main path: warm-up, render
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
 # and device memory bandwidth
 PEAK_F32 = 67e12
@@ -268,6 +290,11 @@ def phase_build(stt):
             kernel = jobs[name]
             log(f"[2 build] {name} ({kernel.name}): nvcc sm_90a built in "
                 f"{secs:.2f} s; {ptxas(kernel)}")
+    # K6 is the second entry of K5's source: its build is K5's, found by hash
+    from srack_tpu_torch.ops.gather_kernel import ROW_GATHER_LONG
+    ROW_GATHER_LONG.build()
+    log(f"[2 build] row_gather_long: the library of row_gather "
+        f"(csrc/row_gather.cu, entries srk_gather_long_*)")
     return kernels
 
 
@@ -361,12 +388,16 @@ def _times(keep: dict) -> dict:
 
 def _counters(kernels):
     """Every kernel wrapper with a launch count: the fused kernels of phase
-    2's cases, the serial-stage kernels and the three fixed sources."""
+    2's cases, the serial-stage kernels and the fixed sources."""
     from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops.gather_kernel import ROW_GATHER, ROW_GATHER_LONG
     from srack_tpu_torch.ops.ring_roll import RING_ALIGN
+    from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
     out = [kernel for _, _, kernel in kernels.values()]
-    return out + list(STAGES.values()) + [ROW_SCAN, FREEVERB, RING_ALIGN]
+    return out + list(STAGES.values()) + list(CHECK_STAGES.values()) + [
+        ROW_SCAN, FREEVERB, RING_ALIGN, ROW_GATHER, ROW_GATHER_LONG,
+        SAMPLE_PLAY]
 
 
 def _timed_main(kernels, render, names, warmup_within=None):
@@ -384,7 +415,10 @@ def _timed_main(kernels, render, names, warmup_within=None):
     counters = _counters(kernels)
     for kernel in counters:
         kernel.launches = 0
+    PEAK["warm-up"] = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: out.update(r=render()))
+    PEAK["render"] = torch.cuda.max_memory_allocated()
     counts = {}
     for kernel in counters:
         counts[kernel.name] = counts.get(kernel.name, 0) + kernel.launches
@@ -513,38 +547,64 @@ def _cuda(stt, tree):
 
 
 def block_cases(stt):
-    """The slice's two patches at 48 kHz, compiled: reverb_patch (stereo)
-    and block_check_patch (mono, with its two automated Freeverb params)."""
+    """The block engine's patches at 48 kHz, compiled: reverb_patch
+    (stereo), block_check_patch (mono, with its two automated Freeverb
+    params) and, from slice 3b, drum_machine, sampler_kit and
+    kit_check_patch (mono)."""
     reverb = stt.presets.reverb_patch(stt.AudioConfig(sample_rate=SR,
                                                       channels=2))
     check_patch, autos = stt.presets.block_check_patch(
         stt.AudioConfig(sample_rate=SR, channels=1))
-    return {"reverb_patch": (reverb, stt.compile_patch(reverb)),
-            "block_check_patch": (check_patch, stt.compile_patch(
-                check_patch, automation=autos))}
+    cases = {"reverb_patch": (reverb, stt.compile_patch(reverb)),
+             "block_check_patch": (check_patch, stt.compile_patch(
+                 check_patch, automation=autos))}
+    for name in KIT_NAMES:
+        patch = getattr(stt.presets, name)(stt.AudioConfig(sample_rate=SR,
+                                                           channels=1))
+        cases[name] = (patch, stt.compile_patch(patch))
+    return cases
+
+
+def stage_lane_keys(prog) -> list:
+    """The lanes a render gives the stage kernel: its input wires, in
+    buffer mode its delayed wires, and the hoisted lanes (Noise) of its
+    modules; the patches here automate no stage module."""
+    from srack_tpu_torch.block_engine import wire_key
+    return ([wire_key(w) for w in prog.stage_in]
+            + [wire_key(("fb",) + k) for k in prog.stage_fb_in]
+            + [m for m in prog.stage_plan
+               if prog.compiled.instances[m][0].make_xs is not None])
 
 
 def block_kernels(stt) -> dict:
-    """The slice's kernels for phase 2's build: K3 for each case's stage
-    (registered in ``STAGES``), K4, K8 and K9."""
-    from srack_tpu_torch.block_engine import wire_key
+    """The block engine's kernels for phase 2's build: K3 for each case's
+    stage at 48 kHz (registered in ``STAGES``) and for phase 3's 4,800 Hz
+    comparisons (``CHECK_STAGES``), K4, K8, K9, K5 and K7."""
     from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops.gather_kernel import ROW_GATHER
     from srack_tpu_torch.ops.ring_roll import RING_ALIGN
+    from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
     jobs = {}
     for name, (_, compiled) in block_cases(stt).items():
         prog = compiled.block_program()
-        STAGES[name] = prog.stage_kernel([wire_key(w)
-                                          for w in prog.stage_in])
+        STAGES[name] = prog.stage_kernel(stage_lane_keys(prog))
         jobs[f"{name} stage"] = STAGES[name]
-    jobs.update(row_scan=ROW_SCAN, freeverb=FREEVERB, ring_align=RING_ALIGN)
+    for key, (_, compiled) in kit_check_cases(stt).items():
+        prog = compiled.block_program()
+        CHECK_STAGES[key] = prog.stage_kernel(stage_lane_keys(prog))
+        jobs[f"{key[0]} {key[1]} {KIT_SR} Hz stage"] = CHECK_STAGES[key]
+    jobs.update(row_scan=ROW_SCAN, freeverb=FREEVERB, ring_align=RING_ALIGN,
+                row_gather=ROW_GATHER, sample_play=SAMPLE_PLAY)
     return jobs
 
 
 def _random_state(stt, compiled, v, seed):
     """The initial state of V voices with every oscillator at a random
-    phase and every Freeverb's lines, write indices and filter states
-    random: the voices sound from the first sample, and K9 rotates."""
+    phase, every Freeverb's lines, write indices and filter states random
+    (the voices sound from the first sample, and K9 rotates), every
+    sequencer at a random step and every Sample at a random whole-frame
+    position, playing or not."""
     rng = np.random.default_rng(seed)
     state = stt.compiler.tree_map(
         lambda a: a.expand((v,) + a.shape).contiguous(),
@@ -562,22 +622,33 @@ def _random_state(stt, compiled, v, seed):
                 else:
                     sd[k] = torch.from_numpy((rng.standard_normal(
                         tuple(sd[k].shape)) * 0.05).astype(np.float32))
+        elif mdef.type_name.endswith("Sequencer"):
+            steps = int(compiled.default_params[mid]["n_steps"])
+            sd["current_step"] = torch.from_numpy(
+                rng.integers(0, steps, v).astype(np.int32))
+        elif mdef.type_name == "Sample":
+            # whole frames: the scan engine's running sum and the block
+            # form's prefix sum then agree exactly
+            length = int(compiled.default_params[mid]["length"])
+            sd["pos"] = torch.from_numpy(
+                rng.integers(0, length, v).astype(np.float32))
+            sd["playing"] = torch.from_numpy(rng.uniform(size=v) < 0.5)
+            sd["gate_last"] = torch.from_numpy(rng.uniform(size=v) < 0.5)
     return _cuda(stt, state)
 
 
 def _stage_inputs(stt, name, n, seed):
     patch, compiled = block_cases(stt)[name]
     prog = compiled.block_program()
-    from srack_tpu_torch.block_engine import wire_key
     rng = np.random.default_rng(seed)
     params = _cuda(stt, stt.presets.farm_params(patch, VOICES))
     state = _random_state(stt, compiled, VOICES, seed)
     stage_state = {"states": {m: state["states"][m]
                               for m in prog.stage_plan},
                    "fb": state["fb"]}
-    lanes = {wire_key(w): torch.from_numpy(rng.uniform(
+    lanes = {k: torch.from_numpy(rng.uniform(
         -1, 1, (VOICES, n)).astype(np.float32)).cuda()
-        for w in prog.stage_in}
+        for k in STAGES[name].lanes}
     derived = compiled.derived_params(params)
     plain_params = {m: derived[m] for m in prog.stage_plan}
     return prog, params, stage_state, lanes, plain_params
@@ -874,15 +945,18 @@ def phase_compare_block(stt):
     """Phase 3 for the slice's kernels; returns the largest error of each
     and what the timing needs."""
     errs = {}
-    errs["serial_stage"] = max(compare_stage(stt, name, n)
-                               for name in STAGES for n in CHECK_NS)
+    # slice 3b's stages at n = 2,048 only: their 4,800 Hz twins run again
+    # in phase 3's block-vs-scan checks
+    errs["serial_stage"] = max(
+        compare_stage(stt, name, n) for name in STAGES
+        for n in (CHECK_NS[:1] if name in KIT_NAMES else CHECK_NS))
     errs["row_scan"], scan_x = compare_scans()
     errs["ring_align"] = compare_ring(stt)
     errs["freeverb"] = max(compare_freeverb(stt, n, False)
                            for n in CHECK_NS)
     errs["freeverb"] = max(errs["freeverb"],
                            compare_freeverb(stt, CHECK_NS[0], True))
-    for name in STAGES:
+    for name in ("reverb_patch", "block_check_patch"):
         compare_block_engine(stt, name, CHECK_NS[0], VOICES)
     return errs, scan_x
 
@@ -1083,19 +1157,77 @@ def _held(pairs, tol, what) -> float:
     return worst
 
 
+HELD_ROWS = 256     # rows per slice of the unfused Sample form's check
+HELD_CALLS = {}     # kernel -> the inputs of its calls in the last warm-up
+
+
+def sample_words(args) -> int:
+    """The table words one K7 call must read: the distinct frames its
+    voices read (index 0 where a voice has stopped), none where a length
+    is 0.  The unfused form computes them when its table is each row's
+    frame numbers; in slices of ``HELD_ROWS`` rows."""
+    from srack_tpu_torch.modules.sample import play_unfused
+    gate, cv, table = args[:3]
+    rows, k = table.shape
+    frames = torch.arange(k, dtype=torch.float32, device=table.device)
+    words = 0
+    for r0 in range(0, rows, HELD_ROWS):
+        sl = slice(r0, r0 + HELD_ROWS)
+        sub = [None if a is None else a[sl] for a in args]
+        sub[2] = frames.expand(sub[0].shape[0], k)
+        idx = play_unfused(*sub)[0].to(torch.int64)
+        live = (args[7][sl] > 0).unsqueeze(-1)
+        rowbase = torch.arange(idx.shape[0], device=idx.device).unsqueeze(-1)
+        keys = torch.where(live, rowbase * k + idx, -1)
+        uniq = torch.unique(keys)
+        words += int((uniq >= 0).sum())
+        del idx, keys, uniq
+    return words
+
+
+def sample_bound(args, words):
+    """K7's bound for one call: gate (and CV) in and audio out once, the
+    table words its voices read; bytes."""
+    gate, cv = args[:2]
+    return _bound(4 * gate.numel() * (3 if cv is not None else 2)
+                  + 4 * words + 4 * 6 * gate.shape[0], 0)
+
+
+def gather_bound(table, idx):
+    """K5's or K6's bound: the indices in and the outputs out once, and the
+    distinct table words these indices read, once; bytes."""
+    rows, k = table.shape
+    words = 0
+    for r0 in range(0, rows, 64):
+        j = idx[r0:r0 + 64].to(torch.int64)
+        j = torch.clamp(j & (2 ** (k - 1).bit_length() - 1), max=k - 1)
+        rowbase = torch.arange(j.shape[0], device=j.device).unsqueeze(-1)
+        words += torch.unique(rowbase * k + j).numel()
+        del j
+    return _bound(8 * idx.numel() + 4 * words, 0)
+
+
 @contextlib.contextmanager
 def held_against_plain(found: dict):
-    """While open, each call of K8's wrapper and of K4's two entries also
-    runs its plain version on the very inputs the main path gave it and
-    holds its result to it: K8 (block_plain) audio, filter states and
-    lines within 2e-5 abs + rel, write indices exact; K4 (the log-doubling
-    forms) int32 sums, maxes and fills exact (fills where a value is
-    defined), f32 sum within 2e-4 and affine within 3e-4 abs + rel.
-    ``found[kernel]`` gathers ``(what, shape, max abs err, plain s)``."""
+    """While open, each call of K8's wrapper, of K4's two entries, of K7 and
+    of K5 also runs its plain version on the very inputs the main path
+    gave it and holds its result to it: K8 (block_plain) audio, filter
+    states and lines within 2e-5 abs + rel, write indices exact; K4 (the
+    log-doubling forms) int32 sums, maxes and fills exact (fills where a
+    value is defined), f32 sum within 2e-4 and affine within 3e-4 abs +
+    rel; K7 bit-exact against its unfused form (K4's scans and the row
+    gather K6), in slices of HELD_ROWS rows; K5 exact against torch.gather.
+    ``found[kernel]`` gathers ``(what, shape, max abs err, plain s)``;
+    ``HELD_CALLS`` keeps the K7 and K5 calls' inputs for timing them
+    alone."""
     from srack_tpu_torch.modules import freeverb as fv
+    from srack_tpu_torch.modules.sample import play_unfused
     from srack_tpu_torch.ops import basic
     from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops.gather_kernel import ROW_GATHER
+    from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+    HELD_CALLS.clear()
 
     def render(cfg, l_in, r_in, mono, gains, state, n, skip_r=False):
         new_state, outs = k8_render(cfg, l_in, r_in, mono, gains, state,
@@ -1114,7 +1246,8 @@ def held_against_plain(found: dict):
         pairs += [(new_state[k], w, None) for k, w in want_state.items()]
         err = _held(pairs, FV_TOL, f"K8 at [{v}, {n}]")
         found.setdefault("freeverb", []).append(
-            ("audio, 16 filter states, 24 lines", (v, n), err, secs))
+            ("audio, 16 filter states, 24 lines against block_plain",
+             (v, n), err, secs))
         return new_state, outs
 
     def run(kind, arrs):
@@ -1128,7 +1261,8 @@ def held_against_plain(found: dict):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         exact = kind == "max" or arrs[0].dtype == torch.int32
-        what = f"{kind} {str(arrs[0].dtype)[6:]}"
+        what = (f"{kind} {str(arrs[0].dtype)[6:]} against the log-doubling "
+                f"form")
         err = _held([(g, w, None) for g, w in zip(got, want)],
                     0 if exact else SCAN_TOL[kind], f"K4 {what}")
         found.setdefault("row_scan", []).append(
@@ -1141,20 +1275,59 @@ def held_against_plain(found: dict):
         want, want_ok = basic.forward_fill_multi_plain(tuple(values), mask)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        what = f"fill {str(values[0].dtype)[6:]} x{len(values)}"
+        what = (f"fill {str(values[0].dtype)[6:]} x{len(values)} against the "
+                f"log-doubling form")
         _held([(ok, want_ok, None)] + [(g, w, ok) for g, w in zip(got, want)],
               0, f"K4 {what}")
         found.setdefault("row_scan", []).append(
             (what, tuple(mask.shape), 0.0, secs))
         return got, ok
 
+    def play(*args):
+        got = play_run(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, n = args[0].shape
+        for r0 in range(0, rows, HELD_ROWS):
+            sl = slice(r0, r0 + HELD_ROWS)
+            want = play_unfused(*[None if a is None else a[sl]
+                                  for a in args])
+            _held([(g[sl], w, None) for g, w in zip(got, want)], 0,
+                  f"K7 at [{rows}, {n}] rows {r0}..")
+            del want
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        words = sample_words(args)
+        cv = "CV connected" if args[1] is not None else "constant rate"
+        found.setdefault("sample_play", []).append(
+            (f"{cv}, K = {args[2].shape[1]} ({words} table words read) "
+             f"against its unfused form (K4, K6)", (rows, n), 0.0, secs))
+        HELD_CALLS.setdefault("sample_play", []).append((args, words))
+        return got
+
+    def gather(table, idx):
+        got = gather_run(table, idx)
+        t0 = time.perf_counter()
+        want = basic.table_lookup_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _held([(got, want, None)], 0, f"K5 at {list(idx.shape)}")
+        found.setdefault("row_gather", []).append(
+            (f"{str(table.dtype)[6:]} K = {table.shape[1]} against "
+             f"torch.gather", tuple(idx.shape), 0.0, secs))
+        HELD_CALLS.setdefault("row_gather", []).append((table, idx))
+        return got
+
     k8_render = FREEVERB.render
     scan_run, scan_fill = ROW_SCAN.run, ROW_SCAN.fill
+    play_run, gather_run = SAMPLE_PLAY.run, ROW_GATHER.run
     FREEVERB.render, ROW_SCAN.run, ROW_SCAN.fill = render, run, fill
+    SAMPLE_PLAY.run, ROW_GATHER.run = play, gather
     try:
         yield found
     finally:
         del FREEVERB.render, ROW_SCAN.run, ROW_SCAN.fill
+        del SAMPLE_PLAY.run, ROW_GATHER.run
 
 
 def _log_held(phase, found, card) -> dict:
@@ -1162,10 +1335,16 @@ def _log_held(phase, found, card) -> dict:
     of each kernel."""
     errs = {}
     for name, rows in found.items():
+        merged = {}   # calls of one kind at one shape: one line
         for what, shape, err, secs in rows:
+            count, worst, total = merged.get((what, shape), (0, 0.0, 0.0))
+            merged[(what, shape)] = (count + 1, max(worst, err),
+                                     total + secs)
+        for (what, shape), (count, err, secs) in merged.items():
+            calls = f" ({count} calls)" if count > 1 else ""
             log(f"[{phase}] {name} {what} at the main path's shape "
-                f"{list(shape)} against its plain version: max abs err "
-                f"{err:.3e} (plain version {secs:.1f} s) [{card}]")
+                f"{list(shape)}{calls}: max abs err {err:.3e} (plain "
+                f"version {secs:.1f} s) [{card}]")
             errs[name] = max(errs.get(name, 0.0), err)
     return errs
 
@@ -1240,6 +1419,471 @@ def phase_block_check(stt, kernels, card):
     return launches, held
 
 
+# -- slice 3b: the Sample player (K7), the row gather (K5, K6), the
+# sequencers' block forms and buffer mode ------------------------------------
+
+KIT_NAMES = ("drum_machine", "sampler_kit", "kit_check_patch")
+KIT_SR = 4800       # phase 3's block-vs-scan rate: ~8 clock steps in 2,048
+KIT_BLOCK = 256     # buffer mode's block in phase 3
+GATHER_N = 48000
+GATHER_KS = (16, 64, 400, 1024)
+GATHER_LONG_K = 48000
+PLAY_KS = (400, 4000, 48000)
+PLAY_FUZZ = 1e-3    # tests/test_sample_kernel.py:178-188
+CHECK_STAGES = {}   # (case, mode) -> the K3 of phase 3's 4,800 Hz stage
+_KIT_CHECK = {}
+
+
+def kit_check_cases(stt) -> dict:
+    """Phase 3's block-vs-scan patches at 4,800 Hz, mono, compiled once:
+    the three kit patches in sample mode and feedback_patch and
+    drum_machine in buffer mode (block 256)."""
+    if not _KIT_CHECK:
+        for name in KIT_NAMES:
+            patch = getattr(stt.presets, name)(stt.AudioConfig(
+                sample_rate=KIT_SR, channels=1))
+            _KIT_CHECK[(name, "sample")] = (patch, stt.compile_patch(patch))
+        for name in ("feedback_patch", "drum_machine"):
+            patch = getattr(stt.presets, name)(stt.AudioConfig(
+                sample_rate=KIT_SR, block_size=KIT_BLOCK, channels=1,
+                buffer_feedback=True))
+            _KIT_CHECK[(name, "buffer")] = (patch, stt.compile_patch(patch))
+    return _KIT_CHECK
+
+
+def _gather_idx(rng, kind, k, shape):
+    rows, n = shape
+    if kind == "ramp":     # monotone ramps with restarts, as a Sample reads
+        restart = rng.uniform(size=shape) < 2e-4
+        restart[:, 0] = True
+        seg = np.maximum.accumulate(np.where(restart, np.arange(n), 0),
+                                    axis=1)
+        rate = rng.choice([0.5, 1.0, 1.5], rows)[:, None]
+        idx = ((np.arange(n) - seg) * rate).astype(np.int64)
+        idx += rng.integers(0, k, rows)[:, None]
+        return (idx % k).astype(np.int32)
+    if kind == "uniform":
+        return rng.integers(0, k, shape).astype(np.int32)
+    # some indices out of range, on either side: the select tree's answer
+    return rng.integers(-k // 8 - 1, k + k // 8 + 1, shape).astype(np.int32)
+
+
+def compare_gather():
+    """K5 (small entry) for tables of 16, 64, 400 and 1,024 entries, f32
+    and int32, indices partly out of range; K6 (long entry) for 48,000
+    frames, monotone ramps with restarts and uniform random indices; at
+    [1,024, 48,000]: exact against the plain gather."""
+    from srack_tpu_torch.ops import basic
+    from srack_tpu_torch.ops.gather_kernel import ROW_GATHER, ROW_GATHER_LONG
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    shape = (VOICES, GATHER_N)
+    keep = {}
+    for k in GATHER_KS:
+        idx = torch.from_numpy(_gather_idx(rng, "wide", k, shape)).cuda()
+        for dt in (torch.float32, torch.int32):
+            table = torch.from_numpy(rng.integers(-999, 999, (VOICES, k))
+                                     .astype(np.int32)).to(dt).cuda()
+            got = ROW_GATHER.run(table, idx)
+            check(torch.equal(got, basic.table_lookup_rows_plain(table, idx)),
+                  f"K5 K={k} {dt}: not exact")
+        log(f"[3 compare] row_gather K={k} f32 and int32 {list(shape)}, "
+            f"{(idx.ge(k) | idx.lt(0)).float().mean().item():.3f} of the "
+            f"indices out of range: exact")
+    table = torch.from_numpy(rng.standard_normal((VOICES, GATHER_LONG_K))
+                             .astype(np.float32)).cuda()
+    for kind in ("ramp", "uniform"):
+        idx = torch.from_numpy(_gather_idx(rng, kind, GATHER_LONG_K,
+                                           shape)).cuda()
+        got = ROW_GATHER_LONG.run(table, idx)
+        check(torch.equal(got, basic.table_lookup_rows_plain(table, idx)),
+              f"K6 {kind}: not exact")
+        keep[kind] = idx
+        log(f"[3 compare] row_gather_long K={GATHER_LONG_K} {kind} indices "
+            f"{list(shape)}: exact")
+    small_table = torch.from_numpy(rng.standard_normal((VOICES, 16)).astype(
+        np.float32)).cuda()
+    small_idx = torch.from_numpy(_gather_idx(rng, "uniform", 16,
+                                             shape)).cuda()
+    log(f"[3 compare] row_gather: {time.perf_counter() - t0:.1f} s")
+    return {"row_gather": (small_table, small_idx),
+            "row_gather_long": (table, keep["ramp"])}
+
+
+def _play_inputs(rng, k, n, mode):
+    """K7's inputs for 1,024 voices: sparse random triggers, a random
+    carried position (whole frames), playing and gate edge state, lengths
+    from half the table to all of it (some 0); rates: base 1 (CV
+    unconnected), base 0.5 with integer CVs, base 0.937 with CVs in
+    [-0.1, 0.1)."""
+    v = VOICES
+    gate = (rng.uniform(size=(v, n)) < 1 / 300).astype(np.float32)
+    cv, base = None, 1.0
+    if mode == "int":
+        cv, base = rng.integers(-1, 2, (v, n)).astype(np.float32), 0.5
+    elif mode == "fuzz":
+        cv = (rng.uniform(size=(v, n)) * 0.2 - 0.1).astype(np.float32)
+        base = 0.937
+    length = rng.integers(k // 2, k + 1, v).astype(np.int32)
+    length[::97] = 0
+
+    def dev(a):
+        return torch.from_numpy(a).cuda()
+    return (dev(gate), None if cv is None else dev(cv),
+            dev(rng.standard_normal((v, k)).astype(np.float32)),
+            torch.full((v,), base, device="cuda"),
+            dev(rng.integers(0, k, v).astype(np.float32)),
+            dev(rng.uniform(size=v) < 0.5), dev(rng.uniform(size=v) < 0.5),
+            dev(length))
+
+
+def compare_sample_play():
+    """K7 at n = 2,048 and 2,047 for tables of 400, 4,000 and 48,000 frames,
+    1,024 voices, CV unconnected, integer CVs and CVs in [-0.1, 0.1) at
+    base 0.937: bit-exact against its unfused form on CUDA tensors (K4's
+    scans and K6), which holds K7 to K4's order; against the plain version
+    (log-doubling scans, torch.gather) exact at representable rates and,
+    at base 0.937, at most 1e-3 of the samples off (a one-ulp position can
+    pick the neighbouring frame) with the end position within rtol 1e-5.
+    Returns the largest error against the plain version where it must be
+    exact, and the inputs of the timing shape."""
+    from srack_tpu_torch.modules.sample import play_unfused
+    from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(23)
+    worst, timing = 0.0, None
+    for k in PLAY_KS:
+        for n in CHECK_NS:
+            for mode in ("const", "int", "fuzz"):
+                args = _play_inputs(rng, k, n, mode)
+                got = SAMPLE_PLAY.run(*args)
+                unf = play_unfused(*args)
+                for g, w, what in zip(got, unf, ("audio", "pos", "playing",
+                                                 "gate_last")):
+                    if not torch.equal(g, w):
+                        bad = (g != w).sum().item()
+                        check(False, f"K7 K={k} n={n} {mode}: {what} "
+                              f"differs from the unfused form in {bad} "
+                              f"places")
+                plain = play_unfused(*args, plain=True)
+                if mode == "fuzz":
+                    miss = (got[0] != plain[0]).sum().item()
+                    check(miss <= PLAY_FUZZ * got[0].numel(),
+                          f"K7 K={k} n={n} fuzz: {miss} samples off")
+                    # the end position is a difference of two prefix sums:
+                    # its error scales with the sums, not with itself
+                    scale = torch.maximum(plain[1].abs(), 1.2 * base_sum(
+                        args))
+                    err = (got[1] - plain[1]).abs()
+                    rows_off = ((err > 1e-5 * scale)
+                                | (got[2] != plain[2])).sum().item()
+                    check(rows_off <= PLAY_FUZZ * VOICES + 1,
+                          f"K7 K={k} n={n} fuzz: the end state of "
+                          f"{rows_off} voices off")
+                    check(torch.equal(got[3], plain[3]),
+                          f"K7 K={k} n={n} fuzz: gate_last differs")
+                    extra = (f", {miss} samples and {rows_off} voices' end "
+                             f"state off the plain version (largest end "
+                             f"position difference "
+                             f"{(err / scale).max().item():.2e} of the "
+                             f"row's rate sum)")
+                else:
+                    for g, w in zip(got, plain):
+                        check(torch.equal(g, w), f"K7 K={k} n={n} {mode}: "
+                              f"not exact against the plain version")
+                    extra = ", exact against the plain version"
+                played = (got[0] != 0).float().mean().item()
+                log(f"[3 compare] sample_play K={k} n={n} {mode}: "
+                    f"bit-exact against the unfused form (K4, K6){extra}; "
+                    f"{played:.3f} of the samples sound")
+                if k == GATHER_LONG_K and n == CHECK_NS[0] and \
+                        mode == "const":
+                    timing = args
+    log(f"[3 compare] sample_play: {time.perf_counter() - t0:.1f} s")
+    return worst, timing
+
+
+def base_sum(args):
+    """Each row's sum of rates over the call, the scale of its prefix
+    sums: base * n * 2^max(cv)."""
+    gate, cv, _, base = args[:4]
+    n = gate.shape[1]
+    peak = 1.0 if cv is None else torch.exp2(cv.max(dim=1).values)
+    return base * n * peak
+
+
+class SampleTriggers:
+    """While open, counts the gate rising edges of every K7 call (its
+    gate lane against its carried edge state)."""
+
+    def __init__(self):
+        self.edges = []
+
+    def __enter__(self):
+        from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
+        run = SAMPLE_PLAY.run
+
+        def counted(*args):
+            gate, last = args[0], args[6]
+            above = gate > 0
+            prev = torch.cat([last.unsqueeze(-1), above[:, :-1]], dim=1)
+            self.edges.append(int((above & ~prev).sum()))
+            return run(*args)
+        SAMPLE_PLAY.run = counted
+        return self
+
+    def __exit__(self, *exc):
+        from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
+        del SAMPLE_PLAY.run
+
+
+def _noise_drivers(stt, patch, n, seed):
+    rng = np.random.default_rng(seed)
+    return {inst.id: torch.from_numpy(rng.uniform(-1, 1, (VOICES, n)).astype(
+        np.float32)).cuda()
+        for inst in patch if inst.mdef.type_name == "Noise"}
+
+
+def compare_kit_engine(stt, name, mode):
+    """The block engine against the scan engine on the card, 1,024 voices,
+    4,800 Hz, n = 2,048, from random oscillator phases, sequencer steps
+    and Sample positions, Noise fed one random lane in both: audio within
+    5e-6; two halves with the state carried equal one render; the final
+    states agree (int32/bool exact but an oscillator's unconnected Sync
+    edge state, pos_g within rtol 1e-4, other floats and, in buffer mode,
+    the final fb lanes within 5e-6).  Each Sample's gate must rise in the
+    run, so the check cannot pass on silence."""
+    t0 = time.perf_counter()
+    patch, compiled = kit_check_cases(stt)[(name, mode)]
+    n = CHECK_NS[0]
+    params = _cuda(stt, stt.presets.farm_params(patch, VOICES))
+    state = _random_state(stt, compiled, VOICES, 11)
+    drivers = _noise_drivers(stt, patch, n, 12)
+    kw = dict(params=params, batched=True, device="cuda")
+    with SampleTriggers() as trig:
+        audio_b, _, final_b = compiled.render(n, state=state,
+                                              drivers=drivers,
+                                              engine="block", **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        audio_s, _, final_s = compiled.render(n, state=state,
+                                              drivers=drivers,
+                                              engine="scan", **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    # K7 runs once per Sample, in buffer mode once per Sample and block
+    n_samples = sum(i.mdef.type_name == "Sample" for i in patch)
+    edges = [sum(trig.edges[j::n_samples]) for j in range(n_samples)]
+    check(len(trig.edges) == n_samples * (n // KIT_BLOCK if mode == "buffer"
+                                          else 1) and all(edges),
+          f"{name} {mode}: a Sample's gate never rose ({trig.edges})")
+    check(bool(torch.isfinite(audio_s).all()), f"{name}: scan not finite")
+    err = (audio_b - audio_s).abs().max().item()
+    check(err <= BLOCK_ATOL, f"{name} {mode} block vs scan: audio off by "
+          f"{err}")
+    half = n // 2
+    first = {k: a[:, :half] for k, a in drivers.items()}
+    second = {k: a[:, half:] for k, a in drivers.items()}
+    a1, _, s1 = compiled.render(half, state=state, drivers=first,
+                                engine="block", **kw)
+    a2, _, _ = compiled.render(n - half, state=s1, drivers=second,
+                               engine="block", **kw)
+    cont = (torch.cat([a1, a2], dim=-1) - audio_b).abs().max().item()
+    check(cont <= BLOCK_ATOL, f"{name} {mode}: halves off one render by "
+          f"{cont}")
+    serr = 0.0
+    for mid, sd in final_s["states"].items():
+        inputs = compiled.instances[mid][2]
+        for k, w in sd.items():
+            g = final_b["states"][mid][k]
+            where = f"{name} {mode} state {mid}.{k}"
+            check(g.shape == w.shape and g.dtype == w.dtype, where)
+            if w.dtype in (torch.int32, torch.bool):
+                if k == "sync_last" and inputs[1] is None:
+                    continue
+                check(torch.equal(g, w), f"{where}: not exact")
+            elif k == "pos_g":
+                d = (g - w).abs()
+                check(bool((d <= 1e-4 * w.abs() + 1e-6).all()),
+                      f"{where}: off by {d.max().item()}")
+            else:
+                d = (g - w).abs().max().item() if w.numel() else 0.0
+                check(d <= BLOCK_ATOL, f"{where}: off by {d}")
+                serr = max(serr, d)
+    for k, w in final_s["fb"].items():
+        d = (final_b["fb"][k] - w).abs().max().item()
+        check(d <= BLOCK_ATOL, f"{name} {mode} final fb {k}: off by {d}")
+        serr = max(serr, d)
+    log(f"[3 compare] {name} {mode} mode block engine vs scan engine "
+        f"V={VOICES} {KIT_SR} Hz n={n}: max |audio| err {err:.3e} "
+        f"(bit-exact: {torch.equal(audio_b, audio_s)}), halves vs one "
+        f"render {cont:.3e}, max float-state err {serr:.3e}"
+        f"{' (final fb included)' if mode == 'buffer' else ''}; gate edges "
+        f"per Sample {edges}; block {t1 - t0:.1f} s, scan "
+        f"{t2 - t1:.1f} s, {time.perf_counter() - t0:.1f} s in all")
+    return err
+
+
+def phase_compare_kit(stt):
+    """Phase 3 for slice 3b's kernels and engine paths."""
+    gather_keep = compare_gather()
+    play_err, play_args = compare_sample_play()
+    for name in KIT_NAMES:
+        compare_kit_engine(stt, name, "sample")
+    for name in ("feedback_patch", "drum_machine"):
+        compare_kit_engine(stt, name, "buffer")
+    return {"row_gather": 0.0, "row_gather_long": 0.0,
+            "sample_play": play_err}, gather_keep, play_args
+
+
+def kit_times(gather_keep, play_args):
+    """K5, K6 and K7 at phase 3's shapes beside their plain versions and,
+    for the gathers, torch.gather (on int64 indices made before the
+    timing)."""
+    from srack_tpu_torch.modules.sample import play_unfused
+    from srack_tpu_torch.ops import basic
+    from srack_tpu_torch.ops.gather_kernel import ROW_GATHER, ROW_GATHER_LONG
+    from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
+    out = {}
+    for name, kernel in (("row_gather", ROW_GATHER),
+                         ("row_gather_long", ROW_GATHER_LONG)):
+        table, idx = gather_keep[name]
+        idx64 = idx.to(torch.int64)
+        out[name] = (
+            cuda_ms(lambda: kernel.run(table, idx), repeats=20, warmup=1),
+            cuda_ms(lambda: basic.table_lookup_rows_plain(table, idx),
+                    repeats=5, warmup=1),
+            cuda_ms(lambda: torch.gather(table, 1, idx64), repeats=20,
+                    warmup=1),
+            gather_bound(table, idx),
+            f"K={table.shape[1]} f32 {list(idx.shape)} "
+            f"{'uniform' if name == 'row_gather' else 'ramp'} indices "
+            f"(library: torch.gather)")
+    words = sample_words(play_args)
+    out["sample_play"] = (
+        cuda_ms(lambda: SAMPLE_PLAY.run(*play_args), repeats=20, warmup=1),
+        cuda_ms(lambda: play_unfused(*play_args, plain=True), repeats=5,
+                warmup=1),
+        None, sample_bound(play_args, words),
+        f"K={play_args[2].shape[1]} constant rate {list(play_args[0].shape)}"
+        f", {words} table words read")
+    return out
+
+
+def _kit_split(stt, name, total_ms, card):
+    """Each kernel of one full-width kit render timed alone at its shapes
+    there: K3 on the stage (zero lanes), every K7 and K5 call of the
+    warm-up render on its very inputs, and K4 as an int32 sum over [1,024,
+    n] per launch; the rest (block phases, wrappers, the lanes' layout)
+    as the difference."""
+    from srack_tpu_torch.ops.gather_kernel import ROW_GATHER
+    from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+    compiled = block_cases(stt)[name][1]
+    prog = compiled.block_program()
+    kernel = STAGES[name]
+    n = HEADLINE_N
+    p = _cuda(stt, stt.presets.farm_params(block_cases(stt)[name][0],
+                                           VOICES))
+    state = _cuda(stt, stt.compiler.tree_map(
+        lambda a: a.expand((VOICES,) + a.shape).contiguous(),
+        compiled.init_state()))
+    stage_state = {"states": {m: state["states"][m]
+                              for m in prog.stage_plan}, "fb": state["fb"]}
+    lanes = {k: torch.zeros((VOICES, n), device="cuda")
+             for k in kernel.lanes}
+    k3_ms = cuda_ms(lambda: kernel.run(p, stage_state, lanes, n), warmup=1)
+    lanes.clear()
+    parts = [f"K3 {k3_ms:.3f} ms"]
+    rest = total_ms - k3_ms
+    b_ms, b_by, nbytes, ops = stage_bound(compiled, kernel, VOICES, n)
+    log(f"[bound] serial_stage in {name} V={VOICES} n={n}: {nbytes} bytes, "
+        f"{ops} f32 operations -> {b_ms:.4f} ms ({b_by}); alone it takes "
+        f"{k3_ms:.3f} ms, {k3_ms / b_ms:.1f}x its bound")
+    k7, copies = [], []
+    for args, words in HELD_CALLS.get("sample_play", []):
+        # a gate from the stage is a transposed view of K3's [O, n, V]
+        # output, which the wrapper makes contiguous: timed apart
+        copy_ms = (0.0 if args[0].is_contiguous() else
+                   cuda_ms(lambda: args[0].contiguous(), warmup=1))
+        dense = tuple(None if a is None else a.contiguous() for a in args)
+        ms = cuda_ms(lambda: SAMPLE_PLAY.run(*dense), warmup=1)
+        del dense
+        b_ms, b_by, nbytes, _ = sample_bound(args, words)
+        log(f"[bound] sample_play in {name} K={args[2].shape[1]} "
+            f"{'CV connected' if args[1] is not None else 'constant rate'} "
+            f"V={VOICES} n={n}: {nbytes} bytes ({words} table words) -> "
+            f"{b_ms:.4f} ms ({b_by}); alone it takes {ms:.3f} ms, "
+            f"{ms / b_ms:.1f}x its bound; the wrapper's copy of its "
+            f"transposed gate lane {copy_ms:.3f} ms")
+        k7.append(ms)
+        copies.append(copy_ms)
+    if k7:
+        parts.append("K7 " + " + ".join(f"{t:.3f}" for t in k7) + " ms")
+        rest -= sum(k7)
+    if any(copies):
+        parts.append("the K7 wrapper's gate copies "
+                     + " + ".join(f"{t:.3f}" for t in copies) + " ms")
+        rest -= sum(copies)
+    k5 = []
+    for table, idx in HELD_CALLS.get("row_gather", []):
+        ms = cuda_ms(lambda: ROW_GATHER.run(table, idx), warmup=1)
+        b_ms, b_by, nbytes, _ = gather_bound(table, idx)
+        log(f"[bound] row_gather in {name} {str(table.dtype)[6:]} "
+            f"K={table.shape[1]} {list(idx.shape)}: {nbytes} bytes -> "
+            f"{b_ms:.4f} ms ({b_by}); alone it takes {ms:.3f} ms, "
+            f"{ms / b_ms:.1f}x its bound")
+        k5.append(ms)
+    if k5:
+        parts.append("K5 " + " + ".join(f"{t:.3f}" for t in k5) + " ms")
+        rest -= sum(k5)
+    HELD_CALLS.clear()
+    if name == "kit_check_patch":
+        x = torch.ones((VOICES, n), dtype=torch.int32, device="cuda")
+        k4 = cuda_ms(lambda: ROW_SCAN.run("sum", (x,)), warmup=1)
+        del x
+        parts.append(f"K4 {k4:.3f} ms per launch (int32 sum alone)")
+    torch.cuda.empty_cache()
+    log(f"[split] {name} V={VOICES} n={n}: " + ", ".join(parts)
+        + f"; the rest (block phases, wrappers, layout"
+        + (", K4" if name == "kit_check_patch" else "")
+        + f") {rest:.3f} ms of {total_ms:.3f} [{card}]")
+
+
+def phase_kit(stt, kernels, card, name, phase, names):
+    """One slice-3b main path: ``name`` (mono), 1,024 voices x 10 s at 48
+    kHz through render_batch on the default device.  The warm-up render
+    holds every K7 call against its unfused form and every K5 call
+    against torch.gather at the shapes they get there."""
+    patch = getattr(stt.presets, name)(stt.AudioConfig(sample_rate=SR,
+                                                       channels=1))
+    params = stt.presets.farm_params(patch, VOICES)
+    found = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    audio, ms, launches = _timed_main(
+        kernels, lambda: stt.render_batch(patch, HEADLINE_N, params=params),
+        names, held_against_plain(found))
+    check("sample_play" in found, f"{name}: the render did not call K7")
+    held = _log_held(phase, found, card)
+    check(audio.device.type == "cuda", "render_batch did not default to "
+          "the card")
+    peak = _check_audio(audio, (VOICES, 1, HEADLINE_N), name)
+    del audio
+    torch.cuda.empty_cache()
+    rate = VOICES * HEADLINE_N / (ms / 1e3)
+    _kit_split(stt, name, ms, card)
+    log(f"[{phase}] {name} V={VOICES} n={HEADLINE_N} mono via render_batch "
+        f"-> block engine, launches {launches}; {ms:.3f} ms/render, "
+        f"{rate / 1e9:.4f} G samples/s, aggregate real-time "
+        f"{rate / SR:.0f}x, peak {peak:.5f}; device memory peak "
+        f"{PEAK['render'] / 2**30:.2f} GiB in the timed render, "
+        f"{PEAK['warm-up'] / 2**30:.2f} GiB in the warm-up with its checks, "
+        f"no segment= [{card}]")
+    return launches, held
+
+
 def main() -> int:
     card = phase_device()
     import srack_tpu_torch as stt
@@ -1251,6 +1895,10 @@ def main() -> int:
     errs, keep = phase_compare(stt, kernels)
     block_errs, scan_x = phase_compare_block(stt)
     errs.update(block_errs)
+    t1 = time.perf_counter()
+    kit_errs, gather_keep, play_args = phase_compare_kit(stt)
+    errs.update(kit_errs)
+    log(f"[3 compare] slice 3b: {time.perf_counter() - t1:.1f} s")
     log(f"[3 compare] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     main_launches, _ = phase_main(stt, kernels, card,
@@ -1269,6 +1917,9 @@ def main() -> int:
     btimes, k8_launch_ms = block_times(stt, scan_x)
     del scan_x
     torch.cuda.empty_cache()
+    btimes.update(kit_times(gather_keep, play_args))
+    del gather_keep, play_args
+    torch.cuda.empty_cache()
     for name, (kernel_ms, plain_ms, lib_ms, _, shape) in btimes.items():
         lib = "" if lib_ms is None else f", library call {lib_ms:.3f} ms"
         log(f"[6 plain] {name} {shape}: plain version {plain_ms:.3f} ms, "
@@ -1286,7 +1937,18 @@ def main() -> int:
     t0 = time.perf_counter()
     chk_launches, chk_held = phase_block_check(stt, kernels, card)
     log(f"[10 block check] {time.perf_counter() - t0:.1f} s")
-    for held in (rev_held, chk_held):  # the full-width comparisons
+    kit_launches, kit_held = {}, []
+    for phase, name, names in (
+            ("11 drums", "drum_machine", ("serial_stage", "sample_play")),
+            ("12 sampler", "sampler_kit", ("serial_stage", "sample_play")),
+            ("13 kit check", "kit_check_patch",
+             ("row_scan", "row_gather", "serial_stage", "sample_play"))):
+        t0 = time.perf_counter()
+        kit_launches[phase], held = phase_kit(stt, kernels, card, name,
+                                              phase, names)
+        kit_held.append(held)
+        log(f"[{phase}] {time.perf_counter() - t0:.1f} s")
+    for held in (rev_held, chk_held, *kit_held):  # full-width comparisons
         for name, err in held.items():
             errs[name] = max(errs[name], err)
 
@@ -1325,11 +1987,15 @@ def main() -> int:
                          "srack_tpu/ops/serial_kernel.py:65",
                          rev_launches["serial_stage"],
                          {"9 reverb": rev_launches["serial_stage"],
-                          "10 block check": chk_launches["serial_stage"]}),
+                          "10 block check": chk_launches["serial_stage"],
+                          **{ph: c["serial_stage"]
+                             for ph, c in kit_launches.items()}}),
         "row_scan": ("srack_tpu_torch/csrc/row_scan.cu",
                      "srack_tpu/ops/scan_kernel.py:138",
                      chk_launches["row_scan"],
-                     {"10 block check": chk_launches["row_scan"]}),
+                     {"10 block check": chk_launches["row_scan"],
+                      "13 kit check": kit_launches["13 kit check"][
+                          "row_scan"]}),
         "freeverb": ("srack_tpu_torch/csrc/freeverb.cu",
                      "srack_tpu/ops/freeverb_kernel.py:100",
                      rev_launches["freeverb"],
@@ -1340,6 +2006,20 @@ def main() -> int:
                        rev_launches["ring_align"],
                        {"9 reverb": rev_launches["ring_align"],
                         "10 block check": chk_launches["ring_align"]}),
+        "row_gather": ("srack_tpu_torch/csrc/row_gather.cu",
+                       "srack_tpu/ops/scan_kernel.py:221",
+                       kit_launches["13 kit check"]["row_gather"],
+                       {"13 kit check":
+                        kit_launches["13 kit check"]["row_gather"]}),
+        # K6 is JAX's path where K7 declines (exact precision): no main
+        # path of this slice launches it; phase 3 runs it under K7
+        "row_gather_long": ("srack_tpu_torch/csrc/row_gather.cu",
+                            "srack_tpu/ops/sample_gather.py:167", 0, {}),
+        "sample_play": ("srack_tpu_torch/csrc/sample_play.cu",
+                        "srack_tpu/ops/sample_kernel.py:380",
+                        kit_launches["11 drums"]["sample_play"],
+                        {ph: c["sample_play"]
+                         for ph, c in kit_launches.items()}),
     }
     for name, (source, replaces, launches, by_phase) in sources.items():
         kernel_ms, plain_ms, lib_ms, (b_ms, b_by, nbytes, ops), shape = \

@@ -1,13 +1,15 @@
 """srack_tpu_torch -- the PyTorch and CUDA port of srack_tpu.
 
 Patch graphs of oscillators, noise, sequencers, filters, envelopes, mixers,
-math, reverb and external inputs compile into one per-sample step.  On the
-CPU the scan engine runs that step in a loop; batched renders on a CUDA
-device run a hand-written CUDA kernel generated from the plan, one thread
-per voice (in buffer-feedback mode, its delayed-feedback twin).  A patch
-that kernel cannot take (one with a Freeverb) runs on the block engine
-(``engine="block"``): whole-block module forms around a per-sample serial
-stage, on the stage, row-scan, Freeverb and ring-alignment kernels.  Entry
+math, sample players, reverb and external inputs compile into one
+per-sample step.  On the CPU the scan engine runs that step in a loop;
+batched renders on a CUDA device run a hand-written CUDA kernel generated
+from the plan, one thread per voice (in buffer-feedback mode, its
+delayed-feedback twin).  A patch that kernel cannot take (one with a
+Freeverb or a Sample) runs on the block engine (``engine="block"``):
+whole-block module forms around a per-sample serial stage, on the stage,
+row-scan, row-gather, Sample-player, Freeverb and ring-alignment kernels.
+Entry
 points render on the card unless given ``device="cpu"``.  ``srack_tpu``
 (JAX) is the reference this package is tested against; this package
 imports neither it nor jax.
@@ -33,7 +35,7 @@ from .modules import register as register_module
 from .modules import unregister as unregister_module
 from . import block_engine, interop, presets, utils
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "AudioConfig",

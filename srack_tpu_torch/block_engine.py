@@ -22,16 +22,16 @@ This engine shrinks the per-sample region to what needs it:
    (``ops/fused.py::StageKernel``) for CUDA tensors, its plain version, a
    torch loop over :meth:`BlockProgram._stage_step`, for CPU tensors.
 
+Buffer-feedback mode (``cfg.buffer_feedback``, the counterpart of
+``_make_run_buffer``): a feedback edge reads the previous block's lane, so
+one block's graph is acyclic; the three phases run block by block in a
+Python loop, the stage reading its delayed wires as lanes keyed
+``fb:src#port``, and the final state's ``fb`` holds the last block's lanes.
+
 Wires are ``[V, n]`` tensors, one row per voice; there is no ``vmap``.
 Per-voice params are ``[V]`` (``[V, *rest]`` for vectors) and an automated
 param's lane ``[V, n]``; a module without a block form sees its params as
 ``[V, 1, *rest]`` columns so that its step broadcasts over the rows.
-
-Not yet ported (ROADMAP.md, slice 3b): buffer-feedback mode
-(``block_engine.py:576-744``) and the whole-block forms of the Grid and
-Pattern sequencers and of the Sample player; a patch that needs them
-raises ``NotImplementedError`` here rather than being partitioned unlike
-the JAX package.
 """
 
 from __future__ import annotations
@@ -44,10 +44,6 @@ from .modules.base import CV_DTYPE
 
 # module types the block engine runs per sample in the serial stage
 SERIAL_TYPES = frozenset({"Moog Filter", "ADSR"})
-
-# types whose JAX counterpart has a whole-block form that the port lacks yet
-BLOCK_FORM_TODO = frozenset({"Grid Sequencer", "Pattern Sequencer",
-                             "Sample"})
 
 
 def kernel_safe(mdef) -> bool:
@@ -102,15 +98,21 @@ def _sccs(nodes, deps):
 
 
 def wire_key(w) -> str:
-    """A stage lane's key for a wire ``(src, port)``."""
+    """A stage lane's key for a wire ``(src, port)``, or for a block-delayed
+    wire ``("fb", src, port)`` (buffer mode)."""
+    if len(w) == 3:
+        return f"fb:{w[1]}#{w[2]}"
     return f"{w[0]}#{w[1]}"
 
 
 def _eval_key(key: str):
     """A stage lane key -> the ``_stage_step`` value key: a wire ``(src,
-    port)``, ``("auto", mid, param)`` or ``("x", mid)``."""
+    port)``, a delayed wire ``("fb", src, port)``, ``("auto", mid,
+    param)`` or ``("x", mid)``."""
     if "#" in key:
         mid, port = key.rsplit("#", 1)
+        if mid.startswith("fb:"):
+            return ("fb", mid[3:], int(port))
         return (mid, int(port))
     if "~" in key:
         mid, p = key.rsplit("~", 1)
@@ -126,20 +128,10 @@ class BlockProgram:
         self.cfg: AudioConfig = compiled.cfg
         insts = compiled.instances
         plan = compiled.plan
-        plan_pos = compiled.plan_pos
-        todo = sorted({m[0].type_name for m in insts.values()}
-                      & BLOCK_FORM_TODO)
-        if todo:
-            raise NotImplementedError(
-                f"the block engine of srack_tpu_torch has no whole-block "
-                f"form for {todo} yet: slice 3b of the port (ROADMAP.md); "
-                f"use engine='fused' or 'scan'")
         # buffer-feedback mode: a feedback edge carries a whole block-delayed
         # lane and is no dependency within a block
         self.buffer_mode = self.cfg.buffer_feedback
-
-        def is_fb(conn, mid):
-            return plan_pos[conn[0]] >= plan_pos[mid]
+        is_fb = self._is_fb
 
         deps = {mid: [c[0] for c in insts[mid][2]
                       if c is not None
@@ -275,19 +267,28 @@ class BlockProgram:
                              if mid not in self.stage_set}
         self._stage_kernels: dict = {}
 
+    def _is_fb(self, conn, mid) -> bool:
+        """Is the wire ``conn`` into ``mid`` a feedback read (its source
+        planned at or after its sink)?"""
+        plan_pos = self.compiled.plan_pos
+        return plan_pos[conn[0]] >= plan_pos[mid]
+
     # -- block phases --------------------------------------------------------
 
     def _run_block_phase(self, plan_subset, params, states, values, xs,
-                         n: int, v: int, device):
-        """Run block-capable modules over whole ``[V, n]`` wires.  Returns
-        ``(new_states, channels)``; ``channels`` is the Output module's
-        ``[V, n]`` rows if it is in ``plan_subset``."""
+                         n: int, v: int, device, fb=None):
+        """Run block-capable modules over whole ``[V, n]`` wires.  ``fb``
+        (buffer mode): the previous block's lanes, which a feedback read
+        takes.  Returns ``(new_states, channels)``; ``channels`` is the
+        Output module's ``[V, n]`` rows if it is in ``plan_subset``."""
         cfg = self.cfg
         compiled = self.compiled
         new_states, channels = {}, None
         for mid in plan_subset:
             mdef, statics, inputs = compiled.instances[mid]
-            ins = [None if c is None else values[c] for c in inputs]
+            ins = [None if c is None else
+                   fb[c] if fb is not None and self._is_fb(c, mid)
+                   else values[c] for c in inputs]
             lanes = {p: xs[compiled._auto_key(mid, p)]
                      for p in self._block_autos.get(mid, ())
                      if compiled._auto_key(mid, p) in xs}
@@ -317,12 +318,12 @@ class BlockProgram:
 
     def _stage_step(self, params, states, fb, ext):
         """One sample through the serial stage.  ``ext``: this sample's
-        stage-in wires ``{(src, port): [V]}``, automation values
-        ``{("auto", mid, p): [V]}`` and lane values ``{("x", mid): [V]}``.
-        Returns ``(new_states, fb_out, outs)``."""
+        stage-in wires ``{(src, port): [V]}``, in buffer mode its delayed
+        wires ``{("fb", src, port): [V]}``, automation values ``{("auto",
+        mid, p): [V]}`` and lane values ``{("x", mid): [V]}``.  Returns
+        ``(new_states, fb_out, outs)``."""
         cfg = self.cfg
         compiled = self.compiled
-        plan_pos = compiled.plan_pos
         values = dict(ext)
         new_states = {}
         for mid in self.stage_plan:
@@ -331,8 +332,9 @@ class BlockProgram:
             for c in inputs:
                 if c is None:
                     ins.append(None)
-                elif (c[0] in self.stage_set
-                      and plan_pos[c[0]] >= plan_pos[mid]):
+                elif self.buffer_mode and self._is_fb(c, mid):
+                    ins.append(values[("fb",) + c])
+                elif c[0] in self.stage_set and self._is_fb(c, mid):
                     ins.append(fb[c])
                 else:
                     ins.append(values[c])
@@ -391,10 +393,13 @@ class BlockProgram:
             kernel = self._stage_kernels[lanes] = StageKernel(self, lanes)
         return kernel
 
-    def stage_lanes(self, values: dict, xs: dict) -> dict:
-        """The stage's input lanes: the stage-in wires, the automation
-        lanes of stage modules and the hoisted lanes of stage modules."""
+    def stage_lanes(self, values: dict, xs: dict, fb=None) -> dict:
+        """The stage's input lanes: the stage-in wires, in buffer mode the
+        delayed wires from ``fb``, the automation lanes of stage modules
+        and the hoisted lanes of stage modules."""
         lanes = {wire_key(w): values[w] for w in self.stage_in}
+        for k in self.stage_fb_in:
+            lanes[wire_key(("fb",) + k)] = fb[k]
         for mid, p in self.stage_autos:
             key = self.compiled._auto_key(mid, p)
             if key in xs:
@@ -406,17 +411,53 @@ class BlockProgram:
 
     # -- full program --------------------------------------------------------
 
+    def _run_stage(self, params, derived, states, values, xs, fb, n,
+                   device):
+        """The serial stage over ``n`` samples (K3 on CUDA tensors, its
+        torch loop on CPU tensors); its output wires go into ``values``.
+        ``fb``: the stage's carried feedback (sample mode), or in buffer
+        mode the previous block's lanes, which it reads as lanes.  Returns
+        the stage's final ``{"states", "fb"}``."""
+        if not self.stage_plan:
+            return {"states": {}, "fb": fb}
+        lanes = self.stage_lanes(values, xs, fb)
+        stage_state = {"states": {m: states[m] for m in self.stage_plan},
+                       "fb": {} if self.buffer_mode else fb}
+        if device.type == "cuda":
+            outs, final = self.stage_kernel(lanes).run(params, stage_state,
+                                                       lanes, n)
+        else:
+            outs, final = self.stage_plain(
+                {m: derived[m] for m in self.stage_plan}, stage_state, lanes,
+                n)
+        values.update(outs)
+        return final
+
+    def _run_once(self, params, derived, states, fb, xs, n, v, device):
+        """The pre phase, the stage and the post phase over ``n`` samples.
+        Returns ``(channels, values, new_states, stage_fb)``."""
+        values: dict = {}
+        phase_fb = fb if self.buffer_mode else None
+        pre_states, pre_channels = self._run_block_phase(
+            self.pre_plan, derived, states, values, xs, n, v, device,
+            phase_fb)
+        stage_final = self._run_stage(params, derived, states, values, xs,
+                                      fb, n, device)
+        post_states, channels = self._run_block_phase(
+            self.post_plan, derived, states, values, xs, n, v, device,
+            phase_fb)
+        channels = channels if channels is not None else pre_channels
+        new_states = {**states, **pre_states, **stage_final["states"],
+                      **post_states}
+        return channels, values, new_states, stage_final["fb"]
+
     def run(self, params: dict, state: dict, xs: dict, n: int):
         """Render ``n`` samples of V voices: ``params`` and ``state`` carry
         a leading voice axis, ``xs`` is the render's lanes (``[V, n]``).
         Returns ``(audio [V, C, n], probes {"mid:port": [V, n]},
-        final_state)``."""
+        final_state)``.  In buffer mode ``n`` is a whole number of blocks,
+        rendered one after another."""
         compiled = self.compiled
-        if self.buffer_mode:
-            raise NotImplementedError(
-                "the block engine's buffer-feedback mode is not ported yet: "
-                "slice 3b of the port (ROADMAP.md); use engine='fused' or "
-                "'scan'")
         if compiled.output_id in self.stage_set:
             raise NotImplementedError(
                 "Output module inside a feedback cycle is not supported by "
@@ -424,46 +465,47 @@ class BlockProgram:
         leaves = tree_leaves(params) + tree_leaves(state)
         v, device = leaves[0].shape[0], leaves[0].device
         derived = compiled.derived_params(params)
-        states = state["states"]
-        values: dict = {}
-        pre_states, pre_channels = self._run_block_phase(
-            self.pre_plan, derived, states, values, xs, n, v, device)
-        stage_final = {"states": {}, "fb": state["fb"]}
-        if self.stage_plan:
-            lanes = self.stage_lanes(values, xs)
-            stage_state = {"states": {m: states[m] for m in self.stage_plan},
-                           "fb": state["fb"]}
-            if device.type == "cuda":
-                outs, stage_final = self.stage_kernel(lanes).run(
-                    params, stage_state, lanes, n)
-            else:
-                outs, stage_final = self.stage_plain(
-                    {m: derived[m] for m in self.stage_plan}, stage_state,
-                    lanes, n)
-            values.update(outs)
-        post_states, channels = self._run_block_phase(
-            self.post_plan, derived, states, values, xs, n, v, device)
-        channels = channels if channels is not None else pre_channels
-        audio = torch.stack(channels, dim=1)
-        probes = {_probe_key(mid, p): values[(mid, p)]
+        if not self.buffer_mode:
+            channels, values, states, fb = self._run_once(
+                params, derived, state["states"], state["fb"], xs, n, v,
+                device)
+            audio = torch.stack(channels, dim=1)
+            probes = {_probe_key(mid, p): values[(mid, p)]
+                      for mid, p in self.probe_wires}
+            return audio, probes, _like({"states": states, "fb": fb}, state)
+        block = self.cfg.block_size
+        if n % block:
+            raise ValueError(
+                f"buffer_feedback mode renders whole blocks: n={n} is not a "
+                f"multiple of block_size={block}")
+        states, fb = state["states"], state["fb"]
+        audio = torch.empty((v, self.cfg.channels, n), dtype=CV_DTYPE,
+                            device=device)
+        probes = {_probe_key(mid, p): torch.empty((v, n), dtype=CV_DTYPE,
+                                                  device=device)
                   for mid, p in self.probe_wires}
-        final = {"states": {**pre_states, **stage_final["states"],
-                            **post_states},
-                 "fb": stage_final["fb"]}
-        return audio, probes, _like(final, state)
+        for b in range(0, n, block):
+            cut = slice(b, b + block)
+            channels, values, states, _ = self._run_once(
+                params, derived, states, fb,
+                {k: a[..., cut] for k, a in xs.items()}, block, v, device)
+            for c, ch in enumerate(channels):
+                audio[:, c, cut] = ch
+            for mid, p in self.probe_wires:
+                probes[_probe_key(mid, p)][:, cut] = values[(mid, p)]
+            # this block's feedback wires are the next block's delayed lanes
+            fb = {k: values[k] for k in compiled.fb_keys}
+        return audio, probes, _like({"states": states, "fb": fb}, state)
 
 
 def eligible(compiled) -> bool:
-    """Can the port's block engine render this patch?  Fast precision, no
-    buffer-feedback mode, no type whose block form is still to port, no
-    Output module in the stage, and a stage that kernel K3 can run (on the
-    card the stage has no plain fallback)."""
-    if compiled.cfg.exact or compiled.cfg.buffer_feedback:
+    """Can the port's block engine render this patch on the card?  Fast
+    precision (either feedback mode), no Output module in the stage, and a
+    stage that kernel K3 can run (on the card the stage has no plain
+    fallback)."""
+    if compiled.cfg.exact:
         return False
-    try:
-        prog = compiled.block_program()
-    except NotImplementedError:
-        return False
+    prog = compiled.block_program()
     return prog.kernel_ok and compiled.output_id not in prog.stage_set
 
 
@@ -482,5 +524,5 @@ def run_unbatched(prog: BlockProgram, params, state, xs, n: int):
     return audio[0], drop(probes), drop(final)
 
 
-__all__ = ["BlockProgram", "SERIAL_TYPES", "BLOCK_FORM_TODO", "eligible",
+__all__ = ["BlockProgram", "SERIAL_TYPES", "eligible",
            "kernel_safe", "run_unbatched", "wire_key"]

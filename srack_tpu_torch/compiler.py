@@ -12,7 +12,8 @@ the render.
 * ``"block"``: the stage-partition block engine (``block_engine.py``):
   whole-block module forms over ``[V, n]`` rows around a per-sample serial
   stage, which runs on kernel K3 for CUDA tensors; the Freeverb runs on
-  kernel K8.  It takes the patches the fused kernel cannot (a Freeverb).
+  kernel K8, the Sample on K7.  It takes the patches the fused kernel
+  cannot (a Freeverb, a Sample).
 
 Feedback: the planner deletes back-edges, and an input whose source is
 planned at or after its sink reads the carried value ``fb`` instead of this

@@ -18,26 +18,12 @@
 // [1,024, 480,000], 1.2 ms at 3.35 TB/s); the combine is a few operations
 // per element.
 //
-// Order of combination.  The Sample player's kernel (K7, a later slice)
-// must combine in this order so that its prefix sums equal these bit for
-// bit, as the JAX K7 copies the JAX K4's order.  Write x_i for the
-// elements of one chunk, e for the combine (a + b for sum, max, the fill
-// and affine compositions below), carry for the value at the last element
-// of the chunk before (the identity before the first chunk).
-//
-//   A. thread i holds x[i*ITEMS .. i*ITEMS+ITEMS-1] and folds them left to
-//      right: loc_k = (((x_0 e x_1) e x_2) ... e x_k);
-//   B. the 32 thread totals of each warp are scanned Hillis-Steele style:
-//      for d = 1, 2, 4, 8, 16, lane l >= d sets T_l = T_{l-d} e T_l; the
-//      lane's exclusive prefix is E_l = T_{l-1} (E_0 = identity);
-//   C. the warp totals (lane 31's T) are scanned the same way by warp 0;
-//      the warp's exclusive prefix is P_w = W_{w-1} (P_0 = identity);
-//   D. out_k = carry e (P_w e (E_l e loc_k)), and the next chunk's carry is
-//      the out value of this chunk's last element.
-//
-// Past the end of the row the elements are the identity.  Combining with
-// the identity is exact for every kind, so a short row or a partial chunk
-// takes the same order as its elements' positions give.
+// Order of combination: row_scan.cuh, which holds the CTA scan (phases
+// B-D) and which the Sample player's kernel K7 (sample_play.cu) includes,
+// so that its prefix sums equal these bit for bit, as the JAX K7 copies the
+// JAX K4's order.  In brief: each thread folds its elements left to right,
+// the warp totals and then the warps' totals are scanned Hillis-Steele
+// style, and out = carry e (warp prefix e (lane prefix e fold)).
 //
 // The fill combine of an earlier (v_a, ok_a) with a later (v_b, ok_b) is
 // (ok_b ? v_b : v_a, ok_a | ok_b); the affine combine of an earlier (a_1,
@@ -49,50 +35,9 @@
 // phases over the same thread and lane indices with arrays, for the host
 // build (g++) that the CPU tests check against the plain version.
 
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
-#include <string.h>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define SRK_HD __host__ __device__ __forceinline__
-#else
-#define SRK_HD inline
-#endif
-
-#define SRK_SCAN_THREADS 256
-#define SRK_SCAN_ITEMS 4
-#define SRK_SCAN_WARPS (SRK_SCAN_THREADS / 32)
-#define SRK_SCAN_CHUNK (SRK_SCAN_THREADS * SRK_SCAN_ITEMS)
+#include "row_scan.cuh"
 
 // -- the kinds: element type, identity, combine, load and store ----------
-
-template <typename V>
-struct srk_add {
-  SRK_HD static V id() { return (V)0; }
-  SRK_HD static V op(V a, V b) { return a + b; }
-};
-
-template <>
-struct srk_add<int> {
-  SRK_HD static int id() { return 0; }
-  SRK_HD static int op(int a, int b) {
-    return (int)((uint32_t)a + (uint32_t)b);  // wraps mod 2^32
-  }
-};
-
-template <typename V>
-struct srk_max {
-  SRK_HD static V id();
-  // a NaN propagates, as torch.maximum's does
-  SRK_HD static V op(V a, V b) { return (b > a || b != b) ? b : a; }
-};
-
-template <>
-SRK_HD float srk_max<float>::id() { return -INFINITY; }
-template <>
-SRK_HD int srk_max<int>::id() { return INT32_MIN; }
 
 // sum and max: one array in, one out
 template <typename V, template <typename> class C>
@@ -183,32 +128,10 @@ SRK_HD void srk_scan_local(const S& s, size_t row, int i0, int n,
                            typename S::T* loc) {
   for (int k = 0; k < SRK_SCAN_ITEMS; ++k)
     loc[k] = i0 + k < n ? s.load(row, i0 + k) : S::id();
-  for (int k = 1; k < SRK_SCAN_ITEMS; ++k) loc[k] = S::op(loc[k - 1], loc[k]);
+  srk_scan_fold<typename S::T, S>(loc);
 }
 
 #ifdef __CUDACC__
-
-template <class T>
-__device__ __forceinline__ T srk_shfl_up(T v, int d) {
-  static_assert(sizeof(T) % 4 == 0, "shuffled in 32-bit words");
-  int w[sizeof(T) / 4];
-  memcpy(w, &v, sizeof(T));
-#pragma unroll
-  for (int i = 0; i < (int)(sizeof(T) / 4); ++i)
-    w[i] = __shfl_up_sync(0xffffffffu, w[i], d);
-  memcpy(&v, w, sizeof(T));
-  return v;
-}
-
-template <class T, class S>
-__device__ __forceinline__ T srk_warp_scan(T v, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const T o = srk_shfl_up(v, d);
-    if (lane >= d) v = S::op(o, v);
-  }
-  return v;
-}
 
 template <class S>
 __global__ void __launch_bounds__(SRK_SCAN_THREADS)
@@ -217,33 +140,15 @@ __global__ void __launch_bounds__(SRK_SCAN_THREADS)
   __shared__ T warp_tot[SRK_SCAN_WARPS];
   __shared__ T carry_s;
   const size_t row = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   T carry = S::id();
   for (int base = 0; base < n; base += SRK_SCAN_CHUNK) {
-    const int i0 = base + tid * SRK_SCAN_ITEMS;
+    const int i0 = base + threadIdx.x * SRK_SCAN_ITEMS;
     T loc[SRK_SCAN_ITEMS];
     srk_scan_local(s, row, i0, n, loc);                       // A
-    const T tot = srk_warp_scan<T, S>(loc[SRK_SCAN_ITEMS - 1], lane);  // B
-    T ex = srk_shfl_up(tot, 1);
-    if (lane == 0) ex = S::id();
-    if (lane == 31) warp_tot[warp] = tot;
-    __syncthreads();
-    if (warp == 0) {                                          // C
-      T w = lane < SRK_SCAN_WARPS ? warp_tot[lane] : S::id();
-      w = srk_warp_scan<T, S>(w, lane);
-      if (lane < SRK_SCAN_WARPS) warp_tot[lane] = w;
-    }
-    __syncthreads();
-    const T pw = warp == 0 ? S::id() : warp_tot[warp - 1];
+    srk_cta_scan<T, S>(loc, carry, warp_tot, &carry_s);       // B-D
 #pragma unroll
-    for (int k = 0; k < SRK_SCAN_ITEMS; ++k) {               // D
-      const T v = S::op(carry, S::op(pw, S::op(ex, loc[k])));
-      if (i0 + k < n) s.store(row, i0 + k, v);
-      if (tid == SRK_SCAN_THREADS - 1 && k == SRK_SCAN_ITEMS - 1)
-        carry_s = v;
-    }
-    __syncthreads();
-    carry = carry_s;
+    for (int k = 0; k < SRK_SCAN_ITEMS; ++k)
+      if (i0 + k < n) s.store(row, i0 + k, loc[k]);
   }
 }
 
@@ -264,36 +169,16 @@ template <class S>
 static void srk_scan_row_host(const S& s, size_t row, int n) {
   typedef typename S::T T;
   static T loc[SRK_SCAN_THREADS][SRK_SCAN_ITEMS];
-  static T tot[SRK_SCAN_THREADS], ex[SRK_SCAN_THREADS];
   T carry = S::id();
   for (int base = 0; base < n; base += SRK_SCAN_CHUNK) {
-    for (int tid = 0; tid < SRK_SCAN_THREADS; ++tid) {       // A
+    for (int tid = 0; tid < SRK_SCAN_THREADS; ++tid)          // A
       srk_scan_local(s, row, base + tid * SRK_SCAN_ITEMS, n, loc[tid]);
-      tot[tid] = loc[tid][SRK_SCAN_ITEMS - 1];
-    }
-    for (int w = 0; w < SRK_SCAN_WARPS; ++w) {               // B
-      T* t = tot + 32 * w;
-      for (int d = 1; d < 32; d <<= 1)
-        for (int l = 31; l >= d; --l) t[l] = S::op(t[l - d], t[l]);
-      ex[32 * w] = S::id();
-      for (int l = 1; l < 32; ++l) ex[32 * w + l] = t[l - 1];
-    }
-    T wt[SRK_SCAN_WARPS];                                     // C
-    for (int w = 0; w < SRK_SCAN_WARPS; ++w) wt[w] = tot[32 * w + 31];
-    for (int d = 1; d < 32; d <<= 1)
-      for (int l = SRK_SCAN_WARPS - 1; l >= d; --l)
-        wt[l] = S::op(wt[l - d], wt[l]);
-    T last = carry;
-    for (int tid = 0; tid < SRK_SCAN_THREADS; ++tid) {       // D
-      const int w = tid >> 5, i0 = base + tid * SRK_SCAN_ITEMS;
-      const T pw = w == 0 ? S::id() : wt[w - 1];
+    srk_cta_scan_host<T, S>(loc, carry);                      // B-D
+    for (int tid = 0; tid < SRK_SCAN_THREADS; ++tid)
       for (int k = 0; k < SRK_SCAN_ITEMS; ++k) {
-        const T v = S::op(carry, S::op(pw, S::op(ex[tid], loc[tid][k])));
-        if (i0 + k < n) s.store(row, i0 + k, v);
-        last = v;
+        const int i = base + tid * SRK_SCAN_ITEMS + k;
+        if (i < n) s.store(row, i, loc[tid][k]);
       }
-    }
-    carry = last;
   }
 }
 

@@ -4,9 +4,11 @@ Both packages key params as ``{mid: {name: leaf}}`` and state as
 ``{"states": {mid: {name: leaf}}, "fb": {(src, port): leaf}}``, with the
 same module ids for a patch built the same way.  These helpers move such
 trees across as numpy arrays: ``np.asarray`` of a JAX tree goes in, and
-:func:`to_numpy` of a torch tree comes out.  Bool leaves stay bool.  In
-buffer-feedback mode an ``fb`` leaf is ``[block]`` (batched:
-``[V, block]``) in both packages.
+:func:`to_numpy` of a torch tree comes out.  Bool leaves stay bool (a
+Sample's ``playing`` and ``gate_last``), int32 stays int32 (its
+``length``), and a Sample's ``samples`` table is ``[K]`` (batched: ``[V,
+K]``) in both.  In buffer-feedback mode an ``fb`` leaf is ``[block]``
+(batched: ``[V, block]``) in both packages.
 """
 
 from __future__ import annotations

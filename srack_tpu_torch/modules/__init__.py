@@ -1,9 +1,9 @@
 """The DSP module library and catalog (counterpart:
 ``srack_tpu/modules/__init__.py``).
 
-Slices 1 and 2 of the port hold every module type of the fused engine;
-slice 3a adds the Freeverb.  The Sample player is queued in ROADMAP.md
-(slice 3b).
+Every module type of the JAX package's catalog: slices 1 and 2 of the
+port hold those of the fused engine, slice 3a adds the Freeverb and slice
+3b the Sample player.
 """
 
 from .base import CV_DTYPE, ModuleDef
@@ -17,6 +17,7 @@ from .sequencer import GRID_SEQUENCER, PATTERN_SEQUENCER
 from .input import INPUT
 from .output import OUTPUT
 from .freeverb import FREEVERB
+from .sample import SAMPLE
 
 # Creatable module types, in the reference catalog's order.
 CATALOG: dict[str, ModuleDef] = {
@@ -30,6 +31,7 @@ CATALOG: dict[str, ModuleDef] = {
         VCA,
         MOOG_FILTER,
         MONO_MIXER,
+        SAMPLE,
         ADD,
         SUBTRACT,
         MULTIPLY,
@@ -41,7 +43,7 @@ CATALOG: dict[str, ModuleDef] = {
 }
 
 # Types of the reference catalog that the port does not carry yet.
-NOT_PORTED = frozenset({"Sample"})
+NOT_PORTED = frozenset()
 
 # Catalog entries present at import time; :func:`unregister` refuses to
 # remove these.
@@ -106,4 +108,5 @@ __all__ = [
     "INPUT",
     "OUTPUT",
     "FREEVERB",
+    "SAMPLE",
 ]

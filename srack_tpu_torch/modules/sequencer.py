@@ -16,8 +16,12 @@ The sequence is an int32 param table of a static capacity (a multiple of 8,
 at most 64) with ``n_steps`` a param, so edits within the capacity reuse
 the compiled plan.  ``derive`` packs the grid's notes and cells into one
 table (``note * 4 + cell``) and the pattern's 8 rows into one table of
-2-bit fields, so a sample reads one entry.  The block implementations are
-slice 3 of the port.
+2-bit fields, so a sample reads one entry.
+
+The whole-block forms (``_grid_block``, ``_pat_block``) run the step
+pointer over ``[V, n]`` rows as a segmented prefix count (kernel K4's int32
+sum and running max on CUDA tensors) and read the packed table with
+``table_lookup_rows`` (kernel K5 on CUDA tensors).
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ import numpy as np
 import torch
 
 from ..config import AudioConfig
-from ..ops.basic import table_lookup, transition, transition_init
+from ..ops.basic import (block_lane, block_transitions, fast_cumsum,
+                         forward_fill, monotone_fill, table_lookup,
+                         table_lookup_rows, transition, transition_init)
 from .base import CV_DTYPE, ModuleDef, const_ports, in_or
 
 MAX_STEPS = 64
@@ -54,6 +60,32 @@ def _advance_step(state, step_in, sync_in, n_steps):
     cs = torch.where(sync_fired, 0, cs)
     cs = torch.where(cs >= n_steps, 0, cs).to(torch.int32)
     return cs, step_last, sync_last
+
+
+def _advance_step_block(state, step_in, sync_in, n_steps):
+    """The step pointer over ``[V, n]`` rows: with +1 increments, wrapping
+    to 0 on reaching ``n_steps`` is ``mod n_steps``, and a Sync edge
+    restarts the count at the last reset (a segmented prefix count; the
+    carried step is below ``n_steps``, as the step keeps it).  Returns
+    ``(cs [V, n], step_last, sync_last)``."""
+    step_last, step_edges = block_transitions(state["step_last"], step_in)
+    sync_last, sync_edges = block_transitions(state["sync_last"], sync_in)
+    e_cum = fast_cumsum(step_edges.to(torch.int32))  # inclusive
+    # the count at the last reset: e_cum never decreases, so the fill is a
+    # running max (exact on int32)
+    e_at_reset, has_reset = monotone_fill(e_cum, sync_edges)
+    base = torch.where(has_reset, e_cum - e_at_reset,
+                       state["current_step"].unsqueeze(-1) + e_cum)
+    # floor mod, as jnp.mod; XLA's x mod 0 is x where torch raises, so a
+    # sequence of 0 steps takes the per-sample step's answer, 0
+    cs = torch.remainder(base, torch.clamp(n_steps, min=1).unsqueeze(-1))
+    return cs.to(torch.int32), step_last, sync_last
+
+
+def _block_ins(state, ins, n):
+    v, device = state["current_step"].shape[0], state["current_step"].device
+    return (block_lane(ins[0], v, n, device=device),
+            block_lane(ins[1], v, n, device=device))
 
 
 def _sync_out(cs):
@@ -140,6 +172,30 @@ def _grid_step(cfg: AudioConfig, statics, params, state, ins, x=None):
     return new_state, (cv_out, gate_out, sync_out)
 
 
+def _grid_block(cfg: AudioConfig, statics, params, state, ins, x, n):
+    step_in, sync_in = _block_ins(state, ins, n)
+    cs, step_last, sync_last = _advance_step_block(
+        state, step_in, sync_in, params["n_steps"])
+    packed_tbl, inv_spo = _grid_packed(params)
+    packed = table_lookup_rows(packed_tbl, cs)
+    cell = packed & 3      # floor semantics for negative notes
+    note = packed >> 2
+    note_cv = note.to(CV_DTYPE) * inv_spo.unsqueeze(-1)
+    on = cell > 0
+    # empty cells hold the last emitted CV
+    filled, any_on = forward_fill(note_cv, on)
+    cv_out = torch.where(any_on, filled,
+                         state["last_cv"].unsqueeze(-1)).to(CV_DTYPE)
+    gate_out = torch.where(on, torch.where(cell == 2, 1.0, step_in), 0.0)
+    new_state = {
+        "current_step": cs[:, -1],
+        "step_last": step_last,
+        "sync_last": sync_last,
+        "last_cv": cv_out[:, -1],
+    }
+    return new_state, (cv_out, gate_out, _sync_out(cs))
+
+
 _grid_nin, _grid_inlabels = const_ports(2, ("Step", "Sync"))
 _grid_nout, _grid_outlabels = const_ports(3, ("CV", "Gate", "Sync"))
 
@@ -152,6 +208,7 @@ GRID_SEQUENCER = ModuleDef(
     output_labels=_grid_outlabels,
     init_state=_grid_init_state,
     step=_grid_step,
+    block=_grid_block,
     derive=_grid_derive,
     cuda_fn="srk_grid_sequencer",
 )
@@ -227,12 +284,26 @@ def _pat_step(cfg: AudioConfig, statics, params, state, ins, x=None):
         "step_last": step_last,
         "sync_last": sync_last,
     }
-    outs = []
-    for r in range(N_ROWS):
-        col = (packed >> (2 * r)) & 3
-        outs.append(torch.where(col == 2, 1.0,
-                                torch.where(col == 1, step_in, 0.0)))
-    return new_state, tuple(outs) + (sync_out,)
+    return new_state, _pat_gates(packed, step_in) + (sync_out,)
+
+
+def _pat_gates(packed, step_in):
+    return tuple(torch.where(col == 2, 1.0, torch.where(col == 1, step_in,
+                                                           0.0))
+                 for col in ((packed >> (2 * r)) & 3 for r in range(N_ROWS)))
+
+
+def _pat_block(cfg: AudioConfig, statics, params, state, ins, x, n):
+    step_in, sync_in = _block_ins(state, ins, n)
+    cs, step_last, sync_last = _advance_step_block(
+        state, step_in, sync_in, params["n_steps"])
+    packed = table_lookup_rows(_pat_packed(params), cs)
+    new_state = {
+        "current_step": cs[:, -1],
+        "step_last": step_last,
+        "sync_last": sync_last,
+    }
+    return new_state, _pat_gates(packed, step_in) + (_sync_out(cs),)
 
 
 _pat_nin, _pat_inlabels = const_ports(2, ("Step", "Sync"))
@@ -248,6 +319,7 @@ PATTERN_SEQUENCER = ModuleDef(
     output_labels=_pat_outlabels,
     init_state=_pat_init_state,
     step=_pat_step,
+    block=_pat_block,
     derive=_pat_derive,
     cuda_fn="srk_pattern_sequencer",
 )

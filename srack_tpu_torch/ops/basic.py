@@ -9,7 +9,8 @@ same rule jnp applies to its weak-typed constants.
 Below them, the block engine's whole-block primitives over ``[V, n]`` rows
 and the scan wrappers, which launch kernel K4 for CUDA tensors and run
 their plain versions, the JAX package's log-doubling passes, for CPU
-tensors.
+tensors; and the whole-row table lookup, which launches kernel K5 or K6
+for CUDA tensors and runs one ``torch.gather`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -114,6 +115,16 @@ def fast_exp2(x: torch.Tensor) -> torch.Tensor:
     return p * scale
 
 
+def _select_index(idx: torch.Tensor, k: int) -> torch.Tensor:
+    """The JAX select tree's index into a table of ``k`` entries: ``min(idx
+    & (P - 1), k - 1)`` with ``P`` the next power of two >= ``k``."""
+    p = 1
+    while p < k:
+        p *= 2
+    return torch.clamp(torch.bitwise_and(idx, p - 1), max=k - 1).to(
+        torch.int64)
+
+
 def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[..., idx]`` for a small table ``[..., K]`` and an int32
     ``idx`` (per voice), the answer of the JAX package's binary select tree.
@@ -124,10 +135,7 @@ def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     or past ``K``) reads ``table[min(idx & (P - 1), K - 1)]`` with ``P`` the
     padded size.  Here that is one gather."""
     k = table.shape[-1]
-    p = 1
-    while p < k:
-        p *= 2
-    j = torch.clamp(torch.bitwise_and(idx, p - 1), max=k - 1).to(torch.int64)
+    j = _select_index(idx, k)
     batch = torch.broadcast_shapes(table.shape[:-1], j.shape)
     return torch.gather(table.expand(batch + (k,)), -1,
                         j.expand(batch).unsqueeze(-1)).squeeze(-1)
@@ -304,3 +312,26 @@ def linear_recurrence(a, b: torch.Tensor):
     if not b.is_cuda:
         return linear_recurrence_plain(a, b)
     return affine_scan(a, b)
+
+
+def table_lookup_rows_plain(table: torch.Tensor,
+                            idx: torch.Tensor) -> torch.Tensor:
+    """The plain version of kernels K5 and K6: each row's table ``[R, K]``
+    read at that row's indices ``[R, n]`` with :func:`table_lookup`'s
+    answer, in one ``torch.gather``."""
+    return torch.gather(table, -1, _select_index(idx, table.shape[-1]))
+
+
+def table_lookup_rows(table: torch.Tensor, idx: torch.Tensor,
+                      long: bool | None = None) -> torch.Tensor:
+    """:func:`table_lookup` over whole rows: ``table [R, K]``, int32 ``idx
+    [R, n]``.  On CUDA tensors it launches kernel K5 (``row_gather``, the
+    table in shared memory) or, for ``long`` tables, K6
+    (``row_gather_long``); ``long=None`` takes K6 past K5's 1,024 entries.
+    On CPU tensors it runs the plain version."""
+    if not idx.is_cuda:
+        return table_lookup_rows_plain(table, idx)
+    from .gather_kernel import GATHER_MAX_K, ROW_GATHER, ROW_GATHER_LONG
+    if long is None:
+        long = table.shape[-1] > GATHER_MAX_K
+    return (ROW_GATHER_LONG if long else ROW_GATHER).run(table, idx)

@@ -223,8 +223,10 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
 
     With ``stage`` (a ``block_engine.BlockProgram``) it is the serial-stage
     kernel K3 instead: the stage's plan only, its input wires read from
-    lanes keyed ``src#port`` and its output wires stored to ``audio`` as
-    ``[O, n, V]`` (O = ``len(stage.stage_out)``) in place of the audio.
+    lanes keyed ``src#port`` (in buffer mode its feedback reads from the
+    previous block's lanes, keyed ``fb:src#port``) and its output wires
+    stored to ``audio`` as ``[O, n, V]`` (O = ``len(stage.stage_out)``) in
+    place of the audio.
 
     Deterministic: the same plan and lanes give the same text.  In buffer
     mode (``cfg.buffer_feedback``) it is K2's counterpart.  The same file
@@ -235,10 +237,12 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     plan = compiled.plan if stage is None else stage.stage_plan
     layout = layout or Layout.of(compiled, None if stage is None else plan)
     lanes = tuple(lanes)
-    buffer = cfg.buffer_feedback
-    if stage is not None and (buffer or compiled.output_id in plan):
-        raise ValueError("the serial-stage kernel runs sample mode without "
-                         "the Output module")
+    # K2's ring; a buffer-mode stage reads its delayed wires as lanes
+    buffer = cfg.buffer_feedback and stage is None
+    fb_lanes = cfg.buffer_feedback and stage is not None
+    if stage is not None and compiled.output_id in plan:
+        raise ValueError("the serial-stage kernel runs without the Output "
+                         "module")
     n_ch = cfg.channels
     lane_idx = {k: i for i, k in enumerate(lanes)}
 
@@ -295,7 +299,8 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
         "  // params, loaded once",
     ]
     L += [load(leaf, "p" + leaf.kind, True) for leaf in layout.params]
-    L.append("  // state" + ("" if buffer else " and feedback carries")
+    L.append("  // state" + ("" if cfg.buffer_feedback
+                             else " and feedback carries")
              + ", in registers")
     L += [load(leaf, "s" + leaf.kind, False) for leaf in layout.state]
     if stage is None:
@@ -320,7 +325,8 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
             conn |= 1 << i
             src, sport = c
             if compiled.plan_pos[src] >= compiled.plan_pos[mid]:
-                ins.append(_var(("fb", (src, sport))))
+                ins.append(_lane_var(f"fb:{src}#{sport}") if fb_lanes
+                           else _var(("fb", (src, sport))))
             elif stage is not None and src not in stage.stage_set:
                 # a stage input wire, streamed in as a lane
                 ins.append(_lane_var(f"{src}#{sport}"))
@@ -355,7 +361,7 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
         L += [f"    {fb_slot(k)} = w_{_ident(k[0])}[{k[1]}];"
               for k in compiled.fb_keys]
         L.append("    if (++slot == SRK_FB_BLOCK) slot = 0;")
-    else:
+    elif not fb_lanes:
         L += [f"    {_var(('fb', k))} = w_{_ident(k[0])}[{k[1]}];"
               for k in compiled.fb_keys]
     if stage is not None:
@@ -590,8 +596,10 @@ class StageKernel(FusedKernel):
 
     The same generated source as K1 in a stage mode: one thread per voice,
     the stage modules' state and the in-stage feedback carries in
-    registers; the stage's input wires, its modules' automation lanes and
-    hoisted lanes stream in from ``[W, n, V]`` (a warp's 32 voices read 128
+    registers (in buffer mode a feedback read takes the previous block's
+    lane instead, streamed in like an input wire); the stage's input
+    wires, its modules' automation lanes and hoisted lanes stream in from
+    ``[W, n, V]`` (a warp's 32 voices read 128
     contiguous bytes per lane and sample), and each stage output wire
     streams out to ``[O, n, V]``.  Like K1 it is bound by each thread's
     serial chain, not by memory: per voice-sample it moves ``4 * (W + O)``
@@ -610,8 +618,11 @@ class StageKernel(FusedKernel):
         self.compiled = compiled
         self.program = program
         self.lanes = tuple(sorted(lanes))
-        missing = sorted(f"{s}#{p}" for s, p in program.stage_in
-                         if f"{s}#{p}" not in self.lanes)
+        from ..block_engine import wire_key
+        missing = sorted(
+            wire_key(w) for w in program.stage_in
+            + [("fb",) + k for k in program.stage_fb_in]
+            if wire_key(w) not in self.lanes)
         if missing:
             raise ValueError(f"stage input wires without a lane: {missing}")
         self.buffer = False

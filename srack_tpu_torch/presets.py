@@ -11,12 +11,16 @@
 
 6. :func:`reverb_patch`      -- the subtractive voice into a stereo
    Freeverb; the fused kernel cannot take it, the block engine does.
+7. :func:`drum_machine`      -- a pattern-sequenced kit: a kick voice, a
+   filtered-noise snare and a 400-frame hat Sample.
+8. :func:`sampler_kit`       -- a drum kit of three one-second Samples.
 
 Also :func:`gate_cv_voice` (a voice played through Input driver lanes) and
 the check patches :func:`kernel_check_patch` and :func:`lane_check_patch`,
-which drive every device function of the fused kernels, and
-:func:`block_check_patch`, which drives every phase of the block engine.
-The drum and sampler presets wait for the Sample player (slice 3b).
+which drive every device function of the fused kernels,
+:func:`block_check_patch`, which drives every phase of the block engine,
+and :func:`kit_check_patch`, which drives the sequencers' and the Sample's
+whole-block forms.  Every table is synthesized with numpy.
 """
 
 from __future__ import annotations
@@ -180,6 +184,97 @@ def reverb_patch(cfg: AudioConfig | None = None) -> Patch:
     p.connect(rev, "Left", p.output, 0)
     if cfg.channels > 1:
         p.connect(rev, "Right", p.output, 1)
+    return p
+
+
+def drum_machine(cfg: AudioConfig | None = None) -> Patch:
+    """Noise and Sample percussion driven by a pattern sequencer: a kick
+    (a decaying Sine through a VCA), a snare (Noise through the Moog's
+    bandpass and a VCA) and a hat (a synthesized 400-frame metallic Sample
+    played at rate 1)."""
+    cfg = cfg or AudioConfig(channels=1)
+    p = Patch(cfg)
+    clk = p.add("Oscillator", val=-4.5, name="clock")
+    pat = p.add("Pattern Sequencer", n_steps=16, name="pat",
+                pattern=[
+                    [True, None, None, None] * 4,            # kick
+                    [None, None, True, None] * 4,            # snare
+                    [True, True, False, True] * 4,           # hats
+                ])
+    p.connect(clk, "Square", pat, "Step")
+
+    kick_env = p.add("ADSR", a_sec=0.001, d_sec=0.12, s_val=0.0,
+                     r_sec=0.05, name="kick_env")
+    kick_osc = p.add("Oscillator", val=-3.5, name="kick_osc")
+    kick_vca = p.add("VCA", name="kick_vca")
+    p.connect(pat, "0", kick_env, "Gate")
+    p.connect(kick_osc, "Sine", kick_vca, "Audio")
+    p.connect(kick_env, 0, kick_vca, "CV")
+
+    noise = p.add("Noise", name="noise")
+    sn_env = p.add("ADSR", a_sec=0.001, d_sec=0.08, s_val=0.0,
+                   r_sec=0.03, name="snare_env")
+    sn_flt = p.add("Moog Filter", freq=0.6, res=0.3, name="snare_flt")
+    sn_vca = p.add("VCA", name="snare_vca")
+    p.connect(noise, 0, sn_flt, "Audio")
+    p.connect(pat, "1", sn_env, "Gate")
+    p.connect(sn_flt, 1, sn_vca, "Audio")  # bandpass
+    p.connect(sn_env, 0, sn_vca, "CV")
+
+    t = np.linspace(0, 1, 400)
+    metallic = (np.sin(2 * np.pi * 317 * t) * np.sin(2 * np.pi * 1021 * t)
+                * np.exp(-10 * t)).astype(np.float32)
+    hat = p.add("Sample", samples=metallic,
+                wav_sample_rate=cfg.sample_rate, name="hat")
+    p.connect(pat, "2", hat, "Gate")
+
+    # the JAX preset's gains: the worst-case sum of the three buses at the
+    # long-render snare peak stays inside full scale
+    mix = p.add("Mono Mixer", gains=(0.36, 0.22, 0.2, 0.0), name="mix")
+    p.connect(kick_vca, 0, mix, 0)
+    p.connect(sn_vca, 0, mix, 1)
+    p.connect(hat, 0, mix, 2)
+    p.connect(mix, 0, p.output, 0)
+    if cfg.channels > 1:
+        p.connect(mix, 0, p.output, 1)
+    return p
+
+
+def sampler_kit(cfg: AudioConfig | None = None) -> Patch:
+    """A drum kit of real-length Samples: kick, snare and hat, each a
+    one-second (``sample_rate``-frame) waveform played at rate 1, gated by
+    a pattern sequencer's rows.  The same numpy draws (``default_rng(7)``)
+    as the JAX preset."""
+    cfg = cfg or AudioConfig()
+    sr = cfg.sample_rate
+    p = Patch(cfg)
+    clk = p.add("Oscillator", val=-4.5, name="clock")
+    pat = p.add("Pattern Sequencer", n_steps=16, name="pat",
+                pattern=[
+                    [True, None, None, None] * 4,            # kick
+                    [None, None, True, None] * 4,            # snare
+                    [True, True, False, True] * 4,           # hats
+                ])
+    p.connect(clk, "Square", pat, "Step")
+
+    t = np.arange(sr, dtype=np.float64) / sr                 # 1 s of frames
+    rng = np.random.default_rng(7)
+    kick_wave = (np.sin(2 * np.pi * (45.0 + 85.0 * np.exp(-18.0 * t)) * t)
+                 * np.exp(-6.0 * t)).astype(np.float32)
+    snare_wave = (rng.uniform(-1.0, 1.0, sr)
+                  * np.exp(-22.0 * t)).astype(np.float32)
+    hat_wave = (rng.uniform(-1.0, 1.0, sr) * np.exp(-55.0 * t)
+                * np.sin(2 * np.pi * 5900.0 * t)).astype(np.float32)
+
+    mix = p.add("Mono Mixer", gains=(0.5, 0.3, 0.2, 0.0), name="mix")
+    for row, (name, wave) in enumerate(
+            (("kick", kick_wave), ("snare", snare_wave), ("hat", hat_wave))):
+        smp = p.add("Sample", samples=wave, wav_sample_rate=sr, name=name)
+        p.connect(pat, str(row), smp, "Gate")
+        p.connect(smp, 0, mix, row)
+    p.connect(mix, 0, p.output, 0)
+    if cfg.channels > 1:
+        p.connect(mix, 0, p.output, 1)
     return p
 
 
@@ -379,3 +474,50 @@ def block_check_patch(cfg: AudioConfig | None = None, *,
     for c in range(1, cfg.channels):
         p.connect(vca, 0, p.output, c)
     return p, ((verb.id, "room_size"), (verb.id, "wet"))
+
+
+def kit_check_patch(cfg: AudioConfig | None = None, *,
+                    patch_cls=Patch) -> Patch:
+    """A mono patch that drives the whole-block forms the kit presets
+    bypass: a clock Oscillator's Square steps a Grid Sequencer (16 steps of
+    notes 0, 12 and -12, so its CV is exactly 0, 1 or -1) and a Pattern
+    Sequencer; a Sample of 4,000 frames at half the sample rate takes its
+    Gate from pattern row 0 and its pitch CV from the grid (rates 0.25, 0.5
+    and 1: powers of two, so every order of summation is exact), into a
+    Moog Filter, a VCA and Output; an ADSR gated by pattern row 1 drives
+    the VCA.
+
+    The block engine runs the clock, the sequencers and the Sample in its
+    pre phase (the sequencers' block forms on the row scans and the row
+    gather, the Sample on its player with the CV's prefix sum) and the
+    filter, the envelope and the VCA in a stage with two input wires.
+    ``patch_cls`` builds the same patch with another package's ``Patch``.
+    """
+    cfg = cfg or AudioConfig(channels=1)
+    p = patch_cls(cfg)
+    clk = p.add("Oscillator", val=-4.5, name="clock")
+    grid = p.add("Grid Sequencer", n_steps=16, name="grid",
+                 sequence=[(0, True), (12, True), None, (-12, False)] * 4)
+    pat = p.add("Pattern Sequencer", n_steps=16, name="pat",
+                pattern=[[True, None, None, None] * 4,
+                         [True, None, True, None] * 4])
+    wav_sr = cfg.sample_rate / 2
+    t = np.arange(4000, dtype=np.float64) / wav_sr
+    wave = (np.sin(2 * np.pi * 110.0 * t) * np.exp(-8.0 * t)).astype(
+        np.float32)
+    smp = p.add("Sample", samples=wave, wav_sample_rate=wav_sr, name="smp")
+    flt = p.add("Moog Filter", freq=0.5, res=0.3, name="flt")
+    env = p.add("ADSR", a_sec=0.002, d_sec=0.05, s_val=0.6, r_sec=0.05,
+                name="env")
+    vca = p.add("VCA", name="vca")
+    p.connect(clk, "Square", grid, "Step")
+    p.connect(clk, "Square", pat, "Step")
+    p.connect(pat, "0", smp, "Gate")
+    p.connect(grid, "CV", smp, "CV")
+    p.connect(smp, 0, flt, "Audio")
+    p.connect(pat, "1", env, "Gate")
+    p.connect(flt, 0, vca, "Audio")
+    p.connect(env, 0, vca, "CV")
+    for c in range(cfg.channels):
+        p.connect(vca, 0, p.output, c)
+    return p

@@ -3,8 +3,9 @@
 * **Partition.**  ``BlockProgram`` equals the JAX package's, list for list
   (pre, stage and post plans, stage inputs, outputs and feedback inputs,
   and whether the stage can run on the stage kernel), for sine_patch,
-  subtractive_voice, feedback_patch, reverb_patch and block_check_patch,
-  with and without buffer feedback.
+  subtractive_voice, feedback_patch, reverb_patch, block_check_patch,
+  drum_machine, sampler_kit and kit_check_patch, with and without buffer
+  feedback.
 * **``_osc_block``** against the JAX ``_osc_block``, free-running, with a
   CV, a Sync, both, and an automated ``val``: waves and int32/bool state
   exact, the float phase shadow ``pos_g`` within ``rtol=1e-5`` (an f32 sum
@@ -17,8 +18,18 @@
 * **The stage loop** (kernel K3's plain version) against the JAX package's
   K3 in interpret mode (``make_serial_kernel``, t_chunk=64, unroll=4) at
   n = 70 (ragged) and 64: bit-exact.
-* **Segments, probes, unbatched renders, engine choice** and what still
-  raises (buffer-feedback mode, the sequencers' block forms).
+* **The slice-3b patches** (drum_machine, sampler_kit, kit_check_patch,
+  from random sequencer steps and Sample positions; drum_machine's Noise
+  fed one numpy lane in both packages) on the block engine against the
+  JAX block engine and against the port's scan engine at n = 512:
+  ``5e-6``, and exact in fact.
+* **Buffer-feedback mode** (block 64, n = 512) against the JAX block
+  engine's on feedback_patch, drum_machine and reverb_patch: audio and the
+  final ``fb`` within ``5e-6``; a render continued from the carried state
+  equals one render.
+* **Segments, probes, unbatched renders, engine choice**, and the
+  sequencer patch and buffer mode, which raised before slice 3b, against
+  the scan engine.
 
 The JAX renders come from ``tests/torch_parity_worker.py`` (its own
 process, ``--xla_cpu_max_isa=AVX``); the partitions are pure Python and
@@ -48,6 +59,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 WORKER = ROOT / "tests" / "torch_parity_worker.py"
 ATOL = 5e-6
 CASES = ("reverb_patch", "block_check_patch")
+KIT_CASES = ("drum_machine", "sampler_kit", "kit_check_patch")
+BUFFER_CASES = ("feedback_patch", "drum_machine", "reverb_patch")
 OSC_CASES = ("free", "cv", "sync", "cv_sync", "auto_val")
 
 
@@ -60,7 +73,8 @@ def jax_ref(tmp_path_factory):
                        if p])
     proc = subprocess.run(
         [sys.executable, str(WORKER), str(out), "osc_block",
-         *[f"{c}@block" for c in CASES]],
+         *[f"{c}@block" for c in CASES + KIT_CASES],
+         *[f"{c}@buffer" for c in BUFFER_CASES]],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     with np.load(out) as z:
@@ -115,6 +129,8 @@ def _jax_case(name, **kw):
     cfg = _cfg(st, name, **kw)
     if name == "block_check_patch":
         return stt.presets.block_check_patch(cfg, patch_cls=st.Patch)
+    if name == "kit_check_patch":
+        return stt.presets.kit_check_patch(cfg, patch_cls=st.Patch), ()
     return getattr(jpresets, name)(cfg), ()
 
 
@@ -157,7 +173,7 @@ def assert_state_close(got, want, where, skip=()):
 @pytest.mark.parametrize("buffer_feedback", [False, True])
 @pytest.mark.parametrize("name", ["sine_patch", "subtractive_voice",
                                   "feedback_patch", "reverb_patch",
-                                  "block_check_patch"])
+                                  "block_check_patch", *KIT_CASES])
 def test_partition_equals_jax(name, buffer_feedback):
     jpatch, jautos = _jax_case(name, buffer_feedback=buffer_feedback)
     tpatch, tautos = _port_case(name, buffer_feedback=buffer_feedback)
@@ -249,16 +265,29 @@ def test_osc_block_equals_the_step():
 
 # -- the block engine --------------------------------------------------------
 
-def _inputs(jax_ref, name):
-    patch, autos = _port_case(name)
+def _inputs(jax_ref, name, mode="block"):
+    """``(patch, compiled, params, state, automation, tag)`` of a case from
+    the worker's saved inputs; ``automation`` also holds the Noise driver
+    lanes, keyed by module id."""
+    patch, autos = _port_case(name, buffer_feedback=mode == "buffer")
     compiled = stt.compile_patch(patch, automation=autos)
-    tag = f"{name}@block"
+    tag = f"{name}@{mode}"
     assert list(compiled.plan) == list(jax_ref[f"{tag}/plan"])
     params = _params(_tree(jax_ref, f"{tag}/params"), compiled)
     state = _state(_tree(jax_ref, f"{tag}/state"), compiled)
     drivers = _tree(jax_ref, f"{tag}/drivers")
-    automation = {tuple(k.split("~")): a for k, a in drivers.items()}
+    automation = {tuple(k.split("~")) if "~" in k else k: a
+                  for k, a in drivers.items()}
     return patch, compiled, params, state, automation, tag
+
+
+def _render(compiled, n, params, state, lanes, **kw):
+    """A batched CPU render with ``lanes`` split into automation arrays
+    (keyed ``(mid, param)``) and driver lanes (keyed by module id)."""
+    return compiled.render(
+        n, params=params, state=state, batched=True, device="cpu",
+        automation={k: a for k, a in lanes.items() if isinstance(k, tuple)},
+        drivers={k: a for k, a in lanes.items() if isinstance(k, str)}, **kw)
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -396,21 +425,60 @@ def test_engine_choice():
     patch, autos = _port_case("block_check_patch")
     assert stt.compile_patch(patch, automation=autos).auto_engine(
         True, "cuda") == "block"
+    # a Sample patch whose stage K3 can run takes the block engine, in
+    # either feedback mode; the fused kernel keeps what it can take
+    for name in KIT_CASES:
+        compiled = stt.compile_patch(_port_case(name)[0])
+        assert not compiled.fused_eligible()
+        assert compiled.auto_engine(True, "cuda") == "block", name
+    drums = stt.compile_patch(_port_case("drum_machine",
+                                         buffer_feedback=True)[0])
+    assert drums.auto_engine(True, "cuda") == "block"
+    seq = stt.compile_patch(_port_case("sequencer_patch")[0])
+    assert seq.auto_engine(True, "cuda") == "fused"
+    fb = stt.compile_patch(_port_case("feedback_patch",
+                                      buffer_feedback=True)[0])
+    assert fb.auto_engine(True, "cuda") == "fused"
+    # a Sample inside the serial stage (on a feedback cycle): K3 cannot run
+    # it, so the scan engine
+    p = stt.Patch(stt.AudioConfig(sample_rate=4800, channels=1))
+    smp = p.add("Sample", samples=np.ones(64, np.float32),
+                wav_sample_rate=4800)
+    flt = p.add("Moog Filter")
+    p.connect(smp, 0, flt, "Audio")
+    p.connect(flt, 0, smp, "Gate")
+    p.connect(flt, 0, p.output, 0)
+    loop = stt.compile_patch(p)
+    assert not loop.block_eligible()
+    assert loop.auto_engine(True, "cuda") == "scan"
 
 
 def test_unported_block_forms_raise_and_name_the_roadmap():
+    """Slice 3b ported what this test once saw raise: the sequencers'
+    block forms (sequencer_patch under ``engine="block"``) and buffer
+    mode (reverb_patch with ``buffer_feedback=True``).  Both now render on
+    the block engine and equal the scan engine within 5e-6."""
     seq = stt.presets.sequencer_patch(_cfg(stt, "sequencer_patch"))
     compiled = stt.compile_patch(seq)
-    assert not compiled.block_eligible()
+    assert compiled.block_eligible()
     assert compiled.auto_engine(True, "cuda") == "fused"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        stt.render(seq, 16, engine="block", device="cpu")
+    params = stt.presets.farm_params(seq, 2)
+    kw = dict(params=params, batched=True, device="cpu")
+    audio_b, _, _ = compiled.render(700, engine="block", **kw)
+    audio_s, _, _ = compiled.render(700, engine="scan", **kw)
+    torch.testing.assert_close(audio_b, audio_s, atol=ATOL, rtol=0)
+    assert audio_s.abs().max() > 0.01
     patch, _ = _port_case("reverb_patch", buffer_feedback=True)
     compiled = stt.compile_patch(patch)
-    assert not compiled.block_eligible()
-    assert compiled.auto_engine(True, "cuda") == "scan"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        stt.render(patch, 64, engine="block", device="cpu")
+    assert compiled.block_eligible()
+    assert compiled.auto_engine(True, "cuda") == "block"
+    params = stt.presets.farm_params(patch, 2)
+    kw = dict(params=params, batched=True, device="cpu")
+    audio_b, _, _ = compiled.render(192, engine="block", **kw)
+    audio_s, _, _ = compiled.render(192, engine="scan", **kw)
+    torch.testing.assert_close(audio_b, audio_s, atol=ATOL, rtol=0)
+    with pytest.raises(ValueError, match="whole blocks"):
+        compiled.render(100, engine="block", **kw)
 
 
 def test_state_of_a_block_render_crosses_to_jax():
@@ -426,3 +494,77 @@ def test_state_of_a_block_render_crosses_to_jax():
     jcompiled = st.compile_patch(jpatch)
     audio, _, _ = jcompiled.render(32, state=arrays, engine="scan")
     assert np.isfinite(np.asarray(audio)).all()
+
+
+# -- slice 3b: the kit patches and buffer mode -------------------------------
+
+@pytest.mark.parametrize("name", KIT_CASES)
+def test_kit_block_engine_matches_jax_and_scan(jax_ref, name):
+    patch, compiled, params, state, lanes, tag = _inputs(jax_ref, name)
+    n = jax_ref[f"{tag}/block512/audio"].shape[-1]
+    audio, _, final = _render(compiled, n, params, state, lanes,
+                              engine="block")
+    want = jax_ref[f"{tag}/block512/audio"]
+    np.testing.assert_allclose(audio.numpy(), want, atol=ATOL, rtol=0)
+    assert np.abs(want).max() > 0.01  # the Samples and voices sound
+    assert_state_close(final, _state(_tree(jax_ref, f"{tag}/block512/final"),
+                                     compiled), f"{name} block")
+    audio_s, _, final_s = _render(compiled, n, params, state, lanes,
+                                  engine="scan")
+    torch.testing.assert_close(audio, audio_s, atol=ATOL, rtol=0)
+    skip = {(m, k) for m, (mdef, _, ins) in compiled.instances.items()
+            if mdef.type_name == "Oscillator"
+            for k in (["pos_g"] + (["sync_last"] if ins[1] is None else []))}
+    assert_state_close(final, final_s, f"{name} scan", skip)
+    # every Sample played: its position moved or it restarted
+    for mid, (mdef, _, _) in compiled.instances.items():
+        if mdef.type_name == "Sample":
+            assert not torch.equal(final["states"][mid]["pos"],
+                                   state["states"][mid]["pos"]), mid
+
+
+@pytest.mark.parametrize("name", BUFFER_CASES)
+def test_buffer_mode_matches_jax_block_engine(jax_ref, name):
+    patch, compiled, params, state, lanes, tag = _inputs(jax_ref, name,
+                                                         "buffer")
+    n = jax_ref[f"{tag}/block512/audio"].shape[-1]
+    audio, _, final = _render(compiled, n, params, state, lanes,
+                              engine="block")
+    np.testing.assert_allclose(audio.numpy(),
+                               jax_ref[f"{tag}/block512/audio"], atol=ATOL,
+                               rtol=0)
+    want = _state(_tree(jax_ref, f"{tag}/block512/final"), compiled)
+    assert_state_close(final, want, f"{name} buffer")
+    assert all(tuple(f.shape) == (4, 64) for f in final["fb"].values())
+    # continued from the carried state: two halves equal one render
+    h = n // 2
+    first = {k: a[..., :h] for k, a in lanes.items()}
+    second = {k: a[..., h:] for k, a in lanes.items()}
+    a1, _, s1 = _render(compiled, h, params, state, first, engine="block")
+    a2, _, s2 = _render(compiled, n - h, params, s1, second,
+                        engine="block")
+    torch.testing.assert_close(torch.cat([a1, a2], dim=-1), audio,
+                               atol=ATOL, rtol=0)
+    assert_state_close(s2, final, f"{name} buffer halves")
+
+
+def test_sample_state_crosses_to_jax():
+    """A sampler_kit render's final state (Sample positions, playing and
+    gate edge flags) and its params, tables included, carry into the JAX
+    package, whose render from them equals the port's continued render."""
+    patch, _ = _port_case("sampler_kit")
+    params = stt.presets.farm_params(patch, 2)
+    _, _, final = stt.render_batch(patch, 320, params=params,
+                                   engine="block", device="cpu")
+    arrays = interop.to_numpy(final)
+    smp = next(i.id for i in patch if i.name == "kick")
+    assert arrays["states"][smp]["playing"].dtype == np.bool_
+    assert arrays["states"][smp]["pos"].dtype == np.float32
+    jpatch, _ = _jax_case("sampler_kit")
+    jcompiled = st.compile_patch(jpatch)
+    want, _, _ = jcompiled.render(256, params=interop.to_numpy(params),
+                                  state=arrays, batched=True, engine="scan")
+    got, _, _ = stt.render_batch(patch, 256, params=params, state=final,
+                                 engine="block", device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)

@@ -5,9 +5,11 @@ the very per-voice or per-row body the card runs, in a loop.  Here each is
 held against its plain version on the same inputs:
 
 * K3, the serial stage (``ops/fused.py`` in stage mode), for the stages of
-  ``reverb_patch``, ``block_check_patch`` (an input wire) and
-  ``feedback_patch`` (feedback carries inside the stage): bit-exact
-  against ``BlockProgram.stage_plain`` (output lanes and state);
+  ``reverb_patch``, ``block_check_patch`` (an input wire),
+  ``feedback_patch`` (feedback carries inside the stage), the same in
+  buffer mode (the feedback read from the previous block's lanes) and
+  ``kit_check_patch`` (two input wires): bit-exact against
+  ``BlockProgram.stage_plain`` (output lanes and state);
 * K4, the row scans (``csrc/row_scan.cu``): int32 sum, max and fill exact
   against the log-doubling plain versions, f32 sum within ``2e-4`` and
   affine within ``3e-4`` (``tests/test_scan_kernel.py``'s tolerances: both
@@ -16,7 +18,15 @@ held against its plain version on the same inputs:
   to and from the Freeverb kernel's ``[L, V]`` lines: exact;
 * K8, the Freeverb (``csrc/freeverb.cu``) with the wrapper's layout around
   it: within ``2e-5`` of the chunked block form, from rings with non-zero
-  write indices, with and without an automated ``room_size`` lane.
+  write indices, with and without an automated ``room_size`` lane;
+* K5/K6, the row gather (``csrc/row_gather.cu``), both entries, f32 and
+  int32 tables, indices in and out of range: exact against the plain
+  gather;
+* K7, the Sample player (``csrc/sample_play.cu``): bit-exact against its
+  unfused form run with the host build of K4 for its two scans -- the
+  check that K7 combines in K4's order, at base 0.937 where the order
+  shows -- and exact against the plain version (log-doubling scans) at
+  representable rates; CV connected and not, rows of several chunks.
 
 The main path never uses these host builds.
 """
@@ -29,12 +39,16 @@ import pytest
 import torch
 
 import srack_tpu_torch as stt
+from srack_tpu_torch.block_engine import wire_key
 from srack_tpu_torch.compiler import tree_map
 from srack_tpu_torch.modules import freeverb as fv
+from srack_tpu_torch.modules import sample as smp
 from srack_tpu_torch.ops import basic, freeverb_kernel as fvk, fused
 from srack_tpu_torch.ops.cuda_lib import build
 from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
 from srack_tpu_torch.ops.ring_roll import RING_ALIGN, ring_align_plain
+from srack_tpu_torch.ops.gather_kernel import ROW_GATHER, ROW_GATHER_LONG
+from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
 from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
 
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
@@ -70,9 +84,14 @@ def _stage_case(name):
         patch = stt.presets.reverb_patch(stt.AudioConfig(sample_rate=SR,
                                                          channels=2))
         return patch, stt.compile_patch(patch)
-    if name == "feedback_patch":
-        patch = stt.presets.feedback_patch(stt.AudioConfig(sample_rate=SR,
-                                                           channels=1))
+    if name in ("feedback_patch", "feedback_buffer"):
+        patch = stt.presets.feedback_patch(stt.AudioConfig(
+            sample_rate=SR, block_size=64, channels=1,
+            buffer_feedback=name == "feedback_buffer"))
+        return patch, stt.compile_patch(patch)
+    if name == "kit_check_patch":
+        patch = stt.presets.kit_check_patch(stt.AudioConfig(sample_rate=SR,
+                                                            channels=1))
         return patch, stt.compile_patch(patch)
     patch, autos = stt.presets.block_check_patch(
         stt.AudioConfig(sample_rate=SR, channels=1))
@@ -81,7 +100,8 @@ def _stage_case(name):
 
 @pytest.mark.parametrize("n", [256, 255])
 @pytest.mark.parametrize("name", ["reverb_patch", "block_check_patch",
-                                  "feedback_patch"])
+                                  "feedback_patch", "feedback_buffer",
+                                  "kit_check_patch"])
 def test_stage_kernel_on_host_matches_stage_loop(gxx, tmp_path, name, n):
     patch, compiled = _stage_case(name)
     prog = compiled.block_program()
@@ -91,17 +111,19 @@ def test_stage_kernel_on_host_matches_stage_loop(gxx, tmp_path, name, n):
                      compiled.init_state())
     rng = np.random.default_rng(n)
     # the stage's input wires as random lanes (the Freeverb's Left for the
-    # block check patch; reverb_patch's stage has none)
-    lanes = {f"{s}#{p}": torch.from_numpy(
+    # block check patch; reverb_patch's stage has none), in buffer mode
+    # also the previous block's feedback lanes
+    lanes = {wire_key(w): torch.from_numpy(
         rng.uniform(-1, 1, (v, n)).astype(np.float32))
-        for s, p in prog.stage_in}
+        for w in prog.stage_in + [("fb",) + k for k in prog.stage_fb_in]}
+    assert bool(prog.stage_fb_in) == (name == "feedback_buffer")
     kernel = prog.stage_kernel(lanes)
     assert kernel.name == "serial_stage"
     lib = _fn(ctypes.CDLL(str(build(kernel.source, compiler=gxx,
                                     flags=HOST_FLAGS, root=tmp_path)[0])),
               "srk_fused_host", fused.ARGTYPES)
     stage_state = {"states": {m: state["states"][m] for m in prog.stage_plan},
-                   "fb": state["fb"]}
+                   "fb": {} if prog.buffer_mode else state["fb"]}
     pf, pi, sf, si, lanes_p, ring, _ = kernel.pack(params, stage_state, n,
                                                    lanes)
     outs = torch.empty((max(len(prog.stage_out), 1), n, v))
@@ -294,3 +316,110 @@ def test_freeverb_kernel_on_host_matches_block_form(gxx, tmp_path, n,
                                                  dtype=torch.int32))
         torch.testing.assert_close(back, want_state[k], atol=2e-5, rtol=2e-5)
         assert not want_state[f"{k}_idx"].any()
+
+
+# -- K5/K6 -------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 16, 400, 1024, 5000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_row_gather_on_host_matches_plain(gxx, tmp_path, dtype, k):
+    rng = np.random.default_rng(k)
+    rows, n = 3, 4500
+    table = _rows(dtype, (rows, k), rng)
+    idx = torch.from_numpy(rng.integers(-2 * k - 3, 2 * k + 3, (rows, n))
+                           .astype(np.int32))
+    idx[0] = torch.arange(n, dtype=torch.int32) % k   # a ramp in range
+    want = basic.table_lookup_rows_plain(table, idx)
+    lib = _host(ROW_GATHER, gxx, tmp_path)
+    dt = "f32" if dtype == torch.float32 else "i32"
+    for kernel in (ROW_GATHER, ROW_GATHER_LONG):
+        out = torch.empty_like(idx, dtype=dtype)
+        rc = _fn(lib, f"srk_gather_{kernel.entry}_{dt}", [P, P, P, I, I, I])(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, k, n)
+        if kernel.entry == "small" and k > 1024:
+            assert rc != 0   # the small entry refuses a long table
+            continue
+        assert rc == 0
+        assert torch.equal(out, want), kernel.name
+        assert kernel.launches == 0
+
+
+# -- K7 ----------------------------------------------------------------------
+
+def _play_inputs(seed, n, k, cv, base):
+    rng = np.random.default_rng(seed)
+    v = 4
+    gate = torch.from_numpy((rng.uniform(size=(v, n)) < 0.003).astype(
+        np.float32))
+    gate[3, :40] = 1.0                    # high at t = 0
+    cvl = (torch.from_numpy(rng.integers(-1, 2, (v, n)).astype(np.float32))
+           if cv else None)
+    table = torch.from_numpy(rng.standard_normal((v, k)).astype(np.float32))
+    return (gate, cvl, table, torch.full((v,), base),
+            torch.tensor([0.0, 37.0, k - 3.0, 5.0]),
+            torch.tensor([False, True, True, False]),
+            torch.tensor([True, False, True, False]),
+            torch.tensor([k, k - 100, k // 3, 0], dtype=torch.int32))
+
+
+def _play_host(lib, args):
+    gate, cvl, table, base, pos0, playing0, last0, length = args
+    v, n = gate.shape
+    out = torch.empty_like(gate)
+    pos_end = torch.empty(v)
+    play_end, last_end = (torch.empty(v, dtype=torch.int32),
+                          torch.empty(v, dtype=torch.int32))
+    ints = [playing0.to(torch.int32), last0.to(torch.int32)]
+    assert _fn(lib, "srk_sample_play", [P] * 12 + [I, I, I])(
+        gate.data_ptr(), None if cvl is None else cvl.data_ptr(),
+        table.data_ptr(), base.data_ptr(), pos0.data_ptr(),
+        ints[0].data_ptr(), ints[1].data_ptr(), length.data_ptr(),
+        out.data_ptr(), pos_end.data_ptr(), play_end.data_ptr(),
+        last_end.data_ptr(), v, n, table.shape[1]) == 0
+    return out, pos_end, play_end != 0, last_end != 0
+
+
+@pytest.mark.parametrize("n", [2500, 1024, 7])
+@pytest.mark.parametrize("cv", [False, True])
+def test_sample_play_on_host_matches_unfused_on_host_k4(gxx, tmp_path,
+                                                         monkeypatch, cv, n):
+    """Bit for bit against the unfused form whose prefix sum and running
+    max are the host build of K4: at base 0.937 the f32 sums round, so this
+    holds only if K7 combines in K4's order."""
+    scan_lib = _host(ROW_SCAN, gxx, tmp_path / "k4")
+    play_lib = _host(SAMPLE_PLAY, gxx, tmp_path / "k7")
+
+    def k4(kind):
+        def run(x):
+            y = torch.empty_like(x)
+            assert _fn(scan_lib, f"srk_scan_{kind}_f32", [P, P, I, I])(
+                x.contiguous().data_ptr(), y.data_ptr(), x.shape[0],
+                x.shape[1]) == 0
+            return y
+        return run
+
+    monkeypatch.setattr(smp, "fast_cumsum", k4("sum"))
+    monkeypatch.setattr(smp, "fast_cummax", k4("max"))
+    args = _play_inputs(n, n, 700, cv, 0.937)
+    got = _play_host(play_lib, args)
+    want = smp.play_unfused(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[0] != 0).any()
+    if cv and n == 2500:
+        # the order matters here: the log-doubling sum differs
+        plain = smp.play_unfused(*args, plain=True)
+        assert not torch.equal(plain[0], got[0]) or \
+            not torch.equal(plain[1], got[1])
+    assert SAMPLE_PLAY.launches == 0
+
+
+@pytest.mark.parametrize("cv", [False, True])
+def test_sample_play_on_host_matches_plain_at_exact_rates(gxx, tmp_path,
+                                                          cv):
+    play_lib = _host(SAMPLE_PLAY, gxx, tmp_path)
+    args = _play_inputs(3, 3000, 900, cv, 0.5)
+    got = _play_host(play_lib, args)
+    want = smp.play_unfused(*args, plain=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -16,6 +16,11 @@
   bit-exact, float state 1e-5), the JAX renders made by
   ``tests/torch_parity_worker.py``.
 * ``farm_params(sequencer_patch, 8)`` equal to the JAX package's.
+* The whole-block forms ``_grid_block`` and ``_pat_block`` (on CPU
+  tensors: the log-doubling scans and one ``torch.gather``) against the
+  JAX block forms over [4, 300] rows from random carried states, with
+  Step runs, Sync resets, notes in [-30, 30) and ``n_steps`` below the
+  capacity: outputs and state exact; and against the port's own steps.
 """
 
 import subprocess
@@ -163,7 +168,8 @@ NAME = "sequencer_patch"
 @pytest.fixture(scope="module")
 def jax_ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax_ref") / "ref.npz"
-    proc = subprocess.run([sys.executable, str(WORKER), str(out), NAME],
+    proc = subprocess.run([sys.executable, str(WORKER), str(out), NAME,
+                           "seq_block"],
                           cwd=ROOT, env=_env(), capture_output=True,
                           text=True, timeout=900)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
@@ -211,3 +217,95 @@ def test_farm_params_equal_jax():
             g = got[mid][key].numpy()
             assert g.dtype == w.dtype and g.shape == w.shape
             np.testing.assert_array_equal(g, w, err_msg=f"{mid}.{key}")
+
+
+# ---------------------------------------------------------------------------
+# the whole-block forms
+# ---------------------------------------------------------------------------
+
+def _block_inputs(jax_ref, kind):
+    tag = f"seq_block/{kind}"
+    params = {k: torch.from_numpy(v) for k, v in
+              _tree(jax_ref, f"{tag}/params").items()}
+    state = {k: torch.from_numpy(v) for k, v in
+             _tree(jax_ref, f"{tag}/state").items()}
+    step = torch.from_numpy(jax_ref[f"{tag}/step"])
+    sync = torch.from_numpy(jax_ref[f"{tag}/sync"])
+    mdef = tseq.GRID_SEQUENCER if kind == "grid" else tseq.PATTERN_SEQUENCER
+    statics = (("gridseq", 2, CAP) if kind == "grid"
+               else ("patseq", tseq.N_ROWS, CAP))
+    derived = {**params, **mdef.derive(stt.AudioConfig(), statics, params,
+                                       (True, True))}
+    return tag, mdef, statics, derived, state, step, sync
+
+
+@pytest.mark.parametrize("kind", ["grid", "pat"])
+def test_block_form_matches_jax(jax_ref, kind):
+    tag, mdef, statics, params, state, step, sync = _block_inputs(jax_ref,
+                                                                  kind)
+    n = step.shape[1]
+    final, outs = mdef.block(stt.AudioConfig(), statics, params, state,
+                             (step, sync), None, n)
+    want = jax_ref[f"{tag}/outs"]
+    np.testing.assert_array_equal(torch.stack(outs, dim=1).numpy(), want)
+    want_final = _tree(jax_ref, f"{tag}/final")
+    assert set(final) == set(want_final)
+    for k, w in want_final.items():
+        assert final[k].numpy().dtype == w.dtype, k
+        np.testing.assert_array_equal(final[k].numpy(), w, err_msg=k)
+    # Sync reset and the wrap both happened inside the block
+    assert (sync > 0).any() and (want[:, -1] == 1.0).any()
+
+
+@pytest.mark.parametrize("kind", ["grid", "pat"])
+def test_block_form_equals_the_step(jax_ref, kind):
+    _, mdef, statics, params, state, step, sync = _block_inputs(jax_ref,
+                                                                kind)
+    n = step.shape[1]
+    final, outs = mdef.block(stt.AudioConfig(), statics, params, state,
+                             (step, sync), None, n)
+    s, want = state, []
+    for t in range(n):
+        s, o = mdef.step(stt.AudioConfig(), statics, params, s,
+                         (step[:, t], sync[:, t]))
+        want.append(torch.stack(o, dim=1))
+    assert torch.equal(torch.stack(outs, dim=1), torch.stack(want, dim=-1))
+    for k in s:
+        assert torch.equal(final[k], s[k]), k
+
+
+@pytest.mark.parametrize("kind", ["grid", "pat"])
+def test_block_form_of_an_empty_sequence_takes_the_steps_answer(kind):
+    """``n_steps = 0``: the per-sample step wraps every step to 0; XLA's
+    ``x mod 0`` is ``x``, so the JAX block form counts on, and torch's
+    remainder by 0 raises.  The port's block form gives the step's 0."""
+    rng = np.random.default_rng(3)
+    v, n = 2, 64
+    mdef = tseq.GRID_SEQUENCER if kind == "grid" else tseq.PATTERN_SEQUENCER
+    statics = (("gridseq", 2, CAP) if kind == "grid"
+               else ("patseq", tseq.N_ROWS, CAP))
+    params = {"n_steps": torch.zeros(v, dtype=torch.int32)}
+    if kind == "grid":
+        params.update(notes=torch.from_numpy(rng.integers(-9, 9, (v, CAP))
+                                             .astype(np.int32)),
+                      cells=torch.full((v, CAP), 2, dtype=torch.int32),
+                      steps_per_octave=torch.full((v,), 12,
+                                                  dtype=torch.int32))
+    else:
+        params["cells"] = torch.full((v, tseq.N_ROWS, CAP), 2,
+                                     dtype=torch.int32)
+    params.update(mdef.derive(stt.AudioConfig(), statics, params,
+                              (True, False)))
+    state = {k: a.expand(v).clone()
+             for k, a in mdef.init_state(stt.AudioConfig(), statics).items()}
+    step = torch.from_numpy(np.tile([1.0, 1.0, -1.0, -1.0], (v, n // 4))
+                            .astype(np.float32))
+    final, outs = mdef.block(stt.AudioConfig(), statics, params, state,
+                             (step, None), None, n)
+    s = state
+    for t in range(n):
+        s, o = mdef.step(stt.AudioConfig(), statics, params, s,
+                         (step[:, t], None))
+        for w, g in zip(o, outs):
+            assert torch.equal(g[:, t], w)
+    assert not final["current_step"].any()

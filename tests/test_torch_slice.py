@@ -27,6 +27,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import srack_tpu as st
 from srack_tpu import presets as jpresets
@@ -144,7 +145,7 @@ def test_port_scan_matches_jax(jax_ref, name, ref_run):
 
 
 @pytest.mark.parametrize("name", ["subtractive_voice", "sine_patch",
-                                  "feedback_patch"])
+                                  "feedback_patch", "sampler_kit"])
 def test_farm_params_equal_jax(name):
     jcfg = st.AudioConfig(sample_rate=48000, channels=1)
     tcfg = stt.AudioConfig(sample_rate=48000, channels=1)
@@ -189,6 +190,13 @@ def test_import_and_render_without_jax():
         "    p, 300, device='cpu', engine='block',\n"
         "    params=stt.presets.farm_params(p, 2))\n"
         "assert tuple(audio.shape) == (2, 2, 300)\n"
+        "cfg = stt.AudioConfig(sample_rate=4800, channels=1)\n"
+        "p = stt.presets.sampler_kit(cfg)\n"
+        "audio, _, state = stt.render_batch(\n"
+        "    p, 300, device='cpu', engine='block',\n"
+        "    params=stt.presets.farm_params(p, 2))\n"
+        "assert tuple(audio.shape) == (2, 1, 300)\n"
+        "assert bool(audio.isfinite().all())\n"
         "assert not any(m == 'jax' or m.startswith('jax.') "
         "for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -237,15 +245,23 @@ def test_generated_source_is_deterministic_and_in_plan_order():
 
 
 def test_unported_module_type_names_the_roadmap():
+    """Every module type is ported since slice 3b (the Sample player) and
+    the block engine takes buffer mode: an unknown type raises KeyError
+    naming the catalog, buffer mode renders, and exact precision still
+    raises naming slice 4."""
     p = stt.Patch(stt.AudioConfig(channels=1))
-    for type_name in ("Sample",):
-        with pytest.raises(KeyError, match="ROADMAP.md"):
+    assert not stt.modules.NOT_PORTED
+    assert set(st.modules.CATALOG) == set(stt.CATALOG)
+    for type_name in ("Sampler", "Wavetable"):
+        with pytest.raises(KeyError, match="catalog"):
             p.add(type_name)
-    # the block engine's buffer-feedback mode is slice 3b
     fb = stt.presets.feedback_patch(stt.AudioConfig(
         sample_rate=4800, block_size=16, channels=1, buffer_feedback=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        stt.render(fb, 32, engine="block", device="cpu")
+    audio_b, _, state_b = stt.render(fb, 32, engine="block", device="cpu")
+    audio_s, _, state_s = stt.render(fb, 32, engine="scan", device="cpu")
+    assert torch.equal(audio_b, audio_s)
+    assert all(torch.equal(state_b["fb"][k], f)
+               for k, f in state_s["fb"].items())
     with pytest.raises(NotImplementedError, match="slice 4"):
         stt.Patch(stt.AudioConfig(channels=1, precision="exact")).add(
             "Oscillator")

@@ -37,6 +37,23 @@ seeds and save them beside the results:
   kernel K4 in interpret mode (``scan_kernel._scan_rows``), four kinds;
 * ``ring_roll``: kernel K9 in interpret mode (``ring_roll._align_rows``).
 
+Slice 3b's cases, inputs made here from numpy seeds as well:
+
+* ``drum_machine``, ``sampler_kit`` and ``kit_check_patch`` with ``@block``
+  appended: the JAX block engine at n=512 from a state with random
+  oscillator phases, sequencer steps and Sample positions (drum_machine's
+  Noise fed one numpy lane as a driver);
+* ``feedback_patch``, ``drum_machine`` and ``reverb_patch`` with
+  ``@buffer`` appended: the JAX block engine's buffer-feedback mode, block
+  64, n=512;
+* ``sample``: the Sample's ``_step`` over 512 samples, its ``_block`` (the
+  unfused XLA form off the TPU) at n=512 and 300, and kernel K7 in
+  interpret mode (``sample_kernel.play_rows``) at the shapes of
+  ``tests/test_sample_kernel.py``;
+* ``gather``: kernels K5 (``scan_kernel._gather_rows``) and K6
+  (``sample_gather._gather_rows``) in interpret mode;
+* ``seq_block``: the sequencers' ``_grid_block`` and ``_pat_block``.
+
 It runs in its own process because XLA's CPU backend contracts ``a*b+c``
 into one fused multiply-add when the host has FMA, which rounds the
 polynomials once where the port (and the TPU) round twice, and the XLA flag
@@ -126,15 +143,77 @@ def flat(prefix: str, tree, out: dict) -> None:
 BLOCK_N, STAGE_NS = 512, (70, 64)
 
 
-def _seeded_state(compiled, v, rng):
-    """init_state for V voices with every oscillator at a random phase."""
+def _seeded_state(compiled, v, rng, params=None):
+    """init_state for V voices with every oscillator at a random phase,
+    every sequencer at a random step below its length and every Sample at
+    a random whole-frame position (so that the scan engine's running sum
+    and the block form's prefix sum agree exactly), playing or not, its
+    gate edge state random."""
     state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
                          compiled.init_state())
     for mid, (mdef, _, _) in compiled.instances.items():
+        sd = state["states"][mid]
         if mdef.type_name == "Oscillator":
-            state["states"][mid]["pos"] = jnp.asarray(rng.integers(
+            sd["pos"] = jnp.asarray(rng.integers(
                 -2 ** 31, 2 ** 31 - 1, v, dtype=np.int64).astype(np.int32))
+        elif mdef.type_name.endswith("Sequencer"):
+            steps = np.asarray(params[mid]["n_steps"])
+            sd["current_step"] = jnp.asarray(
+                (rng.integers(0, 1 << 20, v) % steps).astype(np.int32))
+        elif mdef.type_name == "Sample":
+            length = np.asarray(params[mid]["length"])
+            sd["pos"] = jnp.asarray(
+                (rng.integers(0, 1 << 20, v) % length).astype(np.float32))
+            sd["playing"] = jnp.asarray(rng.uniform(size=v) < 0.5)
+            sd["gate_last"] = jnp.asarray(rng.uniform(size=v) < 0.5)
     return state
+
+
+KIT_CASES = ("drum_machine", "sampler_kit", "kit_check_patch")
+
+
+def kit_build(name: str, **kw):
+    """A slice-3b patch at 4,800 Hz, mono, block 64, built with the JAX
+    ``Patch``."""
+    cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
+                         precision="fast", **kw)
+    if name == "kit_check_patch":
+        from srack_tpu_torch.presets import kit_check_patch
+        return kit_check_patch(cfg, patch_cls=st.Patch)
+    return getattr(presets, name)(cfg)
+
+
+def noise_drivers(patch, n: int, rng) -> dict:
+    """One numpy lane ``[V, n]`` for each Noise module, fed to both
+    packages (their generators differ by design)."""
+    return {inst.id: rng.uniform(-1.0, 1.0, (VOICES, n)).astype(np.float32)
+            for inst in patch if inst.mdef.type_name == "Noise"}
+
+
+def kit_case(name: str, out: dict, buffer: bool) -> None:
+    """The JAX block engine on a slice-3b case, sample or buffer mode."""
+    tag = f"{name}@{'buffer' if buffer else 'block'}"
+    if name in KIT_CASES:
+        patch = kit_build(name, buffer_feedback=buffer)
+    else:
+        cfg = st.AudioConfig(sample_rate=4800, block_size=64,
+                             channels=2 if name == "reverb_patch" else 1,
+                             precision="fast", buffer_feedback=buffer)
+        patch = getattr(presets, name)(cfg)
+    compiled = st.compile_patch(patch)
+    rng = np.random.default_rng(31)
+    params = presets.farm_params(patch, VOICES)
+    state = _seeded_state(compiled, VOICES, rng, params)
+    drivers = noise_drivers(patch, BLOCK_N, rng)
+    keys = jax.random.split(jax.random.PRNGKey(0), VOICES)
+    flat(f"{tag}/params", params, out)
+    flat(f"{tag}/state", state, out)
+    flat(f"{tag}/drivers", drivers, out)
+    out[f"{tag}/plan"] = np.asarray(compiled.plan)
+    audio, _, final = compiled._get_fn(BLOCK_N, True, "block")(
+        params, state, keys, {k: jnp.asarray(a) for k, a in drivers.items()})
+    flat(f"{tag}/block{BLOCK_N}/audio", audio, out)
+    flat(f"{tag}/block{BLOCK_N}/final", final, out)
 
 
 def block_case(name: str, out: dict) -> None:
@@ -397,8 +476,214 @@ def ring_roll_case(out: dict) -> None:
         out[f"ring_roll/{rows}x{length}/out"] = np.asarray(res)
 
 
+SAMPLE_K, SAMPLE_STEP_N = 300, 512
+
+
+def _sample_inputs(rng, v, k, n, cv: bool):
+    """Per-voice tables, lengths (one of them 0), rates 1, 0.5, 2 and 1
+    (wav_sr over 4,800 Hz), gate runs and integer CVs (rates stay powers
+    of two times the base)."""
+    tbl = rng.standard_normal((v, k)).astype(np.float32)
+    length = np.array([k, k * 2 // 5, 0, k * 5 // 6][:v], np.int32)
+    wav_sr = np.array([4800.0, 2400.0, 9600.0, 4800.0][:v], np.float32)
+    gate = np.zeros((v, n), np.float32)
+    for r in range(v):
+        t, hi = 0, bool(r % 2)
+        while t < n:
+            run = int(rng.integers(5, 90))
+            gate[r, t:t + run] = rng.uniform(0.1, 1.0) if hi else 0.0
+            t, hi = t + run, not hi
+    cvl = (rng.integers(-1, 2, (v, n)).astype(np.float32) if cv else None)
+    state = {"pos": rng.integers(0, k, v).astype(np.float32),
+             "playing": rng.uniform(size=v) < 0.5,
+             "gate_last": rng.uniform(size=v) < 0.5}
+    return tbl, length, wav_sr, gate, cvl, state
+
+
+def sample_case(out: dict) -> None:
+    """The Sample's step and block form, and K7 in interpret mode."""
+    from srack_tpu.modules import sample as jsmp
+    from srack_tpu.ops import sample_kernel
+    cfg = st.AudioConfig(sample_rate=4800, precision="fast")
+    statics = ("sample", SAMPLE_K)
+    rng = np.random.default_rng(41)
+    v = VOICES
+
+    # _step over 512 samples, CV connected
+    tbl, length, wav_sr, gate, cvl, state = _sample_inputs(
+        rng, v, SAMPLE_K, SAMPLE_STEP_N, True)
+    params = {"samples": tbl, "length": length, "wav_sr": wav_sr}
+    flat("sample/step/params", params, out)
+    flat("sample/step/state", state, out)
+    out["sample/step/gate"], out["sample/step/cv"] = gate, cvl
+
+    def run_steps(p, s, g, c):
+        def body(carry, x):
+            carry, (o,) = jsmp.SAMPLE.step(cfg, statics, p, carry,
+                                           [x[0], x[1]])
+            return carry, o
+        final, ys = jax.lax.scan(body, s, jnp.stack([g, c], axis=1))
+        return ys, final
+
+    audio, final = jax.jit(jax.vmap(run_steps))(params, state,
+                                                jnp.asarray(gate),
+                                                jnp.asarray(cvl))
+    out["sample/step/out"] = np.asarray(audio)
+    flat("sample/step/final", final, out)
+
+    # _block, the unfused XLA form off the TPU
+    for n in (512, 300):
+        for cv in (False, True):
+            tag = f"sample/block{n}_{'cv' if cv else 'const'}"
+            tbl, length, wav_sr, gate, cvl, state = _sample_inputs(
+                rng, v, SAMPLE_K, n, cv)
+            params = {"samples": tbl, "length": length, "wav_sr": wav_sr}
+            flat(f"{tag}/params", params, out)
+            flat(f"{tag}/state", state, out)
+            out[f"{tag}/gate"] = gate
+            if cv:
+                out[f"{tag}/cv"] = cvl
+
+            def one(p, s, g, c, n=n):
+                return jsmp._block(cfg, statics, p, s, (g, c), None, n)
+
+            final, (res,) = jax.jit(jax.vmap(one, in_axes=(
+                0, 0, 0, 0 if cv else None)))(
+                params, state, jnp.asarray(gate),
+                jnp.asarray(cvl) if cv else None)
+            out[f"{tag}/out"] = np.asarray(res)
+            flat(f"{tag}/final", final, out)
+
+    # K7 in interpret mode: tests/test_sample_kernel.py's shapes
+    runs = (("k400_const1", 400, 4608, None, 1.0, False),
+            ("k400_const2", 400, 4608, None, 2.0, False),
+            ("k400_cv", 400, 4608, "int", 0.5, True),
+            ("k400_fuzz", 400, 4608, "fuzz", 0.937, False),
+            ("k5000_const1", 5000, 4196, None, 1.0, False),
+            ("k5000_cv", 5000, 4196, "int", 0.5, True))
+    for tag, k, n, cv, base, carried in runs:
+        tbl = rng.normal(size=(v, k)).astype(np.float32)
+        p_trig = 1 / 900 if k == 5000 else 0.002
+        gate = (rng.random((v, n)) < p_trig).astype(np.float32)
+        cvl = None
+        if cv == "int":
+            cvl = rng.integers(-1, 2, (v, n)).astype(np.float32)
+        elif cv == "fuzz":
+            cvl = (rng.random((v, n)) * 0.2 - 0.1).astype(np.float32)
+        if carried:
+            pos = np.array([10.0, k - 600.0, 0.0, k - 1.0], np.float32)
+            playing = np.array([True, True, False, True])
+            last = np.array([False, True, False, False])
+        else:
+            pos = np.zeros(v, np.float32)
+            playing = np.zeros(v, bool)
+            last = np.ones(v, bool)
+        length = np.array([k, k, k // 3, k], np.int32)
+        ins = {"table": tbl, "gate": gate, "pos": pos, "playing": playing,
+               "last": last, "length": length,
+               "base": np.full(v, base, np.float32)}
+        if cvl is not None:
+            ins["cv"] = cvl
+        flat(f"sample/k7_{tag}/in", ins, out)
+        res = sample_kernel.play_rows(
+            jnp.asarray(gate), None if cvl is None else jnp.asarray(cvl),
+            jnp.asarray(tbl), jnp.asarray(ins["base"]), jnp.asarray(pos),
+            jnp.asarray(playing), jnp.asarray(last), jnp.asarray(length))
+        flat(f"sample/k7_{tag}/out", {str(i): x for i, x in enumerate(res)},
+             out)
+
+
+def gather_case(out: dict) -> None:
+    """K5 and K6 in interpret mode; K5 also at indices at or past K."""
+    from srack_tpu.ops import sample_gather, scan_kernel
+    rng = np.random.default_rng(43)
+    v, n = VOICES, 2100
+    for k in (16, 64, 400):
+        tbl = rng.integers(-1000, 1000, (v, k)).astype(np.int32)
+        # in range, and past the table (the quirk case)
+        idx = rng.integers(0, k, (v, n)).astype(np.int32)
+        past = rng.integers(k, 2 * k + 5, (v, n)).astype(np.int32)
+        for dt, t in (("f32", (tbl * 0.37).astype(np.float32)),
+                      ("i32", tbl)):
+            out[f"gather/k5_{k}_{dt}/table"] = t
+            out[f"gather/k5_{k}_{dt}/idx"] = idx
+            out[f"gather/k5_{k}_{dt}/past"] = past
+            for what, ix in (("out", idx), ("out_past", past)):
+                out[f"gather/k5_{k}_{dt}/{what}"] = np.asarray(
+                    scan_kernel._gather_rows(jnp.asarray(t), jnp.asarray(ix),
+                                             True))
+    for k, pattern in ((400, "ramp"), (5000, "ramp"), (5000, "uniform")):
+        tbl = rng.standard_normal((v, k)).astype(np.float32)
+        if pattern == "ramp":   # monotone ramps with restarts
+            t = np.arange(n)[None] * 1.3 + np.arange(v)[:, None] * 777
+            idx = (t % (k - 1)).astype(np.int32)
+        else:
+            idx = rng.integers(0, k, (v, n)).astype(np.int32)
+        tag = f"gather/k6_{k}_{pattern}"
+        out[f"{tag}/table"], out[f"{tag}/idx"] = tbl, idx
+        out[f"{tag}/out"] = np.asarray(sample_gather._gather_rows(
+            jnp.asarray(tbl), jnp.asarray(idx), True))
+
+
+SEQ_CAP = 8
+
+
+def seq_block_case(out: dict) -> None:
+    """``_grid_block`` and ``_pat_block`` over [V, n] from random carried
+    states, Step runs and sparse Sync pulses."""
+    from srack_tpu.modules import sequencer as jseq
+    cfg = st.AudioConfig(sample_rate=4800, precision="fast")
+    rng = np.random.default_rng(47)
+    v, n = VOICES, 300
+    n_steps = np.int32([5, SEQ_CAP, 7, 3])
+    for kind in ("grid", "pat"):
+        step = np.zeros((v, n), np.float32)
+        for r in range(v):
+            t, hi = 0, bool(r % 2)
+            while t < n:
+                run = int(rng.integers(1, 7))
+                step[r, t:t + run] = rng.uniform(0.1, 1.0) if hi else -0.5
+                t, hi = t + run, not hi
+        sync = np.where(rng.uniform(size=(v, n)) < 0.03,
+                        rng.uniform(0.1, 1.0, (v, n)), 0.0).astype(np.float32)
+        state = {"current_step": (rng.integers(0, 100, v)
+                                  % n_steps).astype(np.int32),
+                 "step_last": rng.uniform(size=v) < 0.5,
+                 "sync_last": rng.uniform(size=v) < 0.5}
+        if kind == "grid":
+            params = {"notes": rng.integers(-30, 30, (v, SEQ_CAP)).astype(
+                          np.int32),
+                      "cells": rng.integers(0, 3, (v, SEQ_CAP)).astype(
+                          np.int32),
+                      "n_steps": n_steps,
+                      "steps_per_octave": np.int32([12, 7, 24, 5])}
+            state["last_cv"] = rng.uniform(-1, 1, v).astype(np.float32)
+            statics, mdef = ("gridseq", 2, SEQ_CAP), jseq.GRID_SEQUENCER
+        else:
+            params = {"cells": rng.integers(0, 3, (v, jseq.N_ROWS,
+                                                   SEQ_CAP)).astype(np.int32),
+                      "n_steps": n_steps}
+            statics, mdef = ("patseq", jseq.N_ROWS, SEQ_CAP), \
+                jseq.PATTERN_SEQUENCER
+        tag = f"seq_block/{kind}"
+        flat(f"{tag}/params", params, out)
+        flat(f"{tag}/state", state, out)
+        out[f"{tag}/step"], out[f"{tag}/sync"] = step, sync
+
+        def one(p, s, a, b, mdef=mdef, statics=statics):
+            p = {**p, **mdef.derive(cfg, statics, p, (True, True))}
+            return mdef.block(cfg, statics, p, s, (a, b), None, n)
+
+        final, outs = jax.jit(jax.vmap(one))(params, state, jnp.asarray(step),
+                                             jnp.asarray(sync))
+        out[f"{tag}/outs"] = np.asarray(jnp.stack(outs, axis=1))
+        flat(f"{tag}/final", final, out)
+
+
 SPECIAL = {"freeverb": freeverb_case, "osc_block": osc_block_case,
-           "scan": scan_case, "ring_roll": ring_roll_case}
+           "scan": scan_case, "ring_roll": ring_roll_case,
+           "sample": sample_case, "gather": gather_case,
+           "seq_block": seq_block_case}
 
 
 def main(path: str, names) -> None:
@@ -407,8 +692,15 @@ def main(path: str, names) -> None:
         if name in SPECIAL:
             SPECIAL[name](out)
             continue
+        if name.endswith("@buffer"):
+            kit_case(name[:-len("@buffer")], out, True)
+            continue
         if name.endswith("@block"):
-            block_case(name[:-len("@block")], out)
+            base = name[:-len("@block")]
+            if base in KIT_CASES:
+                kit_case(base, out, False)
+            else:
+                block_case(base, out)
             continue
         patch, autos = build(name)
         compiled = st.compile_patch(patch, automation=autos)
