@@ -60,6 +60,16 @@ Phases, each reported on its own lines with its seconds:
    against its unfused form (K4's scans and the row gather's long entry
    K6) bit for bit and every K5 call against torch.gather, at the shapes
    the main path gives them.
+14. train: bench.py's training config (bench.py:205-262) through
+   ``srack_tpu_torch.utils.train`` on the default device: subtractive_voice
+   at 48 kHz, 1,024 voices x 48,000 samples, Adam (lr 1e-3), waveform_l2
+   against silent targets, ``batched_train_step(fast=True)``: one warm-up
+   step, whose K10 forward audio must equal K1's render of the same params
+   bit for bit, then 3 timed steps, each required to launch exactly one
+   K10 forward and one K10 backward and no other kernel (the scan engine
+   is fenced off), then a 32-step ``multi_train_step``; the last loss must
+   be below the first.  Prints ms/step, samples/s through forward and
+   backward, and K10's two kernels timed alone beside their bounds.
 
 Phase 2 also builds K3 for the stages of reverb_patch and
 block_check_patch, K4, K8 and K9; phase 3 holds each against its plain
@@ -83,7 +93,22 @@ versions and, for K4 and K9, the one PyTorch call that computes the same
 function; K8 is timed through its wrapper, as its plain version does the
 same work, and as its launch alone.
 
-Each main path (phases 4, 5, 7-13) runs with the launch counts set
+For slice 5 phase 2 builds the fused VJP K10, its forward
+(``fused_vjp_fwd``) and its backward (``fused_vjp_bwd``), for five patches
+at 4,800 Hz (the subtractive voice with a fast gate clock, the JAX tests'
+gradient patch, feedback_patch, lane_check_patch with its lanes,
+kernel_check_patch) and for phase 14's subtractive voice at 48 kHz;
+phase 3 holds K10 against its plain version, autograd through the scan
+engine, at 1,024 voices and n = 512 on the five patches and on phase 14's
+build (its gate clock started at random phases so that envelopes run):
+the audio bit for bit, every float param's and initial float state's
+cotangent within ``1e-8 + 1e-4 * max|ref|``; phase 6 times both kernels
+and both halves of the plain version on phase 14's build.  The backward
+at phase 14's full length is not held to the plain version: autograd
+through the scan engine takes ~9 ms per sample at 1,024 voices, over
+seven minutes for 48,000 samples.
+
+Each main path (phases 4, 5, 7-14) runs with the launch counts set
 to 0 just before it and read just after.  Any failure raises and exits
 non-zero.  The line before the last is a JSON record of the kernels; the
 last line is
@@ -279,6 +304,7 @@ def phase_build(stt):
         kernels[name] = (patch, compiled, compiled.fused(lanes))
     jobs = {name: k for name, (_, _, k) in kernels.items()}
     jobs.update(block_kernels(stt))
+    jobs.update(vjp_kernels(stt))
 
     def build(name):
         t0 = time.perf_counter()
@@ -395,9 +421,12 @@ def _counters(kernels):
     from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
     out = [kernel for _, _, kernel in kernels.values()]
-    return out + list(STAGES.values()) + list(CHECK_STAGES.values()) + [
+    out += [lib for _, _, k in VJP.values() for lib in (k.fwd, k.bwd)]
+    out += list(STAGES.values()) + list(CHECK_STAGES.values()) + [
         ROW_SCAN, FREEVERB, RING_ALIGN, ROW_GATHER, ROW_GATHER_LONG,
         SAMPLE_PLAY]
+    # cases of one compiled plan share its wrappers: count each once
+    return list({id(k): k for k in out}.values())
 
 
 def _timed_main(kernels, render, names, warmup_within=None):
@@ -1884,6 +1913,394 @@ def phase_kit(stt, kernels, card, name, phase, names):
     return launches, held
 
 
+# -- slice 5: gradients through kernel K10 ------------------------------------
+
+VJP_SR, VJP_N = 4800, 512   # phase 3's K10 check: the plain version costs
+                            # several ms per sample at 1,024 voices
+VJP_NAMES = ("subtractive_voice", "gradient_patch", "feedback_patch",
+             "lane_check_patch", "kernel_check_patch")
+TRAIN_N, TRAIN_STEPS, TRAIN_MULTI = 48000, 3, 32   # bench.py:205-262
+VJP = {}   # case -> (patch, compiled, FusedVJPKernel); "train" at 48 kHz
+
+
+def vjp_cases(stt) -> dict:
+    """K10's cases: phase 3's five patches at 4,800 Hz (the subtractive
+    voice with a fast gate clock, the JAX tests' gradient patch,
+    feedback_patch, lane_check_patch with its gate, Noise and pitch lanes,
+    kernel_check_patch) and phase 14's subtractive voice at 48 kHz."""
+    cfg1 = stt.AudioConfig(sample_rate=VJP_SR, channels=1)
+    cases = {}
+    for name in VJP_NAMES:
+        autos, lanes = (), ()
+        if name == "lane_check_patch":
+            patch, autos = stt.presets.lane_check_patch(
+                stt.AudioConfig(sample_rate=VJP_SR, channels=2))
+        elif name == "kernel_check_patch":
+            patch = stt.presets.kernel_check_patch(
+                stt.AudioConfig(sample_rate=VJP_SR, channels=3))
+        elif name == "subtractive_voice":
+            patch = stt.presets.subtractive_voice(cfg1, gate_rate_oct=-1.0)
+        else:
+            patch = getattr(stt.presets, name)(cfg1)
+        compiled = stt.compile_patch(patch, automation=autos)
+        if name == "lane_check_patch":
+            ids = {inst.name: inst.id for inst in patch}
+            lanes = (ids["gate"], ids["noise"],
+                     compiled._auto_key(ids["vco"], "val"))
+        cases[name] = (patch, compiled, compiled.fused_vjp(lanes))
+    patch = stt.presets.subtractive_voice(stt.AudioConfig(sample_rate=SR,
+                                                          channels=1))
+    compiled = stt.compile_patch(patch)
+    cases["train"] = (patch, compiled, compiled.fused_vjp(()))
+    return cases
+
+
+def vjp_kernels(stt) -> dict:
+    """Phase 2's K10 builds: the forward and the backward of every case."""
+    VJP.update(vjp_cases(stt))
+    jobs = {}
+    for name, (_, _, kernel) in VJP.items():
+        jobs[f"{name}@k10"] = kernel.fwd
+        jobs[f"{name}@k10_bwd"] = kernel.bwd
+    return jobs
+
+
+# f32 operations per sample of each adjoint of csrc/modules_adj.cuh on the
+# path a sample takes, counted as module_ops counts the steps, but only the
+# derivative's own: the primal values an adjoint recomputes (the phase in
+# turns, the ladder's stages, exp2's polynomial, the envelope's selects) are
+# the step's, which the bound counts once in module_ops.  A clip's
+# derivative with JAX's tie rule counts 6.  Counted for the bound only.
+def adjoint_ops(compiled, mid) -> int:
+    mdef, statics, inputs = compiled.instances[mid]
+    t = mdef.type_name
+    conn = [c is not None for c in inputs]
+    auto = mid in compiled._auto_by_mid
+    if t == "Oscillator":
+        ops = 17 + (1 if conn[1] else 0)           # sinpi', shadow phase
+        if statics[1]:
+            ops += 30                               # both polyBLEP VJPs
+        if conn[0] or auto:
+            ops += 25                               # exp2'
+        return ops
+    if t == "Moog Filter":                          # ladder, 5 clips'
+        return 102 + (37 if conn[1] or auto else 0) + (8 if auto else 0)
+    if t == "ADSR":
+        return 27 + (15 if auto else 0)
+    if t == "VCA":
+        return 0 if not all(conn) else 5
+    if t == "Mono Mixer":
+        return 4 * sum(conn)
+    if t == "Multiply":
+        return 4
+    if t in ("Add", "Subtract"):
+        return 2
+    if t == "Non-Linear":
+        return 60                                   # 3 powf, 2 logf
+    if t == "Grid Sequencer":
+        return 8
+    if t == "Pattern Sequencer":
+        return 4                                    # one add per row
+    if t == "Output":
+        return 4 * sum(conn)                        # nan_to_num, add
+    if t == "Input":
+        return 1
+    return 0                                        # Noise
+
+
+def vjp_bound(compiled, kernel, v: int, n: int, which: str) -> tuple:
+    """K10's bound for one launch.  ``which="fwd"``: K1's bytes and
+    operations plus the checkpoints out.  ``"bwd"``: the params,
+    checkpoints and lanes in, the audio cotangent and the final state's in
+    and the float params' and initial state's cotangents out, once each;
+    per voice-sample one forward step (``module_ops``: the wires the
+    adjoints need, recomputed once) plus ``adjoint_ops``; or, where less,
+    the same with the forward's state before every sample read back (4 * S
+    bytes per voice-sample, no checkpoints) instead of the recompute.
+    Returns ``(ms, "bytes"|"operations", bytes, ops)``."""
+    lay = kernel.layout
+    n_chunks = -(-n // kernel.t_chunk)
+    ck = 4 * v * n_chunks * kernel.s_rows
+    steps = sum(module_ops(compiled, m) for m in compiled.plan)
+    if which == "fwd":
+        _, _, nbytes, ops = bound(compiled, kernel, v, n, kernel.lanes)
+        return _bound(nbytes + ck, ops)
+    rows = lay.n_pf + lay.n_pi + 2 * lay.n_sf + lay.n_pf
+    nbytes = ck + 4 * v * (rows + (len(kernel.lanes)
+                                   + compiled.cfg.channels) * n)
+    adj = sum(adjoint_ops(compiled, m) for m in compiled.plan)
+    stored = nbytes - ck + 4 * v * n * kernel.s_rows
+    return min(_bound(nbytes, (steps + adj) * v * n),
+               _bound(stored, adj * v * n))
+
+
+def _vjp_grads(stt, render, params, state, w, wf):
+    """``render(params, state) -> (audio, final)`` under autograd, then the
+    gradient of ``sum(audio * w) + sum(final float leaf * wf)`` with
+    respect to every float param and float initial-state leaf.  Returns
+    ``(audio, {path: grad}, forward s, backward s)``."""
+    from srack_tpu_torch.ops.fused import _get
+    tm, items = stt.compiler.tree_map, stt.compiler.tree_items
+    p = tm(lambda a: a.detach().clone().requires_grad_(
+        a.is_floating_point()), params)
+    s = tm(lambda a: a.detach().clone().requires_grad_(
+        a.is_floating_point()), state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio, final = render(p, s)
+    loss = (audio * w).sum()
+    for path, weight in wf.items():
+        loss = loss + (_get(final, path) * weight).sum()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    leaves = [(path, t) for path, t in items(p) + items(s)
+              if t.requires_grad]
+    grads = torch.autograd.grad(loss, [t for _, t in leaves],
+                                allow_unused=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return audio.detach(), {
+        path: torch.zeros_like(t) if g is None else g
+        for (path, t), g in zip(leaves, grads)}, t1 - t0, t2 - t1
+
+
+def _vjp_inputs(stt, name, patch, compiled, n):
+    """1,024 voices of farm_params on the card (kernel_check_patch's
+    Non-Linear at exponent 2.0: at 1.5 its powf of a negative base makes
+    the gradient NaN upstream, in JAX and in both engines here), the
+    initial state, lane_check_patch's lanes.  For the training voice at
+    48 kHz, whose gate clock first rises after ~2,500 samples, the clock's
+    phase starts at random (seed 29), so that some voices' envelopes run
+    within phase 3's 512 samples."""
+    params, state, xs = _inputs(stt, name, patch, compiled, n)
+    if name == "kernel_check_patch":
+        shaper = next(i.id for i in patch if i.name == "shaper")
+        params[shaper]["constant"] = torch.full((VOICES,), 2.0,
+                                                device="cuda")
+    if name == "train":
+        clock = next(i.id for i in patch if i.name == "gate_clock")
+        rng = np.random.default_rng(29)
+        state["states"][clock]["pos"] = torch.from_numpy(rng.integers(
+            -2**31, 2**31, VOICES, dtype=np.int64).astype(np.int32)).cuda()
+    return params, state, xs
+
+
+def vjp_times(stt, kernel, params, state, n, xs):
+    """K10's forward and backward launches alone (mean of 3 after one
+    warm-up), on the operands the wrapper packs for one render."""
+    with torch.no_grad():
+        lanes, pi, si, floats = kernel.operands(params, state, n, xs)
+        pf, sf = kernel.float_rows(floats, VOICES, pi.device)
+        _, _, _, ck = kernel.run_fwd(pf, pi, sf, si, lanes, VOICES, n)
+        fwd_ms = cuda_ms(lambda: kernel.run_fwd(pf, pi, sf, si, lanes,
+                                                VOICES, n),
+                         repeats=3, warmup=1)
+        rng = np.random.default_rng(5)
+        cta = torch.from_numpy(rng.standard_normal(
+            (VOICES, kernel.compiled.cfg.channels, n)).astype(
+                np.float32)).cuda()
+        ctf = torch.zeros((max(kernel.layout.n_sf, 1), VOICES),
+                          device="cuda")
+        bwd_ms = cuda_ms(lambda: kernel.run_bwd(pf, pi, lanes, ck, cta, ctf,
+                                                VOICES, n),
+                         repeats=3, warmup=1)
+    return fwd_ms, bwd_ms
+
+
+def phase_compare_vjp(stt):
+    """K10 against its plain version, autograd through the scan engine, on
+    the card: 1,024 voices, n = 512, the five patches of ``VJP_NAMES`` at
+    4,800 Hz and phase 14's kernel (the training voice at 48 kHz, the
+    very wrapper phase 14 launches); a loss on the audio and on the final
+    float state.  The audio bit-exact; each cotangent leaf within ``1e-8 +
+    1e-4 * max|ref|`` (``tests/test_fused_interpret.py``'s rule), NaN where
+    the reference is NaN."""
+    errs = {"fused_vjp_fwd": 0.0, "fused_vjp_bwd": 0.0}
+    keep = {}
+    n = VJP_N
+    for name in VJP_NAMES + ("train",):
+        t0 = time.perf_counter()
+        patch, compiled, kernel = VJP[name]
+        params, state, xs = _vjp_inputs(stt, name, patch, compiled, n)
+        rng = np.random.default_rng(23)
+        w = torch.from_numpy(rng.standard_normal(
+            (VOICES, compiled.cfg.channels, n)).astype(np.float32)).cuda()
+        wf = {path: torch.from_numpy(rng.standard_normal(
+            tuple(t.shape)).astype(np.float32)).cuda()
+            for path, t in stt.compiler.tree_items(state)
+            if t.is_floating_point()}
+        audio_k, got, _, _ = _vjp_grads(
+            stt, lambda p, s: kernel.apply(p, s, n, xs), params, state, w,
+            wf)
+        audio_p, want, plain_f, plain_b = _vjp_grads(
+            stt, lambda p, s: compiled._run(p, s, xs, n, True)[::2],
+            params, state, w, wf)
+        check(torch.equal(audio_k, audio_p),
+              f"K10 {name}: audio not bit-exact to the scan engine, off by "
+              f"{(audio_k - audio_p).abs().max().item()}")
+        check(set(got) == set(want), f"K10 {name}: leaves differ")
+        worst, ratio, nan_leaves, flowing = 0.0, 0.0, 0, 0
+        for path, g in want.items():
+            k = got[path]
+            nan = torch.isnan(g)
+            check(torch.equal(nan, torch.isnan(k)),
+                  f"K10 {name} {path}: NaN pattern differs")
+            if bool(nan.all()):
+                nan_leaves += 1
+                continue
+            g, k = g[~nan].double(), k[~nan].double()
+            top = g.abs().max().item()
+            tol = 1e-8 + 1e-4 * top
+            err = (k - g).abs().max().item()
+            check(bool(((k - g).abs() <= tol + 1e-7 * g.abs()).all()),
+                  f"K10 {name} {path}: cotangent off by {err} (tolerance "
+                  f"{tol})")
+            worst, ratio = max(worst, err), max(ratio, err / tol)
+            flowing += top > 0
+        check(flowing >= 3, f"K10 {name}: only {flowing} leaves have "
+              f"non-zero cotangents")
+        errs["fused_vjp_bwd"] = max(errs["fused_vjp_bwd"], worst)
+        sounding = int((audio_p.abs().amax(dim=(1, 2)) > 0).sum())
+        log(f"[3 compare] {name} (fused_vjp_fwd + fused_vjp_bwd) V={VOICES} "
+            f"n={n} at {compiled.cfg.sample_rate} Hz: audio bit-exact "
+            f"({sounding} voices not silent); {len(want)} cotangent "
+            f"leaves ({flowing} non-zero, {nan_leaves} NaN in both), max "
+            f"|err| {worst:.3e}, at most {ratio:.3f} of the tolerance; "
+            f"plain version {plain_f:.2f} s forward + {plain_b:.2f} s "
+            f"backward; {time.perf_counter() - t0:.1f} s")
+        if name == "train":
+            keep = {"params": params, "state": state, "xs": xs, "n": n,
+                    "plain": (1e3 * plain_f, 1e3 * plain_b)}
+    return errs, keep
+
+
+def phase_train(stt, kernels, card):
+    """Phase 14, bench.py's training config on the card through
+    ``utils.train``: subtractive_voice at 48 kHz, 1,024 voices x 48,000
+    samples, Adam (lr 1e-3), waveform_l2 against silent targets,
+    ``batched_train_step(fast=True)``: one warm-up step, whose K10 forward
+    audio must equal K1's render of the same params bit for bit (K1 is
+    held to the scan engine in phase 3), and 3 timed ones, each launching
+    exactly one K10 forward, one K10 backward and no other kernel (the
+    scan engine is fenced off), then a 32-step ``multi_train_step``; the
+    last loss must be below the first.  Returns K10's launches per step,
+    its two kernels' times alone and their bounds."""
+    import functools
+    from srack_tpu_torch.utils import train as T
+    patch, compiled, kernel = VJP["train"]
+    v, n = VOICES, TRAIN_N
+    tm = stt.compiler.tree_map
+    adam = functools.partial(torch.optim.Adam, lr=1e-3)
+    ts = T.SoundMatcher(patch, n).init()
+    train, frozen = ts["train"], ts["frozen"]
+    check(all(t.device.type == "cuda"
+              for _, t in stt.compiler.tree_items(train)),
+          "SoundMatcher did not default to the card")
+    step = T.batched_train_step(compiled, adam, n, fast=True)
+    targets = torch.zeros((v, 1, n), device="cuda")
+    params0 = tm(lambda a: a.detach().clone(), T._merge(train, frozen))
+    run_fwd, fwd_audio = kernel.run_fwd, []
+
+    def no_scan(*args, **kwargs):
+        raise SmokeFailure("a training step ran the scan engine")
+
+    def keep_audio(*args):
+        out = run_fwd(*args)
+        fwd_audio.append(out[0])
+        return out
+
+    compiled._run = no_scan
+    kernel.run_fwd = keep_audio
+    try:
+        t0 = time.perf_counter()
+        train, opt, loss = step(train, frozen, None, targets, 0)
+        first = float(loss)
+        warm_s = time.perf_counter() - t0
+    finally:
+        del compiled._run, kernel.run_fwd
+    check(len(fwd_audio) == 1, f"the warm-up step launched the K10 forward "
+          f"{len(fwd_audio)} times")
+    k1 = compiled.fused(())
+    k1_before = k1.launches
+    with torch.no_grad():
+        audio_k1, _, _ = compiled.render(
+            n, params=tm(lambda a: a.expand((v,) + a.shape), params0),
+            batched=True, engine="fused", device="cuda")
+    check(k1.launches == k1_before + 1, "K1 did not render the check")
+    _check_audio(audio_k1, (v, 1, n), "train K1")
+    check(torch.equal(fwd_audio[0], audio_k1),
+          f"the warm-up step's K10 forward audio is not K1's, off by "
+          f"{(fwd_audio[0] - audio_k1).abs().max().item()}")
+    sounding = int((audio_k1.abs().amax(dim=(1, 2)) > 0).sum())
+    del fwd_audio, audio_k1
+    log(f"[14 train] warm-up step: K10's forward audio [{v}, 1, {n}] equals "
+        f"K1's render of the same params bit for bit ({sounding} voices not "
+        f"silent)")
+    compiled._run = no_scan
+    try:
+        counters = _counters(kernels)
+        for c in counters:
+            c.launches = 0
+        secs = []
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train, opt, loss = step(train, frozen, opt, targets, i + 1)
+            float(loss)
+            secs.append(time.perf_counter() - t0)
+        counts = {}
+        for c in counters:
+            counts[c.name] = counts.get(c.name, 0) + c.launches
+        launches = {k: counts.pop(k) for k in ("fused_vjp_fwd",
+                                               "fused_vjp_bwd")}
+        for k, got in launches.items():
+            check(got == TRAIN_STEPS, f"{TRAIN_STEPS} training steps "
+                  f"launched {k} {got} times")
+        check(not any(counts.values()),
+              f"the training steps launched other kernels: {counts}")
+        multi = T.multi_train_step(compiled, adam, n, TRAIN_MULTI,
+                                   fast=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train, opt, losses = multi(train, frozen, opt, targets, 7)
+        last = float(losses[-1])
+        multi_s = time.perf_counter() - t0
+    finally:
+        del compiled._run
+    check(bool(torch.isfinite(losses).all()), "a training loss is not finite")
+    check(last < first, f"the loss did not fall: {first} -> {last}")
+    step_ms = 1e3 * min(secs)
+    multi_ms = 1e3 * multi_s / TRAIN_MULTI
+    rate = v * n / (step_ms / 1e3)
+    params = T._merge({m: {k: t.detach() for k, t in d.items()}
+                       for m, d in train.items()}, frozen)
+    params_b = stt.compiler.tree_map(lambda a: a.expand((v,) + a.shape),
+                                     params)
+    state = stt.compiler.tree_map(
+        lambda a: a.expand((v,) + a.shape).contiguous().cuda(),
+        compiled.init_state())
+    fwd_ms, bwd_ms = vjp_times(stt, kernel, params_b, state, n, {})
+    bounds = {}
+    for which, ms in (("fwd", fwd_ms), ("bwd", bwd_ms)):
+        b_ms, b_by, nbytes, ops = vjp_bound(compiled, kernel, v, n, which)
+        bounds[which] = (b_ms, b_by)
+        log(f"[14 train] fused_vjp_{which} alone V={v} n={n}: {ms:.3f} ms; "
+            f"bound {nbytes} bytes, {ops} f32 operations -> {b_ms:.4f} ms "
+            f"({b_by}), {ms / b_ms:.1f}x its bound; ptxas: "
+            f"{ptxas(getattr(kernel, which))} [{card}]")
+    step_list = ", ".join(f"{1e3 * x:.2f}" for x in secs)
+    log(f"[14 train] subtractive_voice V={v} n={n} at {SR} Hz, Adam lr 1e-3, "
+        f"waveform_l2, batched_train_step(fast=True): warm-up step "
+        f"{warm_s:.2f} s; {TRAIN_STEPS} steps {step_list} ms "
+        f"(best {step_ms:.2f} ms/step, {rate / 1e9:.4f} G samples/s through "
+        f"fwd+bwd), each step launching fused_vjp_fwd and fused_vjp_bwd "
+        f"once and no other kernel; {TRAIN_MULTI}-step multi_train_step "
+        f"{multi_ms:.2f} ms/step ({v * n / (multi_ms / 1e3) / 1e9:.4f} G "
+        f"samples/s); loss {first:.6g} -> {last:.6g} [{card}]")
+    per_step = {k: got // TRAIN_STEPS for k, got in launches.items()}
+    return per_step, (fwd_ms, bwd_ms), bounds
+
+
 def main() -> int:
     card = phase_device()
     import srack_tpu_torch as stt
@@ -1899,6 +2316,10 @@ def main() -> int:
     kit_errs, gather_keep, play_args = phase_compare_kit(stt)
     errs.update(kit_errs)
     log(f"[3 compare] slice 3b: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    vjp_errs, vjp_keep = phase_compare_vjp(stt)
+    errs.update(vjp_errs)
+    log(f"[3 compare] slice 5 (K10): {time.perf_counter() - t1:.1f} s")
     log(f"[3 compare] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     main_launches, _ = phase_main(stt, kernels, card,
@@ -1919,6 +2340,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     btimes.update(kit_times(gather_keep, play_args))
     del gather_keep, play_args
+    torch.cuda.empty_cache()
+    k = vjp_keep
+    vjp_check_ms = vjp_times(stt, VJP["train"][2], k["params"], k["state"],
+                             k["n"], k["xs"])
+    for which, kernel_ms, plain_ms in zip(("fwd", "bwd"), vjp_check_ms,
+                                          k["plain"]):
+        log(f"[6 plain] fused_vjp_{which} subtractive_voice V={VOICES} "
+            f"n={k['n']} at {SR} Hz: plain version (scan engine under "
+            f"autograd, its {'forward' if which == 'fwd' else 'backward'}) "
+            f"{plain_ms:.3f} ms, kernel {kernel_ms:.3f} ms [{card}]")
+    vjp_plain = k["plain"]
+    del vjp_keep, k
     torch.cuda.empty_cache()
     for name, (kernel_ms, plain_ms, lib_ms, _, shape) in btimes.items():
         lib = "" if lib_ms is None else f", library call {lib_ms:.3f} ms"
@@ -1951,6 +2384,9 @@ def main() -> int:
     for held in (rev_held, chk_held, *kit_held):  # full-width comparisons
         for name, err in held.items():
             errs[name] = max(errs[name], err)
+    t0 = time.perf_counter()
+    train_launches, train_ms, train_bounds = phase_train(stt, kernels, card)
+    log(f"[14 train] {time.perf_counter() - t0:.1f} s")
 
     entries = []
     meta = {
@@ -2043,6 +2479,30 @@ def main() -> int:
         })
         if name == "freeverb":
             entries[-1]["launch_ms"] = k8_launch_ms
+    plain_ms = dict(zip(("fwd", "bwd"), vjp_plain))
+    for i, (which, line) in enumerate((("fwd", 92), ("bwd", 212))):
+        name = f"fused_vjp_{which}"
+        b_ms, b_by = train_bounds[which]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "srack_tpu_torch/ops/fused.py",
+            "replaces": f"srack_tpu/ops/fused_vjp.py:{line}",
+            "launches": train_launches[name],     # per training step
+            "launches_by_phase": {
+                "14 train": train_launches[name] * TRAIN_STEPS},
+            "train_steps": TRAIN_STEPS,
+            "max_abs_err": errs[name],
+            "ms": train_ms[i],
+            "plain_ms": plain_ms[which],
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "shape": f"subtractive_voice [{VOICES}, {TRAIN_N}] at {SR} Hz",
+            "plain_shape": (f"subtractive_voice [{VOICES}, {VJP_N}] at "
+                            f"{SR} Hz"),
+            "ms_at_plain_shape": vjp_check_ms[i],
+        })
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,11 @@ delayed-feedback twin).  A patch that kernel cannot take (one with a
 Freeverb or a Sample) runs on the block engine (``engine="block"``):
 whole-block module forms around a per-sample serial stage, on the stage,
 row-scan, row-gather, Sample-player, Freeverb and ring-alignment kernels.
-Entry
-points render on the card unless given ``device="cpu"``.  ``srack_tpu``
+Every
+render is differentiable: ``CompiledPatch.grad_render_fn`` runs the fused
+VJP kernel (a CUDA forward and a CUDA backward) on the card for the patches
+the fused kernel takes, and ``utils.train`` fits params to target audio.
+Entry points render on the card unless given ``device="cpu"``.  ``srack_tpu``
 (JAX) is the reference this package is tested against; this package
 imports neither it nor jax.
 
@@ -35,7 +38,7 @@ from .modules import register as register_module
 from .modules import unregister as unregister_module
 from . import block_engine, interop, presets, utils
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 __all__ = [
     "AudioConfig",

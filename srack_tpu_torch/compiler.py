@@ -15,6 +15,12 @@ the render.
   kernel K8, the Sample on K7.  It takes the patches the fused kernel
   cannot (a Freeverb, a Sample).
 
+Gradients: ``grad_render_fn`` is the differentiable render.  For batched
+CUDA tensors of a patch the fused kernel takes in sample mode, with an
+adjoint for every module, it runs kernel K10 (``ops/fused_vjp.py``: a
+CUDA forward and a CUDA backward); otherwise autograd through the scan
+engine.
+
 Feedback: the planner deletes back-edges, and an input whose source is
 planned at or after its sink reads the carried value ``fb`` instead of this
 sample's value.
@@ -88,6 +94,15 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_items(tree, prefix=()) -> list:
+    """``[(path, leaf)]`` of a tree of dicts, in its order; a path is the
+    tuple of keys down to the leaf."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in tree_items(v, prefix + (k,))]
+    return [(prefix, tree)]
 
 
 def resolve_device(device) -> torch.device:
@@ -165,6 +180,7 @@ class CompiledPatch:
         for mid, pname in self.automation:
             self._auto_by_mid.setdefault(mid, []).append(pname)
         self._fused: dict = {}
+        self._fused_vjp: dict = {}
         self._block_prog = None
 
     @staticmethod
@@ -356,6 +372,53 @@ class CompiledPatch:
         """True when the patch can run on the fused CUDA kernel."""
         from .ops import fused
         return fused.eligible(self)
+
+    def fused_vjp(self, lanes: Sequence = (), t_chunk: int = 128):
+        """Kernel K10, the fused VJP, for this plan, lane set and chunk
+        length (generated on first use)."""
+        key = (tuple(sorted(lanes)), int(t_chunk))
+        kernel = self._fused_vjp.get(key)
+        if kernel is None:
+            from .ops import fused_vjp
+            kernel = self._fused_vjp[key] = fused_vjp.FusedVJPKernel(
+                self, key[0], key[1])
+        return kernel
+
+    def vjp_eligible(self) -> bool:
+        """True when kernel K10 can differentiate the patch: the fused
+        kernel takes it, in sample mode, and every module type has an
+        adjoint."""
+        from .ops import fused_vjp
+        return fused_vjp.vjp_eligible(self)
+
+    def grad_render_fn(self, n: int, batched: bool = True):
+        """A differentiable render of ``n`` samples:
+        ``(params, state, key, drivers) -> (audio, {}, final_state)``, with
+        gradients flowing to the float params and the float initial-state
+        leaves (int and bool leaves and the lanes get none).
+
+        For batched CUDA tensors of a patch that :meth:`vjp_eligible`
+        accepts it runs kernel K10 (a CUDA forward and a CUDA backward) and
+        raises if K10 fails; otherwise (buffer mode, a patch the fused
+        kernel cannot take, CPU tensors) autograd through the scan engine.
+        ``key``: the int that seeds the Noise lanes; ``drivers``: ``{module
+        id or "mid~param": [V, n] (batched) or [n] lane}``."""
+        n = int(n)
+
+        def render(params, state, key=None, drivers=None):
+            leaves = tree_leaves(params) + tree_leaves(state)
+            device = leaves[0].device
+            v = leaves[0].shape[0] if batched else None
+            drv = {_mid(m): _to_lane(a, device, v)
+                   for m, a in (drivers or {}).items()}
+            xs = self._make_xs(params, 0 if key is None else int(key), n, drv)
+            if batched and device.type == "cuda" and self.vjp_eligible():
+                audio, final = self.fused_vjp(xs).apply(params, state, n, xs)
+                return audio, {}, final
+            audio, _, final = self._run(params, state, xs, n, batched)
+            return audio, {}, final
+
+        return render
 
     def block_program(self):
         """The block engine's partition of this patch (made on first

@@ -8,7 +8,8 @@ trees across as numpy arrays: ``np.asarray`` of a JAX tree goes in, and
 Sample's ``playing`` and ``gate_last``), int32 stays int32 (its
 ``length``), and a Sample's ``samples`` table is ``[K]`` (batched: ``[V,
 K]``) in both.  In buffer-feedback mode an ``fb`` leaf is ``[block]``
-(batched: ``[V, block]``) in both packages.
+(batched: ``[V, block]``) in both packages.  :func:`train_from_numpy`
+carries a JAX ``SoundMatcher`` state's trainable and frozen params across.
 """
 
 from __future__ import annotations
@@ -42,6 +43,17 @@ def drivers_from_numpy(drivers: dict, device="cpu") -> dict:
     float32 tensors on ``device``."""
     return {k: torch.from_numpy(np.asarray(a, dtype=np.float32).copy()).to(
         device) for k, a in drivers.items()}
+
+
+def train_from_numpy(train: dict, frozen: dict, device="cpu"):
+    """A JAX ``SoundMatcher`` state's ``train`` and ``frozen`` trees (numpy
+    arrays) -> ``(train, frozen)`` for the port's trainer: the trainable
+    leaves as leaf tensors that require gradients, the frozen ones as
+    plain tensors, on ``device``.  The optimizer state is not carried:
+    the port's optimizer starts from the same zero moments as
+    ``optax.adam``'s."""
+    train = tree_map(lambda a: _tensor(a, device).requires_grad_(True), train)
+    return train, params_from_numpy(frozen, device)
 
 
 def to_numpy(tree):

@@ -190,4 +190,5 @@ ADSR = ModuleDef(
     step=_step,
     derive=_derive,
     cuda_fn="srk_adsr",
+    cuda_adj="srk_adsr_adj",
 )

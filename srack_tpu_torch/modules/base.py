@@ -19,6 +19,12 @@ the reference's fallback for them.
 the fused CUDA kernel (``ops/fused.py``) emits one call to it per module
 per sample.  ``None`` means the type is not kernel-eligible and patches
 holding it run on the scan engine only.
+
+``cuda_adj`` names the adjoint of that device function in
+``csrc/modules_adj.cuh``, which the backward kernel of the fused VJP (K10,
+``ops/fused_vjp.py``) calls once per module per sample in reverse plan
+order.  ``None`` means the type has no K10 path: a patch holding it
+differentiates through the scan engine.
 """
 
 from __future__ import annotations
@@ -64,6 +70,8 @@ class ModuleDef:
     step_nograd: Optional[Callable[..., tuple]] = None
     # Name of the device function in csrc/modules.cuh (None: scan only)
     cuda_fn: Optional[str] = None
+    # Name of its adjoint in csrc/modules_adj.cuh (None: no K10 path)
+    cuda_adj: Optional[str] = None
     # Hoisted per-sample source, drawn once per render outside the sample
     # loop: (cfg, statics, params, generator, n) -> [..., n] lane, which
     # the step receives sample by sample as ``x``

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..config import AudioConfig
+from ..ops.basic import clip
 from .base import CV_DTYPE, ModuleDef, const_ports, cv, in_or
 
 
@@ -44,7 +45,7 @@ def moog_stage(b, audio, p, f, q):
     nb4 = nb4 - nb4 * nb4 * nb4 * 0.166667
     nb0 = x
     stages = torch.broadcast_tensors(nb0, nb1, nb2, nb3, nb4)
-    new_b = torch.clamp(torch.stack(stages, dim=-1), -1.0, 1.0)
+    new_b = clip(torch.stack(stages, dim=-1), -1.0, 1.0)
     lp = new_b[..., 4]
     hp = x - new_b[..., 4]
     bp = 3.0 * (new_b[..., 3] - new_b[..., 4])
@@ -52,11 +53,11 @@ def moog_stage(b, audio, p, f, q):
 
 
 def _derive(cfg: AudioConfig, statics, params, connected):
-    res = torch.clamp(params["res"], 0.0, 1.0)
+    res = clip(params["res"], 0.0, 1.0)
     out = {"res_clip": res}
     if len(connected) < 2 or not connected[1]:
         # CV unconnected: the whole coefficient chain is loop-invariant
-        frequency = torch.clamp(params["freq"], 0.0, 0.9)
+        frequency = clip(params["freq"], 0.0, 0.9)
         p, f, q = moog_coefs(frequency, res)
         out.update({"moog_p": p, "moog_f": f, "moog_q": q})
     return out
@@ -70,9 +71,9 @@ def _step(cfg: AudioConfig, statics, params, state, ins, x=None):
         cv_in = in_or(ins[1], 0.0)
         res = params.get("res_clip")
         if res is None:
-            res = torch.clamp(params["res"], 0.0, 1.0)
-        frequency = torch.clamp(params["freq"] + cv_in * params["exp_amt"],
-                                0.0, 0.9)
+            res = clip(params["res"], 0.0, 1.0)
+        frequency = clip(params["freq"] + cv_in * params["exp_amt"],
+                         0.0, 0.9)
         p, f, q = moog_coefs(frequency, res)
     new_b, lp, hp, bp = moog_stage(state["b"], audio, p, f, q)
     return {"b": new_b}, (lp, bp, hp)
@@ -92,4 +93,5 @@ MOOG_FILTER = ModuleDef(
     step=_step,
     derive=_derive,
     cuda_fn="srk_moog_filter",
+    cuda_adj="srk_moog_filter_adj",
 )

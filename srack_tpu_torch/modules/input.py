@@ -40,4 +40,5 @@ INPUT = ModuleDef(
     init_state=_init_state,
     step=_step,
     cuda_fn="srk_input",
+    cuda_adj="srk_input_adj",
 )

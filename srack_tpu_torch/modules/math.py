@@ -59,6 +59,7 @@ def math_module_def(op: str) -> ModuleDef:
         # stateless: an automated constant is a [V, n] lane elementwise
         auto_block_params=frozenset({"constant"}),
         cuda_fn=f"srk_{op.lower()}",
+        cuda_adj=f"srk_{op.lower()}_adj",
     )
 
 
@@ -93,4 +94,5 @@ NON_LINEAR = ModuleDef(
     step=_nl_step,
     auto_block_params=frozenset({"constant"}),
     cuda_fn="srk_non_linear",
+    cuda_adj="srk_non_linear_adj",
 )

@@ -47,4 +47,5 @@ MONO_MIXER = ModuleDef(
     init_state=_init_state,
     step=_step,
     cuda_fn="srk_mono_mixer",
+    cuda_adj="srk_mono_mixer_adj",
 )

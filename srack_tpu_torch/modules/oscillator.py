@@ -196,6 +196,7 @@ OSCILLATOR = ModuleDef(
     # when ``val`` arrives as a [V, n] lane
     auto_block_params=frozenset({"val"}),
     cuda_fn="srk_oscillator",
+    cuda_adj="srk_oscillator_adj",
 )
 
 
@@ -256,4 +257,5 @@ NOISE = ModuleDef(
     make_xs=_noise_make_xs,
     host_params=frozenset({"seed"}),
     cuda_fn="srk_noise",
+    cuda_adj="srk_noise_adj",
 )

@@ -37,4 +37,5 @@ OUTPUT = ModuleDef(
     init_state=_init_state,
     step=_step,
     cuda_fn="srk_output",
+    cuda_adj="srk_output_adj",
 )

@@ -211,6 +211,7 @@ GRID_SEQUENCER = ModuleDef(
     block=_grid_block,
     derive=_grid_derive,
     cuda_fn="srk_grid_sequencer",
+    cuda_adj="srk_grid_sequencer_adj",
 )
 
 
@@ -322,4 +323,5 @@ PATTERN_SEQUENCER = ModuleDef(
     block=_pat_block,
     derive=_pat_derive,
     cuda_fn="srk_pattern_sequencer",
+    cuda_adj="srk_pattern_sequencer_adj",
 )

@@ -45,4 +45,5 @@ VCA = ModuleDef(
     init_state=_init_state,
     step=_step,
     cuda_fn="srk_vca",
+    cuda_adj="srk_vca_adj",
 )

@@ -77,6 +77,35 @@ def delta_to_fixed(delta: torch.Tensor) -> torch.Tensor:
     return torch.where(lo, small, big)
 
 
+class _Clip(torch.autograd.Function):
+    """``torch.clamp``'s values with ``jnp.clip``'s derivative."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        d = torch.where((x > lo) & (x < hi), 1.0,
+                        torch.where((x == lo) | (x == hi), 0.5, 0.0))
+        return g * d.to(g.dtype), None, None
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``torch.clamp``'s values and, under
+    autograd, JAX's derivative, 1 inside, 0 outside and 1/2 at a bound
+    (``jnp.clip`` is ``minimum(maximum(x, lo), hi)``, whose ties split the
+    derivative; ``torch.clamp`` takes 1 there).  A saturated Moog ladder
+    meets its bounds exactly, so the tie is not a corner case."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Clip.apply(x, lo, hi)
+    return torch.clamp(x, lo, hi)
+
+
 # sin(pi*s) odd minimax coefficients on [-1, 1], max abs err 5.9e-6
 _SINPI_ODD = (3.1415278983587682, -5.166401774862824, 2.5427129265355948,
               -0.5818593382178273, 0.0640261396169806)
@@ -104,7 +133,7 @@ def fast_sinpi(s: torch.Tensor) -> torch.Tensor:
 def fast_exp2(x: torch.Tensor) -> torch.Tensor:
     """2**x: deg-6 polynomial on the fractional part times 2**floor(x), the
     latter built as float exponent bits (an int32 -> f32 bit view)."""
-    x = torch.clamp(x, -126.0, 126.0)
+    x = clip(x, -126.0, 126.0)
     xi = torch.floor(x)
     f = x - xi
     p = torch.full_like(x, _EXP2_COEF[6])
@@ -144,8 +173,10 @@ def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def poly_blep_signed(u: torch.Tensor) -> torch.Tensor:
     """polyBLEP in the signed-phase domain: ``sign(-u) * (1 - |u|)^2`` for
     ``|u| < 1``, else 0 (``u`` is the signed distance from the
-    discontinuity in units of dt)."""
-    au = torch.abs(u)
+    discontinuity in units of dt).  ``|u|`` is a select, not ``abs``: the
+    same values, and autograd takes d|u|/du = +1 at u = 0 as JAX does
+    (torch's ``abs`` takes 0 there, and every phase starts at u = 0)."""
+    au = torch.where(u >= 0.0, u, -u)
     w = 1.0 - au
     mag = torch.where(au < 1.0, w * w, 0.0)
     return torch.where(u >= 0.0, -mag, mag)

@@ -215,8 +215,122 @@ def _statics_args(statics) -> list:
     return [str(int(s)) for s in statics if isinstance(s, (bool, int))]
 
 
+def _inputs_of(compiled, mid, stage, fb_lanes):
+    """The C expressions of ``mid``'s input ports and its ``CONN`` bits: a
+    wire local, a feedback carry (or, in a buffer-mode stage, its lane), a
+    stage input lane, or ``0.0f`` unconnected."""
+    ins, conn = [], 0
+    for i, c in enumerate(compiled.instances[mid][2]):
+        if c is None:
+            ins.append("0.0f")
+            continue
+        conn |= 1 << i
+        src, sport = c
+        if compiled.plan_pos[src] >= compiled.plan_pos[mid]:
+            ins.append(_lane_var(f"fb:{src}#{sport}") if fb_lanes
+                       else _var(("fb", (src, sport))))
+        elif stage is not None and src not in stage.stage_set:
+            # a stage input wire, streamed in as a lane
+            ins.append(_lane_var(f"{src}#{sport}"))
+        else:
+            ins.append(f"w_{_ident(src)}[{sport}]")
+    return ins, conn
+
+
+def _param_args(compiled, mid, keys, lane_idx) -> list:
+    """The step's param arguments: an automated param with an array reads
+    this sample's lane value."""
+    out = []
+    for key in keys:
+        auto = compiled._auto_key(mid, key)
+        out.append(_lane_var(auto) if auto in lane_idx else _var((mid, key)))
+    return out
+
+
+def _emit_calls(compiled, plan, lane_idx, params_of, state_of, stage,
+                fb_lanes, scoped=True, audio=True) -> list:
+    """One sample's module calls in plan order, wires as locals ``w_<mid>``.
+    ``scoped``: each call's input array lives in a block of its own; else it
+    is ``in_<mid>``, kept in the sample's scope for the adjoints.
+    ``audio``: the Output module writes the audio rows (else it is
+    skipped)."""
+    cfg = compiled.cfg
+    L = []
+    for mid in plan:
+        mdef, statics, _ = compiled.instances[mid]
+        ins, conn = _inputs_of(compiled, mid, stage, fb_lanes)
+        if mid == compiled.output_id:
+            if audio:
+                L += [f"    {mdef.cuda_fn}(a{c}, t, {val});"
+                      for c, val in enumerate(ins)]
+            continue
+        w = f"w_{_ident(mid)}"
+        n_out = mdef.num_outputs(cfg, statics)
+        tmpl = ", ".join([str(conn)] + _statics_args(statics))
+        args = _param_args(compiled, mid, params_of.get(mid, []), lane_idx)
+        args += state_of.get(mid, [])
+        if mid in lane_idx:
+            args.append(_lane_var(mid))
+        L.append(f"    float {w}[{max(n_out, 1)}];")
+        if ins and scoped:
+            L.append(f"    {{ const float in[{len(ins)}] = "
+                     f"{{{', '.join(ins)}}};")
+            L.append(f"      {mdef.cuda_fn}<{tmpl}>("
+                     + ", ".join(args + ["in", w]) + "); }")
+        elif ins:
+            L.append(f"    const float in_{_ident(mid)}[{len(ins)}] = "
+                     f"{{{', '.join(ins)}}};")
+            L.append(f"    {mdef.cuda_fn}<{tmpl}>("
+                     + ", ".join(args + [f"in_{_ident(mid)}", w]) + ");")
+        else:
+            L.append(f"    {mdef.cuda_fn}<{tmpl}>("
+                     + ", ".join(args + ["nullptr", w]) + ");")
+    return L
+
+
+def _state_row_stores(layout, ptr: str) -> list:
+    """Store the state row to ``ptr`` (one voice's column of ``[S, V]``
+    int32 words, S = n_sf + n_si): float leaves first, as their bits, then
+    int and bool leaves."""
+    L = []
+    for leaf in layout.state:
+        var = _var(leaf.path)
+        base = leaf.row if leaf.kind == "f" else layout.n_sf + leaf.row
+        for j in range(leaf.rows):
+            val = f"{var}[{j}]" if leaf.rest else var
+            if leaf.kind == "f":
+                val = f"srk_float_bits({val})"
+            L.append(f"      {ptr}[{base + j} * (size_t)V] = {val};")
+    return L
+
+
+def _state_row_loads(layout, ptr: str, prefix: str = "", decl=False) -> list:
+    """Load the state row from ``ptr`` (the layout of
+    :func:`_state_row_stores`) into the state locals, or with ``decl``
+    into new constants named ``prefix`` + the local's name."""
+    L = []
+    for leaf in layout.state:
+        var = prefix + _var(leaf.path)
+        base = leaf.row if leaf.kind == "f" else layout.n_sf + leaf.row
+        vals = []
+        for j in range(leaf.rows):
+            word = f"{ptr}[{base + j} * (size_t)V]"
+            vals.append(f"srk_int_as_float({word})" if leaf.kind == "f"
+                        else word)
+        if decl and leaf.rest:
+            L.append(f"      const {leaf.ctype} {var}[{leaf.rows}] = "
+                     f"{{{', '.join(vals)}}};")
+        elif decl:
+            L.append(f"      const {leaf.ctype} {var} = {vals[0]};")
+        elif leaf.rest:
+            L += [f"      {var}[{j}] = {val};" for j, val in enumerate(vals)]
+        else:
+            L.append(f"      {var} = {vals[0]};")
+    return L
+
+
 def generate_source(compiled, layout: Layout = None, lanes=(),
-                    stage=None) -> str:
+                    stage=None, mode=None, t_chunk: int = 128) -> str:
     """The ``.cu`` source of the fused kernel for ``compiled``'s plan and
     the lane set ``lanes`` (sorted lane keys: module ids of Noise and of
     driven Inputs, ``mid~param`` of automation arrays).
@@ -228,12 +342,29 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     stored to ``audio`` as ``[O, n, V]`` (O = ``len(stage.stage_out)``) in
     place of the audio.
 
+    ``mode`` picks one of the two kernels of the fused VJP (K10, sample
+    mode only): ``"ckpt"`` is K1 plus a store of the whole state row at
+    every ``t_chunk`` boundary into ``ck`` (``[n_chunks, S, V]`` int32
+    words, floats as their bits, S = ``n_sf + n_si``); ``"bwd"`` is the
+    backward kernel (:func:`_generate_bwd`).
+
     Deterministic: the same plan and lanes give the same text.  In buffer
     mode (``cfg.buffer_feedback``) it is K2's counterpart.  The same file
     builds with g++ (``-x c++``) into a host loop over voices,
-    ``srk_fused_host``, which the tests use to check the generated code on
-    the CPU."""
+    ``srk_fused_host`` (``srk_vjp_fwd_host``, ``srk_vjp_bwd_host``), which
+    the tests use to check the generated code on the CPU."""
     cfg = compiled.cfg
+    if mode not in (None, "ckpt", "bwd"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode is not None and (stage is not None or cfg.buffer_feedback):
+        raise ValueError("the fused VJP kernels take a whole sample-mode "
+                         "patch")
+    if mode is not None and t_chunk < 1:
+        raise ValueError(f"t_chunk must be >= 1, got {t_chunk}")
+    if mode == "bwd":
+        return _generate_bwd(compiled, layout or Layout.of(compiled),
+                             tuple(lanes), t_chunk)
+    ckpt = mode == "ckpt"
     plan = compiled.plan if stage is None else stage.stage_plan
     layout = layout or Layout.of(compiled, None if stage is None else plan)
     lanes = tuple(lanes)
@@ -245,27 +376,7 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
                          "module")
     n_ch = cfg.channels
     lane_idx = {k: i for i, k in enumerate(lanes)}
-
-    def row(arr, leaf, j):
-        return f"{arr}[{leaf.row + j} * (size_t)V + v]"
-
-    def load(leaf, arr, const):
-        var, q = _var(leaf.path), "const " if const else ""
-        if leaf.rest and leaf.kind == "i":
-            # an int table: a view into the rows, read per sample
-            return (f"  const srk_rows {var}{{{arr} + {leaf.row} * (size_t)V"
-                    " + v, (size_t)V};")
-        if leaf.rest:
-            vals = ", ".join(row(arr, leaf, j) for j in range(leaf.rows))
-            return f"  {q}{leaf.ctype} {var}[{leaf.rows}] = {{{vals}}};"
-        return f"  {q}{leaf.ctype} {var} = {row(arr, leaf, 0)};"
-
-    params_of, state_of = {}, {}
-    for leaf in layout.params:
-        params_of.setdefault(leaf.path[0], []).append(leaf.path[1])
-    for leaf in layout.state:
-        if leaf.path[0] == "states":
-            state_of.setdefault(leaf.path[1], []).append(_var(leaf.path))
+    params_of, state_of = _args_of(layout)
 
     def fb_slot(k):
         return (f"ring[((size_t){compiled.fb_keys.index(k)} * SRK_FB_BLOCK "
@@ -273,97 +384,60 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
 
     if stage is not None:
         kind = "serial-stage kernel (K3)"
+    elif ckpt:
+        kind = "forward kernel of the fused VJP (K10)"
     else:
         kind = ("fused buffer-feedback kernel (K2)" if buffer
                 else "fused voice kernel (K1)")
-    L = [
-        f"// Generated by srack_tpu_torch/ops/fused.py: the {kind}",
-        "// for one plan, " + ", ".join(
-            f"{mid} ({compiled.instances[mid][0].type_name})"
-            for mid in plan) + ".",
-        "// Lanes: " + (", ".join(lanes) if lanes else "none") + ".",
-        f"#define SRK_SAMPLE_RATE {int(cfg.sample_rate)}",
-        f"#define SRK_BLOCK {BLOCK_DIM}",
-    ]
+    L = _header(compiled, plan, lanes, kind)
     if buffer:
         L.append(f"#define SRK_FB_BLOCK {int(cfg.block_size)}")
+    if ckpt:
+        L += [f"#define SRK_T_CHUNK {int(t_chunk)}",
+              f"#define SRK_S_ROWS {layout.n_sf + layout.n_si}",
+              '#include "modules_adj.cuh"']
+    else:
+        L.append('#include "modules.cuh"')
     L += [
-        '#include "modules.cuh"',
         "",
         "SRK_HD void srk_voice(int v, int V, int n, "
         "const float* __restrict__ pf, const int* __restrict__ pi, "
         "const float* __restrict__ sf, const int* __restrict__ si, "
         "const float* __restrict__ lanes, float* __restrict__ ring, "
         "float* __restrict__ audio, float* __restrict__ sf_out, "
-        "int* __restrict__ si_out) {",
+        "int* __restrict__ si_out"
+        + (", int* __restrict__ ck) {" if ckpt else ") {"),
         "  // params, loaded once",
     ]
-    L += [load(leaf, "p" + leaf.kind, True) for leaf in layout.params]
+    L += [_load(leaf, "p" + leaf.kind, True) for leaf in layout.params]
     L.append("  // state" + ("" if cfg.buffer_feedback
                              else " and feedback carries")
              + ", in registers")
-    L += [load(leaf, "s" + leaf.kind, False) for leaf in layout.state]
+    L += [_load(leaf, "s" + leaf.kind, False) for leaf in layout.state]
     if stage is None:
         L += [f"  float* a{c} = audio + ((size_t)v * {n_ch} + {c}) * "
               "(size_t)n;" for c in range(n_ch)]
     if buffer:
         L.append("  int slot = 0;  // t % SRK_FB_BLOCK")
     L.append("  for (int t = 0; t < n; ++t) {")
-    L += [f"    const float {_lane_var(k)} = "
-          f"lanes[((size_t){i} * n + t) * V + v];"
-          for k, i in lane_idx.items()]
+    if ckpt:
+        L += ["    if (t % SRK_T_CHUNK == 0) {  // this chunk's checkpoint",
+              "      int* ckr = ck + (size_t)(t / SRK_T_CHUNK) * SRK_S_ROWS"
+              " * V + v;"]
+        L += _state_row_stores(layout, "ckr")
+        L.append("    }")
+    L += _lane_loads(lane_idx)
     if buffer:
         L += [f"    const float {_var(('fb', k))} = {fb_slot(k)};"
               for k in compiled.fb_keys]
-    for mid in plan:
-        mdef, statics, inputs = compiled.instances[mid]
-        ins, conn = [], 0
-        for i, c in enumerate(inputs):
-            if c is None:
-                ins.append("0.0f")
-                continue
-            conn |= 1 << i
-            src, sport = c
-            if compiled.plan_pos[src] >= compiled.plan_pos[mid]:
-                ins.append(_lane_var(f"fb:{src}#{sport}") if fb_lanes
-                           else _var(("fb", (src, sport))))
-            elif stage is not None and src not in stage.stage_set:
-                # a stage input wire, streamed in as a lane
-                ins.append(_lane_var(f"{src}#{sport}"))
-            else:
-                ins.append(f"w_{_ident(src)}[{sport}]")
-        if mid == compiled.output_id:
-            L += [f"    {mdef.cuda_fn}(a{c}, t, {val});"
-                  for c, val in enumerate(ins)]
-            continue
-        w = f"w_{_ident(mid)}"
-        n_out = mdef.num_outputs(cfg, statics)
-        tmpl = ", ".join([str(conn)] + _statics_args(statics))
-        args = []
-        for key in params_of.get(mid, []):
-            auto = compiled._auto_key(mid, key)
-            # an automated param with an array reads this sample's value
-            args.append(_lane_var(auto) if auto in lane_idx
-                        else _var((mid, key)))
-        args += state_of.get(mid, [])
-        if mid in lane_idx:
-            args.append(_lane_var(mid))
-        L.append(f"    float {w}[{max(n_out, 1)}];")
-        if ins:
-            L.append(f"    {{ const float in[{len(ins)}] = "
-                     f"{{{', '.join(ins)}}};")
-            L.append(f"      {mdef.cuda_fn}<{tmpl}>("
-                     + ", ".join(args + ["in", w]) + "); }")
-        else:
-            L.append(f"    {mdef.cuda_fn}<{tmpl}>("
-                     + ", ".join(args + ["nullptr", w]) + ");")
+    L += _emit_calls(compiled, plan, lane_idx, params_of, state_of, stage,
+                     fb_lanes)
     if buffer:
         L += [f"    {fb_slot(k)} = w_{_ident(k[0])}[{k[1]}];"
               for k in compiled.fb_keys]
         L.append("    if (++slot == SRK_FB_BLOCK) slot = 0;")
     elif not fb_lanes:
-        L += [f"    {_var(('fb', k))} = w_{_ident(k[0])}[{k[1]}];"
-              for k in compiled.fb_keys]
+        L += _fb_updates(compiled)
     if stage is not None:
         L += [f"    audio[((size_t){j} * n + t) * V + v] = "
               f"w_{_ident(src)}[{port}];"
@@ -374,34 +448,274 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
         var = _var(leaf.path)
         for j in range(leaf.rows):
             val = f"{var}[{j}]" if leaf.rest else var
-            L.append(f"  {row('s' + leaf.kind + '_out', leaf, j)} = {val};")
+            L.append(f"  {_row('s' + leaf.kind + '_out', leaf, j)} = {val};")
     L.append("}")
     args = "pf, pi, sf, si, lanes, ring, audio, sf_out, si_out"
     decl = ("const float* pf, const int* pi, const float* sf, const int* si, "
             "const float* lanes, float* ring, float* audio, float* sf_out, "
-            "int* si_out, int V, int n")
-    L += [
+            "int* si_out")
+    if ckpt:
+        args += ", ck"
+        decl += ", int* ck"
+    decl += ", int V, int n"
+    entry = "srk_vjp_fwd" if ckpt else "srk_fused"
+    L += _entries(entry, "srk_voice", args, decl)
+    return "\n".join(L) + "\n"
+
+
+def _args_of(layout):
+    """``{mid: [param keys]}`` and ``{mid: [state locals]}`` in the
+    layout's (sorted) order."""
+    params_of, state_of = {}, {}
+    for leaf in layout.params:
+        params_of.setdefault(leaf.path[0], []).append(leaf.path[1])
+    for leaf in layout.state:
+        if leaf.path[0] == "states":
+            state_of.setdefault(leaf.path[1], []).append(_var(leaf.path))
+    return params_of, state_of
+
+
+def _row(arr, leaf, j):
+    return f"{arr}[{leaf.row + j} * (size_t)V + v]"
+
+
+def _load(leaf, arr, const):
+    var, q = _var(leaf.path), "const " if const else ""
+    if leaf.rest and leaf.kind == "i":
+        # an int table: a view into the rows, read per sample
+        return (f"  const srk_rows {var}{{{arr} + {leaf.row} * (size_t)V"
+                " + v, (size_t)V};")
+    if leaf.rest:
+        vals = ", ".join(_row(arr, leaf, j) for j in range(leaf.rows))
+        return f"  {q}{leaf.ctype} {var}[{leaf.rows}] = {{{vals}}};"
+    return f"  {q}{leaf.ctype} {var} = {_row(arr, leaf, 0)};"
+
+
+def _header(compiled, plan, lanes, kind) -> list:
+    return [
+        f"// Generated by srack_tpu_torch/ops/fused.py: the {kind}",
+        "// for one plan, " + ", ".join(
+            f"{mid} ({compiled.instances[mid][0].type_name})"
+            for mid in plan) + ".",
+        "// Lanes: " + (", ".join(lanes) if lanes else "none") + ".",
+        f"#define SRK_SAMPLE_RATE {int(compiled.cfg.sample_rate)}",
+        f"#define SRK_BLOCK {BLOCK_DIM}",
+    ]
+
+
+def _lane_loads(lane_idx) -> list:
+    return [f"    const float {_lane_var(k)} = "
+            f"lanes[((size_t){i} * n + t) * V + v];"
+            for k, i in lane_idx.items()]
+
+
+def _fb_updates(compiled) -> list:
+    return [f"    {_var(('fb', k))} = w_{_ident(k[0])}[{k[1]}];"
+            for k in compiled.fb_keys]
+
+
+def _entries(entry, body, args, decl) -> list:
+    """The CUDA kernel, its ``extern "C"`` launch (``<entry>_launch``, on
+    the caller's stream, returning ``cudaGetLastError()``) and the host
+    loop over voices (``<entry>_host``) for the g++ build."""
+    return [
         "",
         "#ifdef __CUDACC__",
         f"__global__ void __launch_bounds__(SRK_BLOCK) "
-        f"srk_fused_kernel({decl}) {{",
+        f"{entry}_kernel({decl}) {{",
         "  const int v = blockIdx.x * blockDim.x + threadIdx.x;",
-        f"  if (v < V) srk_voice(v, V, n, {args});",
+        f"  if (v < V) {body}(v, V, n, {args});",
         "}",
         "",
-        f'extern "C" int srk_fused_launch({decl}, void* stream) {{',
+        f'extern "C" int {entry}_launch({decl}, void* stream) {{',
         "  const int blocks = (V + SRK_BLOCK - 1) / SRK_BLOCK;",
-        "  srk_fused_kernel<<<blocks, SRK_BLOCK, 0, (cudaStream_t)stream>>>("
+        f"  {entry}_kernel<<<blocks, SRK_BLOCK, 0, (cudaStream_t)stream>>>("
         f"{args}, V, n);",
         "  return (int)cudaGetLastError();",
         "}",
         "#else",
-        f'extern "C" int srk_fused_host({decl}) {{',
-        f"  for (int v = 0; v < V; ++v) srk_voice(v, V, n, {args});",
+        f'extern "C" int {entry}_host({decl}) {{',
+        f"  for (int v = 0; v < V; ++v) {body}(v, V, n, {args});",
         "  return 0;",
         "}",
         "#endif",
     ]
+
+
+def _adj_target(compiled, mid, conn) -> str:
+    """Where the cotangent of an input wire accumulates: the source's wire
+    cotangent, or for a feedback read the carry's (the old value's)."""
+    src, sport = conn
+    if compiled.plan_pos[src] >= compiled.plan_pos[mid]:
+        return "d_" + _var(("fb", (src, sport)))
+    return f"dw_{_ident(src)}[{sport}]"
+
+
+def _zeros(n: int) -> str:
+    return "{" + ", ".join(["0.0f"] * n) + "}"
+
+
+def _generate_bwd(compiled, layout: Layout, lanes: tuple,
+                  t_chunk: int) -> str:
+    """The backward kernel of the fused VJP (K10), one thread per voice.
+
+    It walks the chunks of ``t_chunk`` samples in reverse.  For each chunk
+    it loads the chunk's checkpoint (``ck``, written by the "ckpt" mode)
+    and replays the forward step with the emitted step code, storing the
+    state before each sample to the scratch ``scr`` (``[t_chunk, S, V]``
+    int32 words), so int phases, envelope modes and edge detectors replay
+    bit for bit.  Then it sweeps the chunk backwards: at each sample it
+    loads the stored state, re-runs the step to get every wire, and calls
+    the modules' adjoints (``ModuleDef.cuda_adj``) in reverse plan order.
+    The param cotangents accumulate in registers over the render; the state
+    cotangents (the feedback carries' included) start from the final
+    state's (``ctf``, ``[n_sf, V]``, entering at sample n-1) and end as
+    the initial state's.  The audio cotangent ``cta`` is ``[V, C, n]``.
+    Outputs: ``dpf`` (``[n_pf, V]``, the float params' rows) and ``dsf``
+    (``[n_sf, V]``)."""
+    plan = compiled.plan
+    n_ch = compiled.cfg.channels
+    lane_idx = {k: i for i, k in enumerate(lanes)}
+    params_of, state_of = _args_of(layout)
+    pleaf = {leaf.path: leaf for leaf in layout.params}
+    sleaves = {}
+    for leaf in layout.state:
+        if leaf.path[0] == "states":
+            sleaves.setdefault(leaf.path[1], []).append(leaf)
+    L = _header(compiled, plan, lanes, "backward kernel of the fused VJP "
+                "(K10)")
+    L += [f"#define SRK_T_CHUNK {int(t_chunk)}",
+          f"#define SRK_S_ROWS {layout.n_sf + layout.n_si}",
+          '#include "modules_adj.cuh"',
+          "",
+          "SRK_HD void srk_voice_bwd(int v, int V, int n, "
+          "const float* __restrict__ pf, const int* __restrict__ pi, "
+          "const float* __restrict__ lanes, const int* __restrict__ ck, "
+          "const float* __restrict__ cta, const float* __restrict__ ctf, "
+          "int* __restrict__ scr, float* __restrict__ dpf, "
+          "float* __restrict__ dsf) {",
+          "  // params, loaded once"]
+    L += [_load(leaf, "p" + leaf.kind, True) for leaf in layout.params]
+    L.append("  // the float params' cotangents, summed over the render; an "
+             "automated param's lane gets none (d_sink)")
+    for leaf in layout.params:
+        if leaf.kind == "f":
+            var = "d_" + _var(leaf.path)
+            L.append(f"  float {var}[{leaf.rows}] = {_zeros(leaf.rows)};"
+                     if leaf.rest else f"  float {var} = 0.0f;")
+    L.append("  float d_sink = 0.0f;")
+    L.append("  // the float state's cotangents, from the final state's")
+    for leaf in layout.state:
+        if leaf.kind == "f":
+            var = "d_" + _var(leaf.path)
+            if leaf.rest:
+                vals = ", ".join(_row("ctf", leaf, j)
+                                 for j in range(leaf.rows))
+                L.append(f"  float {var}[{leaf.rows}] = {{{vals}}};")
+            else:
+                L.append(f"  float {var} = {_row('ctf', leaf, 0)};")
+    L.append("  // the state, replayed")
+    for leaf in layout.state:
+        var = _var(leaf.path)
+        L.append(f"  {leaf.ctype} {var}[{leaf.rows}];" if leaf.rest
+                 else f"  {leaf.ctype} {var};")
+    L += [f"  const float* ct{c} = cta + ((size_t)v * {n_ch} + {c}) * "
+          "(size_t)n;" for c in range(n_ch)]
+    L += [
+        "  const int n_chunks = (n + SRK_T_CHUNK - 1) / SRK_T_CHUNK;",
+        "  for (int c = n_chunks - 1; c >= 0; --c) {",
+        "    const int t0 = c * SRK_T_CHUNK;",
+        "    const int t1 = t0 + SRK_T_CHUNK < n ? t0 + SRK_T_CHUNK : n;",
+        "    {",
+        "      const int* ckr = ck + (size_t)c * SRK_S_ROWS * V + v;",
+    ]
+    L += _state_row_loads(layout, "ckr")
+    L += [
+        "    }",
+        "    // replay the chunk, storing the state before each sample",
+        "    for (int t = t0; t < t1; ++t) {",
+        "      int* sr = scr + (size_t)(t - t0) * SRK_S_ROWS * V + v;",
+    ]
+    L += _state_row_stores(layout, "sr")
+    L += _lane_loads(lane_idx)
+    L += _emit_calls(compiled, plan, lane_idx, params_of, state_of, None,
+                     False, audio=False)
+    L += _fb_updates(compiled)
+    L += [
+        "    }",
+        "    // sweep it backwards",
+        "    for (int t = t1 - 1; t >= t0; --t) {",
+        "      const int* sr = scr + (size_t)(t - t0) * SRK_S_ROWS * V + v;",
+    ]
+    L += _state_row_loads(layout, "sr", prefix="o_", decl=True)
+    for leaf in layout.state:
+        var = _var(leaf.path)
+        if leaf.rest:
+            L += [f"      {var}[{j}] = o_{var}[{j}];" for j in range(leaf.rows)]
+        else:
+            L.append(f"      {var} = o_{var};")
+    L += _lane_loads(lane_idx)
+    L += _emit_calls(compiled, plan, lane_idx, params_of, state_of, None,
+                     False, scoped=False, audio=False)
+    L.append("    // the wires' cotangents; a feedback source's new carry "
+             "takes the carried one")
+    for mid in plan:
+        if mid != compiled.output_id:
+            mdef, statics, _ = compiled.instances[mid]
+            n_out = max(mdef.num_outputs(compiled.cfg, statics), 1)
+            L.append(f"    float dw_{_ident(mid)}[{n_out}] = "
+                     f"{_zeros(n_out)};")
+    for k in compiled.fb_keys:
+        d = "d_" + _var(("fb", k))
+        L.append(f"    dw_{_ident(k[0])}[{k[1]}] += {d}; {d} = 0.0f;")
+    L.append("    // the adjoints, in reverse plan order")
+    for mid in reversed(plan):
+        mdef, statics, inputs = compiled.instances[mid]
+        if mid == compiled.output_id:
+            L += [f"    {mdef.cuda_adj}(ct{c}, t, "
+                  f"{_adj_target(compiled, mid, c_)});"
+                  for c, c_ in enumerate(inputs) if c_ is not None]
+            continue
+        ins, conn = _inputs_of(compiled, mid, None, False)
+        tmpl = ", ".join([str(conn)] + _statics_args(statics))
+        keys = params_of.get(mid, [])
+        args = _param_args(compiled, mid, keys, lane_idx)
+        args += ["o_" + var for var in state_of.get(mid, [])]
+        if mid in lane_idx:
+            args.append(_lane_var(mid))
+        args.append(f"in_{_ident(mid)}" if ins else "nullptr")
+        for key in keys:
+            if pleaf[(mid, key)].kind == "f":
+                auto = compiled._auto_key(mid, key) in lane_idx
+                args.append("d_sink" if auto else "d_" + _var((mid, key)))
+        args += ["d_" + _var(leaf.path) for leaf in sleaves.get(mid, [])
+                 if leaf.kind == "f"]
+        args.append(f"dw_{_ident(mid)}")
+        call = f"{mdef.cuda_adj}<{tmpl}>("
+        if ins:
+            L.append(f"    {{ float din[{len(ins)}] = {_zeros(len(ins))};")
+            L.append(f"      {call}" + ", ".join(args + ["din"]) + ");")
+            L += [f"      {_adj_target(compiled, mid, c_)} += din[{i}];"
+                  for i, c_ in enumerate(inputs) if c_ is not None]
+            L.append("    }")
+        else:
+            L.append(f"    {call}" + ", ".join(args + ["nullptr"]) + ");")
+    L += ["    }", "  }",
+          "  // the float params' and the initial float state's cotangents"]
+    for arr, leaves in (("dpf", layout.params), ("dsf", layout.state)):
+        for leaf in leaves:
+            if leaf.kind != "f":
+                continue
+            var = "d_" + _var(leaf.path)
+            L += [f"  {_row(arr, leaf, j)} = "
+                  + (f"{var}[{j}];" if leaf.rest else f"{var};")
+                  for j in range(leaf.rows)]
+    L.append("}")
+    args = "pf, pi, lanes, ck, cta, ctf, scr, dpf, dsf"
+    decl = ("const float* pf, const int* pi, const float* lanes, "
+            "const int* ck, const float* cta, const float* ctf, int* scr, "
+            "float* dpf, float* dsf, int V, int n")
+    L += _entries("srk_vjp_bwd", "srk_voice_bwd", args, decl)
     return "\n".join(L) + "\n"
 
 

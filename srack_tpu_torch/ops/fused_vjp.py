@@ -1,0 +1,258 @@
+"""Kernel K10, ``fused_vjp``: a batched render whose forward and backward
+passes are both hand-written CUDA kernels.
+
+Replaces ``srack_tpu/ops/fused_vjp.py::make_fused_vjp`` (its two Pallas
+kernels, ``fwd_pallas`` and ``bwd_pallas``).  Both sources come from the
+generator of K1 (``ops/fused.py::generate_source``) in two more modes:
+
+* **forward, ``fused_vjp_fwd``** (mode ``"ckpt"``): K1, one thread per
+  voice with the state in registers, plus a store of the whole state row
+  at every ``t_chunk`` boundary into ``ck`` (``[n_chunks, S, V]`` int32
+  words, floats as their bits, S = ``n_sf + n_si``): 4 * S bytes per voice
+  and chunk, coalesced across voices.  Audio and final state equal K1's.
+* **backward, ``fused_vjp_bwd``** (mode ``"bwd"``): one thread per voice
+  walks the chunks in reverse.  For each chunk it reloads the checkpoint
+  and replays the forward with the same emitted step code and the same
+  flags (``--fmad=false``, no fast math), so int phases, envelope modes
+  and edge detectors replay bit for bit; the state before each sample goes
+  to a scratch ``[t_chunk, S, V]`` in device memory (10.5 MB for the
+  subtractive voice at 1,024 voices and t_chunk 128: it stays in the 50 MB
+  L2).  Then it sweeps the chunk backwards: at each sample it reloads the
+  stored state, re-runs the step to get every wire, and calls the modules'
+  adjoints (``csrc/modules_adj.cuh``) in reverse plan order.  The float
+  params' cotangents accumulate in registers over the render; the float
+  state's (the feedback carries' included) start from the final state's,
+  which enters at sample n-1 (n need not be a multiple of ``t_chunk``),
+  and end as the initial state's.
+
+None of the TPU layout is carried over: no (8, 128) tiles, no 1,024-voice
+padding, no padded tail, no ``bwd_unroll`` groups, no packed audio.
+
+What bounds it: like K1, each thread's serial chain, not memory.  The
+backward does about three times K1's work per sample (the replay, the
+re-run and the adjoints), and per voice-sample it moves the audio
+cotangent in (4 * C bytes, strided as K1's audio writes are) and S words
+of scratch out and back in (L2 hits).  1,024 voices fill 32 warps, one per
+SM scheduler at most: nothing hides latency but each thread's own
+instruction-level parallelism.
+
+The wrapper :class:`FusedVJPKernel` holds both builds and their launch
+counts; :func:`make_fused_vjp` returns its ``torch.autograd.Function``.
+Its inputs are the float leaves of the *derived* params and the float
+state leaves; the int leaves and the lanes go in as non-differentiable
+operands.  As in the JAX package's ``render_derived``, the caller derives
+the params outside the Function, so autograd chains the derived leaves'
+cotangents back to the raw params through ``CompiledPatch.derived_params``
+(``delta`` to the Oscillator's ``val``, ``inc_a`` to the ADSR's
+``a_sec``).  Int and bool leaves and the lanes get no cotangent.
+
+The plain version is autograd through the scan engine
+(``CompiledPatch._run`` with ``nograd=False``, which keeps the
+Oscillator's straight-through shadow ``pos_g``); ``CompiledPatch.
+grad_render_fn`` takes it for CPU tensors.  The wrapper launches the
+kernels for CUDA tensors or raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..compiler import tree_leaves
+from ..modules.base import CV_DTYPE
+from .cuda_lib import CudaLib, I, P, require_cuda
+from .fused import (Layout, _get, eligible, generate_source, pack,
+                    pack_lanes, state_tree, unpack)
+
+# the entries' argument types, without the stream: the operand pointers of
+# :meth:`FusedVJPKernel.run_fwd` / :meth:`FusedVJPKernel.run_bwd`, then V, n
+FWD_ARGTYPES = [P] * 10 + [I, I]
+BWD_ARGTYPES = [P] * 9 + [I, I]
+
+
+def vjp_eligible(compiled) -> bool:
+    """Can K10 differentiate this compiled patch?  (Fused-eligible, sample
+    mode, every module type with an adjoint.)"""
+    return (eligible(compiled) and not compiled.cfg.buffer_feedback
+            and all(mdef.cuda_adj is not None
+                    for mdef, _, _ in compiled.instances.values()))
+
+
+def _rows(leaves, n_rows: int, tensors, v: int, device):
+    """The float leaves ``tensors`` (``[V, *rest]``, in the order of
+    ``leaves``; None for zeros) as ``[n_rows, V]`` f32 rows."""
+    by_path = {leaf.path: (torch.zeros((v,) + leaf.rest, dtype=CV_DTYPE,
+                                       device=device) if t is None else t)
+               for leaf, t in zip(leaves, tensors)}
+    return pack(leaves, n_rows, 0, by_path.__getitem__, v, device)[0]
+
+
+class FusedVJPKernel:
+    """K10 for one compiled plan, lane set and chunk length: the forward
+    (``fused_vjp_fwd``) and backward (``fused_vjp_bwd``) sources, their
+    builds and launch counts, the autograd Function and its packing."""
+
+    plain = "autograd through the scan engine"
+
+    def __init__(self, compiled, lanes=(), t_chunk: int = 128):
+        if not vjp_eligible(compiled):
+            raise ValueError(
+                "patch not eligible for the fused VJP (needs a patch the "
+                "fused kernel takes, sample-mode feedback, and an adjoint "
+                "(ModuleDef.cuda_adj) for every module type)")
+        self.compiled = compiled
+        self.lanes = tuple(sorted(lanes))
+        self.t_chunk = int(t_chunk)
+        lay = self.layout = Layout.of(compiled)
+        self.pf = [leaf for leaf in lay.params if leaf.kind == "f"]
+        self.pi = [leaf for leaf in lay.params if leaf.kind == "i"]
+        self.sf = [leaf for leaf in lay.state if leaf.kind == "f"]
+        self.si = [leaf for leaf in lay.state if leaf.kind == "i"]
+        self.fwd = CudaLib("fused_vjp_fwd", generate_source(
+            compiled, lay, self.lanes, mode="ckpt", t_chunk=self.t_chunk),
+            "fused-VJP forward kernel")
+        self.bwd = CudaLib("fused_vjp_bwd", generate_source(
+            compiled, lay, self.lanes, mode="bwd", t_chunk=self.t_chunk),
+            "fused-VJP backward kernel")
+        self._functions = {}
+
+    @property
+    def s_rows(self) -> int:
+        return self.layout.n_sf + self.layout.n_si
+
+    def _call(self, lib, entry, argtypes, operands, v, n):
+        """Launch ``entry`` of ``lib`` on the operands' device."""
+        device = require_cuda(*operands)
+        lib.launch(entry + "_launch", argtypes,
+                   tuple(t.data_ptr() for t in operands) + (v, n), device)
+
+    def run_fwd(self, pf, pi, sf, si, lanes, v: int, n: int):
+        """One forward launch on packed operands: ``(audio [V, C, n],
+        sf_out, si_out, ck)``."""
+        device = pf.device
+        audio = torch.empty((v, self.compiled.cfg.channels, n),
+                            dtype=CV_DTYPE, device=device)
+        sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
+        n_chunks = -(-n // self.t_chunk)
+        ck = torch.empty((max(n_chunks, 1), max(self.s_rows, 1), v),
+                         dtype=torch.int32, device=device)
+        ring = torch.zeros((1,), dtype=CV_DTYPE, device=device)
+        self._call(self.fwd, "srk_vjp_fwd", FWD_ARGTYPES,
+                   (pf, pi, sf, si, lanes, ring, audio, sf_out, si_out, ck),
+                   v, n)
+        return audio, sf_out, si_out, ck
+
+    def run_bwd(self, pf, pi, lanes, ck, cta, ctf, v: int, n: int):
+        """One backward launch: the audio cotangent ``cta`` ``[V, C, n]``
+        and the final float state's ``ctf`` ``[n_sf, V]`` in; ``(dpf
+        [n_pf, V], dsf [n_sf, V])`` out."""
+        device = pf.device
+        scr = torch.empty((max(min(self.t_chunk, n), 1),
+                           max(self.s_rows, 1), v),
+                          dtype=torch.int32, device=device)
+        dpf = torch.zeros((max(self.layout.n_pf, 1), v), dtype=CV_DTYPE,
+                          device=device)
+        dsf = torch.zeros((max(self.layout.n_sf, 1), v), dtype=CV_DTYPE,
+                          device=device)
+        self._call(self.bwd, "srk_vjp_bwd", BWD_ARGTYPES,
+                   (pf, pi, lanes, ck, cta, ctf, scr, dpf, dsf), v, n)
+        return dpf, dsf
+
+    def function(self, n: int):
+        """The ``torch.autograd.Function`` of K10 for ``n`` samples."""
+        fn = self._functions.get(n)
+        if fn is None:
+            fn = self._functions[n] = _make_function(self, int(n))
+        return fn
+
+    def operands(self, params: dict, state: dict, n: int, xs: dict):
+        """The Function's operands for a render of ``params`` (raw, ``[V,
+        ...]``), ``state`` and the lanes ``xs`` (``{key: [V, n]}``, this
+        kernel's lane set): ``(lanes, pi, si, floats)``, the packed lanes
+        and int rows, then the derived params' and the state's float leaves
+        (the params derived here, under autograd)."""
+        leaves = tree_leaves(params) + tree_leaves(state)
+        device, v = leaves[0].device, leaves[0].shape[0]
+        derived = self.compiled.derived_params(params)
+        floats = ([_get(derived, leaf.path) for leaf in self.pf]
+                  + [_get(state, leaf.path) for leaf in self.sf])
+        for leaf, t in zip(self.pf + self.sf, floats):
+            if t.dtype != CV_DTYPE:
+                raise TypeError(f"{leaf.path}: expected {CV_DTYPE}, got "
+                                f"{t.dtype}")
+        with torch.no_grad():
+            _, pi = pack(self.pi, 0, self.layout.n_pi,
+                         lambda path: _get(derived, path), v, device)
+            _, si = pack(self.si, 0, self.layout.n_si,
+                         lambda path: _get(state, path), v, device)
+            lanes = pack_lanes(self.lanes, xs, v, n, device)
+        return lanes, pi, si, floats
+
+    def float_rows(self, floats, v: int, device):
+        """The float leaves of :meth:`operands` as the kernels' ``[n_pf,
+        V]`` param rows and ``[n_sf, V]`` state rows."""
+        n_pf = len(self.pf)
+        return (_rows(self.pf, self.layout.n_pf, floats[:n_pf], v, device),
+                _rows(self.sf, self.layout.n_sf, floats[n_pf:], v, device))
+
+    def apply(self, params: dict, state: dict, n: int, xs: dict):
+        """Render through the Function (operands as :meth:`operands` takes
+        them).  Returns ``(audio [V, C, n], final_state)``."""
+        lanes, pi, si, floats = self.operands(params, state, n, xs)
+        outs = self.function(n).apply(lanes, pi, si, *floats)
+        flat = dict(zip([leaf.path for leaf in self.sf + self.si], outs[1:]))
+        return outs[0], state_tree(self.compiled, flat)
+
+
+def _make_function(kernel: FusedVJPKernel, n: int):
+    lay = kernel.layout
+
+    class FusedVJP(torch.autograd.Function):
+        """K10 over ``n`` samples.  ``apply(lanes, pi, si, *floats)``: the
+        packed lanes and int rows, then the derived params' float leaves
+        and the state's float leaves (``[V, *rest]``, in the layout's
+        order).  Returns the audio, the final float state leaves and the
+        final int and bool state leaves (not differentiable)."""
+
+        @staticmethod
+        def forward(ctx, lanes, pi, si, *floats):
+            v, device = pi.shape[1], pi.device
+            pf, sf = kernel.float_rows(floats, v, device)
+            audio, sf_out, si_out, ck = kernel.run_fwd(pf, pi, sf, si, lanes,
+                                                       v, n)
+            ctx.save_for_backward(pf, pi, lanes, ck)
+            final = unpack(kernel.sf + kernel.si, sf_out, si_out, v)
+            outs_i = [final[leaf.path] for leaf in kernel.si]
+            ctx.mark_non_differentiable(*outs_i)
+            return (audio, *[final[leaf.path] for leaf in kernel.sf],
+                    *outs_i)
+
+        @staticmethod
+        @torch.autograd.function.once_differentiable
+        def backward(ctx, g_audio, *g_final):
+            pf, pi, lanes, ck = ctx.saved_tensors
+            v, device = pi.shape[1], pi.device
+            if g_audio is None:
+                g_audio = torch.zeros((v, kernel.compiled.cfg.channels, n),
+                                      dtype=CV_DTYPE, device=device)
+            ctf = _rows(kernel.sf, lay.n_sf, g_final[:len(kernel.sf)], v,
+                        device)
+            dpf, dsf = kernel.run_bwd(pf, pi, lanes, ck,
+                                      g_audio.to(CV_DTYPE).contiguous(), ctf,
+                                      v, n)
+            dp = unpack(kernel.pf, dpf, dpf, v)
+            ds = unpack(kernel.sf, dsf, dsf, v)
+            return (None, None, None,
+                    *[dp[leaf.path] for leaf in kernel.pf],
+                    *[ds[leaf.path] for leaf in kernel.sf])
+
+    FusedVJP.kernel = kernel
+    FusedVJP.n = n
+    return FusedVJP
+
+
+def make_fused_vjp(compiled, n: int, lanes=(), t_chunk: int = 128):
+    """The ``torch.autograd.Function`` of K10 for ``compiled``'s plan, the
+    lane set ``lanes`` and ``n`` samples (its kernel is
+    ``compiled.fused_vjp(lanes, t_chunk)``, built at first launch).  Raises
+    for a patch without an adjoint for every module."""
+    return compiled.fused_vjp(lanes, t_chunk).function(n)

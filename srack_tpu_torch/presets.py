@@ -19,8 +19,9 @@ Also :func:`gate_cv_voice` (a voice played through Input driver lanes) and
 the check patches :func:`kernel_check_patch` and :func:`lane_check_patch`,
 which drive every device function of the fused kernels,
 :func:`block_check_patch`, which drives every phase of the block engine,
-and :func:`kit_check_patch`, which drives the sequencers' and the Sample's
-whole-block forms.  Every table is synthesized with numpy.
+:func:`kit_check_patch`, which drives the sequencers' and the Sample's
+whole-block forms, and :func:`gradient_patch`, the JAX package's gradient
+check patch.  Every table is synthesized with numpy.
 """
 
 from __future__ import annotations
@@ -516,6 +517,33 @@ def kit_check_patch(cfg: AudioConfig | None = None, *,
     p.connect(grid, "CV", smp, "CV")
     p.connect(smp, 0, flt, "Audio")
     p.connect(pat, "1", env, "Gate")
+    p.connect(flt, 0, vca, "Audio")
+    p.connect(env, 0, vca, "CV")
+    for c in range(cfg.channels):
+        p.connect(vca, 0, p.output, c)
+    return p
+
+
+def gradient_patch(cfg: AudioConfig | None = None, *,
+                   patch_cls=Patch) -> Patch:
+    """The gradient check patch of the JAX package's tests
+    (``tests/test_gradients.py::_patch``): a clock Oscillator's Square
+    gates an ADSR whose stage times lie off the sample lattice, a VCO's
+    Sawtooth runs through a Moog Filter and a VCA into the Output.  It
+    drives the Oscillator's pitch path (through the shadow phase), the
+    ladder and the whole ADSR trajectory, the parts finite differences pin.
+    ``patch_cls`` builds the same patch with another package's ``Patch``.
+    """
+    cfg = cfg or AudioConfig(sample_rate=4800, channels=1)
+    p = patch_cls(cfg)
+    clk = p.add("Oscillator", val=-5.0, name="clock")
+    osc = p.add("Oscillator", val=-1.0, name="vco")
+    env = p.add("ADSR", a_sec=0.004, d_sec=0.0093, s_val=0.4, r_sec=0.0117,
+                name="env")
+    flt = p.add("Moog Filter", freq=0.5, res=0.3, name="vcf")
+    vca = p.add("VCA", name="vca")
+    p.connect(clk, "Square", env, "Gate")
+    p.connect(osc, "Sawtooth", flt, "Audio")
     p.connect(flt, 0, vca, "Audio")
     p.connect(env, 0, vca, "CV")
     for c in range(cfg.channels):

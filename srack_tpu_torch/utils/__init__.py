@@ -1,11 +1,15 @@
 """Helpers around the render API (counterpart: ``srack_tpu/utils``).
 
-Slice 2 of the port holds the pitch and note helpers that build Input
-driver lanes; losses and training are slice 5.
+The pitch and note helpers build Input driver lanes; the losses and the
+trainer fit a patch's params to target audio by gradient descent (slice 5).
 """
 
 from .pitch import cv_to_hz, hz_to_cv, midi_to_cv, note_to_cv
 from .notes import note_track, note_tracks
+from .losses import multiscale_spectral_loss, stft_mag, waveform_l2
+from .train import SoundMatcher, batched_train_step, multi_train_step
 
 __all__ = ["hz_to_cv", "cv_to_hz", "midi_to_cv", "note_to_cv",
-           "note_track", "note_tracks"]
+           "note_track", "note_tracks",
+           "multiscale_spectral_loss", "stft_mag", "waveform_l2",
+           "SoundMatcher", "batched_train_step", "multi_train_step"]

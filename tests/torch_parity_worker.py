@@ -54,6 +54,16 @@ Slice 3b's cases, inputs made here from numpy seeds as well:
   (``sample_gather._gather_rows``) in interpret mode;
 * ``seq_block``: the sequencers' ``_grid_block`` and ``_pat_block``.
 
+Slice 5's cases (gradients and training), inputs from numpy seeds:
+
+* ``grad:<name>`` (``gradient_patch``, ``subtractive_voice`` with a fast
+  gate clock, ``feedback_patch``): ``jax.grad`` through the scan engine of
+  a weighted sum of the audio and the final float state, V=2, n=256;
+* ``vjp``: the JAX fused VJP, both Pallas kernels in interpret mode
+  (``make_fused_vjp``, t_chunk=16), V=2, n=32;
+* ``losses``: ``utils/losses.py`` and its gradients in float64;
+* ``train``: three ``batched_train_step`` steps with ``optax.adam(1e-3)``.
+
 It runs in its own process because XLA's CPU backend contracts ``a*b+c``
 into one fused multiply-add when the host has FMA, which rounds the
 polynomials once where the port (and the TPU) round twice, and the XLA flag
@@ -680,10 +690,192 @@ def seq_block_case(out: dict) -> None:
         flat(f"{tag}/final", final, out)
 
 
+GRAD_V, GRAD_N = 2, 256
+GRAD_NAMES = ("gradient_patch", "subtractive_voice", "feedback_patch")
+
+
+def grad_build(name: str):
+    """A slice-5 gradient case at 4,800 Hz, mono, built with the JAX
+    ``Patch``: the JAX tests' gradient patch, the subtractive voice with a
+    fast gate clock (its envelope cycles in 256 samples), feedback_patch."""
+    cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
+                         precision="fast")
+    if name == "gradient_patch":
+        from srack_tpu_torch.presets import gradient_patch
+        return gradient_patch(cfg, patch_cls=st.Patch)
+    if name == "subtractive_voice":
+        return presets.subtractive_voice(cfg, gate_rate_oct=-1.0)
+    return getattr(presets, name)(cfg)
+
+
+def _floats(leaves):
+    return [i for i, leaf in enumerate(leaves)
+            if jnp.issubdtype(jnp.asarray(leaf).dtype, jnp.floating)]
+
+
+def _float_tree(treedef, n_leaves, idx, values):
+    """The tree of ``values`` at the float leaves ``idx``, the int and bool
+    leaves dropped."""
+    full = [None] * n_leaves
+    for k, i in enumerate(idx):
+        full[i] = values[k]
+
+    def prune(t):
+        if isinstance(t, dict):
+            return {k: prune(v) for k, v in t.items() if v is not None}
+        return t
+    return prune(jax.tree.unflatten(treedef, full))
+
+
+def grad_case(name: str, out: dict) -> None:
+    """``jax.grad`` through the JAX scan engine of ``sum(audio * w) + sum
+    over the float final-state leaves of leaf * wf`` with respect to every
+    float param and every float initial-state leaf, V=2, n=256, from the
+    JAX ``farm_params`` and random weights."""
+    patch = grad_build(name)
+    compiled = st.compile_patch(patch)
+    rng = np.random.default_rng(61)
+    v, n = GRAD_V, GRAD_N
+    params = presets.farm_params(patch, v)
+    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
+                         compiled.init_state())
+    keys = jax.random.split(jax.random.PRNGKey(0), v)
+    fn = compiled.make_render_fn(n, batched=True)
+    w = rng.standard_normal((v, patch.config.channels, n)).astype(np.float32)
+    p_leaves, p_def = jax.tree.flatten(params)
+    s_leaves, s_def = jax.tree.flatten(state)
+    pf, sf = _floats(p_leaves), _floats(s_leaves)
+    wf = [rng.standard_normal(np.shape(s_leaves[i])).astype(np.float32)
+          for i in sf]
+
+    def loss(pfl, sfl):
+        pl, sl = list(p_leaves), list(s_leaves)
+        for k, i in enumerate(pf):
+            pl[i] = pfl[k]
+        for k, i in enumerate(sf):
+            sl[i] = sfl[k]
+        audio, _, fin = fn(jax.tree.unflatten(p_def, pl),
+                           jax.tree.unflatten(s_def, sl), keys, {})
+        fl = jax.tree.leaves(fin)
+        total = jnp.sum(audio * w)
+        for k, i in enumerate(sf):
+            total = total + jnp.sum(fl[i] * wf[k])
+        return total
+
+    gp, gs = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        [p_leaves[i] for i in pf], [s_leaves[i] for i in sf])
+    tag = f"grad/{name}"
+    flat(f"{tag}/params", params, out)
+    flat(f"{tag}/state", state, out)
+    out[f"{tag}/w"] = w
+    flat(f"{tag}/wf", _float_tree(s_def, len(s_leaves), sf, wf), out)
+    flat(f"{tag}/gp", _float_tree(p_def, len(p_leaves), pf, list(gp)), out)
+    flat(f"{tag}/gs", _float_tree(s_def, len(s_leaves), sf, list(gs)), out)
+
+
+def vjp_case(out: dict) -> None:
+    """The JAX fused VJP (``make_fused_vjp``, both Pallas kernels in
+    interpret mode) on the subtractive voice with a fast gate clock, V=2,
+    n=32, t_chunk=16: the audio and the gradient of ``mean(audio ** 2)``
+    with respect to the params."""
+    from srack_tpu.ops.fused_vjp import make_fused_vjp
+    patch = grad_build("subtractive_voice")
+    compiled = st.compile_patch(patch)
+    v, n = 2, 32
+    params = presets.farm_params(patch, v)
+    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
+                         compiled.init_state())
+    keys = jax.random.split(jax.random.PRNGKey(0), v)
+    render = make_fused_vjp(compiled, n, t_chunk=16, unroll=4,
+                            interpret=True)
+
+    def loss(prm):
+        audio, _, _ = render(prm, state, keys, {})
+        return (audio ** 2).mean()
+
+    flat("vjp/params", params, out)
+    flat("vjp/state", state, out)
+    flat("vjp/audio", render(params, state, keys, {})[0], out)
+    flat("vjp/grads", jax.grad(loss)(params), out)
+
+
+def losses_case(out: dict) -> None:
+    """``srack_tpu/utils/losses.py`` in float64 on random signals (in
+    float32 both packages' FFT gradients sit ~1e-6 from the float64 one,
+    each its own way): the STFT magnitudes, each loss and its gradient,
+    and the per-voice mean the trainer takes."""
+    from srack_tpu.utils import losses
+    rng = np.random.default_rng(71)
+    pred = rng.standard_normal((2, 1, 2048)) * 0.3
+    target = rng.standard_normal((2, 1, 2048)) * 0.3
+    out["losses/pred"], out["losses/target"] = pred, target
+    p, t = jnp.asarray(pred), jnp.asarray(target)
+    assert p.dtype == jnp.float64
+    for frame, hop in ((256, 64), (1024, 256), (300, 100)):
+        out[f"losses/stft_{frame}_{hop}"] = np.asarray(
+            losses.stft_mag(p[0, 0], frame, hop))
+    for name, fn in (("msl", losses.multiscale_spectral_loss),
+                     ("l2", losses.waveform_l2)):
+        val, g = jax.value_and_grad(lambda x, fn=fn: fn(x, t))(p)
+        out[f"losses/{name}/value"] = np.asarray(val)
+        out[f"losses/{name}/grad"] = np.asarray(g)
+        val, g = jax.value_and_grad(
+            lambda x, fn=fn: jax.vmap(fn)(x, t).mean())(p)
+        out[f"losses/{name}/vmap_value"] = np.asarray(val)
+        out[f"losses/{name}/vmap_grad"] = np.asarray(g)
+
+
+TRAIN_V, TRAIN_N, TRAIN_STEPS = 2, 256, 3
+
+
+def train_case(out: dict) -> None:
+    """Three ``batched_train_step`` steps (fast=False, ``optax.adam(1e-3)``,
+    ``waveform_l2``) on the subtractive voice with a fast gate clock, from
+    the patch's default params against random targets: the first step's
+    gradients, the losses and the params after the steps."""
+    import optax
+    from srack_tpu.utils import losses
+    from srack_tpu.utils.train import SoundMatcher, batched_train_step
+    patch = grad_build("subtractive_voice")
+    compiled = st.compile_patch(patch)
+    v, n = TRAIN_V, TRAIN_N
+    ts = SoundMatcher(patch, n).init()
+    rng = np.random.default_rng(81)
+    targets = (rng.standard_normal((v, 1, n)) * 0.1).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(0), v)
+    opt = optax.adam(1e-3)
+    step = jax.jit(batched_train_step(compiled, opt, n, fast=False))
+
+    def loss_of(train):
+        params = SoundMatcher._merge(train, ts["frozen"])
+
+        def one(key):
+            audio, _, _ = compiled.make_render_fn(n)(
+                params, compiled.init_state(), key, {})
+            return audio
+        audio = jax.vmap(one)(keys)
+        return jax.vmap(losses.waveform_l2)(audio, jnp.asarray(targets)).mean()
+
+    flat("train/train0", ts["train"], out)
+    flat("train/frozen", ts["frozen"], out)
+    out["train/targets"] = targets
+    flat("train/grads0", jax.grad(loss_of)(ts["train"]), out)
+    train, opt_state, vals = ts["train"], opt.init(ts["train"]), []
+    for _ in range(TRAIN_STEPS):
+        train, opt_state, loss = step(train, ts["frozen"], opt_state,
+                                      jnp.asarray(targets), keys)
+        vals.append(float(loss))
+    out["train/losses"] = np.asarray(vals, np.float64)
+    flat(f"train/train{TRAIN_STEPS}", train, out)
+
+
 SPECIAL = {"freeverb": freeverb_case, "osc_block": osc_block_case,
            "scan": scan_case, "ring_roll": ring_roll_case,
            "sample": sample_case, "gather": gather_case,
-           "seq_block": seq_block_case}
+           "seq_block": seq_block_case, "vjp": vjp_case,
+           "losses": losses_case, "train": train_case,
+           **{f"grad:{name}": (lambda out, name=name: grad_case(name, out))
+              for name in GRAD_NAMES}}
 
 
 def main(path: str, names) -> None:
