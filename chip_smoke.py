@@ -108,7 +108,33 @@ at phase 14's full length is not held to the plain version: autograd
 through the scan engine takes ~9 ms per sample at 1,024 voices, over
 seven minutes for 48,000 samples.
 
-Each main path (phases 4, 5, 7-14) runs with the launch counts set
+For slice 6 K1 and K3 run their plan as a pipeline of stage warps
+(``srack_tpu_torch/ops/partition.py``, ``ops/fused.py``): phase 2 logs
+each build's stages (G), chunk (T) and shared memory, and also builds the
+one-thread twin (G = 1) of the headline's and the sequencer's K1 and of
+each block cell's K3, and the headline's K1 and the kit check's K3 at
+chunks of 16, 64 and 128; phase 3 requires the split K1 (6 patches) and
+K3 (5 stages) to equal their plain versions bit for bit;
+
+15. a/b: each split kernel against its one-thread twin at full width in
+   one call, in turns (G = 1, split, split, G = 1): K1 on the headline
+   (1,024 x 480,000), the farm (16,384 x 192,000) and the sequencer
+   (1,024 x 480,000) from farm_params and the initial state, K3 on the
+   stage of each block cell (1,024 x 480,000, random input lanes): audio
+   or stage outputs and final state equal bit for bit; both times logged
+   with registers, T, G and shared memory; the headline, the farm and the
+   kit check's stage also at the other chunk lengths;
+16. one voice: stt.render(subtractive_voice, 48,000) on the card with the
+   scan engine fenced off must launch K1 once and nothing else (timed);
+   its first 4,800 samples equal the scan engine's unbatched render on
+   the card bit for bit, and the render takes under 1 % of the scan
+   engine's time for 1 s (from its per-sample cost there); render_stream
+   without voices= (4 blocks), render_long(batched=False) (4 segments)
+   and a one-patch render_many launch K1 once per block, segment or call
+   and equal the render; reverb_patch the same way through the block
+   engine (K3, K8, K9).
+
+Each main path (phases 4, 5, 7-14, 16) runs with the launch counts set
 to 0 just before it and read just after.  Any failure raises and exits
 non-zero.  The line before the last is a JSON record of the kernels; the
 last line is
@@ -186,39 +212,33 @@ def ptxas(kernel) -> str:
                       if "registers" in ln or "spill" in ln)
 
 
-# f32 operations per sample of each device function of csrc/modules.cuh,
-# read off its source: one each f32 add, sub, mul, div, compare, select,
-# min/max, abs, negation and int<->float conversion, on the path a sample
-# takes.  Counted for the bound only.
+def registers(kernel) -> int:
+    """The registers per thread ptxas reports for the kernel's build."""
+    import re
+    found = re.findall(r"Used (\d+) registers", kernel.build_log)
+    return int(found[0]) if found else -1
+
+
+def pipeline(kernel) -> str:
+    """How a K1 or K3 build runs its plan: its stages (G), chunk (T) and
+    shared memory, or one thread per voice."""
+    part = getattr(kernel, "partition", None)
+    if part is None:
+        return ""
+    if part.n_stages == 1:
+        return ", G=1: one thread per voice"
+    return (f", G={part.n_stages} stages of {list(part.costs)} ops, "
+            f"T={kernel.chunk}, {kernel.smem_bytes} B shared memory, "
+            f"{len(part.wires)} cross-stage wires")
+
+
 def module_ops(compiled, mid) -> int:
-    mdef, statics, inputs = compiled.instances[mid]
-    t = mdef.type_name
-    conn = [c is not None for c in inputs]
-    auto = mid in compiled._auto_by_mid
-    if t == "Oscillator":
-        ops = 15 + (2 if conn[1] else 0)           # core, sync
-        if statics[1]:
-            ops += 22                               # polyBLEP square, saw
-        if conn[0] or auto:
-            ops += 30                               # exp2 pitch, fixed
-        return ops
-    if t == "Moog Filter":
-        return 35 + (17 if conn[1] or auto else 0) + (2 if auto else 0)
-    if t == "ADSR":
-        return 20 + (6 if auto else 0)
-    if t == "VCA":
-        return 0 if not all(conn) else (1 if statics[1] else 3)
-    if t == "Mono Mixer":
-        return 2 * sum(conn)
-    if t in ("Add", "Subtract", "Multiply"):
-        return 1
-    if t == "Non-Linear":
-        return 23                                   # powf, sign fold
-    if t == "Grid Sequencer":
-        return 8
-    if t == "Pattern Sequencer":
-        return 19
-    return 0                                        # Input, Noise, Output
+    """f32 operations per sample of a module's device function, read off
+    ``csrc/modules.cuh`` (``srack_tpu_torch.ops.partition.module_ops``, by
+    which the partition of K1 and K3 weighs its stages).  Counted for the
+    bounds."""
+    from srack_tpu_torch.ops.partition import module_ops as ops
+    return ops(compiled, mid)
 
 
 def bound(compiled, kernel, v: int, n: int, lanes=()) -> tuple:
@@ -305,6 +325,7 @@ def phase_build(stt):
     jobs = {name: k for name, (_, _, k) in kernels.items()}
     jobs.update(block_kernels(stt))
     jobs.update(vjp_kernels(stt))
+    jobs.update(ab_kernels(kernels))
 
     def build(name):
         t0 = time.perf_counter()
@@ -314,8 +335,8 @@ def phase_build(stt):
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         for name, secs in pool.map(build, jobs):
             kernel = jobs[name]
-            log(f"[2 build] {name} ({kernel.name}): nvcc sm_90a built in "
-                f"{secs:.2f} s; {ptxas(kernel)}")
+            log(f"[2 build] {name} ({kernel.name}{pipeline(kernel)}): nvcc "
+                f"sm_90a built in {secs:.2f} s; {ptxas(kernel)}")
     # K6 is the second entry of K5's source: its build is K5's, found by hash
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER_LONG
     ROW_GATHER_LONG.build()
@@ -382,11 +403,17 @@ def phase_compare(stt, kernels):
             check(err <= ATOL, f"{name} n={n}: audio off by {err}")
             serr = _state_diff(final_k, final_p, f"{name} n={n}")
             exact = torch.equal(audio_k, audio_p)
+            # K1, split into stages or not, runs the scan engine's
+            # arithmetic: bit for bit
+            check(kernel.buffer or (exact and serr == 0.0),
+                  f"{name} n={n}: K1 not bit-exact (audio {err}, float "
+                  f"state {serr})")
             lanes = f", lanes {sorted(xs)}" if xs else ""
             fb = (f", final fb ring [{len(compiled.fb_keys)} x {VOICES} x "
                   f"{compiled.cfg.block_size}] compared as state"
                   if kernel.buffer else "")
-            log(f"[3 compare] {name} ({kernel.name}) V={VOICES} n={n}: max "
+            log(f"[3 compare] {name} ({kernel.name}{pipeline(kernel)}) "
+                f"V={VOICES} n={n}: max "
                 f"|audio| err {err:.3e} (bit-exact: {exact}), max "
                 f"float-state err {serr:.3e}, int32/bool state bit-exact"
                 f"{lanes}{fb}; {time.perf_counter() - t0:.1f} s")
@@ -705,9 +732,12 @@ def compare_stage(stt, name, n):
         exact = exact and torch.equal(outs_k[w], outs_p[w])
     check(err <= ATOL, f"{name} stage n={n}: outputs off by {err}")
     serr = _state_diff(final_k, final_p, f"{name} stage n={n}")
-    log(f"[3 compare] {name} stage ({kernel.name}, {len(prog.stage_plan)} "
-        f"modules, {len(lanes)} input wires, {len(prog.stage_out)} output "
-        f"wires) V={VOICES} n={n}: max |out| err {err:.3e} (bit-exact: "
+    check(exact and serr == 0.0, f"{name} stage n={n}: K3 not bit-exact "
+          f"(outputs {err}, float state {serr})")
+    log(f"[3 compare] {name} stage ({kernel.name}{pipeline(kernel)}, "
+        f"{len(prog.stage_plan)} modules, {len(lanes)} input wires, "
+        f"{len(prog.stage_out)} output wires) V={VOICES} n={n}: max |out| "
+        f"err {err:.3e} (bit-exact: "
         f"{exact}), max float-state err {serr:.3e}, int32/bool state "
         f"bit-exact; {time.perf_counter() - t0:.1f} s")
     return err
@@ -2301,6 +2331,299 @@ def phase_train(stt, kernels, card):
     return per_step, (fwd_ms, bwd_ms), bounds
 
 
+# -- slice 6: K1 and K3 as stage pipelines, one-voice renders ------------------
+
+AB = {}   # A/B case -> (the split kernel, its one-thread (G = 1) twin)
+SWEEP = {}  # case -> {chunk: the split kernel built with that chunk}
+SWEEP_CHUNKS = (16, 64, 128)
+AB_CELLS = (("headline", "subtractive_voice", VOICES, HEADLINE_N),
+            ("farm", "subtractive_voice", FARM_VOICES, FARM_N),
+            ("sequencer", "sequencer_patch", VOICES, HEADLINE_N))
+ONE_N = 48000       # one voice, 1 s at 48 kHz
+ONE_SCAN_N = 4800   # its prefix held to the scan engine on the card
+ONE_REVERB_N = 1024  # reverb_patch's prefix held to the scan engine
+
+
+def ab_kernels(kernels) -> dict:
+    """Phase 2's one-thread twins (G = 1) of the split K1 of the headline
+    voice and the sequencer, and of the split K3 of each block cell's
+    stage, for phase 15; and the split headline voice and kit-check stage
+    at the other chunk lengths of ``SWEEP_CHUNKS``."""
+    from srack_tpu_torch.ops.fused import FusedKernel, StageKernel
+    for name in ("subtractive_voice", "sequencer_patch"):
+        _, compiled, kernel = kernels[name]
+        AB[name] = (kernel, FusedKernel(compiled, kernel.lanes, stages=1))
+    for name, kernel in STAGES.items():
+        AB[name] = (kernel, StageKernel(kernel.program, kernel.lanes,
+                                        stages=1))
+    jobs = {f"{name} G=1": one for name, (_, one) in AB.items()}
+    kernel = kernels["subtractive_voice"][2]
+    SWEEP["subtractive_voice"] = {t: FusedKernel(
+        kernel.compiled, kernel.lanes, chunk=t) for t in SWEEP_CHUNKS}
+    kernel = STAGES["kit_check_patch"]
+    SWEEP["kit_check_patch"] = {t: StageKernel(
+        kernel.program, kernel.lanes, chunk=t) for t in SWEEP_CHUNKS}
+    for name, by_chunk in SWEEP.items():
+        jobs.update({f"{name} T={t}": k for t, k in by_chunk.items()})
+    return jobs
+
+
+def _ab_pair(split, one, run, same, what, card, sweep=None) -> dict:
+    """``run(kernel)`` through the split kernel and its G = 1 twin, timed
+    in turns (G = 1, split, split, G = 1; one warm-up call each): both
+    results must be equal bit for bit (``same``).  ``sweep``: the split
+    kernel at other chunk lengths, ``{chunk: kernel}``, each timed once
+    (after a warm-up) and held to the split's result.  Returns the
+    record."""
+    times = {"one": [], "split": []}
+    outs = {}
+    for which in ("one", "split", "split", "one"):
+        kernel = one if which == "one" else split
+        times[which].append(cuda_ms(lambda: run(kernel), warmup=1))
+        if which not in outs:
+            outs[which] = run(kernel)
+    torch.cuda.synchronize()
+    check(same(outs["split"], outs["one"]), f"{what}: the split kernel "
+          f"differs from its one-thread twin")
+    del outs["one"]
+    chunks = {}
+    for t, kernel in (sweep or {}).items():
+        chunks[t] = cuda_ms(lambda: run(kernel), warmup=1)
+        check(same(run(kernel), outs["split"]), f"{what}: the split kernel "
+              f"at T={t} differs")
+    del outs
+    torch.cuda.empty_cache()
+    if chunks:
+        chunks[split.chunk] = min(times["split"])
+        log(f"[15 a/b] {what}, chunk lengths: " + ", ".join(
+            f"T={t} {ms:.3f} ms" for t, ms in sorted(chunks.items()))
+            + f" (T={split.chunk} is the build's; each equal to it bit for "
+            f"bit) [{card}]")
+    one_ms, split_ms = min(times["one"]), min(times["split"])
+    rec = {"g1_ms": one_ms, "split_ms": split_ms,
+           "ratio": split_ms / one_ms, "stages": split.partition.n_stages,
+           "chunk": split.chunk, "smem_bytes": split.smem_bytes,
+           "registers": registers(split), "g1_registers": registers(one),
+           "stage_ops": list(split.partition.costs),
+           "g1_ops": sum(split.partition.costs)}
+    if chunks:
+        rec["ms_by_chunk"] = {str(t): ms for t, ms in sorted(chunks.items())}
+    log(f"[15 a/b] {what}: G=1 {one_ms:.3f} ms ({times['one'][0]:.3f}, "
+        f"{times['one'][1]:.3f}; {rec['g1_registers']} registers, "
+        f"{rec['g1_ops']} ops per sample), split {split_ms:.3f} ms "
+        f"({times['split'][0]:.3f}, {times['split'][1]:.3f}; G="
+        f"{rec['stages']}, stages of {rec['stage_ops']} ops, T="
+        f"{rec['chunk']}, {rec['smem_bytes']} B shared memory, "
+        f"{rec['registers']} registers): split / G=1 = "
+        f"{rec['ratio']:.3f}; equal bit for bit over the whole render "
+        f"[{card}]")
+    return rec
+
+
+def _same(a, b) -> bool:
+    """Two results (tensors, or trees and tuples of them) equal bit for
+    bit."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+def phase_ab(stt, kernels, card) -> dict:
+    """Phase 15: the split K1 against its one-thread twin at full width on
+    the headline, the farm and the sequencer (farm_params, the initial
+    state), and the split K3 against its twin on the stage of each block
+    cell (1,024 voices x 480,000 samples, random input lanes in [-1, 1)):
+    audio (or stage outputs) and final state equal bit for bit, both
+    timed in one call."""
+    out = {}
+    for cell, name, v, n in AB_CELLS:
+        split, one = AB[name]
+        patch, compiled, _ = kernels[name]
+        params = _cuda(stt, stt.presets.farm_params(patch, v))
+        state = _cuda(stt, stt.compiler.tree_map(
+            lambda a: a.expand((v,) + a.shape).contiguous(),
+            compiled.init_state()))
+        out[cell] = _ab_pair(
+            split, one, lambda k: k.render(params, state, n), _same,
+            f"K1 {cell} ({name}) V={v} n={n}", card, SWEEP.get(
+                name if cell != "sequencer" else None))
+        del params, state
+    for name in STAGES:
+        split, one = AB[name]
+        prog = split.program
+        patch, compiled = block_cases(stt)[name]
+        params = _cuda(stt, stt.presets.farm_params(patch, VOICES))
+        state = _cuda(stt, stt.compiler.tree_map(
+            lambda a: a.expand((VOICES,) + a.shape).contiguous(),
+            compiled.init_state()))
+        stage_state = {"states": {m: state["states"][m]
+                                  for m in prog.stage_plan},
+                       "fb": state["fb"]}
+        gen = torch.Generator(device="cuda").manual_seed(15)
+        lanes = {k: torch.rand((VOICES, HEADLINE_N), device="cuda",
+                               generator=gen) * 2 - 1 for k in split.lanes}
+        out[name] = _ab_pair(
+            split, one,
+            lambda k: k.run(params, stage_state, lanes, HEADLINE_N), _same,
+            f"K3 {name} stage ({len(prog.stage_plan)} modules, "
+            f"{len(lanes)} input lanes) V={VOICES} n={HEADLINE_N}", card,
+            SWEEP.get(name))
+        del lanes, params, state, stage_state
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def no_scan_engine():
+    """While open, the scan engine raises."""
+    from srack_tpu_torch.compiler import CompiledPatch
+
+    def fenced(*args, **kwargs):
+        raise SmokeFailure("a render ran the scan engine")
+    run = CompiledPatch._run
+    CompiledPatch._run = fenced
+    try:
+        yield
+    finally:
+        CompiledPatch._run = run
+
+
+def _counted(kernels, call):
+    """``call()`` with every launch count set to 0 just before it;
+    returns ``(result, {kernel name: launches})`` of the kernels that
+    launched."""
+    counters = _counters(kernels)
+    for k in counters:
+        k.launches = 0
+    result = call()
+    torch.cuda.synchronize()
+    counts = {}
+    for k in counters:
+        if k.launches:
+            counts[k.name] = counts.get(k.name, 0) + k.launches
+    return result, counts
+
+
+def phase_one_voice(stt, kernels, card) -> dict:
+    """Phase 16: one unbatched voice through the entry points on the card,
+    the scan engine fenced off.  subtractive_voice (48 kHz, mono, its
+    default params): ``stt.render`` of 1 s must launch K1 once and no other
+    kernel (timed after a warm-up); its first 4,800 samples equal the
+    scan engine's unbatched render on the card bit for bit, and the 1 s
+    render must take under 1 % of the scan engine's time for it, estimated
+    from the scan engine's per-sample cost there; ``render_stream``
+    without ``voices=`` (4 blocks), ``render_long(batched=False)`` (4
+    segments) and a one-patch ``render_many`` launch K1 once per block,
+    segment or call and equal the one render bit for bit.  reverb_patch
+    (stereo) the same way through the block engine (K3, K8, K9, no K1),
+    1,024 samples from a gate clock that sounds at once within 5e-6 of the
+    scan engine, and its pieces within 5e-6 of the one render.  Returns the
+    launches by entry point and the times."""
+    cfg1 = stt.AudioConfig(sample_rate=SR, channels=1)
+    rec = {}
+    # the launches of one render: K9 twice (the Freeverb wrapper's way in
+    # and out)
+    for name, patch, per_render, n_scan in (
+            ("subtractive_voice", stt.presets.subtractive_voice(cfg1),
+             {"fused_voice": 1}, ONE_SCAN_N),
+            ("reverb_patch", stt.presets.reverb_patch(
+                stt.AudioConfig(sample_rate=SR, channels=2)),
+             {"serial_stage": 1, "freeverb": 1, "ring_align": 2},
+             ONE_REVERB_N)):
+        compiled = stt.compile_patch(patch)
+        block = compiled.cfg.block_size
+        with no_scan_engine():
+            stt.render(patch, ONE_N)     # warm-up
+            (audio, _, _), counts = _counted(
+                kernels, lambda: stt.render(patch, ONE_N))
+            ms = cuda_ms(lambda: stt.render(patch, ONE_N))
+            launches = {"render": counts}
+            streamed, counts = _counted(kernels, lambda: [
+                a for a, _, _ in stt.render_stream(patch, n_blocks=4)])
+            launches["render_stream"] = counts
+            long_audio, counts = _counted(kernels, lambda: stt.render_long(
+                patch, ONE_N, segment=ONE_N // 4)[0])
+            launches["render_long"] = counts
+            many, counts = _counted(
+                kernels, lambda: stt.render_many([patch], ONE_N)[0])
+            launches["render_many"] = counts
+        for entry, counts in launches.items():
+            calls = 4 if entry in ("render_stream", "render_long") else 1
+            want = {k: calls * c for k, c in per_render.items()}
+            check(counts == want, f"{name}: one voice through {entry} "
+                  f"launched {counts}, not {want}")
+        check(tuple(audio.shape) == (compiled.cfg.channels, ONE_N)
+              and audio.device.type == "cuda", f"{name}: one voice's audio "
+              f"{tuple(audio.shape)} on {audio.device}")
+        check(bool(torch.isfinite(audio).all()), f"{name}: not finite")
+        peak = audio.abs().max().item()
+        check(0 < peak <= PEAK_MAX, f"{name}: one voice's peak {peak}")
+        # K1 carries its state exactly; the block engine's pieces agree
+        # with one render within its tolerance (tests/test_block_engine.py)
+        tol = 0.0 if name == "subtractive_voice" else BLOCK_ATOL
+        pieces = {}
+        for entry, got, want in (
+                ("render_stream", torch.cat(streamed, dim=-1),
+                 audio[..., :4 * block]),
+                ("render_long", long_audio, audio.cpu()),
+                ("render_many", many, audio)):
+            check(got.shape == want.shape, f"{name}: {entry} shape")
+            pieces[entry] = (got - want).abs().max().item()
+            check(pieces[entry] <= tol, f"{name}: {entry} off render by "
+                  f"{pieces[entry]}")
+        del streamed, long_audio, many
+        # the voice's first 4,800 samples sound from ~2,500 on; reverb_patch
+        # is held from its gate clock at a phase where it sounds at once
+        state, prefix = None, audio[..., :n_scan]
+        if name == "reverb_patch":
+            clock = next(i.id for i in patch if i.name == "gate_clock")
+            state = compiled.init_state()
+            state["states"][clock]["pos"] = torch.tensor(-2 ** 30,
+                                                          dtype=torch.int32)
+            with no_scan_engine():
+                prefix = stt.render(patch, n_scan, state=state)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            scan, _, _ = stt.render(patch, n_scan, state=state,
+                                    engine="scan")
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        per_sample_ms = 1e3 * scan_s / n_scan
+        est_ms = per_sample_ms * ONE_N
+        err = (prefix - scan).abs().max().item()
+        exact = torch.equal(prefix, scan)
+        sounding = int((scan != 0).sum())
+        check(sounding > 0, f"{name}: the held prefix is silent")
+        if name == "subtractive_voice":
+            check(exact, f"{name}: one voice's first {n_scan} samples off "
+                  f"the scan engine by {err}")
+        check(err <= BLOCK_ATOL, f"{name}: one voice off the scan engine "
+              f"by {err}")
+        check(ms < 0.01 * est_ms, f"{name}: one voice for 1 s took {ms} ms, "
+              f"not under 1 % of the scan engine's ~{est_ms:.0f} ms")
+        log(f"[16 one voice] {name} one voice, 1 s at {SR} Hz, via "
+            f"stt.render on the card (scan engine fenced off): launches "
+            f"{launches['render']}, {ms:.3f} ms; the scan engine on the "
+            f"card renders its first {n_scan} samples in {scan_s:.2f} s "
+            f"({per_sample_ms:.3f} ms per sample, so ~{est_ms / 1e3:.1f} s "
+            f"for 1 s): {100 * ms / est_ms:.4f} % of it; max |err| against "
+            f"it {err:.3e} (bit-exact: {exact}, {sounding} samples not "
+            f"silent{', from a sounding gate clock' if state else ''}); "
+            f"render_stream (4 blocks of {block}) "
+            f"{launches['render_stream']}, render_long (4 segments) "
+            f"{launches['render_long']}, render_many (one patch) "
+            f"{launches['render_many']}, off render by at most "
+            f"{max(pieces.values()):.3e} (tolerance {tol}); peak {peak:.5f} "
+            f"[{card}]")
+        rec[name] = {"ms": ms, "scan_ms_per_sample": per_sample_ms,
+                     "scan_est_ms": est_ms, "launches": launches,
+                     "bit_exact": exact, "max_abs_err": err}
+    return rec
+
+
 def main() -> int:
     card = phase_device()
     import srack_tpu_torch as stt
@@ -2387,12 +2710,20 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches, train_ms, train_bounds = phase_train(stt, kernels, card)
     log(f"[14 train] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ab = phase_ab(stt, kernels, card)
+    log(f"[15 a/b] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    one = phase_one_voice(stt, kernels, card)
+    log(f"[16 one voice] {time.perf_counter() - t0:.1f} s")
+    one_k1 = sum(one["subtractive_voice"]["launches"]["render"].values())
+    one_k3 = one["reverb_patch"]["launches"]["render"]
 
     entries = []
     meta = {
         "fused_voice": ("srack_tpu/ops/fused.py:87", main_launches,
                         {"4 main": main_launches, "7 sequencer":
-                         seq_launches}),
+                         seq_launches, "16 one voice": one_k1}),
         "fused_voice_buffer": ("srack_tpu/ops/fused.py:314", buf_launches,
                                {"8 buffer": buf_launches}),
     }
@@ -2418,6 +2749,9 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": None,
         })
+        if name == "fused_voice":
+            entries[-1]["split"] = {c: ab[c] for c, _, _, _ in AB_CELLS}
+            entries[-1]["one_voice"] = one["subtractive_voice"]
     sources = {
         "serial_stage": ("srack_tpu_torch/ops/fused.py",
                          "srack_tpu/ops/serial_kernel.py:65",
@@ -2425,7 +2759,8 @@ def main() -> int:
                          {"9 reverb": rev_launches["serial_stage"],
                           "10 block check": chk_launches["serial_stage"],
                           **{ph: c["serial_stage"]
-                             for ph, c in kit_launches.items()}}),
+                             for ph, c in kit_launches.items()},
+                          "16 one voice": one_k3["serial_stage"]}),
         "row_scan": ("srack_tpu_torch/csrc/row_scan.cu",
                      "srack_tpu/ops/scan_kernel.py:138",
                      chk_launches["row_scan"],
@@ -2436,12 +2771,14 @@ def main() -> int:
                      "srack_tpu/ops/freeverb_kernel.py:100",
                      rev_launches["freeverb"],
                      {"9 reverb": rev_launches["freeverb"],
-                      "10 block check": chk_launches["freeverb"]}),
+                      "10 block check": chk_launches["freeverb"],
+                      "16 one voice": one_k3["freeverb"]}),
         "ring_align": ("srack_tpu_torch/csrc/ring_align.cu",
                        "srack_tpu/ops/ring_roll.py:61",
                        rev_launches["ring_align"],
                        {"9 reverb": rev_launches["ring_align"],
-                        "10 block check": chk_launches["ring_align"]}),
+                        "10 block check": chk_launches["ring_align"],
+                        "16 one voice": one_k3["ring_align"]}),
         "row_gather": ("srack_tpu_torch/csrc/row_gather.cu",
                        "srack_tpu/ops/scan_kernel.py:221",
                        kit_launches["13 kit check"]["row_gather"],
@@ -2479,6 +2816,9 @@ def main() -> int:
         })
         if name == "freeverb":
             entries[-1]["launch_ms"] = k8_launch_ms
+        if name == "serial_stage":
+            entries[-1]["split"] = {c: ab[c] for c in STAGES}
+            entries[-1]["one_voice"] = one["reverb_patch"]
     plain_ms = dict(zip(("fwd", "bwd"), vjp_plain))
     for i, (which, line) in enumerate((("fwd", 92), ("bwd", 212))):
         name = f"fused_vjp_{which}"

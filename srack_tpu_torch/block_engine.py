@@ -509,20 +509,5 @@ def eligible(compiled) -> bool:
     return prog.kernel_ok and compiled.output_id not in prog.stage_set
 
 
-def run_unbatched(prog: BlockProgram, params, state, xs, n: int):
-    """:meth:`BlockProgram.run` of one voice: a voice axis of 1 added and
-    taken off again."""
-    def add(t):
-        return {k: add(a) for k, a in t.items()} if isinstance(t, dict) \
-            else t.unsqueeze(0)
-
-    def drop(t):
-        return {k: drop(a) for k, a in t.items()} if isinstance(t, dict) \
-            else t[0]
-
-    audio, probes, final = prog.run(add(params), add(state), add(xs), n)
-    return audio[0], drop(probes), drop(final)
-
-
 __all__ = ["BlockProgram", "SERIAL_TYPES", "eligible",
-           "kernel_safe", "run_unbatched", "wire_key"]
+           "kernel_safe", "wire_key"]

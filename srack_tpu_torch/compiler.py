@@ -8,7 +8,8 @@ the render.
   whatever device the tensors are on.  It is the port's reference path and
   the plain version of the fused kernels.
 * ``"fused"``: the hand-written CUDA kernel generated from the plan
-  (``ops/fused.py``); batched renders of CUDA tensors only.
+  (``ops/fused.py``); CUDA tensors only, an unbatched render as a batch
+  of one voice.
 * ``"block"``: the stage-partition block engine (``block_engine.py``):
   whole-block module forms over ``[V, n]`` rows around a per-sample serial
   stage, which runs on kernel K3 for CUDA tensors; the Freeverb runs on
@@ -103,6 +104,20 @@ def tree_items(tree, prefix=()) -> list:
         return [x for k, v in tree.items()
                 for x in tree_items(v, prefix + (k,))]
     return [(prefix, tree)]
+
+
+def run_one_voice(run, params, state, xs, n: int):
+    """A batched engine ``run(params, state, xs, n) -> (audio, probes,
+    final_state)`` on one voice: a voice axis of 1 added to the params, the
+    state and the lanes, and taken off the results again."""
+    def add(tree):
+        return tree_map(lambda t: t.unsqueeze(0), tree)
+
+    def drop(tree):
+        return tree_map(lambda t: t[0], tree)
+
+    audio, probes, final = run(add(params), add(state), add(xs), n)
+    return audio[0], drop(probes), drop(final)
 
 
 def resolve_device(device) -> torch.device:
@@ -434,33 +449,37 @@ class CompiledPatch:
         return block_engine.eligible(self)
 
     def auto_engine(self, batched: bool, device) -> str:
-        """Pick the engine by device: for a batched render on a CUDA device
-        the fused kernel if the patch is eligible, else the block engine if
-        it is eligible; the scan engine otherwise."""
-        if batched and torch.device(device).type == "cuda":
+        """Pick the engine by device: on a CUDA device the fused kernel if
+        the patch is eligible, else the block engine if it is eligible; the
+        scan engine otherwise.  A render of one unbatched voice takes the
+        same engine as a batched render (it runs as a batch of one)."""
+        if torch.device(device).type == "cuda":
             if self.fused_eligible():
                 return "fused"
             if self.block_eligible():
                 return "block"
         return "scan"
 
+    def _fused_render(self, params, state, xs, n: int):
+        audio, final = self.fused(xs).render(params, state, n, xs)
+        return audio, {}, final
+
     def _render_once(self, n: int, params, state, key: int, drivers: dict,
                      batched: bool, engine: str):
+        # unbatched, the lanes are made in their unbatched form ([n]), so
+        # the noise a render draws does not depend on the engine
         xs = self._make_xs(params, key, n, drivers)
-        if engine == "fused":
-            if not batched:
-                raise ValueError("fused engine requires batched render")
-            audio, final = self.fused(xs).render(params, state, n, xs)
-            return audio, {}, final
         if engine == "scan":
             return self._run(params, state, xs, n, batched)
-        if engine == "block":
-            from .block_engine import run_unbatched
-            prog = self.block_program()
-            if batched:
-                return prog.run(params, state, xs, n)
-            return run_unbatched(prog, params, state, xs, n)
-        raise ValueError(f"unknown engine {engine!r}")
+        if engine == "fused":
+            run = self._fused_render
+        elif engine == "block":
+            run = self.block_program().run
+        else:
+            raise ValueError(f"unknown engine {engine!r}")
+        if batched:
+            return run(params, state, xs, n)
+        return run_one_voice(run, params, state, xs, n)
 
     def render(self, n_samples: int, *, params: Optional[dict] = None,
                state: Optional[dict] = None, key: Optional[int] = None,
@@ -478,10 +497,11 @@ class CompiledPatch:
 
         ``device``: where to render, the CUDA card by default (it raises
         when there is none); params, state and lanes are moved there.
-        ``engine``: ``"scan"``, ``"fused"`` (batched CUDA renders of
+        ``engine``: ``"scan"``, ``"fused"`` (CUDA renders of
         kernel-eligible patches), ``"block"`` (the block engine; on the CPU
-        its kernels' plain versions), or ``"auto"`` (on CUDA, batched: fused
-        when eligible, else block when eligible; else scan).  ``key``: an
+        its kernels' plain versions), or ``"auto"`` (on CUDA: fused when
+        eligible, else block when eligible; else scan).  An unbatched
+        render on the kernels runs as a batch of one voice.  ``key``: an
         int that seeds the Noise lanes (0 by default).  ``drivers``:
         ``{Input or Noise module: [n] or [V, n] array}``.
         ``automation``: ``{(module, "param"): [n] or [V, n] array}`` for

@@ -15,38 +15,53 @@ for V voices over n samples.
   output wires streamed out.
 
 All three are one source, generated per plan with a buffer-mode and a
-stage-mode switch.  They
+stage-mode switch; K1 and K3 run as a pipeline of stage warps, K2 one
+thread per voice.  They
 carry none of the TPU layout over: no (8, 128) tiles, no 1,024-voice
 padding, no time chunks with a scratch carry, no padded-tail snapshot, and
 for K2 no outer scan of one kernel call per block.
 
 Design:
 
-* **One thread per voice, one launch per render.**  The whole sample loop
-  runs in the thread; the module state and the sample-feedback carries
-  live in registers, and the params are loaded once.  Voices are
-  independent, time is a recurrence, so the kernels are bound by the
-  serial chain of each thread, not by memory: per voice-sample K1 reads
-  one float per lane and writes 4 bytes per channel.  For the subtractive
-  voice a sample is ~512 SASS instructions, issued one after another by
-  the single warp a scheduler holds (IPC ~0.7, ~427 ns per sample on an
-  H100 80GB HBM3 at 700 W); unrolling the sample loop gains nothing there,
-  fewer instructions would.
-* **Occupancy.**  V voices give V threads.  The headline's 1,024 voices fill
-  1,024 threads, 32 warps, of a card with 132 SMs and room for 2,048
-  threads on each: at most one warp per SM scheduler, nothing to hide
-  latency behind but the thread's own instruction-level parallelism.
-  ``BLOCK_DIM = 32`` (one warp per block) spreads the warps over as many
-  SMs as possible, so each has an SM's load/store unit and L1 to itself;
-  16,384 voices give 512 one-warp blocks, about 4 per SM.  Measured on an
-  H100 80GB HBM3 at 700 W: a 1 s render takes the same ~21 ms from 1,024
-  to 16,384 voices; blockDim 32, 64 and 128 are within 1 %, 256 is 9 %
-  slower.  K2 keeps blockDim 32.
-* **Lanes** (Noise draws, bound Input drivers, automation arrays) come in
-  as one ``[L, n, V]`` f32 array, so a warp's 32 voices read 128
-  contiguous bytes per lane and sample.  The wrapper's transpose from the
-  ``[V, n]`` lanes costs one extra read and write of every lane
-  (``8 * L * V * n`` bytes, 3.9 GB for one lane at 1,024 x 480,000).
+* **A pipeline of stage warps, one launch per render (K1, K3).**  Voices
+  are independent and time is a recurrence, so a voice's samples are a
+  serial chain, but most of a plan's modules do not depend on each other
+  within a sample.  ``ops/partition.py`` cuts the plan into at most four
+  stages, runs of consecutive modules of about equal cost (never through
+  a feedback carry's cycle).  A CTA holds 32 voices and one warp per
+  stage, so the stages issue from the SM's four schedulers at once; at
+  chunk step ``k`` warp ``g`` runs chunk ``k - g`` of ``T`` samples (a
+  power of two, at most 32) and a named barrier ends the step.  A wire
+  from stage ``a`` to stage ``b`` is a shared-memory ring of ``b - a + 1``
+  chunks ``[T][32]``; each warp keeps its own modules' params, state and
+  carries in registers (the sequencer: 80 registers where one thread per
+  voice took 254) and stores its part of the final state.  A sample then
+  costs the costliest stage's chain, not the whole plan's: on an H100
+  80GB HBM3 at 700 W the headline voice (stages of 38/67/35/38
+  operations against 178) renders 1,024 x 480,000 in 129.4 ms where one
+  thread per voice takes 186.0, the 32-module sequencer in 338.2 against
+  952.0 (chip_smoke.py phase 15).  The one-thread form stays: K2, K10
+  and ``stages=1`` build it.
+* **Occupancy.**  1,024 voices give 32 CTAs of 4 warps on 132 SMs, one
+  CTA per SM; 16,384 voices give 512 CTAs, all resident at once at
+  ``T = 32`` (28.8 KB of shared memory for the headline), about 16 warps
+  per SM.  Longer chunks take more shared memory: at ``T = 128`` only two
+  CTAs fit an SM, and the 16,384-voice farm took 96.4 ms against 60.5 at
+  ``T = 32`` (and 78.1 with one thread per voice), while the 1,024-voice
+  headline gained 9 % (118.2 against 129.4 ms).  So ``T`` is the largest
+  power of two up to 32 whose rings, lane buffers and tile fit 200 KB; a
+  plan whose stages need more even at ``T = 8`` (many cross-stage wires)
+  runs one thread per voice.
+* **Lanes** (Noise draws, bound Input drivers, automation arrays, K3's
+  input wires) come in as one ``[L, n, V]`` f32 array, so a warp's 32
+  voices read 128 contiguous bytes per lane and sample.  A stage warp
+  copies the next chunk of each lane it reads into a shared double buffer
+  with ``cp.async`` while it computes this one, so a lane read in the
+  sample loop is one shared-memory load, not a device-memory wait: the
+  kit check's stage (3 modules, 2 lanes) fell from 276.6 to 75.9 ms.
+  The wrapper's transpose from the ``[V, n]`` lanes costs one extra read
+  and write of every lane (``8 * L * V * n`` bytes, 3.9 GB for one lane
+  at 1,024 x 480,000).
   Which lanes exist depends on the render call (an Input with or without
   a driver, an automated param with or without an array), so the lane set
   is part of the generated source and of its build hash.
@@ -66,17 +81,21 @@ Design:
   ring is 4 MiB per key and stays in the 50 MB L2; at 16,384 voices it is
   64 MiB per key and does not, so its traffic goes to device memory
   (4 + 4 bytes per key per voice-sample).
-* **The audio writes** go straight to ``[V, C, n]``: at each sample the 32
-  threads of a warp store 32 floats that lie ``C * n * 4`` bytes apart, 32
-  separate 32-byte sectors each carrying 4 useful bytes.  Each thread's
-  sector is filled by its next 7 samples while it waits in L2, so device
-  memory sees whole sectors; the cost is 32 L1/L2 transactions per warp
-  store where a coalesced layout would need 4.
+* **The audio writes.**  K1's Output stage writes each chunk into a
+  shared tile ``[C][32][T + 1]`` (a padded row per voice, so neither the
+  writes nor the reads meet a bank twice) and the warp then stores it row
+  by row, 32 consecutive samples of one voice per store: one 128-byte
+  transaction where the one-thread form's per-sample store touched 32
+  sectors.  K3's output wires go to ``[O, n, V]`` per sample, coalesced
+  across the warp's voices.  The one-thread form (K2) still stores
+  straight to ``[V, C, n]``, 32 separate sectors per warp store.
 * **Generated per plan.**  The module steps are the inline functions of
-  ``csrc/modules.cuh``; this file emits a small ``.cu`` per compiled plan
-  and lane set that loads params and state, calls the steps in plan order
-  with wires as locals (a feedback read uses the carried local, or K2's
-  ring slot), writes the audio and stores the final state.  Its one
+  ``csrc/modules.cuh`` (the pipeline's copies and barrier are in
+  ``csrc/pipeline.cuh``); this file emits a small ``.cu`` per compiled
+  plan, partition, chunk and lane set that loads params and state, calls
+  the steps in plan order with wires as locals (a feedback read uses the
+  carried local, or K2's ring slot; a wire from an earlier stage its
+  ring), writes the audio and stores the final state.  Its one
   ``extern "C"`` entry launches the kernel on the caller's stream and
   returns ``cudaGetLastError()``.
 * **Numerics.**  Built with ``--fmad=false`` and without fast math, so the
@@ -101,6 +120,7 @@ from ..compiler import tree_leaves
 from ..modules.base import CV_DTYPE
 from .cuda_lib import (BUILD_ROOT, CSRC, NVCC_FLAGS, CudaLib, I,  # noqa: F401
                        P, build, require_cuda)
+from .partition import MAX_STAGES, one_stage, partition
 
 BLOCK_DIM = 32
 
@@ -248,12 +268,12 @@ def _param_args(compiled, mid, keys, lane_idx) -> list:
 
 
 def _emit_calls(compiled, plan, lane_idx, params_of, state_of, stage,
-                fb_lanes, scoped=True, audio=True) -> list:
+                fb_lanes, scoped=True, audio=True, t_expr="t") -> list:
     """One sample's module calls in plan order, wires as locals ``w_<mid>``.
     ``scoped``: each call's input array lives in a block of its own; else it
     is ``in_<mid>``, kept in the sample's scope for the adjoints.
     ``audio``: the Output module writes the audio rows (else it is
-    skipped)."""
+    skipped), at index ``t_expr``."""
     cfg = compiled.cfg
     L = []
     for mid in plan:
@@ -261,7 +281,7 @@ def _emit_calls(compiled, plan, lane_idx, params_of, state_of, stage,
         ins, conn = _inputs_of(compiled, mid, stage, fb_lanes)
         if mid == compiled.output_id:
             if audio:
-                L += [f"    {mdef.cuda_fn}(a{c}, t, {val});"
+                L += [f"    {mdef.cuda_fn}(a{c}, {t_expr}, {val});"
                       for c, val in enumerate(ins)]
             continue
         w = f"w_{_ident(mid)}"
@@ -330,7 +350,8 @@ def _state_row_loads(layout, ptr: str, prefix: str = "", decl=False) -> list:
 
 
 def generate_source(compiled, layout: Layout = None, lanes=(),
-                    stage=None, mode=None, t_chunk: int = 128) -> str:
+                    stage=None, mode=None, t_chunk: int = 128,
+                    split=None, chunk: int = None) -> str:
     """The ``.cu`` source of the fused kernel for ``compiled``'s plan and
     the lane set ``lanes`` (sorted lane keys: module ids of Noise and of
     driven Inputs, ``mid~param`` of automation arrays).
@@ -348,6 +369,12 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     words, floats as their bits, S = ``n_sf + n_si``); ``"bwd"`` is the
     backward kernel (:func:`_generate_bwd`).
 
+    ``split`` (an ``ops.partition.Partition`` of the plan) of more than
+    one stage makes K1 or K3 a pipeline of stage warps
+    (:func:`_generate_pipeline`) with chunks of ``chunk`` samples
+    (:func:`pick_chunk` by default); without one, or with one stage, the
+    kernel runs the whole plan in one thread per voice.
+
     Deterministic: the same plan and lanes give the same text.  In buffer
     mode (``cfg.buffer_feedback``) it is K2's counterpart.  The same file
     builds with g++ (``-x c++``) into a host loop over voices,
@@ -356,6 +383,14 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     cfg = compiled.cfg
     if mode not in (None, "ckpt", "bwd"):
         raise ValueError(f"unknown mode {mode!r}")
+    if split is not None and split.n_stages > 1:
+        if mode is not None or (cfg.buffer_feedback and stage is None):
+            raise ValueError("only K1 and K3 run as a pipeline of stages")
+        plan = compiled.plan if stage is None else stage.stage_plan
+        return _generate_pipeline(
+            compiled, layout or Layout.of(
+                compiled, None if stage is None else plan),
+            tuple(lanes), stage, split, chunk)
     if mode is not None and (stage is not None or cfg.buffer_feedback):
         raise ValueError("the fused VJP kernels take a whole sample-mode "
                          "patch")
@@ -540,6 +575,407 @@ def _entries(entry, body, args, decl) -> list:
         "}",
         "#endif",
     ]
+
+
+# -- K1 and K3 as a pipeline of stage warps -----------------------------------
+
+WARP = 32
+SMEM_BUDGET = 200 * 1024  # bytes of dynamic shared memory a split CTA takes
+# chunks of more than 32 samples keep fewer CTAs on an SM at once (the farm,
+# 16,384 voices, ran slower at 64 and 128 than at 32; chip_smoke.py phase
+# 15 times each)
+CHUNK_MIN, CHUNK_MAX = 8, 32
+
+
+def _leaf_mid(leaf):
+    """The module a param or state leaf belongs to (a feedback carry: its
+    source)."""
+    if leaf.path[0] == "states":
+        return leaf.path[1]
+    if leaf.path[0] == "fb":
+        return leaf.path[1][0]
+    return leaf.path[0]
+
+
+def _lanes_read(compiled, mid, stage, fb_lanes, lane_idx, keys) -> list:
+    """The lane keys module ``mid`` reads: its hoisted lane, its automation
+    lanes (``keys``: its param keys) and, in a serial stage, its input
+    wires and (buffer mode) delayed wires."""
+    out = [mid] if mid in lane_idx else []
+    out += [compiled._auto_key(mid, k) for k in keys
+            if compiled._auto_key(mid, k) in lane_idx]
+    for c in compiled.instances[mid][2]:
+        if c is None:
+            continue
+        src, sport = c
+        if compiled.plan_pos[src] >= compiled.plan_pos[mid]:
+            if fb_lanes:
+                out.append(f"fb:{src}#{sport}")
+        elif stage is not None and src not in stage.stage_set:
+            out.append(f"{src}#{sport}")
+    return out
+
+
+def stage_lanes(compiled, part, lanes, stage, layout) -> tuple:
+    """Per stage, the lane keys its modules read, in the kernel's lane
+    order."""
+    lane_idx = {k: i for i, k in enumerate(lanes)}
+    params_of, _ = _args_of(layout)
+    fb_lanes = compiled.cfg.buffer_feedback and stage is not None
+    out = []
+    for mods in part.stages:
+        keys = {k for mid in mods for k in _lanes_read(
+            compiled, mid, stage, fb_lanes, lane_idx,
+            params_of.get(mid, []))}
+        out.append(tuple(k for k in lanes if k in keys))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class SmemLayout:
+    """Offsets (in floats) into a split CTA's dynamic shared memory:
+    ``wires`` maps a cross-stage wire to ``(offset, slots)`` of its ring
+    ``[slots][chunk][32]``; ``lanes`` maps ``(stage, lane key)`` to the
+    offset of its double buffer ``[2][chunk][32]``; ``tile`` is the offset
+    of K1's audio tile ``[C][32][chunk + 1]`` (None for K3)."""
+    chunk: int
+    wires: tuple
+    lanes: tuple
+    tile: object
+    floats: int
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * self.floats
+
+
+def smem_layout(part, lanes_of, channels: int, chunk: int) -> SmemLayout:
+    """The shared memory of a split CTA; ``channels``: K1's audio channels,
+    0 for K3 (its outputs stream to device memory)."""
+    off, wires, lanes = 0, [], []
+    for w, a, b in part.wires:
+        wires.append((w, off, b - a + 1))
+        off += (b - a + 1) * chunk * WARP
+    for g, keys in enumerate(lanes_of):
+        for k in keys:
+            lanes.append(((g, k), off))
+            off += 2 * chunk * WARP
+    tile = None
+    if channels:
+        tile = off
+        off += channels * WARP * (chunk + 1)
+    return SmemLayout(chunk, tuple(wires), tuple(lanes), tile, off)
+
+
+def pick_chunk(part, lanes_of, channels: int):
+    """The chunk length: the largest power of two from ``CHUNK_MIN`` to
+    ``CHUNK_MAX`` whose rings, lane buffers and tile fit ``SMEM_BUDGET``;
+    None if none does (a plan with that many cross-stage wires and lanes
+    runs one thread per voice)."""
+    chunk = CHUNK_MAX
+    while chunk >= CHUNK_MIN:
+        if smem_layout(part, lanes_of, channels,
+                       chunk).nbytes <= SMEM_BUDGET:
+            return chunk
+        chunk //= 2
+    return None
+
+
+def _struct_leaf(leaf, arr) -> tuple:
+    """A stage struct's member for a leaf and its load from ``arr``."""
+    var = _var(leaf.path)
+    if leaf.rest and leaf.kind == "i":
+        return (f"  srk_rows {var};",
+                [f"  S.{var} = srk_rows{{{arr} + {leaf.row} * (size_t)V + v,"
+                 " (size_t)V};"])
+    if leaf.rest:
+        return (f"  {leaf.ctype} {var}[{leaf.rows}];",
+                [f"  S.{var}[{j}] = {_row(arr, leaf, j)};"
+                 for j in range(leaf.rows)])
+    return f"  {leaf.ctype} {var};", [f"  S.{var} = {_row(arr, leaf, 0)};"]
+
+
+def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
+                       chunk) -> str:
+    """K1 or K3 for a plan cut into ``part.n_stages`` pipeline stages.
+
+    One CTA holds 32 voices and one warp per stage.  Time goes in chunks of
+    ``chunk`` samples, in lock step: at chunk step ``k`` warp ``g`` runs
+    chunk ``k - g`` of its stage's modules, and a named barrier ends the
+    step.  A wire from stage ``a`` to stage ``b`` lives in a shared-memory
+    ring of ``b - a + 1`` chunk slots (``[slot][t][voice]``, so a warp's
+    access is 32 neighbouring words); a warp's lanes come into a double
+    buffer one chunk ahead (``cp.async``).  Each warp keeps its modules'
+    params, state and feedback carries in a struct of registers and stores
+    its part of the final state.  K1's Output stage writes each chunk of
+    audio into a tile ``[C][32][chunk + 1]`` and stores it row by row, 32
+    consecutive samples of one voice per warp store; K3's stages store
+    their output wires per sample (``[O, n, V]``, coalesced).
+
+    Every module is called as in the one-thread kernel, with the same
+    arguments in the same order, so the result is the same bit for bit.
+
+    Each stage is a struct ``srk_st<g>`` and three functions: ``_load``,
+    ``_chunk`` (one chunk of samples) and ``_store``; ``_fetch`` copies a
+    chunk of its lanes.  The card runs them in the stage warps; the host
+    build (``srk_fused_host``) runs the same lock step, stage after stage
+    and lane after lane of each 32-voice block, through the same shared
+    buffers."""
+    cfg = compiled.cfg
+    plan = compiled.plan if stage is None else stage.stage_plan
+    fb_lanes = cfg.buffer_feedback and stage is not None
+    if stage is not None and compiled.output_id in plan:
+        raise ValueError("the serial-stage kernel runs without the Output "
+                         "module")
+    n_ch = cfg.channels
+    G = part.n_stages
+    lane_idx = {k: i for i, k in enumerate(lanes)}
+    params_of, state_of = _args_of(layout)
+    stage_of = part.stage_of()
+    if set(stage_of) != set(plan):
+        raise ValueError("the partition does not cover the plan")
+    lanes_of = stage_lanes(compiled, part, lanes, stage, layout)
+    n_tile = 0 if stage is not None else n_ch
+    chunk = chunk or pick_chunk(part, lanes_of, n_tile)
+    if chunk is None or chunk < 1:
+        raise ValueError(f"no chunk of the {G} stages fits "
+                         f"{SMEM_BUDGET} bytes of shared memory" if chunk
+                         is None else f"chunk must be >= 1, got {chunk}")
+    sm = smem_layout(part, lanes_of, n_tile, chunk)
+    wire_at = {w: (off, slots) for w, off, slots in sm.wires}
+    wire_from = {w: a for w, a, _ in part.wires}
+    lane_at = dict(sm.lanes)
+    out_stage = None if stage is not None else stage_of[compiled.output_id]
+    kind = ("serial-stage kernel (K3)" if stage is not None
+            else "fused voice kernel (K1)")
+    L = _header(compiled, plan, lanes, kind + f", {G} pipeline stages")
+    L += [f"// Stage {g}: " + ", ".join(mods) + f" ({part.costs[g]} ops)."
+          for g, mods in enumerate(part.stages)]
+    L += [f"#define SRK_STAGES {G}",
+          f"#define SRK_THREADS {WARP * G}",
+          f"#define SRK_T {chunk}",
+          f"#define SRK_SMEM_FLOATS {sm.floats}",
+          '#include "modules.cuh"',
+          '#include "pipeline.cuh"']
+    ptrs = ("const float* __restrict__ lanes, float* __restrict__ audio, "
+            "float* __restrict__ sm")
+    for g, mods in enumerate(part.stages):
+        mods = list(mods)
+        leaves = [leaf for leaf in layout.params + layout.state
+                  if _leaf_mid(leaf) in mods]
+        members, loads = [], []
+        for leaf in leaves:
+            arr = ("p" if leaf in layout.params else "s") + leaf.kind
+            member, load = _struct_leaf(leaf, arr)
+            members.append(member)
+            loads += load
+        L += ["", f"struct srk_st{g} {{"] + (members or ["  int unused;"])
+        L += ["};", "",
+              f"SRK_HD void srk_st{g}_load(srk_st{g}& S, int v, int V, "
+              "const float* __restrict__ pf, const int* __restrict__ pi, "
+              "const float* __restrict__ sf, const int* __restrict__ si) {"]
+        L += loads + ["}", "",
+                      f"SRK_HD void srk_st{g}_store(const srk_st{g}& S, "
+                      "int v, int V, float* __restrict__ sf_out, "
+                      "int* __restrict__ si_out) {"]
+        for leaf in leaves:
+            if leaf in layout.state:
+                var = _var(leaf.path)
+                L += [f"  {_row('s' + leaf.kind + '_out', leaf, j)} = S.{var}"
+                      + (f"[{j}];" if leaf.rest else ";")
+                      for j in range(leaf.rows)]
+        L.append("}")
+        if lanes_of[g]:
+            L += ["",
+                  f"SRK_HD void srk_st{g}_fetch(int c, int lane, int v, "
+                  "int V, int n, const float* __restrict__ lanes, "
+                  "float* __restrict__ sm) {",
+                  "  const int t0 = c * SRK_T;",
+                  "  const int cnt = n - t0 < SRK_T ? n - t0 : SRK_T;",
+                  "  const int lb = (c & 1) * SRK_T * 32 + lane;",
+                  "  for (int tc = 0; tc < cnt; ++tc) {"]
+            L += [f"    srk_cp_async4(sm + {lane_at[(g, k)]} + lb + tc * 32, "
+                  f"lanes + ((size_t){lane_idx[k]} * n + t0 + tc) * V + v);"
+                  for k in lanes_of[g]]
+            L += ["  }", "}"]
+        L += ["",
+              f"SRK_HD void srk_st{g}_chunk(srk_st{g}& S, int c, "
+              f"int n_chunks, int lane, int v, int V, int n, {ptrs}) {{"]
+        for leaf in leaves:
+            var = _var(leaf.path)
+            q = "const auto&" if leaf in layout.params else "auto&"
+            L.append(f"  {q} {var} = S.{var};")
+        L += ["  const int t0 = c * SRK_T;",
+              "  const int cnt = n - t0 < SRK_T ? n - t0 : SRK_T;"]
+        if lanes_of[g]:
+            L += [f"  if (c + 1 < n_chunks) srk_st{g}_fetch(c + 1, lane, v, "
+                  "V, n, lanes, sm);",
+                  "  srk_cp_commit();",
+                  "  srk_cp_wait1();  // this chunk's lanes have landed",
+                  "  const int lb = (c & 1) * SRK_T * 32 + lane;"]
+        # the wires this stage reads from earlier stages' rings
+        ins = {}
+        for mid in mods:
+            for c in compiled.instances[mid][2]:
+                if (c is not None and c[0] in stage_of
+                        and stage_of[c[0]] != g
+                        and compiled.plan_pos[c[0]]
+                        < compiled.plan_pos[mid]):
+                    ins.setdefault(c[0], set()).add(c[1])
+        ring = {}   # wire -> the local holding its ring index this chunk
+        for i, (w, a, _) in enumerate(part.wires):
+            if a == g or w[1] in ins.get(w[0], ()):
+                off, slots = wire_at[w]
+                ring[w] = f"ws{i}"
+                L.append(f"  const int ws{i} = {off} + (c % {slots}) * SRK_T"
+                         " * 32 + lane;")
+        if g == out_stage:
+            L += [f"  float* a{c} = sm + {sm.tile} + ({c} * 32 + lane) * "
+                  "(SRK_T + 1);" for c in range(n_ch)]
+        L += ["  for (int tc = 0; tc < cnt; ++tc) {",
+              "    const int t = t0 + tc;",
+              "    (void)t;"]
+        L += [f"    const float {_lane_var(k)} = sm[{lane_at[(g, k)]} + lb + "
+              "tc * 32];" for k in lanes_of[g]]
+        for src, ports in ins.items():
+            mdef, statics, _ = compiled.instances[src]
+            n_out = max(mdef.num_outputs(cfg, statics), 1)
+            L.append(f"    float w_{_ident(src)}[{n_out}];")
+            L += [f"    w_{_ident(src)}[{p}] = sm[{ring[(src, p)]} + tc * "
+                  "32];" for p in sorted(ports)]
+        L += _emit_calls(compiled, mods, lane_idx, params_of, state_of, stage,
+                         fb_lanes, t_expr="tc")
+        L += [f"    sm[{ring[w]} + tc * 32] = w_{_ident(w[0])}[{w[1]}];"
+              for w in ring if wire_from[w] == g]
+        if not fb_lanes:
+            L += [f"    {_var(('fb', k))} = w_{_ident(k[0])}[{k[1]}];"
+                  for k in compiled.fb_keys if stage_of.get(k[0]) == g]
+        if stage is not None:
+            L += [f"    audio[((size_t){j} * n + t) * V + v] = "
+                  f"w_{_ident(src)}[{port}];"
+                  for j, (src, port) in enumerate(stage.stage_out)
+                  if stage_of[src] == g]
+        L += ["  }", "}"]
+    if out_stage is not None:
+        L += ["",
+              "// the Output stage's chunk of audio, from the tile to [V, C, "
+              "n]:",
+              "// one voice's row at a time, 32 consecutive samples a store",
+              "SRK_HD void srk_tile_store(int c, int lane, int v0, int V, "
+              "int n, float* __restrict__ audio, "
+              "const float* __restrict__ sm) {",
+              "  const int t0 = c * SRK_T;",
+              "  const int cnt = n - t0 < SRK_T ? n - t0 : SRK_T;",
+              "  for (int u = 0; u < 32 && v0 + u < V; ++u) {",
+              f"    for (int ch = 0; ch < {n_ch}; ++ch) {{",
+              f"      float* row = audio + ((size_t)(v0 + u) * {n_ch} + ch) "
+              "* n + t0;",
+              f"      const float* tile = sm + {sm.tile} + (ch * 32 + u) * "
+              "(SRK_T + 1);",
+              "      for (int tc = lane; tc < cnt; tc += 32) row[tc] = "
+              "tile[tc];",
+              "    }",
+              "  }",
+              "}"]
+    L += _pipeline_entries(part, lanes_of, out_stage)
+    return "\n".join(L) + "\n"
+
+
+def _pipeline_entries(part, lanes_of, out_stage) -> list:
+    """The split kernel (one warp per stage), its ``extern "C"`` launch
+    (which sets the dynamic shared memory) and the host build's lock-step
+    loop, with the one-thread kernel's arguments."""
+    decl = ("const float* pf, const int* pi, const float* sf, const int* si, "
+            "const float* lanes, float* ring, float* audio, float* sf_out, "
+            "int* si_out, int V, int n")
+    args = "pf, pi, sf, si, lanes, ring, audio, sf_out, si_out, V, n"
+    chunk_args = "lane, v, V, n, lanes, audio, sm"
+    L = ["", "#ifdef __CUDACC__",
+         "__global__ void __launch_bounds__(SRK_THREADS) "
+         f"srk_fused_kernel({decl}) {{",
+         "  extern __shared__ float sm[];",
+         "  const int g = threadIdx.x >> 5;",
+         "  const int lane = threadIdx.x & 31;",
+         "  const int v0 = blockIdx.x * 32;",
+         "  const int v = v0 + lane;",
+         "  const bool live = v < V;",
+         "  const int n_chunks = (n + SRK_T - 1) / SRK_T;",
+         "  (void)ring;"]
+    for g in range(part.n_stages):
+        L += [("  if" if g == 0 else "  } else if") + f" (g == {g}) {{",
+              f"    srk_st{g} S;",
+              "    if (live) {",
+              f"      srk_st{g}_load(S, v, V, pf, pi, sf, si);"]
+        if lanes_of[g]:
+            L += ["      if (n_chunks > 0) {",
+                  f"        srk_st{g}_fetch(0, lane, v, V, n, lanes, sm);",
+                  "        srk_cp_commit();",
+                  "      }"]
+        L += ["    }",
+              "    for (int k = 0; k < n_chunks + SRK_STAGES - 1; ++k) {",
+              f"      const int c = k - {g};",
+              "      if (c >= 0 && c < n_chunks) {",
+              f"        if (live) srk_st{g}_chunk(S, c, n_chunks, "
+              f"{chunk_args});"]
+        if g == out_stage:
+            L += ["        __syncwarp();",
+                  "        srk_tile_store(c, lane, v0, V, n, audio, sm);",
+                  "        __syncwarp();"]
+        L += ["      }",
+              "      srk_step_barrier(SRK_THREADS);",
+              "    }",
+              f"    if (live) srk_st{g}_store(S, v, V, sf_out, si_out);"]
+    L += ["  }", "}", "",
+          f'extern "C" int srk_fused_launch({decl}, void* stream) {{',
+          "  const int blocks = (V + 31) / 32;",
+          "  const int bytes = SRK_SMEM_FLOATS * (int)sizeof(float);",
+          "  cudaError_t err = cudaFuncSetAttribute(srk_fused_kernel, "
+          "cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);",
+          "  if (err != cudaSuccess) return (int)err;",
+          "  srk_fused_kernel<<<blocks, SRK_THREADS, bytes, "
+          f"(cudaStream_t)stream>>>({args});",
+          "  return (int)cudaGetLastError();",
+          "}",
+          "#else",
+          "#include <vector>",
+          "",
+          f'extern "C" int srk_fused_host({decl}) {{',
+          "  std::vector<float> smem(SRK_SMEM_FLOATS);",
+          "  float* sm = smem.data();",
+          "  (void)ring;",
+          "  const int n_chunks = (n + SRK_T - 1) / SRK_T;",
+          "  for (int v0 = 0; v0 < V; v0 += 32) {",
+          "    const int live = V - v0 < 32 ? V - v0 : 32;"]
+    for g in range(part.n_stages):
+        L.append(f"    std::vector<srk_st{g}> S{g}(32);")
+    L += ["    for (int lane = 0; lane < live; ++lane) {",
+          "      const int v = v0 + lane;"]
+    for g in range(part.n_stages):
+        L.append(f"      srk_st{g}_load(S{g}[lane], v, V, pf, pi, sf, si);")
+        if lanes_of[g]:
+            L.append(f"      if (n_chunks > 0) srk_st{g}_fetch(0, lane, v, V, "
+                     "n, lanes, sm);")
+    L += ["    }",
+          "    // the card's lock step: at step k stage g runs chunk k - g",
+          "    for (int k = 0; k < n_chunks + SRK_STAGES - 1; ++k) {"]
+    for g in range(part.n_stages):
+        L += [f"      if (k - {g} >= 0 && k - {g} < n_chunks) {{",
+              "        for (int lane = 0; lane < live; ++lane) {",
+              "          const int v = v0 + lane;",
+              f"          srk_st{g}_chunk(S{g}[lane], k - {g}, n_chunks, "
+              f"{chunk_args});",
+              "        }"]
+        if g == out_stage:
+            L.append("        for (int lane = 0; lane < 32; ++lane) "
+                     f"srk_tile_store(k - {g}, lane, v0, V, n, audio, sm);")
+        L.append("      }")
+    L += ["    }",
+          "    for (int lane = 0; lane < live; ++lane) {",
+          "      const int v = v0 + lane;"]
+    L += [f"      srk_st{g}_store(S{g}[lane], v, V, sf_out, si_out);"
+          for g in range(part.n_stages)]
+    L += ["    }", "  }", "  return 0;", "}", "#endif"]
+    return L
 
 
 def _adj_target(compiled, mid, conn) -> str:
@@ -816,11 +1252,16 @@ class FusedKernel(CudaLib):
     """The fused kernel of one compiled plan and lane set: its generated
     source, its build, its launch wrapper and a count of launches.  In
     buffer-feedback mode it is K2's counterpart (``fused_voice_buffer``),
-    else K1's (``fused_voice``)."""
+    one thread per voice; else K1's (``fused_voice``), its plan cut into
+    at most ``stages`` pipeline stages (``ops/partition.py``): a CTA of
+    ``32 * G`` threads, one stage warp each, per 32 voices, with chunks of
+    ``chunk`` samples (:func:`pick_chunk` by default).  ``stages=1`` builds
+    the one-thread form, the comparison the card's A/B phase makes."""
 
     plain = "engine='scan'"  # what the CPU runs instead
 
-    def __init__(self, compiled, lanes=()):
+    def __init__(self, compiled, lanes=(), stages: int = MAX_STAGES,
+                 chunk: int = None):
         if not eligible(compiled):
             raise ValueError(
                 "patch not eligible for the fused kernel (needs fast "
@@ -830,10 +1271,39 @@ class FusedKernel(CudaLib):
         self.lanes = tuple(sorted(lanes))
         self.buffer = compiled.cfg.buffer_feedback
         self.layout = Layout.of(compiled)
+        # K2 keeps the one-thread form
+        self.partition = (one_stage(compiled) if self.buffer
+                          else partition(compiled, max_stages=stages))
+        self._pipeline(None, chunk)
         super().__init__(
             "fused_voice_buffer" if self.buffer else "fused_voice",
-            generate_source(compiled, self.layout, self.lanes),
+            generate_source(compiled, self.layout, self.lanes,
+                            split=self.partition, chunk=self.chunk),
             "fused kernel")
+
+    def _pipeline(self, stage, chunk) -> None:
+        """The chunk length and the shared-memory bytes of a split
+        kernel (None and 0 for the one-thread form, which a plan takes
+        when no chunk of its stages fits the shared-memory budget)."""
+        part = self.partition
+        self.chunk, self.smem_bytes = None, 0
+        if part.n_stages > 1:
+            lanes_of = stage_lanes(self.compiled, part, self.lanes, stage,
+                                   self.layout)
+            n_tile = 0 if stage is not None else self.compiled.cfg.channels
+            self.chunk = chunk or pick_chunk(part, lanes_of, n_tile)
+            if self.chunk is None:
+                self.partition = one_stage(
+                    self.compiled, [m for mods in part.stages for m in mods])
+                return
+            self.smem_bytes = smem_layout(part, lanes_of, n_tile,
+                                          self.chunk).nbytes
+
+    @property
+    def threads(self) -> int:
+        """Threads per CTA: one warp per stage (the one-thread form: one
+        warp of voices)."""
+        return WARP * self.partition.n_stages
 
     def pack(self, params: dict, state: dict, n: int, xs: dict):
         """The kernel's operands for one render on ``params``' device:
@@ -908,22 +1378,24 @@ class StageKernel(FusedKernel):
     kernel at its ``pallas_call``), which the JAX block engine runs on a
     TPU only.
 
-    The same generated source as K1 in a stage mode: one thread per voice,
-    the stage modules' state and the in-stage feedback carries in
-    registers (in buffer mode a feedback read takes the previous block's
-    lane instead, streamed in like an input wire); the stage's input
-    wires, its modules' automation lanes and hoisted lanes stream in from
-    ``[W, n, V]`` (a warp's 32 voices read 128
-    contiguous bytes per lane and sample), and each stage output wire
-    streams out to ``[O, n, V]``.  Like K1 it is bound by each thread's
-    serial chain, not by memory: per voice-sample it moves ``4 * (W + O)``
-    bytes.  Its plain version is ``BlockProgram.stage_plain``, a torch loop
-    over the same module steps, which it equals bit for bit (``--fmad=
-    false``)."""
+    The same generated source as K1 in a stage mode, the stage's plan cut
+    into pipeline stages as K1's is: the stage modules' state and the
+    in-stage feedback carries in each stage warp's registers (in buffer
+    mode a feedback read takes the previous block's lane instead, streamed
+    in like an input wire); the stage's input wires, its modules'
+    automation lanes and hoisted lanes come from ``[W, n, V]`` into each
+    reading warp's shared-memory double buffer one chunk ahead
+    (``cp.async``, 128 contiguous bytes per warp, lane and sample), and
+    each stage output wire streams out to ``[O, n, V]``.  Like K1 it is
+    bound by the serial chain of its costliest stage, not by memory: per
+    voice-sample it moves ``4 * (W + O)`` bytes.  Its plain version is
+    ``BlockProgram.stage_plain``, a torch loop over the same module steps,
+    which it equals bit for bit (``--fmad=false``)."""
 
     plain = "BlockProgram.stage_plain"
 
-    def __init__(self, program, lanes=()):
+    def __init__(self, program, lanes=(), stages: int = MAX_STAGES,
+                 chunk: int = None):
         if not program.kernel_ok:
             raise ValueError(
                 "the serial stage holds a module type without a CUDA device "
@@ -941,8 +1413,13 @@ class StageKernel(FusedKernel):
             raise ValueError(f"stage input wires without a lane: {missing}")
         self.buffer = False
         self.layout = Layout.of(compiled, program.stage_plan)
+        self.partition = partition(
+            compiled, program.stage_plan,
+            carried=not compiled.cfg.buffer_feedback, max_stages=stages)
+        self._pipeline(program, chunk)
         CudaLib.__init__(self, "serial_stage", generate_source(
-            compiled, self.layout, self.lanes, stage=program),
+            compiled, self.layout, self.lanes, stage=program,
+            split=self.partition, chunk=self.chunk),
             "serial-stage kernel")
 
     def run(self, params: dict, state: dict, lanes: dict, n: int):

@@ -412,13 +412,14 @@ def test_block_engine_probes_and_unbatched_render():
 # -- engine choice -----------------------------------------------------------
 
 def test_engine_choice():
-    """On CUDA tensors, batched: fused when eligible, else block when
-    eligible, else scan; on the CPU the scan engine.  Pure logic: no card
-    is needed to ask."""
+    """On CUDA tensors, batched or one unbatched voice: fused when
+    eligible, else block when eligible, else scan; on the CPU the scan
+    engine.  Pure logic: no card is needed to ask."""
     reverb = stt.compile_patch(_port_case("reverb_patch")[0])
     assert not reverb.fused_eligible() and reverb.block_eligible()
     assert reverb.auto_engine(True, "cuda") == "block"
-    assert reverb.auto_engine(False, "cuda") == "scan"
+    assert reverb.auto_engine(False, "cuda") == "block"
+    assert reverb.auto_engine(False, "cpu") == "scan"
     assert reverb.auto_engine(True, "cpu") == "scan"
     voice = stt.compile_patch(_port_case("subtractive_voice")[0])
     assert voice.auto_engine(True, "cuda") == "fused"

@@ -1,0 +1,419 @@
+"""K1 and K3 as a pipeline of stage warps, and one-voice renders on the
+kernels, checked on the CPU.
+
+* The partition (``ops/partition.py``): stage indices never fall along a
+  wire, a feedback carry's cycle stays in one stage, the sequencer splits
+  into four stages of under 35 % of its operations each, a patch of one
+  module gives one stage.
+* The split source's host build (g++, ``-ffp-contract=off``): the same
+  lock step, chunks, shared-memory wire rings and lane buffers the card
+  runs, in a loop over stages and lanes.  It is held bit for bit to the
+  scan engine (K1) or the stage's torch loop (K3), and to the one-thread
+  build, at 37 voices (a partial last CTA) and n not a multiple of the
+  chunk.
+* One unbatched voice on the card takes the kernels' engines; on the CPU
+  the one-voice path (a batch of one) equals the unbatched scan engine.
+"""
+
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import srack_tpu_torch as stt
+from srack_tpu_torch.block_engine import wire_key
+from srack_tpu_torch.compiler import tree_map
+from srack_tpu_torch.ops import fused
+from srack_tpu_torch.ops.cuda_lib import build
+from srack_tpu_torch.ops.partition import (MAX_STAGES, module_ops,
+                                           one_stage, partition)
+
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+              "-shared", "-fPIC")
+SR = 4800
+V, N = 37, 300
+PRESETS = ("subtractive_voice", "sequencer_patch", "feedback_patch",
+           "sine_patch", "gradient_patch", "kernel_check_patch",
+           "lane_check_patch")
+BLOCK_PRESETS = ("reverb_patch", "block_check_patch", "drum_machine",
+                 "sampler_kit", "kit_check_patch")
+
+
+@pytest.fixture(scope="module")
+def gxx():
+    path = shutil.which("g++")
+    if path is None:
+        pytest.skip("g++ unavailable")
+    return path
+
+
+def _patch(name, channels=1, **cfg):
+    """``(patch, automation)`` of a preset at 4,800 Hz."""
+    config = stt.AudioConfig(sample_rate=SR, channels=channels, **cfg)
+    if name == "lane_check_patch":
+        return stt.presets.lane_check_patch(
+            stt.AudioConfig(sample_rate=SR, channels=2))
+    if name == "block_check_patch":
+        return stt.presets.block_check_patch(config)
+    if name == "kernel_check_patch":
+        return stt.presets.kernel_check_patch(
+            stt.AudioConfig(sample_rate=SR, channels=3)), ()
+    if name == "reverb_patch":
+        return stt.presets.reverb_patch(
+            stt.AudioConfig(sample_rate=SR, channels=2)), ()
+    return getattr(stt.presets, name)(config), ()
+
+
+def _compiled(name, **cfg):
+    patch, autos = _patch(name, **cfg)
+    return patch, stt.compile_patch(patch, automation=autos)
+
+
+def _reads(compiled, plan):
+    """Within-sample reads ``(src, sink)`` inside ``plan``."""
+    return [(c[0], mid) for mid in plan
+            for c in compiled.instances[mid][2]
+            if c is not None and c[0] in plan
+            and compiled.plan_pos[c[0]] < compiled.plan_pos[mid]]
+
+
+# -- the partition -------------------------------------------------------------
+
+@pytest.mark.parametrize("name", PRESETS + BLOCK_PRESETS)
+def test_stage_indices_are_monotone_along_every_wire(name):
+    _, compiled = _compiled(name)
+    plan = (compiled.plan if name in PRESETS
+            else compiled.block_program().stage_plan)
+    part = partition(compiled, plan)
+    g = part.stage_of()
+    assert sorted(g) == sorted(plan)
+    assert 1 <= part.n_stages <= MAX_STAGES
+    assert all(part.stages) and all(len(s) for s in part.stages)
+    for src, sink in _reads(compiled, plan):
+        assert g[src] <= g[sink], (src, sink)
+    assert part.costs == tuple(sum(module_ops(compiled, m) for m in s)
+                               for s in part.stages)
+    # the cross-stage wires are exactly the reads that change stage, each
+    # with the last stage that reads it
+    cross = {}
+    for mid in plan:
+        for c in compiled.instances[mid][2]:
+            if (c is not None and c[0] in plan and g[c[0]] < g[mid]
+                    and compiled.plan_pos[c[0]] < compiled.plan_pos[mid]):
+                cross[c] = max(cross.get(c, 0), g[mid])
+    assert part.wires == tuple(sorted((w, g[w[0]], b)
+                                      for w, b in cross.items()))
+
+
+def test_feedback_cycles_stay_in_one_stage():
+    _, compiled = _compiled("feedback_patch")
+    assert len(compiled.fb_keys) == 2
+    part = partition(compiled)
+    g = part.stage_of()
+    for src, port in compiled.fb_keys:
+        # the carried reads: a sink planned at or before the source
+        sinks = [mid for mid in compiled.plan
+                 for c in compiled.instances[mid][2] if c == (src, port)
+                 and compiled.plan_pos[src] >= compiled.plan_pos[mid]]
+        assert sinks
+        for sink in sinks:
+            # the carry's source, its sink and everything planned between
+            # them (the cycle) share the stage
+            lo, hi = compiled.plan_pos[sink], compiled.plan_pos[src]
+            assert {g[m] for m in compiled.plan[lo:hi + 1]} == {g[src]}
+    # in a buffer-mode stage the delayed wires are lanes: no carry binds
+    _, buffered = _compiled("feedback_patch", block_size=64,
+                            buffer_feedback=True)
+    prog = buffered.block_program()
+    assert prog.stage_fb_in
+    free = partition(buffered, prog.stage_plan, carried=False)
+    bound = partition(buffered, prog.stage_plan, carried=True)
+    assert max(free.costs) < max(bound.costs)
+
+
+def test_sequencer_splits_into_four_stages_under_35_percent_each():
+    _, compiled = _compiled("sequencer_patch")
+    part = partition(compiled)
+    total = sum(module_ops(compiled, m) for m in compiled.plan)
+    assert total == 629 and part.n_stages == 4
+    assert all(c < 0.35 * total for c in part.costs), part.costs
+
+
+def test_the_costliest_module_sets_the_pace_of_the_voice():
+    _, compiled = _compiled("subtractive_voice")
+    part = partition(compiled)
+    vco = max(compiled.plan, key=lambda m: module_ops(compiled, m))
+    assert compiled.instances[vco][0].type_name == "Oscillator"
+    assert max(part.costs) == module_ops(compiled, vco) == 67
+    assert sum(part.costs) == 178 and part.n_stages == 4
+    # ties go to fewer cross-stage wires, then fewer stages
+    assert len(part.wires) == 3
+
+
+def test_one_module_patch_gives_one_stage():
+    p = stt.Patch(stt.AudioConfig(sample_rate=SR, channels=1))
+    osc = p.add("Oscillator")
+    p.connect(osc, "Sine", p.output, 0)
+    compiled = stt.compile_patch(p)
+    assert partition(compiled).n_stages == 1
+    bare = stt.Patch(stt.AudioConfig(sample_rate=SR, channels=1))
+    assert partition(stt.compile_patch(bare)).n_stages == 1
+    # a one-stage partition emits the one-thread kernel, byte for byte
+    _, voice = _compiled("subtractive_voice")
+    assert fused.generate_source(voice, split=one_stage(voice)) == \
+        fused.generate_source(voice)
+    assert fused.FusedKernel(voice, stages=1).source == \
+        fused.generate_source(voice)
+    assert partition(voice, max_stages=1) == one_stage(voice)
+
+
+def test_chunk_fits_the_shared_memory_budget():
+    for name in PRESETS:
+        _, compiled = _compiled(name)
+        kernel = fused.FusedKernel(compiled, compiled._make_xs(
+            compiled.default_params, 0, 8, {}))
+        if kernel.partition.n_stages == 1:
+            assert kernel.chunk is None and kernel.threads == 32
+            continue
+        assert kernel.threads == 32 * kernel.partition.n_stages
+        assert kernel.chunk >= fused.CHUNK_MIN
+        assert kernel.chunk & (kernel.chunk - 1) == 0
+        assert kernel.smem_bytes <= fused.SMEM_BUDGET
+        assert f"#define SRK_T {kernel.chunk}\n" in kernel.source
+        # the build hash covers the partition and the chunk: they are in
+        # the source
+        other = fused.FusedKernel(compiled, kernel.lanes,
+                                  chunk=kernel.chunk // 2)
+        assert other.source != kernel.source
+
+
+def test_a_plan_too_wide_for_shared_memory_runs_one_thread_per_voice():
+    """120 oscillators summed by a chain of Adds: 93 wires cross stages,
+    287 KB of rings at the shortest chunk.  The kernel takes the
+    one-thread form rather than fail at launch."""
+    p = stt.Patch(stt.AudioConfig(sample_rate=SR, channels=1))
+    oscs = [p.add("Oscillator") for _ in range(120)]
+    acc = None
+    for osc in oscs:
+        add = p.add("Add")
+        p.connect(osc, "Sine", add, 0)
+        if acc is not None:
+            p.connect(acc, 0, add, 1)
+        acc = add
+    p.connect(acc, 0, p.output, 0)
+    compiled = stt.compile_patch(p)
+    part = partition(compiled)
+    assert part.n_stages == 4
+    lanes_of = fused.stage_lanes(compiled, part, (), None,
+                                 fused.Layout.of(compiled))
+    assert fused.pick_chunk(part, lanes_of, 1) is None
+    assert fused.smem_layout(part, lanes_of, 1, fused.CHUNK_MIN).nbytes > \
+        fused.SMEM_BUDGET
+    kernel = fused.FusedKernel(compiled)
+    assert kernel.partition.n_stages == 1 and kernel.chunk is None
+    assert kernel.source == fused.generate_source(compiled)
+
+
+# -- the split source's host build -----------------------------------------------
+
+def _host(kernel, gxx, root):
+    lib = ctypes.CDLL(str(build(kernel.source, compiler=gxx,
+                                flags=HOST_FLAGS, root=root)[0]))
+    fn = lib.srk_fused_host
+    fn.argtypes, fn.restype = fused.ARGTYPES, ctypes.c_int
+    return fn
+
+
+def _host_run(kernel, fn, params, state, n, lanes, out_shape):
+    pf, pi, sf, si, lanes_p, ring, v = kernel.pack(params, state, n, lanes)
+    out = torch.full(out_shape(v), float("nan"))
+    sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
+    assert fn(pf.data_ptr(), pi.data_ptr(), sf.data_ptr(), si.data_ptr(),
+              lanes_p.data_ptr(), ring.data_ptr(), out.data_ptr(),
+              sf_out.data_ptr(), si_out.data_ptr(), v, n) == 0
+    return out, kernel.finish(sf_out, si_out, ring, v)
+
+
+def _assert_state_equal(got, want):
+    for path_key in ("states", "fb"):
+        assert set(got[path_key]) == set(want[path_key])
+    for mid, sd in want["states"].items():
+        for key, w in sd.items():
+            assert torch.equal(got["states"][mid][key], w), (mid, key)
+    for k, w in want["fb"].items():
+        assert torch.equal(got["fb"][k], w), k
+
+
+def _voice_lanes(name, patch, compiled, params, n, seed):
+    """lane_check_patch's lanes: a random gate on its driven Input, a pitch
+    lane on the VCO's automated val, its Noise from the port's
+    generator."""
+    if name != "lane_check_patch":
+        return {}
+    rng = np.random.default_rng(seed)
+    ids = {inst.name: inst.id for inst in patch}
+    return compiled._make_xs(params, seed, n, {
+        ids["gate"]: torch.from_numpy(
+            (rng.uniform(size=(V, n)) < 0.3).astype(np.float32)),
+        compiled._auto_key(ids["vco"], "val"): torch.from_numpy(
+            rng.uniform(-1.5, 0.5, (V, n)).astype(np.float32))})
+
+
+@pytest.mark.parametrize("chunk", [None, 16])
+@pytest.mark.parametrize("name", ["subtractive_voice", "sequencer_patch",
+                                  "feedback_patch", "lane_check_patch"])
+def test_split_kernel_on_host_is_bit_identical(gxx, tmp_path, name, chunk):
+    patch, compiled = _compiled(name)
+    params = stt.presets.farm_params(patch, V, seed=5)
+    state = tree_map(lambda a: a.expand((V,) + a.shape).contiguous(),
+                     compiled.init_state())
+    xs = _voice_lanes(name, patch, compiled, params, N, 5)
+    kernel = fused.FusedKernel(compiled, xs, chunk=chunk)
+    assert kernel.partition.n_stages > 1
+    assert N % kernel.chunk
+    single = fused.FusedKernel(compiled, xs, stages=1)
+    channels = compiled.cfg.channels
+    shape = (lambda v: (v, channels, N))
+    audio, final = _host_run(kernel, _host(kernel, gxx, tmp_path), params,
+                             state, N, xs, shape)
+    audio1, final1 = _host_run(single, _host(single, gxx, tmp_path), params,
+                               state, N, xs, shape)
+    want, want_final = compiled.render_scan(params, state, N, batched=True,
+                                            nograd=True, xs=xs)
+    assert torch.equal(audio, want)
+    assert torch.equal(audio, audio1)
+    _assert_state_equal(final, want_final)
+    _assert_state_equal(final, final1)
+
+
+@pytest.mark.parametrize("chunk", [None, 8])
+@pytest.mark.parametrize("name", ["block_check_patch", "kit_check_patch",
+                                  "drum_machine", "feedback_buffer"])
+def test_split_stage_kernel_on_host_is_bit_identical(gxx, tmp_path, name,
+                                                     chunk):
+    if name == "feedback_buffer":
+        patch, compiled = _compiled("feedback_patch", block_size=64,
+                                    buffer_feedback=True)
+    else:
+        patch, compiled = _compiled(name)
+    prog = compiled.block_program()
+    params = stt.presets.farm_params(patch, V, seed=7)
+    state = tree_map(lambda a: a.expand((V,) + a.shape).contiguous(),
+                     compiled.init_state())
+    rng = np.random.default_rng(7)
+    # the stage's input wires (in buffer mode its delayed wires too) and
+    # its Noise as random lanes
+    keys = ([wire_key(w) for w in prog.stage_in]
+            + [wire_key(("fb",) + k) for k in prog.stage_fb_in]
+            + [m for m in prog.stage_plan
+               if compiled.instances[m][0].make_xs is not None])
+    assert keys
+    lanes = {k: torch.from_numpy(rng.uniform(-1, 1, (V, N)).astype(
+        np.float32)) for k in keys}
+    kernel = prog.stage_kernel(lanes) if chunk is None else \
+        fused.StageKernel(prog, lanes, chunk=chunk)
+    assert kernel.partition.n_stages > 1 and N % kernel.chunk
+    single = fused.StageKernel(prog, lanes, stages=1)
+    stage_state = {"states": {m: state["states"][m]
+                              for m in prog.stage_plan},
+                   "fb": {} if prog.buffer_mode else state["fb"]}
+    shape = (lambda v: (len(prog.stage_out), N, v))
+    outs, final = _host_run(kernel, _host(kernel, gxx, tmp_path), params,
+                            stage_state, N, lanes, shape)
+    outs1, final1 = _host_run(single, _host(single, gxx, tmp_path), params,
+                              stage_state, N, lanes, shape)
+    derived = compiled.derived_params(params)
+    want, want_final = prog.stage_plain(
+        {m: derived[m] for m in prog.stage_plan}, stage_state, lanes, N)
+    assert torch.equal(outs, outs1)
+    for j, w in enumerate(prog.stage_out):
+        assert torch.equal(outs[j].T, want[w]), w
+    for mid in prog.stage_plan:
+        for key, w in want_final["states"][mid].items():
+            assert torch.equal(final["states"][mid][key], w), (mid, key)
+            assert torch.equal(final1["states"][mid][key], w), (mid, key)
+
+
+# -- one voice on the kernels ------------------------------------------------
+
+def test_one_voice_on_the_card_takes_the_kernels_engines():
+    """``auto_engine`` with ``batched=False`` on a CUDA device: the engine
+    a batched render takes.  Pure logic: no card is needed to ask."""
+    _, voice = _compiled("subtractive_voice")
+    _, reverb = _compiled("reverb_patch")
+    assert voice.auto_engine(False, "cuda") == "fused"
+    assert reverb.auto_engine(False, "cuda") == "block"
+    for compiled in (voice, reverb):
+        assert compiled.auto_engine(False, "cpu") == "scan"
+        assert compiled.auto_engine(False, torch.device("cuda", 0)) == \
+            compiled.auto_engine(True, "cuda")
+
+
+class _BatchOfOne:
+    """A stand-in for K1 on the CPU: the scan engine on the batch it is
+    given, recording the shapes."""
+
+    def __init__(self, compiled):
+        self.compiled, self.calls = compiled, []
+
+    def render(self, params, state, n, xs):
+        self.calls.append({k: tuple(a.shape) for k, a in xs.items()})
+        assert all(t.shape[0] == 1 for t in
+                   stt.compiler.tree_leaves(params)
+                   + stt.compiler.tree_leaves(state))
+        return self.compiled.render_scan(params, state, n, batched=True,
+                                         nograd=True, xs=xs)
+
+
+@pytest.mark.parametrize("name", ["lane_check_patch", "feedback_patch"])
+def test_one_voice_runs_the_fused_engine_as_a_batch_of_one(monkeypatch,
+                                                            name):
+    patch, compiled = _compiled(name)
+    stub = _BatchOfOne(compiled)
+    monkeypatch.setattr(compiled, "fused", lambda lanes=(): stub)
+    n = 200
+    drivers = {}
+    if name == "lane_check_patch":
+        ids = {inst.name: inst.id for inst in patch}
+        drivers = {ids["gate"]: (np.arange(n) % 37 < 3).astype(np.float32)}
+    audio, probes, final = compiled.render(n, key=3, drivers=drivers,
+                                           engine="fused", device="cpu")
+    want, _, want_final = compiled.render(n, key=3, drivers=drivers,
+                                          engine="scan", device="cpu")
+    assert len(stub.calls) == 1 and probes == {}
+    # the lanes were made in their unbatched form, then given a voice axis
+    assert all(shape == (1, n) for shape in stub.calls[0].values())
+    if name == "lane_check_patch":
+        assert len(stub.calls[0]) == 2   # the gate driver and the Noise
+    assert torch.equal(audio, want) and audio.shape == (
+        compiled.cfg.channels, n)
+    _assert_state_equal(final, want_final)
+
+
+@pytest.mark.parametrize("name", ["reverb_patch", "drum_machine"])
+def test_one_voice_block_path_equals_the_unbatched_scan(name):
+    """One voice through the block engine's plain versions (the path the
+    card takes on its kernels) against today's unbatched scan engine:
+    audio within the block engine's tolerance, the state unbatched."""
+    patch, compiled = _compiled(name)
+    n = 256
+    audio, _, final = stt.render(patch, n, key=5, engine="block",
+                                 device="cpu")
+    want, _, want_final = stt.render(patch, n, key=5, engine="scan",
+                                     device="cpu")
+    assert audio.shape == want.shape == (compiled.cfg.channels, n)
+    assert float(audio.abs().max()) > 0
+    torch.testing.assert_close(audio, want, atol=5e-6, rtol=0)
+    for mid, sd in want_final["states"].items():
+        for key, w in sd.items():
+            assert final["states"][mid][key].shape == w.shape, (mid, key)
+    # the stream without voices= goes the same way, block after block
+    blocks = [a for a, _, _ in stt.render_stream(
+        patch, n_blocks=2, engine="block", device="cpu")]
+    again, _, _ = stt.render(patch, 2 * compiled.cfg.block_size,
+                             engine="block", device="cpu",
+                             segment=compiled.cfg.block_size)
+    torch.testing.assert_close(torch.cat(blocks, dim=-1), again, atol=0,
+                               rtol=0)

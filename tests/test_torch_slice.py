@@ -211,7 +211,9 @@ def test_engine_choice_has_no_fallback():
     compiled = stt.compile_patch(patch)
     assert compiled.fused_eligible()
     assert compiled.auto_engine(True, "cpu") == "scan"
-    assert compiled.auto_engine(False, "cuda") == "scan"
+    # one unbatched voice on the card runs as a batch of one
+    assert compiled.auto_engine(False, "cuda") == "fused"
+    assert compiled.auto_engine(False, "cpu") == "scan"
     assert compiled.auto_engine(True, "cuda") == "fused"
     params = stt.presets.farm_params(patch, 2)
     audio, _, _ = compiled.render(16, params=params, batched=True,
