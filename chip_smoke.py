@@ -15,7 +15,7 @@ Phases, each reported on its own lines with its seconds:
    buffer_feedback=True, all at 48 kHz, from the sources in this checkout;
    prints each build's ptxas registers and spills;
 3. kernel vs plain version on the card, 1,024 voices of farm_params:
-   each K1 patch at n = 2048 and n = 2047 (lane_check_patch with Noise
+   each K1 patch at n = 1024 and n = 1023 (lane_check_patch with Noise
    lanes from the generator, random Input-driver lanes and one automation
    lane) and K2 on feedback_patch, block 1,024, at n = 2048 and n = 3072,
    through the kernel and through the scan engine (the kernels' plain
@@ -25,7 +25,7 @@ Phases, each reported on its own lines with its seconds:
    .render(480000, params=farm_params(patch, 1024), batched=True,
    device="cuda") with engine="auto" -- 1,024 voices x 10 s at 48 kHz;
    requires K1's launch count to move, finite audio, peak <= 1.002, and
-   the first 2,048 samples equal to phase 3's plain render; times one
+   the first 1,024 samples equal to phase 3's plain render; times one
    render with CUDA events after a warm-up;
 5. the farm: 16,384 voices x 192,000 samples (4 s) through the same path;
 6. the plain versions' times at phase 3's shapes;
@@ -73,12 +73,12 @@ Phases, each reported on its own lines with its seconds:
 
 Phase 2 also builds K3 for the stages of reverb_patch and
 block_check_patch, K4, K8 and K9; phase 3 holds each against its plain
-version at 1,024 voices: K3 (the stage's torch loop) at n = 2048 and 2047,
+version at 1,024 voices: K3 (the stage's torch loop) at n = 1024 and 1023,
 K4's kinds on [1,024, 48,000] random rows, K9 on every line length of a
 48 kHz Freeverb (rings to the Freeverb kernel's lines, back, and rings to
 rings), K8 (through its wrapper) at n = 2048 and 2047 and with automated
 room_size and wet, and the whole block engine against the scan engine on
-both patches at n = 2048 (audio within 5e-6, two halves with the state
+both patches at n = 1024 (audio within 5e-6, two halves with the state
 carried equal to one render).  For slice 3b phase 2 also builds K3 for
 the stages of drum_machine, sampler_kit and kit_check_patch (at 48 kHz,
 and at 4,800 Hz for phase 3, with feedback_patch and drum_machine in
@@ -134,6 +134,26 @@ K3 (5 stages) to equal their plain versions bit for bit;
    and equal the render; reverb_patch the same way through the block
    engine (K3, K8, K9).
 
+For slice 7 K8 has a second entry (``srack_tpu_torch/csrc/freeverb.cu``):
+one CTA per voice with the voice's lines in shared memory, chunks of T
+samples read in parallel and the combs' one-poles in one writer warp a
+chunk behind; the per-sample kernel stays as its twin (``freeverb_twin``).
+K2 runs as a pipeline of stage warps like K1 (its feedback ring read by
+the stage that reads each key, written by its source's).  Phase 2 builds
+both twins (K2's as ``fused_voice_buffer_g1``) and logs K8's T, shared
+memory and CTAs per SM; phase 3 holds the new K8 against block_plain at
+n = 2048 and 2047 with and without automated room_size and wet, and the
+split K2 against the scan engine; phases 8, 9, 10 and 16 must launch the
+new kernels and not the twins (each twin counts as another kernel);
+phases 9 and 10 time K8's wrapper apart (lane copies, allocations, K9 in,
+K8, K9 out, the rest) on the arguments the render gives it; phase 15 holds
+the split K2 against its twin on the buffer cell and the new K8 against
+its twin on the very operands the reverb and block-check renders give it
+([1,024, 480,000], caught at the launch), bit for bit, both timed in one
+call, and requires K8 to beat its twin.  To keep the script's time, phase
+3 holds K1, K3 and the block engine to the scan engine at n = 1024 and
+1023 (before: 2048 and 2047; K2, K7 and K8 keep their lengths).
+
 Each main path (phases 4, 5, 7-14, 16) runs with the launch counts set
 to 0 just before it and read just after.  Any failure raises and exits
 non-zero.  The line before the last is a JSON record of the kernels; the
@@ -144,6 +164,7 @@ last line is
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import json
 import subprocess
@@ -157,6 +178,10 @@ import torch
 SR = 48000
 VOICES = 1024
 CHECK_NS = (2048, 2047)
+# the lengths at which phase 3 holds K1, K3 and the block engine to the scan
+# engine: a whole number of chunks and one sample short of it; the scan
+# engine's ~3-12 ms per sample at 1,024 voices set the script's time
+PLAIN_NS = (1024, 1023)
 BUFFER_BLOCK = 1024
 BUFFER_CHECK_NS = (2048, 3072)
 HEADLINE_N = 480000
@@ -337,12 +362,39 @@ def phase_build(stt):
             kernel = jobs[name]
             log(f"[2 build] {name} ({kernel.name}{pipeline(kernel)}): nvcc "
                 f"sm_90a built in {secs:.2f} s; {ptxas(kernel)}")
-    # K6 is the second entry of K5's source: its build is K5's, found by hash
+    # K6 is the second entry of K5's source, K8's twin the second entry of
+    # K8's: each build is found by hash
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER_LONG
     ROW_GATHER_LONG.build()
     log(f"[2 build] row_gather_long: the library of row_gather "
         f"(csrc/row_gather.cu, entries srk_gather_long_*)")
+    k8_shape(stt)
     return kernels
+
+
+def k8_shape(stt) -> dict:
+    """Build K8's twin (the second entry of K8's source, found by hash)
+    and record the shared-memory K8's shape at 48 kHz in ``K8_SHAPE``:
+    rows, T, shared memory and the CTAs an SM holds (the card's occupancy
+    query)."""
+    from srack_tpu_torch.ops import freeverb_kernel as fvk
+    fvk.FREEVERB_TWIN.build()
+    lens = fvk.all_lengths(stt.AudioConfig(sample_rate=SR))
+    tile = fvk.tile_for(lens)
+    ctas = ctypes.c_int(-1)
+    fn = fvk.FREEVERB.build().srk_freeverb_ctas_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], \
+        ctypes.c_int
+    check(fn(sum(lens), tile, ctypes.byref(ctas)) == 0,
+          "K8's occupancy query failed")
+    K8_SHAPE.update(rows=sum(lens), tile=tile, ctas_per_sm=ctas.value,
+                    smem_bytes=fvk.tile_bytes(lens, tile))
+    log(f"[2 build] freeverb_twin: the library of freeverb (csrc/"
+        f"freeverb.cu, entry srk_freeverb_twin); freeverb at {SR} Hz: one "
+        f"CTA of 160 threads per voice, T={tile}, {K8_SHAPE['smem_bytes']} B"
+        f" shared memory, {ctas.value} CTAs per SM; ptxas: "
+        f"{ptxas(fvk.FREEVERB)}")
+    return K8_SHAPE
 
 
 def _state_diff(got: dict, want: dict, where: str) -> float:
@@ -385,7 +437,7 @@ def phase_compare(stt, kernels):
     errs = {"fused_voice": 0.0, "fused_voice_buffer": 0.0}
     keep = {}
     for name, (patch, compiled, kernel) in kernels.items():
-        ns = BUFFER_CHECK_NS if kernel.buffer else CHECK_NS
+        ns = BUFFER_CHECK_NS if kernel.buffer else PLAIN_NS
         for n in ns:
             t0 = time.perf_counter()
             params, state, xs = _inputs(stt, name, patch, compiled, n)
@@ -442,7 +494,7 @@ def _times(keep: dict) -> dict:
 def _counters(kernels):
     """Every kernel wrapper with a launch count: the fused kernels of phase
     2's cases, the serial-stage kernels and the fixed sources."""
-    from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops.freeverb_kernel import FREEVERB, FREEVERB_TWIN
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER, ROW_GATHER_LONG
     from srack_tpu_torch.ops.ring_roll import RING_ALIGN
     from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
@@ -450,8 +502,11 @@ def _counters(kernels):
     out = [kernel for _, _, kernel in kernels.values()]
     out += [lib for _, _, k in VJP.values() for lib in (k.fwd, k.bwd)]
     out += list(STAGES.values()) + list(CHECK_STAGES.values()) + [
-        ROW_SCAN, FREEVERB, RING_ALIGN, ROW_GATHER, ROW_GATHER_LONG,
-        SAMPLE_PLAY]
+        ROW_SCAN, FREEVERB, FREEVERB_TWIN, RING_ALIGN, ROW_GATHER,
+        ROW_GATHER_LONG, SAMPLE_PLAY]
+    # the one-thread twins of phase 15, named apart: a main path that
+    # launched one would count as another kernel
+    out += [one for _, one in AB.values()]
     # cases of one compiled plan share its wrappers: count each once
     return list({id(k): k for k in out}.values())
 
@@ -576,9 +631,11 @@ def phase_buffer(stt, kernels, card):
     rate = VOICES * BUFFER_N / (ms / 1e3)
     _log_bound("8 buffer", "feedback_buffer", kernels["feedback_buffer"],
                VOICES, BUFFER_N, ms)
+    check(kernel.partition.n_stages > 1, "K2 runs one thread per voice")
     log(f"[8 buffer] feedback_patch buffer_feedback=True block="
         f"{BUFFER_BLOCK} V={VOICES} n={BUFFER_N} via render_batch -> "
-        f"fused_voice_buffer, {launches} launches; {ms:.3f} ms/render, "
+        f"fused_voice_buffer{pipeline(kernel)}, {launches} launches (the "
+        f"one-thread twin none); {ms:.3f} ms/render, "
         f"{rate / 1e9:.4f} G samples/s, aggregate real-time "
         f"{rate / SR:.0f}x, {ms * 1e6 / BUFFER_N:.1f} ns per sample per "
         f"thread, peak {peak:.5f}; ptxas: {ptxas(kernel)} [{card}]")
@@ -596,6 +653,8 @@ FV_TOL = 2e-5       # K8 vs its chunked plain version
 # 16 combs x 6, 8 allpasses x 3, the input gain 2, the stereo mix 10
 FV_OPS = 16 * 6 + 8 * 3 + 2 + 10
 STAGES = {}         # case -> the StageKernel (K3) of its serial stage
+K8_SHAPE = {}       # the shared-memory K8 at 48 kHz: rows, T, CTAs per SM
+K8_WRAPPER = {}     # cell -> K8's wrapper timed apart (phases 9, 10)
 
 
 def _cuda(stt, tree):
@@ -891,15 +950,20 @@ def _freeverb_inputs(stt, n, automated, seed):
 
 
 def compare_freeverb(stt, n, automated):
-    """K8 through its wrapper (K9 on entry and exit) against the chunked
-    plain version, from random rings with non-zero write indices and
-    random filter states: audio, final filter states and lines (both in
-    time order, write index 0) within 2e-5 (abs + rel)."""
+    """K8 through its wrapper (K9 on entry and exit; at 48 kHz the
+    shared-memory entry, not the twin) against the chunked plain version,
+    from random rings with non-zero write indices and random filter
+    states: audio, final filter states and lines (both in time order,
+    write index 0) within 2e-5 (abs + rel)."""
     from srack_tpu_torch.modules import freeverb as fv
-    from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops import freeverb_kernel as fvk
     t0 = time.perf_counter()
     cfg, gains, state, l_in, r_in = _freeverb_inputs(stt, n, automated, n)
-    st_k, outs_k = FREEVERB.render(cfg, l_in, r_in, False, gains, state, n)
+    launched = (fvk.FREEVERB.launches, fvk.FREEVERB_TWIN.launches)
+    st_k, outs_k = fvk.render(cfg, l_in, r_in, False, gains, state, n)
+    check((fvk.FREEVERB.launches - launched[0],
+           fvk.FREEVERB_TWIN.launches - launched[1]) == (1, 0),
+          "K8's wrapper did not launch the shared-memory entry once")
     torch.cuda.synchronize()
     st_p, outs_p = fv.block_plain(l_in, r_in, gains, state, n)
     torch.cuda.synchronize()
@@ -1004,19 +1068,17 @@ def phase_compare_block(stt):
     """Phase 3 for the slice's kernels; returns the largest error of each
     and what the timing needs."""
     errs = {}
-    # slice 3b's stages at n = 2,048 only: their 4,800 Hz twins run again
+    # slice 3b's stages at n = 1,024 only: their 4,800 Hz twins run again
     # in phase 3's block-vs-scan checks
     errs["serial_stage"] = max(
         compare_stage(stt, name, n) for name in STAGES
-        for n in (CHECK_NS[:1] if name in KIT_NAMES else CHECK_NS))
+        for n in (PLAIN_NS[:1] if name in KIT_NAMES else PLAIN_NS))
     errs["row_scan"], scan_x = compare_scans()
     errs["ring_align"] = compare_ring(stt)
-    errs["freeverb"] = max(compare_freeverb(stt, n, False)
-                           for n in CHECK_NS)
-    errs["freeverb"] = max(errs["freeverb"],
-                           compare_freeverb(stt, CHECK_NS[0], True))
+    errs["freeverb"] = max(compare_freeverb(stt, n, automated)
+                           for n in CHECK_NS for automated in (False, True))
     for name in ("reverb_patch", "block_check_patch"):
-        compare_block_engine(stt, name, CHECK_NS[0], VOICES)
+        compare_block_engine(stt, name, PLAIN_NS[0], VOICES)
     return errs, scan_x
 
 
@@ -1046,15 +1108,18 @@ def freeverb_bound(lens, v, n, lanes_in, lanes_out):
 
 
 def k8_call(cfg, l_in, r_in, gains, fs, lines, n, skip_r=False):
-    """K8's launch with its operands made once, for timing the kernel
-    without the wrapper's per-call host work.  Returns ``(call, keep)``:
-    ``keep`` holds the tensors the launch points into."""
+    """The launch of the K8 entry the wrapper picks, with its operands made
+    once, for timing the kernel without the wrapper's per-call host work.
+    Returns ``(call, keep)``: ``keep`` holds the tensors the launch points
+    into."""
     from srack_tpu_torch.ops import freeverb_kernel as fvk
-    tables = fvk.line_tables(fvk.all_lengths(cfg), fs.device)
-    args, keep, _, _ = fvk.operands(cfg, l_in, r_in, gains, fs, lines, n,
-                                    skip_r, tables)
-    return (lambda: fvk.FREEVERB.launch("srk_freeverb", fvk.ARGTYPES, args,
-                                        fs.device), keep)
+    lens = fvk.all_lengths(cfg)
+    kernel = fvk.kernel_for(lens)
+    tables = fvk.line_tables(lens, fs.device)
+    args, argtypes, keep, _, _ = kernel.entry_args(
+        cfg, l_in, r_in, gains, fs, lines, n, skip_r, tables)
+    return (lambda: kernel.launch(kernel.entry, argtypes, args, fs.device),
+            keep)
 
 
 def block_times(stt, scan_x):
@@ -1062,8 +1127,7 @@ def block_times(stt, scan_x):
     PyTorch call computes the same function, that call) at phase 3's
     shapes."""
     from srack_tpu_torch.modules import freeverb as fv
-    from srack_tpu_torch.ops import basic
-    from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops import basic, freeverb_kernel as fvk
     from srack_tpu_torch.ops.ring_roll import ring_align_plain
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
     out = {}
@@ -1111,8 +1175,8 @@ def block_times(stt, scan_x):
     # the wrapper and the plain version do the same work: both take the
     # rings with their write indices and return them in time order
     out["freeverb"] = (
-        cuda_ms(lambda: FREEVERB.render(cfg, l_in, r_in, False, gains,
-                                        state, n), repeats=20, warmup=1),
+        cuda_ms(lambda: fvk.render(cfg, l_in, r_in, False, gains, state,
+                                   n), repeats=20, warmup=1),
         cuda_ms(lambda: fv.block_plain(l_in, r_in, gains, state, n),
                 repeats=3),
         None, freeverb_bound(lens, VOICES, n, 2, 2),
@@ -1189,6 +1253,66 @@ def _split(stt, name, patch, params, n, automation, total_ms, card):
         f"K4, transposes, wrappers) {rest:.3f} ms of {total_ms:.3f} "
         + (f"(K4 alone: {out['row_scan']:.3f} ms per i32 sum over [{VOICES}, "
            f"{n}]) " if "row_scan" in out else "") + f"[{card}]")
+
+
+def k8_wrapper_split(render, name, card) -> dict:
+    """K8's wrapper on the very arguments a full-width render gives it
+    (caught at the wrapper, the render ended there), timed apart: the
+    lanes' ``expand().contiguous()`` copies, the allocations and stacks of
+    the lines, rings, write indices and filter states, K9 into the lines,
+    K8's launch, K9 back into rings, and the rest of the wrapper as the
+    difference from the whole wrapper's time.  The mix pass is inside K8's
+    launch (fused)."""
+    from srack_tpu_torch.modules.freeverb import FS_KEYS, LINE_KEYS
+    from srack_tpu_torch.ops import freeverb_kernel as fvk
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN
+    keep = {}
+    with captured(fvk, "render", keep):
+        render()
+    check("args" in keep, f"the {name} render did not reach K8's wrapper")
+    args, kwargs = keep["args"], keep["kwargs"]
+    cfg, l_in, r_in, mono, gains, state, n = args
+    skip_r = kwargs.get("skip_r", False)
+    lens = fvk.all_lengths(cfg)
+    v = state["cl0"].shape[0]
+    f32 = torch.float32
+
+    def lane(x):
+        return None if x is None else x.to(f32).expand(v, n).contiguous()
+
+    def lanes():
+        left = lane(l_in)
+        return left, left if mono else lane(r_in)
+
+    def allocs():
+        return (torch.empty((sum(lens), v), device="cuda"),
+                torch.empty(v * sum(lens), device="cuda"),
+                torch.stack([state[f"{k}_idx"] for k in LINE_KEYS]).to(
+                    torch.int32).contiguous(),
+                torch.stack([state[k] for k in FS_KEYS], dim=1).contiguous())
+    ms = {"lanes": cuda_ms(lanes, warmup=1),
+          "allocations": cuda_ms(allocs, warmup=1)}
+    left, right = lanes()
+    lines, flat, idx, fs = allocs()
+    rows = torch.split(lines, list(lens))
+    rings_in = [state[k].contiguous() for k in LINE_KEYS]
+    ms["K9 in"] = cuda_ms(lambda: RING_ALIGN.move(
+        rings_in, rows, lens, v, idx=idx, dst_lines=True), warmup=1)
+    call, k8_keep = k8_call(cfg, left, right, gains, fs, lines, n, skip_r)
+    ms["K8"] = cuda_ms(call, warmup=1)
+    rings = [b.view(v, length) for b, length in zip(
+        torch.split(flat, [v * x for x in lens]), lens)]
+    ms["K9 out"] = cuda_ms(lambda: RING_ALIGN.move(
+        rows, rings, lens, v, shifts=[n % x for x in lens], src_lines=True),
+        warmup=1)
+    total = cuda_ms(lambda: fvk.render(*args, **kwargs), warmup=1)
+    ms["rest"] = total - sum(ms.values())
+    log(f"[split] K8's wrapper in {name} V={v} n={n}: "
+        + ", ".join(f"{k} {t:.3f} ms" for k, t in ms.items())
+        + f" of {total:.3f} ms (the mix pass is fused into K8) [{card}]")
+    del keep, args, kwargs, k8_keep, left, right, lines, flat, rings
+    torch.cuda.empty_cache()
+    return {"wrapper_ms": total, **{f"{k}_ms": t for k, t in ms.items()}}
 
 
 def _held(pairs, tol, what) -> float:
@@ -1281,8 +1405,7 @@ def held_against_plain(found: dict):
     alone."""
     from srack_tpu_torch.modules import freeverb as fv
     from srack_tpu_torch.modules.sample import play_unfused
-    from srack_tpu_torch.ops import basic
-    from srack_tpu_torch.ops.freeverb_kernel import FREEVERB
+    from srack_tpu_torch.ops import basic, freeverb_kernel as fvk
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER
     from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
@@ -1377,15 +1500,16 @@ def held_against_plain(found: dict):
         HELD_CALLS.setdefault("row_gather", []).append((table, idx))
         return got
 
-    k8_render = FREEVERB.render
+    k8_render = fvk.render
     scan_run, scan_fill = ROW_SCAN.run, ROW_SCAN.fill
     play_run, gather_run = SAMPLE_PLAY.run, ROW_GATHER.run
-    FREEVERB.render, ROW_SCAN.run, ROW_SCAN.fill = render, run, fill
+    fvk.render, ROW_SCAN.run, ROW_SCAN.fill = render, run, fill
     SAMPLE_PLAY.run, ROW_GATHER.run = play, gather
     try:
         yield found
     finally:
-        del FREEVERB.render, ROW_SCAN.run, ROW_SCAN.fill
+        fvk.render = k8_render
+        del ROW_SCAN.run, ROW_SCAN.fill
         del SAMPLE_PLAY.run, ROW_GATHER.run
 
 
@@ -1429,6 +1553,9 @@ def phase_reverb(stt, kernels, card):
     torch.cuda.empty_cache()
     rate = VOICES * HEADLINE_N / (ms / 1e3)
     _split(stt, "reverb_patch", patch, params, HEADLINE_N, None, ms, card)
+    K8_WRAPPER["reverb"] = k8_wrapper_split(
+        lambda: stt.render_batch(patch, HEADLINE_N, params=params),
+        "reverb_patch", card)
     log(f"[9 reverb] reverb_patch V={VOICES} n={HEADLINE_N} stereo via "
         f"render_batch -> block engine, launches {launches}; {ms:.3f} "
         f"ms/render, {rate / 1e9:.4f} G samples/s, aggregate real-time "
@@ -1471,6 +1598,10 @@ def phase_block_check(stt, kernels, card):
     rate = VOICES * HEADLINE_N / (ms / 1e3)
     _split(stt, "block_check_patch", patch, params, HEADLINE_N, automation,
            ms, card)
+    K8_WRAPPER["block check"] = k8_wrapper_split(
+        lambda: stt.render_batch(patch, HEADLINE_N, params=params,
+                                 automation=automation),
+        "block_check_patch", card)
     log(f"[10 block check] block_check_patch V={VOICES} n={HEADLINE_N} "
         f"mono, 2 automation lanes, via render_batch -> block engine, "
         f"launches {launches}; {ms:.3f} ms/render, {rate / 1e9:.4f} G "
@@ -2338,7 +2469,8 @@ SWEEP = {}  # case -> {chunk: the split kernel built with that chunk}
 SWEEP_CHUNKS = (16, 64, 128)
 AB_CELLS = (("headline", "subtractive_voice", VOICES, HEADLINE_N),
             ("farm", "subtractive_voice", FARM_VOICES, FARM_N),
-            ("sequencer", "sequencer_patch", VOICES, HEADLINE_N))
+            ("sequencer", "sequencer_patch", VOICES, HEADLINE_N),
+            ("buffer", "feedback_buffer", VOICES, BUFFER_N))
 ONE_N = 48000       # one voice, 1 s at 48 kHz
 ONE_SCAN_N = 4800   # its prefix held to the scan engine on the card
 ONE_REVERB_N = 1024  # reverb_patch's prefix held to the scan engine
@@ -2346,16 +2478,20 @@ ONE_REVERB_N = 1024  # reverb_patch's prefix held to the scan engine
 
 def ab_kernels(kernels) -> dict:
     """Phase 2's one-thread twins (G = 1) of the split K1 of the headline
-    voice and the sequencer, and of the split K3 of each block cell's
-    stage, for phase 15; and the split headline voice and kit-check stage
-    at the other chunk lengths of ``SWEEP_CHUNKS``."""
+    voice and the sequencer, of the split K2 of the buffer cell and of the
+    split K3 of each block cell's stage, for phase 15, each named
+    ``<kernel>_g1`` so that a main path launching one fails its count; and
+    the split headline voice and kit-check stage at the other chunk lengths
+    of ``SWEEP_CHUNKS``."""
     from srack_tpu_torch.ops.fused import FusedKernel, StageKernel
-    for name in ("subtractive_voice", "sequencer_patch"):
+    for name in ("subtractive_voice", "sequencer_patch", "feedback_buffer"):
         _, compiled, kernel = kernels[name]
         AB[name] = (kernel, FusedKernel(compiled, kernel.lanes, stages=1))
     for name, kernel in STAGES.items():
         AB[name] = (kernel, StageKernel(kernel.program, kernel.lanes,
                                         stages=1))
+    for _, one in AB.values():
+        one.name += "_g1"
     jobs = {f"{name} G=1": one for name, (_, one) in AB.items()}
     kernel = kernels["subtractive_voice"][2]
     SWEEP["subtractive_voice"] = {t: FusedKernel(
@@ -2368,13 +2504,10 @@ def ab_kernels(kernels) -> dict:
     return jobs
 
 
-def _ab_pair(split, one, run, same, what, card, sweep=None) -> dict:
-    """``run(kernel)`` through the split kernel and its G = 1 twin, timed
-    in turns (G = 1, split, split, G = 1; one warm-up call each): both
-    results must be equal bit for bit (``same``).  ``sweep``: the split
-    kernel at other chunk lengths, ``{chunk: kernel}``, each timed once
-    (after a warm-up) and held to the split's result.  Returns the
-    record."""
+def _turns(split, one, run):
+    """``run(kernel)`` through ``split`` and its twin ``one`` in turns (one,
+    split, split, one), each timed after a warm-up call.  Returns the times
+    ``{"one": [ms, ms], "split": [ms, ms]}`` and each one's first result."""
     times = {"one": [], "split": []}
     outs = {}
     for which in ("one", "split", "split", "one"):
@@ -2383,6 +2516,17 @@ def _ab_pair(split, one, run, same, what, card, sweep=None) -> dict:
         if which not in outs:
             outs[which] = run(kernel)
     torch.cuda.synchronize()
+    return times, outs
+
+
+def _ab_pair(split, one, run, same, what, card, sweep=None) -> dict:
+    """``run(kernel)`` through the split kernel and its G = 1 twin, timed
+    in turns (G = 1, split, split, G = 1; one warm-up call each): both
+    results must be equal bit for bit (``same``).  ``sweep``: the split
+    kernel at other chunk lengths, ``{chunk: kernel}``, each timed once
+    (after a warm-up) and held to the split's result.  Returns the
+    record."""
+    times, outs = _turns(split, one, run)
     check(same(outs["split"], outs["one"]), f"{what}: the split kernel "
           f"differs from its one-thread twin")
     del outs["one"]
@@ -2432,11 +2576,13 @@ def _same(a, b) -> bool:
 
 def phase_ab(stt, kernels, card) -> dict:
     """Phase 15: the split K1 against its one-thread twin at full width on
-    the headline, the farm and the sequencer (farm_params, the initial
-    state), and the split K3 against its twin on the stage of each block
-    cell (1,024 voices x 480,000 samples, random input lanes in [-1, 1)):
-    audio (or stage outputs) and final state equal bit for bit, both
-    timed in one call."""
+    the headline, the farm and the sequencer, the split K2 against its twin
+    on the buffer cell (farm_params, the initial state), the split K3
+    against its twin on the stage of each block cell (1,024 voices x
+    480,000 samples, random input lanes in [-1, 1)), and the shared-memory
+    K8 against its twin on the reverb and block-check renders' operands:
+    audio (or stage outputs) and final state equal bit for bit, both timed
+    in one call."""
     out = {}
     for cell, name, v, n in AB_CELLS:
         split, one = AB[name]
@@ -2445,10 +2591,11 @@ def phase_ab(stt, kernels, card) -> dict:
         state = _cuda(stt, stt.compiler.tree_map(
             lambda a: a.expand((v,) + a.shape).contiguous(),
             compiled.init_state()))
+        kid = "K2" if split.buffer else "K1"
         out[cell] = _ab_pair(
             split, one, lambda k: k.render(params, state, n), _same,
-            f"K1 {cell} ({name}) V={v} n={n}", card, SWEEP.get(
-                name if cell != "sequencer" else None))
+            f"{kid} {cell} ({name}) V={v} n={n}", card, SWEEP.get(
+                name if cell in ("headline", "farm") else None))
         del params, state
     for name in STAGES:
         split, one = AB[name]
@@ -2472,7 +2619,91 @@ def phase_ab(stt, kernels, card) -> dict:
             SWEEP.get(name))
         del lanes, params, state, stage_state
         torch.cuda.empty_cache()
+    for cell, (patch, automation) in k8_cells(stt).items():
+        out[f"k8 {cell}"] = k8_ab(stt, cell, patch, automation, card)
     return out
+
+
+def k8_cells(stt) -> dict:
+    """The renders that give K8 its main-path operands: reverb_patch
+    (stereo; phase 9) and block_check_patch (mono, automated room_size and
+    wet; phase 10), 1,024 voices x 480,000 samples: ``{cell: (patch,
+    automation)}``."""
+    reverb = stt.presets.reverb_patch(stt.AudioConfig(sample_rate=SR,
+                                                      channels=2))
+    check_patch, _ = stt.presets.block_check_patch(
+        stt.AudioConfig(sample_rate=SR, channels=1))
+    return {"reverb": (reverb, None),
+            "block check": (check_patch, block_check_automation(
+                stt, check_patch, HEADLINE_N))}
+
+
+class _Captured(Exception):
+    """Ends a render once a hook holds the arguments it wanted."""
+
+
+@contextlib.contextmanager
+def captured(owner, attr: str, keep: dict):
+    """While open, the first call of ``owner.attr`` stores its positional
+    and keyword arguments in ``keep`` and ends the render."""
+    def hook(*args, **kwargs):
+        keep.update(args=args, kwargs=kwargs)
+        raise _Captured
+    saved = owner.__dict__[attr]
+    setattr(owner, attr, hook)
+    try:
+        yield keep
+    except _Captured:
+        pass
+    finally:
+        setattr(owner, attr, saved)
+
+
+def k8_ab(stt, cell, patch, automation, card) -> dict:
+    """The shared-memory K8 against its one-thread twin on the very
+    operands the cell's render gives K8 ([1,024, 480,000], caught at the
+    wrapper's launch): audio, filter states and lines equal bit for bit,
+    both timed in one call in turns (twin, K8, K8, twin), the better of
+    two calls each."""
+    from srack_tpu_torch.ops import freeverb_kernel as fvk
+    params = stt.presets.farm_params(patch, VOICES)
+    keep = {}
+    with captured(fvk.FreeverbKernel, "launch_lines", keep):
+        stt.render_batch(patch, HEADLINE_N, params=params,
+                         automation=automation)
+    check("args" in keep, f"the {cell} render did not reach K8")
+    picked, cfg, l_in, r_in, gains, fs, lines, n, skip_r = keep["args"]
+    check(picked is fvk.FREEVERB, f"the {cell} render picked "
+          f"{picked.name}, not the shared-memory K8")
+
+    def run(kernel):
+        f, li = fs.clone(), lines.clone()
+        outs = kernel.launch_lines(cfg, l_in, r_in, gains, f, li, n, skip_r)
+        return tuple(x for x in (*outs, f, li) if x is not None)
+    times, outs = _turns(fvk.FREEVERB, fvk.FREEVERB_TWIN, run)
+    check(_same(outs["split"], outs["one"]), f"K8 {cell}: the shared-memory "
+          f"kernel differs from its one-thread twin")
+    one_ms, k8_ms = min(times["one"]), min(times["split"])
+    check(k8_ms < one_ms, f"K8 {cell}: {k8_ms:.3f} ms, not faster than its "
+          f"twin's {one_ms:.3f}")
+    lanes = [name for name, x in (("dampening", gains[0]), ("room_size",
+             gains[1]), ("wet1", gains[3]), ("wet2", gains[4]),
+             ("dry", gains[5])) if x.shape[-1] == n]
+    rec = {"twin_ms": one_ms, "ms": k8_ms, "ratio": k8_ms / one_ms,
+           "shape": [VOICES, n], "stereo_out": not skip_r,
+           "lanes": lanes, "registers": registers(fvk.FREEVERB), **K8_SHAPE}
+    log(f"[15 a/b] K8 {cell} V={VOICES} n={n} (the render's operands, "
+        f"{'stereo' if not skip_r else 'mono'} out, automated "
+        f"{lanes or 'none'}): twin {one_ms:.3f} ms ({times['one'][0]:.3f}, "
+        f"{times['one'][1]:.3f}), shared-memory K8 {k8_ms:.3f} ms "
+        f"({times['split'][0]:.3f}, {times['split'][1]:.3f}; T="
+        f"{K8_SHAPE['tile']}, {K8_SHAPE['smem_bytes']} B shared memory, "
+        f"{K8_SHAPE['ctas_per_sm']} CTAs per SM): K8 / twin = "
+        f"{rec['ratio']:.4f}; audio, filter states and lines equal bit "
+        f"for bit; ptxas: {ptxas(fvk.FREEVERB)} [{card}]")
+    del outs, keep
+    torch.cuda.empty_cache()
+    return rec
 
 
 @contextlib.contextmanager
@@ -2750,8 +2981,11 @@ def main() -> int:
             "library_ms": None,
         })
         if name == "fused_voice":
-            entries[-1]["split"] = {c: ab[c] for c, _, _, _ in AB_CELLS}
+            entries[-1]["split"] = {c: ab[c] for c, n, _, _ in AB_CELLS
+                                    if n != "feedback_buffer"}
             entries[-1]["one_voice"] = one["subtractive_voice"]
+        else:
+            entries[-1]["split"] = {"buffer": ab["buffer"]}
     sources = {
         "serial_stage": ("srack_tpu_torch/ops/fused.py",
                          "srack_tpu/ops/serial_kernel.py:65",
@@ -2816,6 +3050,9 @@ def main() -> int:
         })
         if name == "freeverb":
             entries[-1]["launch_ms"] = k8_launch_ms
+            entries[-1]["twin"] = {c: ab[f"k8 {c}"] for c in ("reverb",
+                                                            "block check")}
+            entries[-1]["wrapper"] = dict(K8_WRAPPER)
         if name == "serial_stage":
             entries[-1]["split"] = {c: ab[c] for c in STAGES}
             entries[-1]["one_voice"] = one["reverb_patch"]

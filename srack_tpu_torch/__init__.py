@@ -3,9 +3,9 @@
 Patch graphs of oscillators, noise, sequencers, filters, envelopes, mixers,
 math, sample players, reverb and external inputs compile into one
 per-sample step.  On the CPU the scan engine runs that step in a loop;
-batched renders on a CUDA device run a hand-written CUDA kernel generated
-from the plan, one thread per voice (in buffer-feedback mode, its
-delayed-feedback twin).  A patch that kernel cannot take (one with a
+renders on a CUDA device run a hand-written CUDA kernel generated from
+the plan, a pipeline of stage warps per 32 voices (in buffer-feedback
+mode, its delayed-feedback twin).  A patch that kernel cannot take (one with a
 Freeverb or a Sample) runs on the block engine (``engine="block"``):
 whole-block module forms around a per-sample serial stage, on the stage,
 row-scan, row-gather, Sample-player, Freeverb and ring-alignment kernels.

@@ -2,48 +2,99 @@
 //
 // Replaces srack_tpu/ops/freeverb_kernel.py::_build, the Pallas kernel that
 // keeps a tile of 32 voices' 24 delay lines in VMEM and solves each comb's
-// damping one-pole chunk by chunk with a log-doubling scan.  This kernel
-// runs the exact per-sample ticks of the module's step
-// (srack_tpu/modules/freeverb.py::_step): per channel 8 lowpass-feedback
-// combs summed, then 4 series allpasses; the input gain on the way in and
-// the stereo wet/dry mix on the way out.  No chunks, no damping tiers, no
-// tail: an automated dampening or room_size reads its lane at each chunk's
-// start, t - t % chunk with chunk = the shortest comb (the block form's
-// piecewise-constant snapshot); wet, width and dry mix per sample.
+// damping one-pole chunk by chunk with a log-doubling scan.  Both entries
+// here run the exact ticks of the module's step
+// (srack_tpu/modules/freeverb.py::_step), in its order: per channel 8
+// lowpass-feedback combs summed from 0.0f in comb order, then 4 series
+// allpasses; the input gain on the way in and the stereo wet/dry mix on the
+// way out.  No damping scan, no tiers, no tail: an automated dampening or
+// room_size reads its lane at each hold's start, t - t % chunk with chunk
+// = the wrapper's shortest comb (the block form's piecewise-constant
+// snapshot); wet, width and dry mix per sample.  Built with --fmad=false:
+// every a*b+c rounds twice, as the torch step does.
 //
-// Launch shape.  srk_fv_kernel: one thread per voice and channel (2V
-// threads, channel-major, one warp per block), each running the whole
-// render with its 8 comb filter states in registers; srk_fv_mix_kernel: a
-// second, elementwise pass over [V, n] that mixes the two channels' raw
-// outputs (final_l = raw_l*wet1 + raw_r*wet2 + l_in*dry), which one
-// channel's thread cannot do alone.
+// Layout (both entries).  The lines sit in device memory as [rows, V]: line
+// j holds rows offs[j] .. offs[j] + lens[j] - 1, voice v in column v, combs
+// left, right, then allpasses left, right.  The wrapper brings every ring
+// into time order on entry (kernel K9), so every line starts at write
+// index 0; on exit every line's write index is n % lens[j], and the
+// wrapper's second K9 launch moves the lines back into [V, L] rings.
 //
-// Layout.  The lines sit in device memory as [rows, V]: line j holds rows
-// offs[j] .. offs[j] + lens[j] - 1, voice v in column v.  The wrapper
-// brings every ring into time order on entry (kernel K9, which writes this
-// layout from the module's [V, L] rings), so every line of
-// every voice starts at write index 0 and at sample t a warp's 32 voices
-// touch 32 neighbouring floats of one row: 128 contiguous bytes.  On exit
-// every line's write index is n % lens[j], and the wrapper's second K9
-// launch moves the lines back into [V, L] rings, in time order with index 0.
+// srk_freeverb, the main path's kernel: one CTA per voice, its lines in
+// shared memory.
 //
-// What bounds it, and the open design question.  The bytes that the
-// function must move are its lanes: the inputs, the outputs and the raw
-// outputs, 3 lanes of [V, n] f32 in and out, 5.9 GB at 1,024 voices x
-// 480,000 samples (1.8 ms at 3.35 TB/s).  This per-sample design also
-// reads and writes each line word once per sample: 24 lines x V x 8 bytes
-// per sample, 94 GB for that render.  The lines of 1,024 voices at 48 kHz
-// are 108 MiB, more than the 50 MB L2, and a word comes back only after a
-// whole line's length of samples, so those accesses go to device memory,
-// and with 2V threads in flight the kernel waits on their latency.  The
-// design that answers it is a CTA per voice with that voice's 108 KiB of
-// lines in shared memory and the combs solved chunk-parallel (the damping
-// one-pole as a scan, as the TPU kernel does): a later change.  To hide
-// some latency now, each sample issues its 12 line loads before any of its
-// stores (every load reads a word written at least one line length ago).
+// * Lines.  A CTA loads its voice's 24 lines (27,688 f32 at 48 kHz,
+//   110,752 B) from its column of [rows, V] into shared memory once, runs
+//   the whole render there and stores them back.  The column loads are
+//   strided (one 4-byte word of each 32-byte sector), 8x sector
+//   amplification on 113 MB at 1,024 voices, but neighbouring voices'
+//   CTAs run at once and share the sectors in L2.  The 16 comb filter
+//   states stay in registers.
+// * Chunks.  Time goes in chunks of T samples, T at most the shortest of
+//   the 24 lines (244 at 48 kHz, 24 at 4,800 Hz) and at most half the
+//   shortest comb, and at least 8.  A line's slot is read again only a
+//   line's length after its write, so within a chunk every comb read
+//   y_j[t] = line_j[t] is a read of the past: the comb sum out = 0 + y_0
+//   + ... + y_7 is parallel over t, and so is the allpass chain, each
+//   stage reading its slot and then writing the same slot (distinct slots
+//   per t).  One reader thread
+//   per sample of the chunk (SRK_FV_TILE_MAX = 128 of them) computes both
+//   channels' raw outputs, writes (l + r) * g for the combs into a double
+//   buffer mix[2][T], and mixes the output lanes at once (the twin's
+//   second pass, fused: no raw [2, V, n] round trip).
+// * The serial work is each comb's damping one-pole, fsn = y*(1-dmp) +
+//   f*dmp, line = mix + fsn*fd: 16 independent chains, one lane each of
+//   one writer warp, each re-reading y from its slot before overwriting
+//   it.  The writer runs one chunk behind the readers: at step k the
+//   readers take chunk k and the writer chunk k - 1, and __syncthreads
+//   ends the step.  The readers of chunk k then read comb slots the writer
+//   of chunk k - 1 does not touch as long as 2T <= the shortest comb (the
+//   wrapper's tile_for picks T so), and every slot they read was written
+//   at step k - 1 or before.  A chain costs two dependent f32 operations per
+//   sample (f*dmp, +).  The writer's 16 lanes wrap their lines at
+//   different samples, so its control flow must not depend on the lane:
+//   a run per lane up to its own wrap diverged in most chunks.  Here runs
+//   of 16 samples wrap each slot by a select: 28.456 ms for the reverb
+//   cell against the twin's 343.376 ms on the same operands
+//   (chip_smoke.py phase 15, NVIDIA H100 80GB HBM3 at 700.00 W): 14.8 ns
+//   per sample in each of the 4 waves, several times two dependent f32
+//   operations' latency; what fills it is not measured (no profiler runs
+//   on that card).
+// * Bit for bit.  Every expression and its order are the twin's, so the
+//   result equals the twin's bit for bit (tests/test_torch_block_host.py
+//   on the host build; chip_smoke.py phase 15 on the card).
+// * Shared memory and occupancy.  Per CTA 4 * (rows + 2T) bytes: 111,776 B
+//   at 48 kHz (T = 128), plus the 1 KB the card reserves per CTA.  Two
+//   CTAs fit an SM's 228 KB (2 x 112,800 = 225,600 B); three do not.  At
+//   1,024 voices that is 1,024 CTAs on 264 slots: 3.9 waves.  A CTA per
+//   voice and channel (56,824-58,024 B with its buffers and the reserve)
+//   would fit 4 per SM: 2,048 CTAs on 528 slots, the same 3.9 waves, each
+//   CTA as long (a writer warp issues the same instructions per sample for
+//   8 chains as for 16).  The CTA per voice was chosen because it also
+//   computes (l + r) * g once and fuses the mix pass, where a CTA per
+//   channel cannot.  At 96 kHz a voice takes 222,584 B (one CTA per
+//   SM; the 227 KB per-block limit is 232,448 B); at 192 kHz 443 KB does
+//   not fit, and the wrapper takes the twin (ops/freeverb_kernel.py,
+//   tile_for: a rule on the line lengths, never a fallback on an error).
+// * Host build.  The same reader and writer functions run the same chunk
+//   schedule in loops over one voice's buffer (readers of chunk k, then
+//   the writer of chunk k - 1), so the CPU tests check the schedule.
 //
-// Built with --fmad=false: every a*b+c rounds twice, as the torch step
-// does, so the kernel equals the scan engine's per-sample step.
+// srk_freeverb_twin, the one-thread twin: one thread per voice and channel
+// (2V threads, channel-major, one warp per block), each running the whole
+// render with its lines in device memory, then srk_fv_mix_kernel mixes the
+// two channels' raw outputs [2, V, n] elementwise.  Every sample loads and
+// stores 12 line words; the 113 MB of lines of 1,024 voices at 48 kHz miss
+// the 50 MB L2, so each sample waits about one device-memory latency
+// (343.284 ms for the reverb cell, 1,024 x 480,000, on an NVIDIA H100
+// 80GB HBM3 at 700.00 W: chip_smoke.py, PR 6's run).  It stays for the
+// A/B of chip_smoke.py phase 15 and for lines too long for shared memory.
+//
+// What bounds K8: the bytes it must move are its lanes in and out and the
+// lines and filter states in and out once (1.828 ms at 3.35 TB/s for the
+// stereo reverb cell); its f32 operations (132 per voice-sample) take
+// 0.97 ms at 67 TFLOP/s.  Neither is near: the serial chains are, 480,000
+// samples in each of 3.9 waves.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -52,15 +103,196 @@
 #include <cuda_runtime.h>
 #define SRK_HD __host__ __device__ __forceinline__
 #else
+#include <vector>
 #define SRK_HD inline
 #endif
 
 #define SRK_FV_COMBS 8    // per channel
 #define SRK_FV_PASSES 4   // allpasses per channel
 #define SRK_FV_LINES 12   // per channel
+#define SRK_FV_ALL 24     // lines per voice
 #define SRK_FV_FS 16      // comb filter states per voice: cl0..7, cr0..7
 #define SRK_FV_BLOCK 32
 #define SRK_FV_MIX_BLOCK 256
+#define SRK_FV_TILE_MAX 128  // reader threads: the longest chunk T
+#define SRK_FV_TILE_MIN 8    // the writer's runs of 16 need combs >= 16 long
+#define SRK_FV_THREADS (SRK_FV_TILE_MAX + 32)  // and one writer warp
+
+// A sample's input lanes and output gains: l, r (a missing input lane is
+// 0) and wet1, wet2, dry (per voice, [V], or a lane, [V, n]).
+struct srk_fv_in {
+  float l, r, w1, w2, d;
+};
+
+#define SRK_FV_IN_PARAMS                                                    \
+  const float *l_in, const float *r_in, const float *wet1, int wet1_lane,  \
+      const float *wet2, int wet2_lane, const float *dry, int dry_lane
+#define SRK_FV_IN_ARGS \
+  l_in, r_in, wet1, wet1_lane, wet2, wet2_lane, dry, dry_lane
+
+// element i of [V, n], voice v
+SRK_HD srk_fv_in srk_fv_in_at(size_t i, size_t v, SRK_FV_IN_PARAMS) {
+  srk_fv_in x;
+  x.l = l_in ? l_in[i] : 0.0f;
+  x.r = r_in ? r_in[i] : 0.0f;
+  x.w1 = wet1[wet1_lane ? i : v];
+  x.w2 = wet2[wet2_lane ? i : v];
+  x.d = dry[dry_lane ? i : v];
+  return x;
+}
+
+// The output mix of element i from the channels' raw outputs: the same
+// expressions, in the same order, as the module's block form.
+SRK_HD void srk_fv_mix_out(size_t i, const srk_fv_in& x, float rl, float rr,
+                           float* out_l, float* out_r) {
+  out_l[i] = rl * x.w1 + rr * x.w2 + x.l * x.d;
+  if (out_r) out_r[i] = rr * x.w1 + rl * x.w2 + x.r * x.d;
+}
+
+#define SRK_FV_ARGS                                                         \
+  const float *l_in, const float *r_in, const float *damp, int damp_lane,   \
+      const float *feed, int feed_lane, const float *in_gain,               \
+      const float *wet1, int wet1_lane, const float *wet2, int wet2_lane,   \
+      const float *dry, int dry_lane, float *fs, float *lines,              \
+      const int *lens, const int *offs, float *raw, float *out_l,           \
+      float *out_r, int V, int n, int chunk
+
+// -- srk_freeverb: one CTA per voice, lines in shared memory -----------------
+
+// A reader's view of the lines: each line's length, its offset in the
+// voice's buffer and the write index of the chunk's first sample.
+struct srk_fv_taps {
+  int len[SRK_FV_ALL], off[SRK_FV_ALL], pos[SRK_FV_ALL];
+};
+
+SRK_HD void srk_fv_taps_init(srk_fv_taps& L, const int* lens,
+                             const int* offs) {
+#pragma unroll
+  for (int j = 0; j < SRK_FV_ALL; ++j) {
+    L.len[j] = lens[j];
+    L.off[j] = offs[j];
+    L.pos[j] = 0;
+  }
+}
+
+// the next chunk's write indices (T <= every line's length)
+SRK_HD void srk_fv_taps_next(srk_fv_taps& L, int T) {
+#pragma unroll
+  for (int j = 0; j < SRK_FV_ALL; ++j) {
+    L.pos[j] += T;
+    if (L.pos[j] >= L.len[j]) L.pos[j] -= L.len[j];
+  }
+}
+
+// Sample i = row + t0 + tc of voice v, its inputs x: both channels' comb
+// reads and allpass chains in the voice's buffer sm, the combs' input
+// into mix[tc] and the output mix.
+SRK_HD void srk_fv_tile_read(const srk_fv_taps& L, int tc, size_t i,
+                             const srk_fv_in& x, float g, float* sm,
+                             float* mix, float* out_l, float* out_r) {
+  mix[tc] = (x.l + x.r) * g;
+  float raw_out[2];
+#pragma unroll
+  for (int ch = 0; ch < 2; ++ch) {
+    float out = 0.0f;
+#pragma unroll
+    for (int j = 0; j < SRK_FV_COMBS; ++j) {
+      const int k = ch * SRK_FV_COMBS + j;
+      int s = L.pos[k] + tc;
+      if (s >= L.len[k]) s -= L.len[k];
+      out = out + sm[L.off[k] + s];
+    }
+#pragma unroll
+    for (int a = 0; a < SRK_FV_PASSES; ++a) {
+      const int k = 2 * SRK_FV_COMBS + ch * SRK_FV_PASSES + a;
+      int s = L.pos[k] + tc;
+      if (s >= L.len[k]) s -= L.len[k];
+      float* slot = sm + L.off[k] + s;
+      const float delayed = *slot;
+      const float o = delayed - out;
+      *slot = out + delayed * 0.5f;
+      out = o;
+    }
+    raw_out[ch] = out;
+  }
+  srk_fv_mix_out(i, x, raw_out[0], raw_out[1], out_l, out_r);
+}
+
+// One comb's serial state: a writer lane.
+struct srk_fv_comb {
+  float f;          // the damping one-pole's state
+  float dmp, omd, fd;  // dampening, 1 - dampening, feedback
+  int p;            // the write index of the next sample
+  int next;         // the next sample at which the damp/feed lanes are read
+};
+
+SRK_HD void srk_fv_comb_init(srk_fv_comb& C, const float* fs0,
+                             const float* damp, int damp_lane,
+                             const float* feed, int feed_lane, size_t v) {
+  C.f = *fs0;
+  C.dmp = damp_lane ? 0.0f : damp[v];
+  C.omd = 1.0f - C.dmp;
+  C.fd = feed_lane ? 0.0f : feed[v];
+  C.p = 0;
+  C.next = 0;
+}
+
+// Samples t0 .. t0 + cnt - 1 of one comb (line of length len >= 16 in the
+// voice's buffer), its input in mix[0 .. cnt - 1]: the twin's damping
+// one-pole and line write.  The 16 combs of a voice run in one warp, so
+// the control flow is the same in every lane: runs end only at a hold's
+// start (the same sample for every comb) or the chunk's end, and a line's
+// wrap is a select per sample.  Sixteen samples' loads go ahead of their
+// chain, so the chain waits on shared memory once per sixteen samples.
+SRK_HD void srk_fv_tile_comb(srk_fv_comb& C, float* line, int len,
+                             const float* mix, int t0, int cnt, size_t row,
+                             const float* damp, int damp_lane,
+                             const float* feed, int feed_lane, int chunk) {
+  int tc = 0;
+  while (tc < cnt) {
+    const int t = t0 + tc;
+    if (t == C.next) {  // the lanes' snapshot at each hold's start
+      if (damp_lane) C.dmp = damp[row + t];
+      if (feed_lane) C.fd = feed[row + t];
+      C.omd = 1.0f - C.dmp;
+      C.next += chunk;
+    }
+    int seg = cnt - tc;
+    if (seg > C.next - t) seg = C.next - t;
+    const float* m = mix + tc;
+    int i = 0;
+    for (; i + 16 <= seg; i += 16) {
+      int q[16];
+      float y[16], x[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        q[u] = C.p + u;
+        if (q[u] >= len) q[u] -= len;
+        y[u] = line[q[u]];
+        x[u] = m[i + u];
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const float fsn = y[u] * C.omd + C.f * C.dmp;
+        C.f = fsn;
+        y[u] = x[u] + fsn * C.fd;
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u) line[q[u]] = y[u];
+      C.p += 16;
+      if (C.p >= len) C.p -= len;
+    }
+    for (; i < seg; ++i) {
+      const float fsn = line[C.p] * C.omd + C.f * C.dmp;
+      C.f = fsn;
+      line[C.p] = m[i] + fsn * C.fd;
+      if (++C.p == len) C.p = 0;
+    }
+    tc += seg;
+  }
+}
+
+// -- srk_freeverb_twin: one thread per voice and channel ---------------------
 
 // One voice and channel over the whole render.  Lines: combs c<ch>0..7
 // are lines ch*8 + j, allpasses a<ch>0..3 are lines 16 + ch*4 + a.
@@ -124,34 +356,80 @@ SRK_HD void srk_fv_voice(int v, int ch, int V, int n, int chunk,
     fs[(size_t)v * SRK_FV_FS + ch * SRK_FV_COMBS + j] = f[j];
 }
 
-// The output mix of element i of [V, n]: the same expressions, in the same
-// order, as the module's block form.  A gain is per voice ([V]) or a lane
-// ([V, n]); a missing input lane is 0.
+// The twin's second pass, element i of [V, n].
 SRK_HD void srk_fv_mix(size_t i, int V, int n, const float* raw,
                        const float* l_in, const float* r_in,
                        const float* wet1, int wet1_lane, const float* wet2,
                        int wet2_lane, const float* dry, int dry_lane,
                        float* out_l, float* out_r) {
-  const size_t v = i / (size_t)n;
-  const float rl = raw[i], rr = raw[(size_t)V * n + i];
-  const float w1 = wet1[wet1_lane ? i : v];
-  const float w2 = wet2[wet2_lane ? i : v];
-  const float d = dry[dry_lane ? i : v];
-  const float l = l_in ? l_in[i] : 0.0f;
-  const float r = r_in ? r_in[i] : 0.0f;
-  out_l[i] = rl * w1 + rr * w2 + l * d;
-  if (out_r) out_r[i] = rr * w1 + rl * w2 + r * d;
+  srk_fv_mix_out(i, srk_fv_in_at(i, i / (size_t)n, SRK_FV_IN_ARGS), raw[i],
+                 raw[(size_t)V * n + i], out_l, out_r);
 }
 
-#define SRK_FV_ARGS                                                         \
-  const float *l_in, const float *r_in, const float *damp, int damp_lane,   \
-      const float *feed, int feed_lane, const float *in_gain,               \
-      const float *wet1, int wet1_lane, const float *wet2, int wet2_lane,   \
-      const float *dry, int dry_lane, float *fs, float *lines,              \
-      const int *lens, const int *offs, float *raw, float *out_l,           \
-      float *out_r, int V, int n, int chunk
-
 #ifdef __CUDACC__
+
+__global__ void __launch_bounds__(SRK_FV_THREADS, 2)
+    srk_fv_tile_kernel(SRK_FV_ARGS, int rows, int T) {
+  extern __shared__ float sm[];
+  float* mix = sm + rows;   // [2][T]
+  const int v = blockIdx.x;
+  const int tid = threadIdx.x;
+  for (int r = tid; r < rows; r += SRK_FV_THREADS)
+    sm[r] = lines[(size_t)r * V + v];
+  __syncthreads();
+  const size_t row = (size_t)v * n;
+  const int n_chunks = (n + T - 1) / T;
+  if (tid < SRK_FV_TILE_MAX) {
+    // a reader: sample t0 + tid of each chunk, its inputs loaded during
+    // the chunk before (a device-memory wait per chunk would otherwise
+    // set the step's length)
+    srk_fv_taps L;
+    srk_fv_taps_init(L, lens, offs);
+    const float g = in_gain[v];
+    srk_fv_in x = {};
+    if (tid < T && tid < n) x = srk_fv_in_at(row + tid, v, SRK_FV_IN_ARGS);
+    for (int k = 0; k <= n_chunks; ++k) {
+      const int t = k * T + tid;
+      const bool mine = k < n_chunks && tid < T && t < n;
+      const srk_fv_in cur = x;
+      if (tid < T && t + T < n)
+        x = srk_fv_in_at(row + t + T, v, SRK_FV_IN_ARGS);
+      if (mine)
+        srk_fv_tile_read(L, tid, row + t, cur, g, sm, mix + (k & 1) * T,
+                         out_l, out_r);
+      srk_fv_taps_next(L, T);
+      __syncwarp();
+      __syncthreads();
+    }
+  } else {
+    // the writer warp: lane c < 16 runs comb c (channel c / 8) one chunk
+    // behind the readers
+    const int c = tid - SRK_FV_TILE_MAX;
+    const bool live = c < SRK_FV_FS;
+    srk_fv_comb C;
+    int len = 1;
+    float* line = sm;
+    if (live) {
+      srk_fv_comb_init(C, fs + (size_t)v * SRK_FV_FS + c, damp, damp_lane,
+                       feed, feed_lane, v);
+      len = lens[c];
+      line = sm + offs[c];
+    }
+    for (int k = 0; k <= n_chunks; ++k) {
+      const int t0 = (k - 1) * T;
+      if (live && k > 0)
+        srk_fv_tile_comb(C, line, len, mix + ((k - 1) & 1) * T, t0,
+                         n - t0 < T ? n - t0 : T, row, damp, damp_lane, feed,
+                         feed_lane, chunk);
+      __syncwarp();
+      __syncthreads();
+    }
+    if (live) fs[(size_t)v * SRK_FV_FS + c] = C.f;
+  }
+  __syncthreads();
+  for (int r = tid; r < rows; r += SRK_FV_THREADS)
+    lines[(size_t)r * V + v] = sm[r];
+}
 
 __global__ void __launch_bounds__(SRK_FV_BLOCK)
     srk_fv_kernel(const float* l_in, const float* r_in, const float* damp,
@@ -177,7 +455,50 @@ __global__ void __launch_bounds__(SRK_FV_MIX_BLOCK)
              dry_lane, out_l, out_r);
 }
 
-extern "C" int srk_freeverb(SRK_FV_ARGS, void* stream) {
+static size_t srk_fv_tile_bytes(int rows, int T) {
+  return sizeof(float) * ((size_t)rows + 2 * (size_t)T);
+}
+
+// rows: the lines' rows (sum of lens); T: the chunk, SRK_FV_TILE_MIN <= T
+// <= SRK_FV_TILE_MAX, at most every line's length and half the shortest
+// comb's (the wrapper's tile_for).  raw is not used.
+extern "C" int srk_freeverb(SRK_FV_ARGS, int rows, int T, void* stream) {
+  if (V <= 0 || n <= 0) return 0;
+  if (T < SRK_FV_TILE_MIN || T > SRK_FV_TILE_MAX || rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = srk_fv_tile_bytes(rows, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      srk_fv_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(srk_fv_tile_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  srk_fv_tile_kernel<<<V, SRK_FV_THREADS, bytes, (cudaStream_t)stream>>>(
+      l_in, r_in, damp, damp_lane, feed, feed_lane, in_gain, wet1, wet1_lane,
+      wet2, wet2_lane, dry, dry_lane, fs, lines, lens, offs, raw, out_l,
+      out_r, V, n, chunk, rows, T);
+  return (int)cudaGetLastError();
+}
+
+// CTAs of srk_freeverb resident on one SM at these rows and T (into
+// *ctas); the smoke run logs it beside the source note's arithmetic.
+extern "C" int srk_freeverb_ctas_per_sm(int rows, int T, int* ctas) {
+  const size_t bytes = srk_fv_tile_bytes(rows, T);
+  cudaError_t err = cudaFuncSetAttribute(
+      srk_fv_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(srk_fv_tile_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, srk_fv_tile_kernel, SRK_FV_THREADS, bytes);
+}
+
+extern "C" int srk_freeverb_twin(SRK_FV_ARGS, void* stream) {
   if (V <= 0 || n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   srk_fv_kernel<<<(2 * V + SRK_FV_BLOCK - 1) / SRK_FV_BLOCK, SRK_FV_BLOCK, 0,
@@ -194,7 +515,47 @@ extern "C" int srk_freeverb(SRK_FV_ARGS, void* stream) {
 
 #else
 
-extern "C" int srk_freeverb(SRK_FV_ARGS) {
+// The card's schedule on the host: per voice its buffer, then at step k
+// the readers of chunk k and the writer of chunk k - 1.
+extern "C" int srk_freeverb(SRK_FV_ARGS, int rows, int T) {
+  if (V <= 0 || n <= 0) return 0;
+  if (T < SRK_FV_TILE_MIN || T > SRK_FV_TILE_MAX || rows < 1) return 1;
+  std::vector<float> buf((size_t)rows + 2 * (size_t)T);
+  float* sm = buf.data();
+  float* mix = sm + rows;
+  const int n_chunks = (n + T - 1) / T;
+  for (int v = 0; v < V; ++v) {
+    for (int r = 0; r < rows; ++r) sm[r] = lines[(size_t)r * V + v];
+    const size_t row = (size_t)v * n;
+    srk_fv_taps L;
+    srk_fv_taps_init(L, lens, offs);
+    srk_fv_comb C[SRK_FV_FS];
+    for (int c = 0; c < SRK_FV_FS; ++c)
+      srk_fv_comb_init(C[c], fs + (size_t)v * SRK_FV_FS + c, damp,
+                       damp_lane, feed, feed_lane, v);
+    for (int k = 0; k <= n_chunks; ++k) {
+      const int t0 = k * T;
+      for (int tc = 0; k < n_chunks && tc < T && t0 + tc < n; ++tc)
+        srk_fv_tile_read(L, tc, row + t0 + tc,
+                         srk_fv_in_at(row + t0 + tc, v, SRK_FV_IN_ARGS),
+                         in_gain[v], sm, mix + (k & 1) * T, out_l, out_r);
+      srk_fv_taps_next(L, T);
+      if (k == 0) continue;
+      const int w0 = t0 - T;
+      for (int c = 0; c < SRK_FV_FS; ++c)
+        srk_fv_tile_comb(C[c], sm + offs[c], lens[c],
+                         mix + ((k - 1) & 1) * T, w0,
+                         n - w0 < T ? n - w0 : T, row, damp, damp_lane,
+                         feed, feed_lane, chunk);
+    }
+    for (int c = 0; c < SRK_FV_FS; ++c)
+      fs[(size_t)v * SRK_FV_FS + c] = C[c].f;
+    for (int r = 0; r < rows; ++r) lines[(size_t)r * V + v] = sm[r];
+  }
+  return 0;
+}
+
+extern "C" int srk_freeverb_twin(SRK_FV_ARGS) {
   for (int ch = 0; ch < 2; ++ch)
     for (int v = 0; v < V; ++v)
       srk_fv_voice(v, ch, V, n, chunk, l_in, r_in, damp, damp_lane, feed,

@@ -179,9 +179,9 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
     mono = ins[0] is ins[1]
     gains = block_gains(params, v)
     if device.type == "cuda":
-        from ..ops.freeverb_kernel import FREEVERB
-        return FREEVERB.render(cfg, ins[0], ins[1], mono, gains, state, n,
-                               skip_r=not outs_used[1])
+        from ..ops import freeverb_kernel
+        return freeverb_kernel.render(cfg, ins[0], ins[1], mono, gains,
+                                      state, n, skip_r=not outs_used[1])
     l_in = block_lane(ins[0], v, n, device=device)
     r_in = l_in if mono else block_lane(ins[1], v, n, device=device)
     return block_plain(l_in, r_in, gains, state, n)

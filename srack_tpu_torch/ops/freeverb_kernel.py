@@ -1,17 +1,38 @@
 """The Freeverb on CUDA: kernel K8 (counterpart:
 ``srack_tpu/ops/freeverb_kernel.py``, the Pallas kernel built by ``_build``).
 
-``csrc/freeverb.cu`` runs the module's exact per-sample comb and allpass
-ticks, one thread per voice and channel, with the input gain folded in and
-the stereo wet/dry mix as a second elementwise pass; its source note states
-the launch shape, what bounds it and the design question its line traffic
-leaves open.
+``csrc/freeverb.cu`` has two entries, each with a launch count here:
 
-The wrapper (:meth:`FreeverbKernel.render`, called by the module's
-``_block`` for CUDA tensors):
+* ``freeverb`` (:data:`FREEVERB`, entry ``srk_freeverb``), the main path's:
+  one CTA of 160 threads per voice with the voice's 24 lines in shared
+  memory (111,776 B at 48 kHz, two CTAs per SM, 3.9 waves at 1,024
+  voices).  Time goes in chunks of ``T`` samples (:func:`tile_for`): 128
+  reader threads compute a chunk's comb sums, allpass chains and output mix
+  in parallel, one writer warp runs the 16 combs' damping one-poles one
+  chunk behind them.  The wet/dry mix is fused: no raw ``[2, V, n]``.
+* ``freeverb_twin`` (:data:`FREEVERB_TWIN`, entry ``srk_freeverb_twin``),
+  its one-thread twin: one thread per voice and channel with the lines in
+  device memory, then an elementwise mix pass.
+
+Both run the module's exact per-sample ticks in the same order, so they
+agree bit for bit; the source note states the launch shapes, the
+shared-memory arithmetic and what bounds each.
+
+**Which entry runs** is a rule on the line lengths, fixed by the sample
+rate (:func:`kernel_for`): the shared-memory kernel when its chunk and the
+voice's lines fit (:func:`tile_for`: ``T = min(128, shortest line,
+shortest comb // 2)`` at least 8, and :func:`tile_bytes` within a block's
+232,448), else the twin.  From 1,568 Hz to 96 kHz it is the
+shared-memory kernel (``T`` = 24 at 4,800 Hz, 128 from 44.1 kHz); at 192
+kHz a voice's lines take 443,160 B, and below 1,568 Hz the shortest
+allpass is under 8 samples: the twin runs.  A build or launch
+error raises: it never selects the twin.
+
+The wrapper (:func:`render`, called by the module's ``_block`` for CUDA
+tensors):
 
 1. brings the 24 rings ``[V, L_j]`` into time order with kernel K9
-   (``ops/ring_roll.py``), which writes them straight into the kernel's
+   (``ops/ring_roll.py``), which writes them straight into the kernels'
    ``[rows, V]`` layout, line j at rows ``offs[j]``;
 2. launches K8, which updates the lines and the comb filter states in
    place and writes the two output lanes;
@@ -20,7 +41,7 @@ The wrapper (:meth:`FreeverbKernel.render`, called by the module's
    index 0, the 24 rings views of one new buffer.
 
 Its plain version is ``modules/freeverb.py::block_plain``, the chunked
-form.  The wrapper launches the kernel for CUDA tensors or raises.
+form.  The wrapper launches a kernel for CUDA tensors or raises.
 """
 
 from __future__ import annotations
@@ -32,9 +53,13 @@ from ..modules.freeverb import FS_KEYS, LINE_KEYS, line_lengths
 from .cuda_lib import CudaLib, I, P, csrc, require_cuda
 from .ring_roll import RING_ALIGN
 
-# the entry's argument types, without the stream
+# the entries' shared arguments (SRK_FV_ARGS), without the stream; the
+# shared-memory entry adds the rows and T
 ARGTYPES = [P, P, P, I, P, I, P, P, I, P, I, P, I, P, P, P, P, P, P, P, I, I,
             I]
+TILE_ARGTYPES = ARGTYPES + [I, I]
+TILE_MIN, TILE_MAX = 8, 128  # csrc/freeverb.cu SRK_FV_TILE_MIN, _MAX
+SMEM_MAX = 232448       # dynamic shared memory one block may take (227 KB)
 
 
 def all_lengths(cfg) -> tuple:
@@ -42,6 +67,25 @@ def all_lengths(cfg) -> tuple:
     allpasses left, right."""
     cl, cr, al, ar = line_lengths(cfg.sample_rate)
     return cl + cr + al + ar
+
+
+def tile_bytes(lens, t: int) -> int:
+    """The shared memory of one CTA of the shared-memory kernel: the
+    voice's lines and the mix buffers ``[2][T]``."""
+    return 4 * (sum(lens) + 2 * t)
+
+
+def tile_for(lens) -> int:
+    """The shared-memory kernel's chunk ``T`` for these 24 line lengths, or
+    None when it cannot run them: ``T`` is at most every line (a chunk
+    never reads its own writes) and half the shortest comb (the writer runs
+    a chunk behind the readers), at least 8 (the writer's runs of 16
+    samples need combs of at least 16), and :func:`tile_bytes` must fit
+    one block's shared memory."""
+    t = min(TILE_MAX, min(lens), min(lens[:16]) // 2)
+    if t < TILE_MIN or tile_bytes(lens, t) > SMEM_MAX:
+        return None
+    return t
 
 
 def _gain(x: torch.Tensor, v: int, n: int):
@@ -53,13 +97,14 @@ def _gain(x: torch.Tensor, v: int, n: int):
 
 
 def operands(cfg, l_in, r_in, gains, fs, lines, n: int, skip_r: bool,
-             tables):
-    """The entry's arguments (stream excluded) for one render, and its
-    outputs: ``(args, keep, out_l, out_r)``; ``keep`` holds the tensors
+             tables, raw: bool = True):
+    """The entries' shared arguments (stream excluded) for one render, and
+    the outputs: ``(args, keep, out_l, out_r)``; ``keep`` holds the tensors
     the pointers point into.  ``l_in``, ``r_in``: ``[V, n]`` f32 or None
     (silence); ``fs``: ``[V, 16]`` and ``lines``: ``[sum L, V]``, both
     updated in place; ``tables``: the int32 ``(lens, offsets)`` of the
-    lines."""
+    lines; ``raw``: allocate the twin's raw outputs ``[2, V, n]`` (the
+    shared-memory entry mixes in place and takes none)."""
     cl, cr, _, _ = line_lengths(cfg.sample_rate)
     lens = all_lengths(cfg)
     v = fs.shape[0]
@@ -69,7 +114,8 @@ def operands(cfg, l_in, r_in, gains, fs, lines, n: int, skip_r: bool,
     ing, _ = _gain(in_gain, v, 1)
     mix = [_gain(x, v, n) for x in (wet1, wet2, dry)]
     device = fs.device
-    raw = torch.empty((2, v, n), dtype=CV_DTYPE, device=device)
+    raw_out = (torch.empty((2, v, n), dtype=CV_DTYPE, device=device) if raw
+               else None)
     out_l = torch.empty((v, n), dtype=CV_DTYPE, device=device)
     out_r = None if skip_r else torch.empty_like(out_l)
     for x in (l_in, r_in):
@@ -89,8 +135,8 @@ def operands(cfg, l_in, r_in, gains, fs, lines, n: int, skip_r: bool,
             mix[0][0].data_ptr(), mix[0][1], mix[1][0].data_ptr(),
             mix[1][1], mix[2][0].data_ptr(), mix[2][1], fs.data_ptr(),
             lines.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
-            raw.data_ptr(), out_l.data_ptr(), ptr(out_r), v, n, chunk)
-    keep = [x for x in (l_in, r_in, ing, raw, out_l, out_r, *tables)
+            ptr(raw_out), out_l.data_ptr(), ptr(out_r), v, n, chunk)
+    keep = [x for x in (l_in, r_in, ing, raw_out, out_l, out_r, *tables)
             if x is not None] + [a for a, _ in g + mix]
     return args, keep, out_l, out_r
 
@@ -106,16 +152,35 @@ def line_tables(lens, device) -> tuple:
 
 
 class FreeverbKernel(CudaLib):
-    """K8 and its wrapper."""
+    """One entry of ``csrc/freeverb.cu``: the shared-memory kernel
+    (``tiled``) or its one-thread twin."""
 
-    def __init__(self):
-        super().__init__("freeverb", csrc("freeverb.cu"),
-                         "Freeverb kernel (K8)")
+    def __init__(self, name: str, entry: str, what: str, tiled: bool):
+        super().__init__(name, csrc("freeverb.cu"), what)
+        self.entry = entry
+        self.tiled = tiled
         self._tables: dict = {}  # (lens, device) -> line_tables
+
+    def entry_args(self, cfg, l_in, r_in, gains, fs, lines, n: int,
+                   skip_r: bool, tables):
+        """This entry's arguments (stream excluded): ``(args, argtypes,
+        keep, out_l, out_r)``, as :func:`operands`, the shared-memory entry
+        with its rows and chunk."""
+        lens = all_lengths(cfg)
+        args, keep, out_l, out_r = operands(cfg, l_in, r_in, gains, fs,
+                                            lines, n, skip_r, tables,
+                                            raw=not self.tiled)
+        if not self.tiled:
+            return args, ARGTYPES, keep, out_l, out_r
+        t = tile_for(lens)
+        if t is None:
+            raise ValueError(f"the Freeverb lines of {cfg.sample_rate} Hz "
+                             "do not fit the shared-memory kernel")
+        return args + (sum(lens), t), TILE_ARGTYPES, keep, out_l, out_r
 
     def launch_lines(self, cfg, l_in, r_in, gains, fs, lines, n: int,
                      skip_r: bool = False):
-        """One K8 launch on operands in the kernel's layout (see
+        """One launch on operands in the kernel's layout (see
         :func:`operands`).  Returns ``(out_l, out_r or None)``."""
         lens = all_lengths(cfg)
         device = require_cuda(fs, lines,
@@ -123,54 +188,63 @@ class FreeverbKernel(CudaLib):
         key = (lens, str(device))
         if key not in self._tables:
             self._tables[key] = line_tables(lens, device)
-        args, keep, out_l, out_r = operands(cfg, l_in, r_in, gains, fs,
-                                            lines, n, skip_r,
-                                            self._tables[key])
+        args, argtypes, keep, out_l, out_r = self.entry_args(
+            cfg, l_in, r_in, gains, fs, lines, n, skip_r, self._tables[key])
         require_cuda(*keep)
-        self.launch("srk_freeverb", ARGTYPES, args, device)
+        self.launch(self.entry, argtypes, args, device)
         return out_l, out_r
 
-    def render(self, cfg, l_in, r_in, mono: bool, gains, state: dict,
-               n: int, skip_r: bool = False):
-        """The module's block form on CUDA tensors: ``(new_state, (out_l,
-        out_r))`` with the rings in time order and write index 0.  With
-        ``skip_r`` (the Right output feeds nothing) ``out_r`` is a
-        placeholder that holds no memory of its own."""
-        lens = all_lengths(cfg)
-        v = state["cl0"].shape[0]
-        device = state["cl0"].device
 
-        def lane(x):
-            return None if x is None else x.to(CV_DTYPE).expand(v, n) \
-                .contiguous()
-
-        l_in = lane(l_in)
-        r_in = l_in if mono else lane(r_in)
-        lines = torch.empty((sum(lens), v), dtype=CV_DTYPE, device=device)
-        line_rows = torch.split(lines, list(lens))
-        idx = torch.stack([state[f"{k}_idx"] for k in LINE_KEYS]).to(
-            torch.int32).contiguous()
-        RING_ALIGN.move([state[k].contiguous() for k in LINE_KEYS],
-                        line_rows, lens, v, idx=idx, dst_lines=True)
-        fs = torch.stack([state[k] for k in FS_KEYS], dim=1).contiguous()
-        out_l, out_r = self.launch_lines(cfg, l_in, r_in, gains, fs, lines,
-                                         n, skip_r)
-        rings = [b.view(v, length) for b, length in zip(torch.split(
-            torch.empty(v * sum(lens), dtype=CV_DTYPE, device=device),
-            [v * x for x in lens]), lens)]
-        RING_ALIGN.move(line_rows, rings, lens, v,
-                        shifts=[n % length for length in lens],
-                        src_lines=True)
-        new_state = dict(state)
-        for k, ring in zip(LINE_KEYS, rings):
-            new_state[k] = ring
-            new_state[f"{k}_idx"] = torch.zeros_like(state[f"{k}_idx"])
-        for j, k in enumerate(FS_KEYS):
-            new_state[k] = fs[:, j].contiguous()
-        if out_r is None:
-            out_r = torch.zeros((), dtype=CV_DTYPE, device=device).expand(
-                v, n)
-        return new_state, (out_l, out_r)
+FREEVERB = FreeverbKernel("freeverb", "srk_freeverb",
+                          "Freeverb kernel (K8)", tiled=True)
+FREEVERB_TWIN = FreeverbKernel("freeverb_twin", "srk_freeverb_twin",
+                               "Freeverb kernel, one-thread twin (K8)",
+                               tiled=False)
 
 
-FREEVERB = FreeverbKernel()
+def kernel_for(lens) -> FreeverbKernel:
+    """K8's entry for these line lengths: the shared-memory kernel where
+    :func:`tile_for` gives a chunk, else the one-thread twin."""
+    return FREEVERB if tile_for(lens) is not None else FREEVERB_TWIN
+
+
+def render(cfg, l_in, r_in, mono: bool, gains, state: dict, n: int,
+           skip_r: bool = False):
+    """The module's block form on CUDA tensors: ``(new_state, (out_l,
+    out_r))`` with the rings in time order and write index 0.  With
+    ``skip_r`` (the Right output feeds nothing) ``out_r`` is a placeholder
+    that holds no memory of its own."""
+    lens = all_lengths(cfg)
+    v = state["cl0"].shape[0]
+    device = state["cl0"].device
+
+    def lane(x):
+        return None if x is None else x.to(CV_DTYPE).expand(v, n) \
+            .contiguous()
+
+    l_in = lane(l_in)
+    r_in = l_in if mono else lane(r_in)
+    lines = torch.empty((sum(lens), v), dtype=CV_DTYPE, device=device)
+    line_rows = torch.split(lines, list(lens))
+    idx = torch.stack([state[f"{k}_idx"] for k in LINE_KEYS]).to(
+        torch.int32).contiguous()
+    RING_ALIGN.move([state[k].contiguous() for k in LINE_KEYS],
+                    line_rows, lens, v, idx=idx, dst_lines=True)
+    fs = torch.stack([state[k] for k in FS_KEYS], dim=1).contiguous()
+    out_l, out_r = kernel_for(lens).launch_lines(cfg, l_in, r_in, gains, fs,
+                                                 lines, n, skip_r)
+    rings = [b.view(v, length) for b, length in zip(torch.split(
+        torch.empty(v * sum(lens), dtype=CV_DTYPE, device=device),
+        [v * x for x in lens]), lens)]
+    RING_ALIGN.move(line_rows, rings, lens, v,
+                    shifts=[n % length for length in lens],
+                    src_lines=True)
+    new_state = dict(state)
+    for k, ring in zip(LINE_KEYS, rings):
+        new_state[k] = ring
+        new_state[f"{k}_idx"] = torch.zeros_like(state[f"{k}_idx"])
+    for j, k in enumerate(FS_KEYS):
+        new_state[k] = fs[:, j].contiguous()
+    if out_r is None:
+        out_r = torch.zeros((), dtype=CV_DTYPE, device=device).expand(v, n)
+    return new_state, (out_l, out_r)

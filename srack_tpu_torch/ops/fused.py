@@ -15,20 +15,21 @@ for V voices over n samples.
   output wires streamed out.
 
 All three are one source, generated per plan with a buffer-mode and a
-stage-mode switch; K1 and K3 run as a pipeline of stage warps, K2 one
-thread per voice.  They
-carry none of the TPU layout over: no (8, 128) tiles, no 1,024-voice
-padding, no time chunks with a scratch carry, no padded-tail snapshot, and
-for K2 no outer scan of one kernel call per block.
+stage-mode switch, each run as a pipeline of stage warps (since PR 7 K2
+too; ``stages=1`` builds the one-thread twin).  They carry none of the TPU
+layout over: no (8, 128) tiles, no 1,024-voice padding, no time chunks with
+a scratch carry, no padded-tail snapshot, and for K2 no outer scan of one
+kernel call per block.
 
 Design:
 
-* **A pipeline of stage warps, one launch per render (K1, K3).**  Voices
+* **A pipeline of stage warps, one launch per render (K1, K2, K3).**  Voices
   are independent and time is a recurrence, so a voice's samples are a
   serial chain, but most of a plan's modules do not depend on each other
   within a sample.  ``ops/partition.py`` cuts the plan into at most four
   stages, runs of consecutive modules of about equal cost (never through
-  a feedback carry's cycle).  A CTA holds 32 voices and one warp per
+  a feedback carry's cycle; K2's plan carries none, its feedback is
+  a block late).  A CTA holds 32 voices and one warp per
   stage, so the stages issue from the SM's four schedulers at once; at
   chunk step ``k`` warp ``g`` runs chunk ``k - g`` of ``T`` samples (a
   power of two, at most 32) and a named barrier ends the step.  A wire
@@ -40,8 +41,8 @@ Design:
   80GB HBM3 at 700 W the headline voice (stages of 38/67/35/38
   operations against 178) renders 1,024 x 480,000 in 129.4 ms where one
   thread per voice takes 186.0, the 32-module sequencer in 338.2 against
-  952.0 (chip_smoke.py phase 15).  The one-thread form stays: K2, K10
-  and ``stages=1`` build it.
+  952.0 (chip_smoke.py phase 15).  The one-thread form stays: K10 and
+  ``stages=1`` build it.
 * **Occupancy.**  1,024 voices give 32 CTAs of 4 warps on 132 SMs, one
   CTA per SM; 16,384 voices give 512 CTAs, all resident at once at
   ``T = 32`` (28.8 KB of shared memory for the headline), about 16 warps
@@ -71,31 +72,42 @@ Design:
 * **K2's delayed feedback** lives in a per-voice ring in device memory,
   ``[n_fb, block, V]`` f32, a warp's voices on 128 contiguous bytes.  At
   sample t every fb read of key k takes ``ring[k][t % block]``, the value
-  that key's source wrote one block earlier; all fb slots are loaded at
-  the top of the sample and this sample's values stored at its end, which
-  keeps the order right whatever the plan order of sinks and sources.  The
-  ring starts as ``state["fb"]`` (``[V, block]``, transposed in) and, since
-  ``n % block == 0``, ends as the last block in time order: K2's final fb.
-  It bounds K2 like K1, by the serial chain, plus one ring load and one
-  ring store per fb key per sample.  At 1,024 voices and block 1,024 the
-  ring is 4 MiB per key and stays in the 50 MB L2; at 16,384 voices it is
-  64 MiB per key and does not, so its traffic goes to device memory
-  (4 + 4 bytes per key per voice-sample).
+  that key's source wrote one block earlier.  The ring starts as
+  ``state["fb"]`` (``[V, block]``, transposed in) and, since ``n % block
+  == 0``, ends as the last block in time order: K2's final fb.  Split into
+  stages, the warp of each stage that reads a key copies the chunk's
+  ``T`` slots into shared memory at the top of the chunk (one wait per
+  chunk, not one per sample), and the warp of the key's source stores
+  each sample's value at the end of the sample.  The warps run skewed by
+  whole chunks, stage g's chunk c at step ``c + g``: a key read in stage g
+  and written in stage h (``g <= h``: a source comes later in plan order)
+  needs ``block >= (h - g + 1) * T``, so that the copy of slot ``t``
+  comes after the write of ``t - block`` and before the write of ``t``
+  (:func:`ring_chunk_limit` caps :func:`pick_chunk`; no chunk of at least
+  8: one thread per voice).  At 1,024 voices and block
+  1,024 the ring is 4 MiB per key and stays in the 50 MB L2; at 16,384
+  voices it is 64 MiB per key and does not.  ``feedback_patch`` in buffer
+  mode splits into stages of 68/68/39 operations (175 in one thread) and
+  renders 1,024 x 491,520 in 78.014 ms where the one-thread form takes
+  159.218 (chip_smoke.py phase 15, NVIDIA H100 80GB HBM3 at 700.00 W),
+  0.490 of it; its costliest stage holds 0.39 of the operations.
 * **The audio writes.**  K1's Output stage writes each chunk into a
   shared tile ``[C][32][T + 1]`` (a padded row per voice, so neither the
   writes nor the reads meet a bank twice) and the warp then stores it row
   by row, 32 consecutive samples of one voice per store: one 128-byte
   transaction where the one-thread form's per-sample store touched 32
-  sectors.  K3's output wires go to ``[O, n, V]`` per sample, coalesced
-  across the warp's voices.  The one-thread form (K2) still stores
-  straight to ``[V, C, n]``, 32 separate sectors per warp store.
+  sectors; K2's Output stage does the same.  K3's output wires go to
+  ``[O, n, V]`` per sample, coalesced across the warp's voices.  The
+  one-thread form stores straight to ``[V, C, n]``, 32 separate sectors
+  per warp store.
 * **Generated per plan.**  The module steps are the inline functions of
   ``csrc/modules.cuh`` (the pipeline's copies and barrier are in
   ``csrc/pipeline.cuh``); this file emits a small ``.cu`` per compiled
   plan, partition, chunk and lane set that loads params and state, calls
   the steps in plan order with wires as locals (a feedback read uses the
-  carried local, or K2's ring slot; a wire from an earlier stage its
-  ring), writes the audio and stores the final state.  Its one
+  carried local, or K2's ring slot, in the pipeline its chunk's copy; a
+  wire from an earlier stage its ring), writes the audio and stores the
+  final state.  Its one
   ``extern "C"`` entry launches the kernel on the caller's stream and
   returns ``cudaGetLastError()``.
 * **Numerics.**  Built with ``--fmad=false`` and without fast math, so the
@@ -370,7 +382,7 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     backward kernel (:func:`_generate_bwd`).
 
     ``split`` (an ``ops.partition.Partition`` of the plan) of more than
-    one stage makes K1 or K3 a pipeline of stage warps
+    one stage makes K1, K2 or K3 a pipeline of stage warps
     (:func:`_generate_pipeline`) with chunks of ``chunk`` samples
     (:func:`pick_chunk` by default); without one, or with one stage, the
     kernel runs the whole plan in one thread per voice.
@@ -384,8 +396,9 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     if mode not in (None, "ckpt", "bwd"):
         raise ValueError(f"unknown mode {mode!r}")
     if split is not None and split.n_stages > 1:
-        if mode is not None or (cfg.buffer_feedback and stage is None):
-            raise ValueError("only K1 and K3 run as a pipeline of stages")
+        if mode is not None:
+            raise ValueError("only K1, K2 and K3 run as a pipeline of "
+                             "stages")
         plan = compiled.plan if stage is None else stage.stage_plan
         return _generate_pipeline(
             compiled, layout or Layout.of(
@@ -636,11 +649,14 @@ class SmemLayout:
     """Offsets (in floats) into a split CTA's dynamic shared memory:
     ``wires`` maps a cross-stage wire to ``(offset, slots)`` of its ring
     ``[slots][chunk][32]``; ``lanes`` maps ``(stage, lane key)`` to the
-    offset of its double buffer ``[2][chunk][32]``; ``tile`` is the offset
-    of K1's audio tile ``[C][32][chunk + 1]`` (None for K3)."""
+    offset of its double buffer ``[2][chunk][32]``; ``fb`` maps ``(stage,
+    feedback key)`` to the offset of K2's chunk of ring reads
+    ``[chunk][32]``; ``tile`` is the offset of K1's (K2's) audio tile
+    ``[C][32][chunk + 1]`` (None for K3)."""
     chunk: int
     wires: tuple
     lanes: tuple
+    fb: tuple
     tile: object
     floats: int
 
@@ -649,10 +665,12 @@ class SmemLayout:
         return 4 * self.floats
 
 
-def smem_layout(part, lanes_of, channels: int, chunk: int) -> SmemLayout:
+def smem_layout(part, lanes_of, channels: int, chunk: int,
+                rings=()) -> SmemLayout:
     """The shared memory of a split CTA; ``channels``: K1's audio channels,
-    0 for K3 (its outputs stream to device memory)."""
-    off, wires, lanes = 0, [], []
+    0 for K3 (its outputs stream to device memory); ``rings``: K2's ring
+    reads (:func:`ring_stages`)."""
+    off, wires, lanes, fb = 0, [], [], []
     for w, a, b in part.wires:
         wires.append((w, off, b - a + 1))
         off += (b - a + 1) * chunk * WARP
@@ -660,25 +678,84 @@ def smem_layout(part, lanes_of, channels: int, chunk: int) -> SmemLayout:
         for k in keys:
             lanes.append(((g, k), off))
             off += 2 * chunk * WARP
+    for k, g, _ in rings:
+        fb.append(((g, k), off))
+        off += chunk * WARP
     tile = None
     if channels:
         tile = off
         off += channels * WARP * (chunk + 1)
-    return SmemLayout(chunk, tuple(wires), tuple(lanes), tile, off)
+    return SmemLayout(chunk, tuple(wires), tuple(lanes), tuple(fb), tile,
+                      off)
 
 
-def pick_chunk(part, lanes_of, channels: int):
+def pick_chunk(part, lanes_of, channels: int, limit: int = CHUNK_MAX,
+               rings=()):
     """The chunk length: the largest power of two from ``CHUNK_MIN`` to
-    ``CHUNK_MAX`` whose rings, lane buffers and tile fit ``SMEM_BUDGET``;
-    None if none does (a plan with that many cross-stage wires and lanes
-    runs one thread per voice)."""
+    ``CHUNK_MAX`` and at most ``limit`` (K2's ring, :func:`ring_chunk_limit`)
+    whose rings, lane buffers and tile fit ``SMEM_BUDGET``; None if none
+    does (a plan with that many cross-stage wires and lanes, or a block too
+    short for its feedback ring, runs one thread per voice)."""
     chunk = CHUNK_MAX
+    while chunk > limit:
+        chunk //= 2
     while chunk >= CHUNK_MIN:
-        if smem_layout(part, lanes_of, channels,
-                       chunk).nbytes <= SMEM_BUDGET:
+        if smem_layout(part, lanes_of, channels, chunk,
+                       rings).nbytes <= SMEM_BUDGET:
             return chunk
         chunk //= 2
     return None
+
+
+def split_needs(compiled, part, lanes, stage, layout) -> tuple:
+    """What a split kernel's chunk and shared memory depend on:
+    ``(lanes_of, channels, rings, limit)``, each stage's lanes
+    (:func:`stage_lanes`), the audio tile's channels (0 for K3), K2's ring
+    reads (:func:`ring_stages`) and the longest chunk its ring allows
+    (:func:`ring_chunk_limit`; ``CHUNK_MAX`` without a ring)."""
+    buffer = compiled.cfg.buffer_feedback and stage is None
+    lanes_of = stage_lanes(compiled, part, lanes, stage, layout)
+    channels = 0 if stage is not None else compiled.cfg.channels
+    if not buffer:
+        return lanes_of, channels, (), CHUNK_MAX
+    return (lanes_of, channels, ring_stages(compiled, part),
+            ring_chunk_limit(compiled, part))
+
+
+def ring_stages(compiled, part) -> tuple:
+    """K2's feedback keys with the stage of each reader: ``((key, g, h),
+    ...)``, ``g`` a stage that reads the key (one entry per reading stage),
+    ``h`` the stage of its source.  A feedback source comes at or after its
+    readers in plan order, and stages are runs of the plan, so ``g <=
+    h``."""
+    stage_of = part.stage_of()
+    out = []
+    for key in compiled.fb_keys:
+        h = stage_of[key[0]]
+        readers = {stage_of[mid] for mid in compiled.plan
+                   for c in compiled.instances[mid][2]
+                   if c == key and compiled.plan_pos[key[0]]
+                   >= compiled.plan_pos[mid]}
+        for g in sorted(readers):
+            if g > h:
+                raise ValueError(f"feedback {key} is read in stage {g}, "
+                                 f"after its source's stage {h}")
+            out.append((key, g, h))
+    return tuple(out)
+
+
+def ring_chunk_limit(compiled, part) -> int:
+    """The longest chunk K2's feedback ring allows.  The warps run skewed
+    by whole chunks: stage ``g`` copies the slots of its chunk's samples
+    (slot ``t % block`` for sample ``t``) at the top of chunk step ``t // T
+    + g``, stage ``h`` writes sample ``t`` during step ``t // T + h``.  The
+    copy of ``t`` must come after the write of ``t - block``, a step after
+    it where ``g < h`` and a chunk after it where ``g == h``, so ``block //
+    T >= h - g + 1``: ``T <= block // (h - g + 1)`` for every key and
+    reading stage."""
+    block = compiled.cfg.block_size
+    return min([block // (h - g + 1) for _, g, h in ring_stages(
+        compiled, part)], default=CHUNK_MAX)
 
 
 def _struct_leaf(leaf, arr) -> tuple:
@@ -697,7 +774,7 @@ def _struct_leaf(leaf, arr) -> tuple:
 
 def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
                        chunk) -> str:
-    """K1 or K3 for a plan cut into ``part.n_stages`` pipeline stages.
+    """K1, K2 or K3 for a plan cut into ``part.n_stages`` pipeline stages.
 
     One CTA holds 32 voices and one warp per stage.  Time goes in chunks of
     ``chunk`` samples, in lock step: at chunk step ``k`` warp ``g`` runs
@@ -710,7 +787,12 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     its part of the final state.  K1's Output stage writes each chunk of
     audio into a tile ``[C][32][chunk + 1]`` and stores it row by row, 32
     consecutive samples of one voice per warp store; K3's stages store
-    their output wires per sample (``[O, n, V]``, coalesced).
+    their output wires per sample (``[O, n, V]``, coalesced).  K2's
+    feedback ring stays in device memory (``[n_fb, block, V]``): the warp
+    of a key's reading stage copies the chunk's slots ``ring[k][t %
+    block]`` into shared memory at the top of the chunk, the warp of its
+    source stores each sample's value at the end of the sample
+    (:func:`ring_chunk_limit` keeps the two a block apart).
 
     Every module is called as in the one-thread kernel, with the same
     arguments in the same order, so the result is the same bit for bit.
@@ -724,6 +806,7 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     cfg = compiled.cfg
     plan = compiled.plan if stage is None else stage.stage_plan
     fb_lanes = cfg.buffer_feedback and stage is not None
+    buffer = cfg.buffer_feedback and stage is None   # K2's ring
     if stage is not None and compiled.output_id in plan:
         raise ValueError("the serial-stage kernel runs without the Output "
                          "module")
@@ -734,31 +817,47 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     stage_of = part.stage_of()
     if set(stage_of) != set(plan):
         raise ValueError("the partition does not cover the plan")
-    lanes_of = stage_lanes(compiled, part, lanes, stage, layout)
-    n_tile = 0 if stage is not None else n_ch
-    chunk = chunk or pick_chunk(part, lanes_of, n_tile)
+    lanes_of, n_tile, rings, limit = split_needs(compiled, part, lanes,
+                                                 stage, layout)
+    chunk = chunk or pick_chunk(part, lanes_of, n_tile, limit, rings)
     if chunk is None or chunk < 1:
         raise ValueError(f"no chunk of the {G} stages fits "
                          f"{SMEM_BUDGET} bytes of shared memory" if chunk
                          is None else f"chunk must be >= 1, got {chunk}")
-    sm = smem_layout(part, lanes_of, n_tile, chunk)
+    if buffer and chunk > limit:
+        raise ValueError(f"a chunk of {chunk} samples is longer than K2's "
+                         f"feedback ring allows (block {cfg.block_size}: "
+                         f"at most {limit})")
+    sm = smem_layout(part, lanes_of, n_tile, chunk, rings)
     wire_at = {w: (off, slots) for w, off, slots in sm.wires}
     wire_from = {w: a for w, a, _ in part.wires}
     lane_at = dict(sm.lanes)
+    fb_at = dict(sm.fb)
     out_stage = None if stage is not None else stage_of[compiled.output_id]
-    kind = ("serial-stage kernel (K3)" if stage is not None
-            else "fused voice kernel (K1)")
+    if stage is not None:
+        kind = "serial-stage kernel (K3)"
+    else:
+        kind = ("fused buffer-feedback kernel (K2)" if buffer
+                else "fused voice kernel (K1)")
     L = _header(compiled, plan, lanes, kind + f", {G} pipeline stages")
     L += [f"// Stage {g}: " + ", ".join(mods) + f" ({part.costs[g]} ops)."
           for g, mods in enumerate(part.stages)]
+    L += [f"// Feedback {k[0]}#{k[1]}: read in stage {g}, written in stage "
+          f"{h}." for k, g, h in rings]
+    if buffer:
+        L.append(f"#define SRK_FB_BLOCK {int(cfg.block_size)}")
     L += [f"#define SRK_STAGES {G}",
           f"#define SRK_THREADS {WARP * G}",
           f"#define SRK_T {chunk}",
           f"#define SRK_SMEM_FLOATS {sm.floats}",
           '#include "modules.cuh"',
           '#include "pipeline.cuh"']
-    ptrs = ("const float* __restrict__ lanes, float* __restrict__ audio, "
-            "float* __restrict__ sm")
+    ptrs = ("const float* __restrict__ lanes, float* __restrict__ ring, "
+            "float* __restrict__ audio, float* __restrict__ sm")
+
+    def fb_slot(k):
+        return (f"ring[((size_t){compiled.fb_keys.index(k)} * SRK_FB_BLOCK "
+                "+ slot) * V + v]")
     for g, mods in enumerate(part.stages):
         mods = list(mods)
         leaves = [leaf for leaf in layout.params + layout.state
@@ -832,11 +931,28 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
         if g == out_stage:
             L += [f"  float* a{c} = sm + {sm.tile} + ({c} * 32 + lane) * "
                   "(SRK_T + 1);" for c in range(n_ch)]
+        read_keys = [k for k, gr, _ in rings if gr == g]
+        write_keys = [k for k in compiled.fb_keys
+                      if buffer and stage_of[k[0]] == g]
+        if read_keys:
+            # the chunk's feedback reads, each written a block earlier in
+            # an earlier chunk step, before any write of this chunk: one
+            # wait for the whole chunk, not one per sample
+            L += ["#pragma unroll 8",
+                  "  for (int tc = 0; tc < cnt; ++tc) {",
+                  "    const int slot = (t0 + tc) % SRK_FB_BLOCK;"]
+            L += [f"    sm[{fb_at[(g, k)]} + tc * 32 + lane] = {fb_slot(k)};"
+                  for k in read_keys]
+            L.append("  }")
         L += ["  for (int tc = 0; tc < cnt; ++tc) {",
               "    const int t = t0 + tc;",
               "    (void)t;"]
+        if write_keys:
+            L.append("    const int slot = t % SRK_FB_BLOCK;")
         L += [f"    const float {_lane_var(k)} = sm[{lane_at[(g, k)]} + lb + "
               "tc * 32];" for k in lanes_of[g]]
+        L += [f"    const float {_var(('fb', k))} = sm[{fb_at[(g, k)]} + "
+              "tc * 32 + lane];" for k in read_keys]
         for src, ports in ins.items():
             mdef, statics, _ = compiled.instances[src]
             n_out = max(mdef.num_outputs(cfg, statics), 1)
@@ -847,7 +963,10 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
                          fb_lanes, t_expr="tc")
         L += [f"    sm[{ring[w]} + tc * 32] = w_{_ident(w[0])}[{w[1]}];"
               for w in ring if wire_from[w] == g]
-        if not fb_lanes:
+        if buffer:
+            L += [f"    {fb_slot(k)} = w_{_ident(k[0])}[{k[1]}];"
+                  for k in write_keys]
+        elif not fb_lanes:
             L += [f"    {_var(('fb', k))} = w_{_ident(k[0])}[{k[1]}];"
                   for k in compiled.fb_keys if stage_of.get(k[0]) == g]
         if stage is not None:
@@ -889,7 +1008,7 @@ def _pipeline_entries(part, lanes_of, out_stage) -> list:
             "const float* lanes, float* ring, float* audio, float* sf_out, "
             "int* si_out, int V, int n")
     args = "pf, pi, sf, si, lanes, ring, audio, sf_out, si_out, V, n"
-    chunk_args = "lane, v, V, n, lanes, audio, sm"
+    chunk_args = "lane, v, V, n, lanes, ring, audio, sm"
     L = ["", "#ifdef __CUDACC__",
          "__global__ void __launch_bounds__(SRK_THREADS) "
          f"srk_fused_kernel({decl}) {{",
@@ -899,8 +1018,7 @@ def _pipeline_entries(part, lanes_of, out_stage) -> list:
          "  const int v0 = blockIdx.x * 32;",
          "  const int v = v0 + lane;",
          "  const bool live = v < V;",
-         "  const int n_chunks = (n + SRK_T - 1) / SRK_T;",
-         "  (void)ring;"]
+         "  const int n_chunks = (n + SRK_T - 1) / SRK_T;"]
     for g in range(part.n_stages):
         L += [("  if" if g == 0 else "  } else if") + f" (g == {g}) {{",
               f"    srk_st{g} S;",
@@ -942,7 +1060,6 @@ def _pipeline_entries(part, lanes_of, out_stage) -> list:
           f'extern "C" int srk_fused_host({decl}) {{',
           "  std::vector<float> smem(SRK_SMEM_FLOATS);",
           "  float* sm = smem.data();",
-          "  (void)ring;",
           "  const int n_chunks = (n + SRK_T - 1) / SRK_T;",
           "  for (int v0 = 0; v0 < V; v0 += 32) {",
           "    const int live = V - v0 < 32 ? V - v0 : 32;"]
@@ -1250,13 +1367,14 @@ def unpack_ring(compiled, ring: torch.Tensor) -> dict:
 
 class FusedKernel(CudaLib):
     """The fused kernel of one compiled plan and lane set: its generated
-    source, its build, its launch wrapper and a count of launches.  In
-    buffer-feedback mode it is K2's counterpart (``fused_voice_buffer``),
-    one thread per voice; else K1's (``fused_voice``), its plan cut into
-    at most ``stages`` pipeline stages (``ops/partition.py``): a CTA of
-    ``32 * G`` threads, one stage warp each, per 32 voices, with chunks of
-    ``chunk`` samples (:func:`pick_chunk` by default).  ``stages=1`` builds
-    the one-thread form, the comparison the card's A/B phase makes."""
+    source, its build, its launch wrapper and a count of launches: K1's
+    counterpart (``fused_voice``), or in buffer-feedback mode K2's
+    (``fused_voice_buffer``).  Its plan is cut into at most ``stages``
+    pipeline stages (``ops/partition.py``; K2's plan has no carried cycle,
+    so any cut is free): a CTA of ``32 * G`` threads, one stage warp each,
+    per 32 voices, with chunks of ``chunk`` samples (:func:`pick_chunk` by
+    default, for K2 at most :func:`ring_chunk_limit`).  ``stages=1`` builds
+    the one-thread form, the twin the card's A/B phase compares."""
 
     plain = "engine='scan'"  # what the CPU runs instead
 
@@ -1271,9 +1389,8 @@ class FusedKernel(CudaLib):
         self.lanes = tuple(sorted(lanes))
         self.buffer = compiled.cfg.buffer_feedback
         self.layout = Layout.of(compiled)
-        # K2 keeps the one-thread form
-        self.partition = (one_stage(compiled) if self.buffer
-                          else partition(compiled, max_stages=stages))
+        self.partition = partition(compiled, carried=not self.buffer,
+                                   max_stages=stages)
         self._pipeline(None, chunk)
         super().__init__(
             "fused_voice_buffer" if self.buffer else "fused_voice",
@@ -1284,20 +1401,21 @@ class FusedKernel(CudaLib):
     def _pipeline(self, stage, chunk) -> None:
         """The chunk length and the shared-memory bytes of a split
         kernel (None and 0 for the one-thread form, which a plan takes
-        when no chunk of its stages fits the shared-memory budget)."""
+        when no chunk of its stages fits the shared-memory budget or, for
+        K2, the feedback ring's block)."""
         part = self.partition
         self.chunk, self.smem_bytes = None, 0
         if part.n_stages > 1:
-            lanes_of = stage_lanes(self.compiled, part, self.lanes, stage,
-                                   self.layout)
-            n_tile = 0 if stage is not None else self.compiled.cfg.channels
-            self.chunk = chunk or pick_chunk(part, lanes_of, n_tile)
+            lanes_of, n_tile, rings, limit = split_needs(
+                self.compiled, part, self.lanes, stage, self.layout)
+            self.chunk = chunk or pick_chunk(part, lanes_of, n_tile, limit,
+                                             rings)
             if self.chunk is None:
                 self.partition = one_stage(
                     self.compiled, [m for mods in part.stages for m in mods])
                 return
             self.smem_bytes = smem_layout(part, lanes_of, n_tile,
-                                          self.chunk).nbytes
+                                          self.chunk, rings).nbytes
 
     @property
     def threads(self) -> int:

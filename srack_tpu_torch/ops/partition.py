@@ -1,6 +1,7 @@
 """The plan of a fused kernel cut into pipeline stages.
 
-Kernels K1 (``fused_voice``) and K3 (``serial_stage``) run a plan's
+Kernels K1 (``fused_voice``), K2 (``fused_voice_buffer``) and K3
+(``serial_stage``) run a plan's
 modules in a CTA of ``G`` stage warps (``ops/fused.py``): warp ``g`` runs
 the modules of stage ``g`` for the CTA's 32 voices, one chunk of samples
 behind warp ``g - 1``, and the wires between stages pass through
@@ -11,8 +12,9 @@ The rules:
 * a stage is a run of consecutive modules of the plan, so every
   within-sample wire goes from a stage to the same or a later one;
 * a feedback carry's source and sink share a stage: no cut falls between
-  a carried read and its source (in sample mode; a buffer-mode stage
-  reads its delayed wires from lanes and carries nothing);
+  a carried read and its source (in sample mode; in buffer mode K2 reads
+  its delayed wires from its ring and a stage from lanes, and neither
+  carries anything);
 * the stages minimise the costliest stage's operations per sample
   (:func:`module_ops`), then the number of cross-stage wires (each one a
   shared-memory ring), then the number of stages;

@@ -17,8 +17,13 @@ held against its plain version on the same inputs:
 * K9, the ring alignment (``csrc/ring_align.cu``), rings to rings and
   to and from the Freeverb kernel's ``[L, V]`` lines: exact;
 * K8, the Freeverb (``csrc/freeverb.cu``) with the wrapper's layout around
-  it: within ``2e-5`` of the chunked block form, from rings with non-zero
-  write indices, with and without an automated ``room_size`` lane;
+  it, both entries: the shared-memory kernel bit for bit equal to its
+  one-thread twin (audio, filter states, lines) and both within ``2e-5``
+  of the chunked block form, from rings with non-zero write indices, with
+  and without automated ``room_size`` and ``wet`` lanes, at 48 kHz and
+  4,800 Hz (shortest line 24), n a multiple of the chunk, not one, and
+  shorter than one; the rule that picks the twin (lines too long for
+  shared memory) and that an error never does;
 * K5/K6, the row gather (``csrc/row_gather.cu``), both entries, f32 and
   int32 tables, indices in and out of range: exact against the plain
   gather;
@@ -257,8 +262,8 @@ def test_ring_align_on_host_matches_plain(gxx, tmp_path, src_lines,
 
 # -- K8 ----------------------------------------------------------------------
 
-def _freeverb_inputs(v, n, seed, automated):
-    cfg = stt.AudioConfig(sample_rate=SR, channels=2)
+def _freeverb_inputs(v, n, seed, automated, sr=SR):
+    cfg = stt.AudioConfig(sample_rate=sr, channels=2)
     rng = np.random.default_rng(seed)
     state = {}
     for k, length in zip(fv.LINE_KEYS, fvk.all_lengths(cfg)):
@@ -286,25 +291,27 @@ def _freeverb_inputs(v, n, seed, automated):
     return cfg, params, state, l_in, r_in
 
 
-@pytest.mark.parametrize("automated", [False, True])
-@pytest.mark.parametrize("n", [512, 300])
-def test_freeverb_kernel_on_host_matches_block_form(gxx, tmp_path, n,
-                                                    automated):
-    v = 3
-    cfg, params, state, l_in, r_in = _freeverb_inputs(v, n, n, automated)
-    gains = fv.block_gains(params, v)
-    want_state, (want_l, want_r) = fv.block_plain(l_in, r_in, gains,
-                                                  state, n)
-    # the wrapper's steps, with the plain alignment and transpose for K9
+def _k8_host(lib, kernel, cfg, l_in, r_in, gains, state, n):
+    """One host run of a K8 entry with the wrapper's steps around it (the
+    plain alignment and transpose for K9): ``(out_l, out_r, fs, lines)``,
+    the filter states and lines as the kernel leaves them."""
     lens = fvk.all_lengths(cfg)
     lines = torch.cat([ring_align_plain(state[k], state[f"{k}_idx"]).T
                        for k in fv.LINE_KEYS]).contiguous()
     fs = torch.stack([state[k] for k in fv.FS_KEYS], dim=1).contiguous()
-    args, _keep, out_l, out_r = fvk.operands(
+    args, argtypes, _keep, out_l, out_r = kernel.entry_args(
         cfg, l_in, r_in, gains, fs, lines, n, False,
         fvk.line_tables(lens, "cpu"))
-    lib = _host(FREEVERB, gxx, tmp_path)
-    assert _fn(lib, "srk_freeverb", fvk.ARGTYPES)(*args) == 0
+    assert _fn(lib, kernel.entry, argtypes)(*args) == 0
+    assert kernel.launches == 0
+    return out_l, out_r, fs, lines
+
+
+def _assert_k8_close(cfg, got, want_state, want_l, want_r, n, v):
+    """A host run's outputs against ``block_plain``'s within ``2e-5`` (abs +
+    rel), the lines after K9's plain move back into rings."""
+    out_l, out_r, fs, lines = got
+    lens = fvk.all_lengths(cfg)
     torch.testing.assert_close(out_l, want_l, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(out_r, want_r, atol=2e-5, rtol=2e-5)
     for j, k in enumerate(fv.FS_KEYS):
@@ -316,6 +323,100 @@ def test_freeverb_kernel_on_host_matches_block_form(gxx, tmp_path, n,
                                                  dtype=torch.int32))
         torch.testing.assert_close(back, want_state[k], atol=2e-5, rtol=2e-5)
         assert not want_state[f"{k}_idx"].any()
+
+
+@pytest.mark.parametrize("automated", [False, True])
+@pytest.mark.parametrize("n", [512, 300])
+def test_freeverb_kernel_on_host_matches_block_form(gxx, tmp_path, n,
+                                                    automated):
+    """Both entries of K8 within 2e-5 of the block form, and equal to each
+    other bit for bit."""
+    v = 3
+    cfg, params, state, l_in, r_in = _freeverb_inputs(v, n, n, automated)
+    gains = fv.block_gains(params, v)
+    want_state, (want_l, want_r) = fv.block_plain(l_in, r_in, gains,
+                                                  state, n)
+    lib = _host(FREEVERB, gxx, tmp_path)
+    got = _k8_host(lib, FREEVERB, cfg, l_in, r_in, gains, state, n)
+    twin = _k8_host(lib, fvk.FREEVERB_TWIN, cfg, l_in, r_in, gains, state, n)
+    _assert_k8_close(cfg, got, want_state, want_l, want_r, n, v)
+    _assert_k8_close(cfg, twin, want_state, want_l, want_r, n, v)
+    for g, w in zip(got, twin):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("automated", [False, True])
+@pytest.mark.parametrize("sr,n", [(48000, 2560), (48000, 2500),
+                                  (48000, 100), (4800, 480), (4800, 500),
+                                  (4800, 20)])
+def test_freeverb_smem_kernel_on_host_is_bit_identical_to_its_twin(
+        gxx, tmp_path, sr, n, automated):
+    """The shared-memory entry's chunk schedule against the one-thread
+    twin: audio, filter states and lines bit for bit, at n a multiple of
+    the chunk T (128 at 48 kHz, 24 at 4,800 Hz), not one, and shorter than
+    one; both within 2e-5 (abs + rel) of ``block_plain``."""
+    v = 3
+    cfg, params, state, l_in, r_in = _freeverb_inputs(v, n, n + sr,
+                                                      automated, sr)
+    lens = fvk.all_lengths(cfg)
+    t = fvk.tile_for(lens)
+    assert t == {48000: 128, 4800: 24}[sr]
+    assert 2 * t <= min(lens[:16]) and t <= min(lens)
+    assert (n % t == 0) == (n in (2560, 480)) and (n < t) == (n in (100, 20))
+    gains = fv.block_gains(params, v)
+    want_state, (want_l, want_r) = fv.block_plain(l_in, r_in, gains,
+                                                  state, n)
+    lib = _host(FREEVERB, gxx, tmp_path)
+    got = _k8_host(lib, FREEVERB, cfg, l_in, r_in, gains, state, n)
+    twin = _k8_host(lib, fvk.FREEVERB_TWIN, cfg, l_in, r_in, gains, state, n)
+    for g, w in zip(got, twin):
+        assert torch.equal(g, w)
+    _assert_k8_close(cfg, got, want_state, want_l, want_r, n, v)
+    assert (got[0] != 0).any()
+
+
+def test_freeverb_lines_too_long_for_shared_memory_take_the_twin(
+        monkeypatch):
+    """The rule of ``ops/freeverb_kernel.py``: the shared-memory entry
+    where a voice's lines and mix buffers fit one block and a chunk of at
+    least 8 fits its lines (1,568 Hz to 96 kHz), the twin where the lines
+    do not fit (192 kHz) or are too short (1,000 Hz) -- from the line
+    lengths alone.  A build or launch error of the shared-memory entry
+    raises; it never selects the twin."""
+    want = {1000: None, 1568: 8, 4800: 24, 48000: 128, 96000: 128,
+            192000: None}
+    for sr, t in want.items():
+        lens = fvk.all_lengths(stt.AudioConfig(sample_rate=sr))
+        assert fvk.tile_for(lens) == t, sr
+        fits = fvk.tile_bytes(lens, 128) <= fvk.SMEM_MAX
+        assert fits == (sr < 192000)
+        assert (t is None) == (not fits or min(lens) < fvk.TILE_MIN)
+        assert fvk.kernel_for(lens) is (fvk.FREEVERB if t
+                                        else fvk.FREEVERB_TWIN)
+    # the wrapper around a failing shared-memory entry, the card's steps
+    # replaced by no-ops on CPU tensors
+    v, n = 2, 64
+    cfg, params, state, l_in, r_in = _freeverb_inputs(v, n, 0, False)
+    twin_calls = []
+    monkeypatch.setattr(fvk, "require_cuda", lambda *t: torch.device("cpu"))
+    monkeypatch.setattr(RING_ALIGN, "move", lambda *a, **k: None)
+    monkeypatch.setattr(fvk.FREEVERB_TWIN, "launch",
+                        lambda *a: twin_calls.append(a))
+
+    def broken_build():
+        raise RuntimeError("building the Freeverb kernel (K8) failed")
+    monkeypatch.setattr(fvk.FREEVERB, "build", broken_build)
+    with pytest.raises(RuntimeError, match="building the Freeverb"):
+        fvk.render(cfg, l_in, r_in, False, fv.block_gains(params, v), state,
+                   n)
+
+    def failed_launch(*a):
+        raise RuntimeError("Freeverb kernel (K8) launch failed: CUDA error")
+    monkeypatch.setattr(fvk.FREEVERB, "launch", failed_launch)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fvk.render(cfg, l_in, r_in, False, fv.block_gains(params, v), state,
+                   n)
+    assert twin_calls == []
 
 
 # -- K5/K6 -------------------------------------------------------------------

@@ -11,6 +11,12 @@ kernels, checked on the CPU.
   scan engine (K1) or the stage's torch loop (K3), and to the one-thread
   build, at 37 voices (a partial last CTA) and n not a multiple of the
   chunk.
+* K2 (buffer-feedback mode) on the same pipeline: its stages, the
+  feedback ring's condition on the chunk (``block >= (h - g + 1) * T``
+  for a key read in stage g and written in stage h), and the split host
+  build bit for bit against the one-thread K2 and the scan engine, at
+  blocks of 64 and 1,024 and chunks of 16, 32 and the default; a chunk
+  one ring step too long shows on the host.
 * One unbatched voice on the card takes the kernels' engines; on the CPU
   the one-voice path (a batch of one) equals the unbatched scan engine.
 """
@@ -261,7 +267,7 @@ def _voice_lanes(name, patch, compiled, params, n, seed):
             rng.uniform(-1.5, 0.5, (V, n)).astype(np.float32))})
 
 
-@pytest.mark.parametrize("chunk", [None, 16])
+@pytest.mark.parametrize("chunk", [None, 16, 64])
 @pytest.mark.parametrize("name", ["subtractive_voice", "sequencer_patch",
                                   "feedback_patch", "lane_check_patch"])
 def test_split_kernel_on_host_is_bit_identical(gxx, tmp_path, name, chunk):
@@ -334,6 +340,147 @@ def test_split_stage_kernel_on_host_is_bit_identical(gxx, tmp_path, name,
         for key, w in want_final["states"][mid].items():
             assert torch.equal(final["states"][mid][key], w), (mid, key)
             assert torch.equal(final1["states"][mid][key], w), (mid, key)
+
+
+# -- K2 on the pipeline ------------------------------------------------------
+
+def _buffer_case(block):
+    patch, compiled = _compiled("feedback_patch", block_size=block,
+                                buffer_feedback=True)
+    params = stt.presets.farm_params(patch, V, seed=block)
+    state = tree_map(lambda a: a.expand((V,) + a.shape).contiguous(),
+                     compiled.init_state())
+    return compiled, params, state
+
+
+def _ring_ok(compiled, part, chunk):
+    return all(compiled.cfg.block_size >= (h - g + 1) * chunk
+               for _, g, h in fused.ring_stages(compiled, part))
+
+
+@pytest.mark.parametrize("block", [8, 16, 17, 24, 32, 48, 64, 100, 1024])
+def test_k2_chunk_never_outruns_its_feedback_ring(block):
+    """``pick_chunk`` (through ``FusedKernel``) never yields a chunk T with
+    ``block < (h - g + 1) * T``; where no T >= 8 fits, K2 runs one thread
+    per voice; an explicit chunk past the ring raises."""
+    _, compiled = _compiled("feedback_patch", block_size=block,
+                            buffer_feedback=True)
+    for stages in (2, 3, 4):
+        kernel = fused.FusedKernel(compiled, stages=stages)
+        part = partition(compiled, carried=False, max_stages=stages)
+        spans = fused.ring_stages(compiled, part)
+        assert {k for k, _, _ in spans} == set(compiled.fb_keys)
+        assert all(g <= h for _, g, h in spans)
+        limit = fused.ring_chunk_limit(compiled, part)
+        assert _ring_ok(compiled, part, limit)
+        assert limit == fused.CHUNK_MAX or not _ring_ok(compiled, part,
+                                                        limit + 1)
+        if kernel.partition.n_stages == 1:
+            assert kernel.chunk is None and limit < fused.CHUNK_MIN
+            continue
+        assert kernel.partition == part
+        assert fused.CHUNK_MIN <= kernel.chunk <= limit
+        assert _ring_ok(compiled, part, kernel.chunk)
+        if limit < 2 * fused.CHUNK_MAX:
+            with pytest.raises(ValueError, match="feedback ring"):
+                fused.FusedKernel(compiled, stages=stages, chunk=2 * limit)
+    # block 64: the key m1#0 is read a stage before its source
+    if block == 64:
+        assert fused.ring_chunk_limit(compiled, partition(
+            compiled, carried=False)) == 32
+
+
+@pytest.mark.parametrize("chunk", [None, 16, 32])
+@pytest.mark.parametrize("block", [64, 1024])
+def test_split_buffer_kernel_on_host_is_bit_identical(gxx, tmp_path, block,
+                                                      chunk):
+    """K2 split into stages, on the host: audio, state and the final fb
+    ring bit for bit equal to the one-thread K2 and to the scan engine; two
+    halves cut at a block boundary equal the whole."""
+    compiled, params, state = _buffer_case(block)
+    n = 6 * block if block < 512 else 2 * block
+    kernel = fused.FusedKernel(compiled, chunk=chunk)
+    assert kernel.name == "fused_voice_buffer"
+    assert kernel.partition.n_stages == 3
+    assert kernel.chunk == (chunk or 32)
+    assert "#define SRK_FB_BLOCK" in kernel.source
+    single = fused.FusedKernel(compiled, stages=1)
+    assert single.partition.n_stages == 1
+    shape = (lambda v: (v, 1, n))
+    fn = _host(kernel, gxx, tmp_path)
+    audio, final = _host_run(kernel, fn, params, state, n, {}, shape)
+    audio1, final1 = _host_run(single, _host(single, gxx, tmp_path), params,
+                               state, n, {}, shape)
+    want, want_final = compiled.render_scan(params, state, n, batched=True,
+                                            nograd=True)
+    assert torch.equal(audio, want) and torch.equal(audio, audio1)
+    assert (audio != 0).any()
+    _assert_state_equal(final, want_final)
+    _assert_state_equal(final, final1)
+    half = n // block // 2 * block
+    a1, s1 = _host_run(kernel, fn, params, state, half, {},
+                       lambda v: (v, 1, half))
+    a2, s2 = _host_run(kernel, fn, params, s1, n - half, {},
+                       lambda v: (v, 1, n - half))
+    assert torch.equal(torch.cat([a1, a2], dim=-1), audio)
+    _assert_state_equal(s2, final)
+
+
+def test_k2_ring_read_in_its_source_stage_caps_the_chunk(gxx, tmp_path):
+    """A mixer that feeds itself a block late: its stage both reads and
+    writes the key, and copies a chunk's slots before the chunk's writes,
+    so the block bounds the chunk too (block 16: T = 16, not 32).  The
+    split host build equals the one-thread K2 and the scan engine bit for
+    bit."""
+    p = stt.Patch(stt.AudioConfig(sample_rate=SR, block_size=16, channels=1,
+                                  buffer_feedback=True))
+    lfo, vco, mix = p.add("Oscillator"), p.add("Oscillator"), p.add(
+        "Mono Mixer")
+    p.connect(lfo, "Sine", vco, 0)
+    p.connect(vco, "Sine", mix, 0)
+    p.connect(mix, 0, mix, 1)
+    p.connect(mix, 0, p.output, 0)
+    compiled = stt.compile_patch(p)
+    kernel = fused.FusedKernel(compiled)
+    spans = fused.ring_stages(compiled, kernel.partition)
+    assert [(g, h) for _, g, h in spans] == [(2, 2)]
+    assert kernel.chunk == 16 == fused.ring_chunk_limit(compiled,
+                                                        kernel.partition)
+    n = 160
+    params = stt.presets.farm_params(p, V, seed=3)
+    state = tree_map(lambda a: a.expand((V,) + a.shape).contiguous(),
+                     compiled.init_state())
+    shape = (lambda v: (v, 1, n))
+    audio, final = _host_run(kernel, _host(kernel, gxx, tmp_path), params,
+                             state, n, {}, shape)
+    single = fused.FusedKernel(compiled, stages=1)
+    audio1, final1 = _host_run(single, _host(single, gxx, tmp_path), params,
+                               state, n, {}, shape)
+    want, want_final = compiled.render_scan(params, state, n, batched=True,
+                                            nograd=True)
+    assert torch.equal(audio, want) and torch.equal(audio, audio1)
+    assert (audio != 0).any()
+    _assert_state_equal(final, want_final)
+    _assert_state_equal(final, final1)
+
+
+def test_a_ring_one_chunk_too_short_shows_on_the_host(gxx, tmp_path,
+                                                     monkeypatch):
+    """At block 64 the ring allows chunks of 32 (m1#0 is read in stage 0
+    and written in stage 1).  With the condition lifted, a chunk of 64
+    reads each slot in the step that writes it: the host build, which runs
+    stage 0 before stage 1, then reads the block before last, and the audio
+    departs from the scan engine."""
+    compiled, params, state = _buffer_case(64)
+    n = 6 * 64
+    monkeypatch.setattr(fused, "ring_chunk_limit", lambda c, p: 1 << 20)
+    kernel = fused.FusedKernel(compiled, chunk=64)
+    audio, _ = _host_run(kernel, _host(kernel, gxx, tmp_path), params,
+                         state, n, {}, lambda v: (v, 1, n))
+    want, _ = compiled.render_scan(params, state, n, batched=True,
+                                   nograd=True)
+    assert torch.equal(audio[..., :64], want[..., :64])
+    assert not torch.equal(audio, want)
 
 
 # -- one voice on the kernels ------------------------------------------------
