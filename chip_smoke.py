@@ -154,6 +154,23 @@ call, and requires K8 to beat its twin.  To keep the script's time, phase
 3 holds K1, K3 and the block engine to the scan engine at n = 1024 and
 1023 (before: 2048 and 2047; K2, K7 and K8 keep their lengths).
 
+For slice 8 K10's backward (``fused_vjp_bwd``) runs as a reverse
+pipeline of sweep stage warps fed by replay warps
+(``srack_tpu_torch/ops/fused.py::_generate_bwd_pipeline``), the
+one-thread kernel staying as its twin (``fused_vjp_bwd_twin``); K7 reads
+its lanes as 2-D views of any strides through tiles of voices staged in
+shared memory (``csrc/sample_play.cu``, entry ``srk_sample_play``), the
+one-CTA-per-row kernel staying as its twin (``sample_play_twin``, entry
+``srk_sample_play_twin``).  Phase 2 builds both twins and logs each K10
+build's sweep stages, replay warps and sub-chunk; phase 3 requires every
+K10 case to take the split backward and holds K7 from transposed views
+too; phase 14 must launch the split backward and never its twin; phases
+11-13 time K7 on the render's own operands (the stage's transposed gate,
+no copy); phase 15 holds the split backward to its twin at 1,024 x
+48,000 and K7 to its twin on the operands of every Sample launch of the
+drums, sampler and kit-check renders (the twin on a contiguous copy), bit
+for bit, both timed in one call.
+
 Each main path (phases 4, 5, 7-14, 16) runs with the launch counts set
 to 0 just before it and read just after.  Any failure raises and exits
 non-zero.  The line before the last is a JSON record of the kernels; the
@@ -497,13 +514,18 @@ def _counters(kernels):
     from srack_tpu_torch.ops.freeverb_kernel import FREEVERB, FREEVERB_TWIN
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER, ROW_GATHER_LONG
     from srack_tpu_torch.ops.ring_roll import RING_ALIGN
-    from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
+    from srack_tpu_torch.ops.sample_kernel import (SAMPLE_PLAY,
+                                                   SAMPLE_PLAY_TWIN)
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
     out = [kernel for _, _, kernel in kernels.values()]
     out += [lib for _, _, k in VJP.values() for lib in (k.fwd, k.bwd)]
+    # phase 15's K10 builds (the twin's forward is the main path's source,
+    # never launched)
+    out += [k.bwd for k in VJP_AB.values()]
+    out += [k.fwd for name, k in VJP_AB.items() if name != "train"]
     out += list(STAGES.values()) + list(CHECK_STAGES.values()) + [
         ROW_SCAN, FREEVERB, FREEVERB_TWIN, RING_ALIGN, ROW_GATHER,
-        ROW_GATHER_LONG, SAMPLE_PLAY]
+        ROW_GATHER_LONG, SAMPLE_PLAY, SAMPLE_PLAY_TWIN]
     # the one-thread twins of phase 15, named apart: a main path that
     # launched one would count as another kernel
     out += [one for _, one in AB.values()]
@@ -1747,6 +1769,14 @@ def compare_sample_play():
             for mode in ("const", "int", "fuzz"):
                 args = _play_inputs(rng, k, n, mode)
                 got = SAMPLE_PLAY.run(*args)
+                # the lanes as transposed views of [n, V] rows, as the
+                # block engine's stage gives them
+                views = tuple(None if a is None else a.T.contiguous().T
+                              for a in args[:2])
+                check(_same(SAMPLE_PLAY.run(*views, *args[2:]), got),
+                      f"K7 K={k} n={n} {mode}: the transposed lanes give "
+                      f"another result")
+                del views
                 unf = play_unfused(*args)
                 for g, w, what in zip(got, unf, ("audio", "pos", "playing",
                                                  "gate_last")):
@@ -1784,7 +1814,8 @@ def compare_sample_play():
                     extra = ", exact against the plain version"
                 played = (got[0] != 0).float().mean().item()
                 log(f"[3 compare] sample_play K={k} n={n} {mode}: "
-                    f"bit-exact against the unfused form (K4, K6){extra}; "
+                    f"bit-exact against the unfused form (K4, K6), from "
+                    f"[R, n] rows and transposed views alike{extra}; "
                     f"{played:.3f} of the samples sound")
                 if k == GATHER_LONG_K and n == CHECK_NS[0] and \
                         mode == "const":
@@ -1991,31 +2022,24 @@ def _kit_split(stt, name, total_ms, card):
     log(f"[bound] serial_stage in {name} V={VOICES} n={n}: {nbytes} bytes, "
         f"{ops} f32 operations -> {b_ms:.4f} ms ({b_by}); alone it takes "
         f"{k3_ms:.3f} ms, {k3_ms / b_ms:.1f}x its bound")
-    k7, copies = [], []
+    k7 = []
     for args, words in HELD_CALLS.get("sample_play", []):
         # a gate from the stage is a transposed view of K3's [O, n, V]
-        # output, which the wrapper makes contiguous: timed apart
-        copy_ms = (0.0 if args[0].is_contiguous() else
-                   cuda_ms(lambda: args[0].contiguous(), warmup=1))
-        dense = tuple(None if a is None else a.contiguous() for a in args)
-        ms = cuda_ms(lambda: SAMPLE_PLAY.run(*dense), warmup=1)
-        del dense
+        # output: K7 reads it in place, as the render calls it
+        ms = cuda_ms(lambda: SAMPLE_PLAY.run(*args), warmup=1)
         b_ms, b_by, nbytes, _ = sample_bound(args, words)
+        layout = ("[R, n] rows" if args[0].stride(1) == 1
+                  else "a transposed view")
         log(f"[bound] sample_play in {name} K={args[2].shape[1]} "
             f"{'CV connected' if args[1] is not None else 'constant rate'} "
             f"V={VOICES} n={n}: {nbytes} bytes ({words} table words) -> "
-            f"{b_ms:.4f} ms ({b_by}); alone it takes {ms:.3f} ms, "
-            f"{ms / b_ms:.1f}x its bound; the wrapper's copy of its "
-            f"transposed gate lane {copy_ms:.3f} ms")
+            f"{b_ms:.4f} ms ({b_by}); alone, on the render's operands (the "
+            f"gate {layout}, no copy), it takes {ms:.3f} ms, "
+            f"{ms / b_ms:.1f}x its bound")
         k7.append(ms)
-        copies.append(copy_ms)
     if k7:
         parts.append("K7 " + " + ".join(f"{t:.3f}" for t in k7) + " ms")
         rest -= sum(k7)
-    if any(copies):
-        parts.append("the K7 wrapper's gate copies "
-                     + " + ".join(f"{t:.3f}" for t in copies) + " ms")
-        rest -= sum(copies)
     k5 = []
     for table, idx in HELD_CALLS.get("row_gather", []):
         ms = cuda_ms(lambda: ROW_GATHER.run(table, idx), warmup=1)
@@ -2082,6 +2106,9 @@ VJP_NAMES = ("subtractive_voice", "gradient_patch", "feedback_patch",
              "lane_check_patch", "kernel_check_patch")
 TRAIN_N, TRAIN_STEPS, TRAIN_MULTI = 48000, 3, 32   # bench.py:205-262
 VJP = {}   # case -> (patch, compiled, FusedVJPKernel); "train" at 48 kHz
+VJP_AB = {}  # phase 15's other builds of the training voice: "train"
+             # with the one-thread backward (fused_vjp_bwd_twin), "t_chunk
+             # 64" with checkpoints every 64 samples (fused_vjp_bwd_t64)
 
 
 def vjp_cases(stt) -> dict:
@@ -2117,56 +2144,46 @@ def vjp_cases(stt) -> dict:
 
 
 def vjp_kernels(stt) -> dict:
-    """Phase 2's K10 builds: the forward and the backward of every case."""
+    """Phase 2's K10 builds: the forward and the backward of every case,
+    and the training voice's one-thread backward (the twin) for phase
+    15."""
+    from srack_tpu_torch.ops.fused_vjp import FusedVJPKernel
     VJP.update(vjp_cases(stt))
-    jobs = {}
+    compiled = VJP["train"][1]
+    VJP_AB["train"] = FusedVJPKernel(compiled, (), stages=1)
+    VJP_AB["t_chunk 64"] = FusedVJPKernel(compiled, (), t_chunk=64)
+    for lib in (VJP_AB["t_chunk 64"].fwd, VJP_AB["t_chunk 64"].bwd):
+        lib.name += "_t64"
+    jobs = {"train@k10_bwd_twin": VJP_AB["train"].bwd,
+            "train@k10_bwd t_chunk 64": VJP_AB["t_chunk 64"].bwd,
+            "train@k10 t_chunk 64": VJP_AB["t_chunk 64"].fwd}
     for name, (_, _, kernel) in VJP.items():
         jobs[f"{name}@k10"] = kernel.fwd
         jobs[f"{name}@k10_bwd"] = kernel.bwd
+        log(f"[2 build] {name}@k10_bwd: {bwd_form(kernel)}")
     return jobs
 
 
-# f32 operations per sample of each adjoint of csrc/modules_adj.cuh on the
-# path a sample takes, counted as module_ops counts the steps, but only the
-# derivative's own: the primal values an adjoint recomputes (the phase in
-# turns, the ladder's stages, exp2's polynomial, the envelope's selects) are
-# the step's, which the bound counts once in module_ops.  A clip's
-# derivative with JAX's tie rule counts 6.  Counted for the bound only.
+def bwd_form(kernel) -> str:
+    """How a K10 build runs its backward: its sweep stages (G), replay
+    warps (R), sub-chunk (T) and shared memory, or one thread per voice."""
+    if kernel.twin:
+        return "one thread per voice (the twin)"
+    sh, part = kernel.shape, kernel.partition
+    return (f"G={part.n_stages} sweep stages of {list(part.costs)} ops "
+            f"(step re-run + adjoint), R={sh.replays} replay warps, "
+            f"T={sh.chunk} of t_chunk {kernel.t_chunk}, {sh.nbytes} B "
+            f"shared memory, {len(sh.xwires)} forward wires in the scratch, "
+            f"{len(sh.rings)} cotangent rings")
+
+
 def adjoint_ops(compiled, mid) -> int:
-    mdef, statics, inputs = compiled.instances[mid]
-    t = mdef.type_name
-    conn = [c is not None for c in inputs]
-    auto = mid in compiled._auto_by_mid
-    if t == "Oscillator":
-        ops = 17 + (1 if conn[1] else 0)           # sinpi', shadow phase
-        if statics[1]:
-            ops += 30                               # both polyBLEP VJPs
-        if conn[0] or auto:
-            ops += 25                               # exp2'
-        return ops
-    if t == "Moog Filter":                          # ladder, 5 clips'
-        return 102 + (37 if conn[1] or auto else 0) + (8 if auto else 0)
-    if t == "ADSR":
-        return 27 + (15 if auto else 0)
-    if t == "VCA":
-        return 0 if not all(conn) else 5
-    if t == "Mono Mixer":
-        return 4 * sum(conn)
-    if t == "Multiply":
-        return 4
-    if t in ("Add", "Subtract"):
-        return 2
-    if t == "Non-Linear":
-        return 60                                   # 3 powf, 2 logf
-    if t == "Grid Sequencer":
-        return 8
-    if t == "Pattern Sequencer":
-        return 4                                    # one add per row
-    if t == "Output":
-        return 4 * sum(conn)                        # nan_to_num, add
-    if t == "Input":
-        return 1
-    return 0                                        # Noise
+    """f32 operations per sample of a module's adjoint, read off
+    ``csrc/modules_adj.cuh`` (``srack_tpu_torch.ops.partition.adjoint_ops``,
+    by which K10's backward partition weighs its stages).  Counted for the
+    bounds."""
+    from srack_tpu_torch.ops.partition import adjoint_ops as ops
+    return ops(compiled, mid)
 
 
 def vjp_bound(compiled, kernel, v: int, n: int, which: str) -> tuple:
@@ -2282,6 +2299,8 @@ def phase_compare_vjp(stt):
     for name in VJP_NAMES + ("train",):
         t0 = time.perf_counter()
         patch, compiled, kernel = VJP[name]
+        check(not kernel.twin, f"K10 {name}: the backward is the one-thread "
+              f"twin, not the split kernel")
         params, state, xs = _vjp_inputs(stt, name, patch, compiled, n)
         rng = np.random.default_rng(23)
         w = torch.from_numpy(rng.standard_normal(
@@ -2328,7 +2347,8 @@ def phase_compare_vjp(stt):
             f"leaves ({flowing} non-zero, {nan_leaves} NaN in both), max "
             f"|err| {worst:.3e}, at most {ratio:.3f} of the tolerance; "
             f"plain version {plain_f:.2f} s forward + {plain_b:.2f} s "
-            f"backward; {time.perf_counter() - t0:.1f} s")
+            f"backward; backward: {bwd_form(kernel)}; "
+            f"{time.perf_counter() - t0:.1f} s")
         if name == "train":
             keep = {"params": params, "state": state, "xs": xs, "n": n,
                     "plain": (1e3 * plain_f, 1e3 * plain_b)}
@@ -2445,7 +2465,9 @@ def phase_train(stt, kernels, card):
     for which, ms in (("fwd", fwd_ms), ("bwd", bwd_ms)):
         b_ms, b_by, nbytes, ops = vjp_bound(compiled, kernel, v, n, which)
         bounds[which] = (b_ms, b_by)
-        log(f"[14 train] fused_vjp_{which} alone V={v} n={n}: {ms:.3f} ms; "
+        form = f" ({bwd_form(kernel)})" if which == "bwd" else ""
+        log(f"[14 train] fused_vjp_{which}{form} alone V={v} n={n}: "
+            f"{ms:.3f} ms; "
             f"bound {nbytes} bytes, {ops} f32 operations -> {b_ms:.4f} ms "
             f"({b_by}), {ms / b_ms:.1f}x its bound; ptxas: "
             f"{ptxas(getattr(kernel, which))} [{card}]")
@@ -2621,7 +2643,146 @@ def phase_ab(stt, kernels, card) -> dict:
         torch.cuda.empty_cache()
     for cell, (patch, automation) in k8_cells(stt).items():
         out[f"k8 {cell}"] = k8_ab(stt, cell, patch, automation, card)
+    out["k10 train"] = k10_ab(stt, card)
+    for name in KIT_NAMES:
+        out[f"k7 {name}"] = k7_ab(stt, name, card)
     return out
+
+
+def _same_nan(a, b) -> bool:
+    """Two tuples of tensors equal bit for bit, NaN where NaN."""
+    return all(bool(((x == y) | (x.isnan() & y.isnan())).all())
+               and bool((x.isnan() == y.isnan()).all()) for x, y in zip(a, b))
+
+
+def k10_ab(stt, card) -> dict:
+    """K10's split backward against its one-thread twin at the training
+    width, 1,024 voices x 48,000 samples: the training voice from
+    farm_params, the checkpoints of its forward, a random audio cotangent
+    and final-state cotangent (seed 31); every float param's and initial
+    float state's cotangent equal bit for bit, both timed in one call in
+    turns (twin, split, split, twin)."""
+    patch, compiled, kernel = VJP["train"]
+    twin = VJP_AB["train"]
+    v, n = VOICES, TRAIN_N
+    params = _cuda(stt, stt.presets.farm_params(patch, v))
+    state = _cuda(stt, stt.compiler.tree_map(
+        lambda a: a.expand((v,) + a.shape).contiguous(),
+        compiled.init_state()))
+    rng = np.random.default_rng(31)
+    with torch.no_grad():
+        lanes, pi, si, floats = kernel.operands(params, state, n, {})
+        pf, sf = kernel.float_rows(floats, v, pi.device)
+        _, _, _, ck = kernel.run_fwd(pf, pi, sf, si, lanes, v, n)
+        cta = torch.from_numpy(rng.standard_normal((v, 1, n)).astype(
+            np.float32)).cuda()
+        ctf = torch.from_numpy(rng.standard_normal(
+            (max(kernel.layout.n_sf, 1), v)).astype(np.float32)).cuda()
+        times, outs = _turns(kernel, twin, lambda k: k.run_bwd(
+            pf, pi, lanes, ck, cta, ctf, v, n))
+    check(_same_nan(outs["split"], outs["one"]), "K10's split backward "
+          "differs from its one-thread twin")
+    flowing = int((outs["one"][0].abs().amax(dim=1) > 0).sum())
+    one_ms, split_ms = min(times["one"]), min(times["split"])
+    # the same backward with checkpoints every 64 samples: half the scratch
+    k64 = VJP_AB["t_chunk 64"]
+    with torch.no_grad():
+        ck64 = k64.run_fwd(pf, pi, sf, si, lanes, v, n)[3]
+        t64_ms = cuda_ms(lambda: k64.run_bwd(pf, pi, lanes, ck64, cta, ctf,
+                                             v, n), warmup=1)
+        check(_same_nan(k64.run_bwd(pf, pi, lanes, ck64, cta, ctf, v, n),
+                        outs["split"]), "K10's backward at t_chunk 64 "
+              "differs")
+    del ck64
+    sh = kernel.shape
+    rec = {"twin_ms": one_ms, "ms": split_ms, "ratio": split_ms / one_ms,
+           "shape": [v, n], "stages": kernel.partition.n_stages,
+           "stage_ops": list(kernel.partition.costs),
+           "replays": sh.replays, "chunk": sh.chunk,
+           "t_chunk": kernel.t_chunk, "smem_bytes": sh.nbytes,
+           "scratch_bytes": 4 * int(np.prod(kernel.scratch_shape(v, n))),
+           "registers": registers(kernel.bwd),
+           "twin_registers": registers(twin.bwd),
+           "t_chunk_64_ms": t64_ms,
+           "t_chunk_64_scratch_bytes": 4 * int(np.prod(
+               k64.scratch_shape(v, n)))}
+    log(f"[15 a/b] K10 backward, training voice V={v} n={n}: twin "
+        f"{one_ms:.3f} ms ({times['one'][0]:.3f}, {times['one'][1]:.3f}; "
+        f"{rec['twin_registers']} registers), split {split_ms:.3f} ms "
+        f"({times['split'][0]:.3f}, {times['split'][1]:.3f}; "
+        f"{bwd_form(kernel)}, scratch {rec['scratch_bytes']} B, "
+        f"{rec['registers']} registers): split / twin = {rec['ratio']:.3f}; "
+        f"dpf and dsf equal bit for bit ({flowing} param rows non-zero); "
+        f"at t_chunk 64 (scratch {rec['t_chunk_64_scratch_bytes']} B) "
+        f"{t64_ms:.3f} ms, equal bit for bit [{card}]")
+    del outs, ck, cta
+    torch.cuda.empty_cache()
+    return rec
+
+
+def k7_ab(stt, name, card) -> list:
+    """K7 against its twin on the very operands of every Sample launch of
+    one kit render (1,024 voices x 480,000 samples, caught at the wrapper):
+    the new kernel reads the gate (and CV) as given, the stage's
+    transposed view; the twin takes its contiguous copy (made before the
+    timing).  Audio and end state equal bit for bit, both timed in turns
+    (twin, new, new, twin).  Returns a record per launch."""
+    from srack_tpu_torch.ops import sample_kernel as sk
+    patch = getattr(stt.presets, name)(stt.AudioConfig(sample_rate=SR,
+                                                       channels=1))
+    params = stt.presets.farm_params(patch, VOICES)
+    tile = sk.TILE_SHAPES[sk.SAMPLE_PLAY.shape]
+    recs = []
+    run = sk.SAMPLE_PLAY.run
+
+    def hook(*args):
+        dense = tuple(None if a is None else a.contiguous()
+                      for a in args[:2]) + tuple(args[2:])
+        times, outs = _turns("new", "twin", lambda k: run(*args) if
+                             k == "new" else sk.SAMPLE_PLAY_TWIN.run(*dense))
+        check(_same(outs["split"], outs["one"]), f"K7 {name}: the tiled "
+              f"kernel differs from its twin")
+        one_ms, new_ms = min(times["one"]), min(times["split"])
+        layout = ("[R, n] rows" if args[0].stride(1) == 1
+                  else "a transposed view")
+        recs.append({"twin_ms": one_ms, "ms": new_ms,
+                     "ratio": new_ms / one_ms, "gate": layout,
+                     "cv": args[1] is not None, "k": args[2].shape[1],
+                     "tile": list(tile)})
+        if len(recs) == 1:   # every tile shape of the entry, in turn
+            chosen, by_tile = sk.SAMPLE_PLAY.shape, {}
+            try:
+                for i, shp in enumerate(sk.TILE_SHAPES):
+                    sk.SAMPLE_PLAY.shape = i
+                    by_tile[str(shp)] = cuda_ms(lambda: run(*args), warmup=1)
+                    check(_same(run(*args), outs["one"]), f"K7 {name}: tile "
+                          f"{shp} differs from the twin")
+            finally:
+                sk.SAMPLE_PLAY.shape = chosen
+            recs[-1]["ms_by_tile"] = by_tile
+            log(f"[15 a/b] K7 {name} launch 1, tile shapes (voices a CTA, "
+                f"warps a voice): " + ", ".join(
+                    f"{k} {ms:.3f} ms" for k, ms in by_tile.items())
+                + f"; each equal to the twin bit for bit [{card}]")
+        log(f"[15 a/b] K7 {name} launch {len(recs)} (K={args[2].shape[1]}, "
+            f"{'CV' if args[1] is not None else 'constant rate'}, the gate "
+            f"{layout}) V={VOICES} n={args[0].shape[1]}: twin on a "
+            f"contiguous copy {one_ms:.3f} ms ({times['one'][0]:.3f}, "
+            f"{times['one'][1]:.3f}), tiled K7 on the render's operands "
+            f"{new_ms:.3f} ms ({times['split'][0]:.3f}, "
+            f"{times['split'][1]:.3f}; {tile[0]} voices a CTA, {tile[1]} "
+            f"warps a voice): new / twin = {new_ms / one_ms:.3f}; audio and "
+            f"end state equal bit for bit [{card}]")
+        del dense
+        return outs["split"]
+    sk.SAMPLE_PLAY.run = hook
+    try:
+        stt.render_batch(patch, HEADLINE_N, params=params)
+    finally:
+        del sk.SAMPLE_PLAY.run
+    check(recs, f"the {name} render did not reach K7")
+    torch.cuda.empty_cache()
+    return recs
 
 
 def k8_cells(stt) -> dict:
@@ -3056,6 +3217,8 @@ def main() -> int:
         if name == "serial_stage":
             entries[-1]["split"] = {c: ab[c] for c in STAGES}
             entries[-1]["one_voice"] = one["reverb_patch"]
+        if name == "sample_play":
+            entries[-1]["twin"] = {c: ab[f"k7 {c}"] for c in KIT_NAMES}
     plain_ms = dict(zip(("fwd", "bwd"), vjp_plain))
     for i, (which, line) in enumerate((("fwd", 92), ("bwd", 212))):
         name = f"fused_vjp_{which}"
@@ -3080,6 +3243,8 @@ def main() -> int:
                             f"{SR} Hz"),
             "ms_at_plain_shape": vjp_check_ms[i],
         })
+        if which == "bwd":
+            entries[-1]["twin"] = ab["k10 train"]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 // Helpers of the warp-specialised fused kernels (ops/fused.py, a plan cut
-// into pipeline stages by ops/partition.py): the asynchronous lane copies
-// into shared memory and the barrier between chunk steps.
+// into pipeline stages by ops/partition.py; K10's backward too): the
+// asynchronous lane copies into shared memory and the barrier between chunk
+// steps.
 //
 // On the card a stage warp prefetches the next chunk of the lanes it reads
 // with cp.async (4 bytes a thread, 128 contiguous bytes a warp) while it
@@ -24,8 +25,26 @@ SRK_PIPE_HD void srk_cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(d), "l"(src) : "memory");
 #else
-  *dst = *src;
+  memcpy(dst, src, 4);  // a word of either type (K10's scratch holds ints)
 #endif
+}
+
+// four floats, 16-byte aligned at both ends, asynchronously (through L2)
+SRK_PIPE_HD void srk_cp_async16(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+// an int32 word that a copy above put into the float buffer
+SRK_PIPE_HD int srk_ld_word(const float* p) {
+  int i;
+  memcpy(&i, p, 4);
+  return i;
 }
 
 // close this thread's group of copies (an empty group is allowed)

@@ -15,8 +15,11 @@ for V voices over n samples.
   output wires streamed out.
 
 All three are one source, generated per plan with a buffer-mode and a
-stage-mode switch, each run as a pipeline of stage warps (since PR 7 K2
-too; ``stages=1`` builds the one-thread twin).  They carry none of the TPU
+stage-mode switch, each run as a pipeline of stage warps (K2 too;
+``stages=1`` builds the one-thread twin).  The same generator emits
+K10's forward and its backward, the latter as a reverse pipeline of
+sweep stage warps fed by replay warps (:func:`_generate_bwd_pipeline`,
+``ops/fused_vjp.py``).  They carry none of the TPU
 layout over: no (8, 128) tiles, no 1,024-voice padding, no time chunks with
 a scratch carry, no padded-tail snapshot, and for K2 no outer scan of one
 kernel call per block.
@@ -132,7 +135,8 @@ from ..compiler import tree_leaves
 from ..modules.base import CV_DTYPE
 from .cuda_lib import (BUILD_ROOT, CSRC, NVCC_FLAGS, CudaLib, I,  # noqa: F401
                        P, build, require_cuda)
-from .partition import MAX_STAGES, one_stage, partition
+from .partition import (MAX_STAGES, module_ops, one_stage, partition,
+                        sweep_ops)
 
 BLOCK_DIM = 32
 
@@ -395,10 +399,24 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     cfg = compiled.cfg
     if mode not in (None, "ckpt", "bwd"):
         raise ValueError(f"unknown mode {mode!r}")
+    if mode == "bwd" and split is not None and split.n_stages > 1:
+        if stage is not None or cfg.buffer_feedback:
+            raise ValueError("the fused VJP kernels take a whole sample-mode "
+                             "patch")
+        layout = layout or Layout.of(compiled)
+        lanes = tuple(lanes)
+        chunk = chunk or pick_bwd_chunk(compiled, split, lanes, layout,
+                                        t_chunk)
+        if chunk is None:
+            raise ValueError(f"no sub-chunk of the backward's "
+                             f"{split.n_stages} stages fits {SMEM_BUDGET} "
+                             f"bytes of shared memory and t_chunk {t_chunk}")
+        return _generate_bwd_pipeline(compiled, layout, lanes, t_chunk,
+                                      split, chunk)
     if split is not None and split.n_stages > 1:
         if mode is not None:
-            raise ValueError("only K1, K2 and K3 run as a pipeline of "
-                             "stages")
+            raise ValueError("only K1, K2, K3 and K10's backward run as a "
+                             "pipeline of stages")
         plan = compiled.plan if stage is None else stage.stage_plan
         return _generate_pipeline(
             compiled, layout or Layout.of(
@@ -1270,6 +1288,600 @@ def _generate_bwd(compiled, layout: Layout, lanes: tuple,
             "float* dpf, float* dsf, int V, int n")
     L += _entries("srk_vjp_bwd", "srk_voice_bwd", args, decl)
     return "\n".join(L) + "\n"
+
+
+# -- K10's backward as a reverse pipeline of stage warps fed by replay warps --
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdShape:
+    """The shape of K10's split backward for one plan, partition, lane set
+    and chunk: ``xwires`` the cross-stage forward wires the replay stores
+    after the state row (scratch rows ``S + i``); per stage its scratch rows
+    (``words``, its state leaves' rows then the wires it reads) and lanes;
+    ``rings`` the cotangent hops ``(key, writer stage, reader stage)``
+    (key: ``("p", wire)`` a partial sum, ``("c", wire, i)`` the i-th
+    contribution to a feedback source's wire); ``replays`` the replay
+    warps; ``smem`` the shared-memory offsets (floats)."""
+    chunk: int
+    replays: int
+    xwires: tuple
+    words: tuple
+    lanes_of: tuple
+    rings: tuple
+    out_stage: object
+    offsets: dict
+    floats: int
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * self.floats
+
+    @property
+    def buffers(self) -> int:
+        """Chunks of scratch in flight: the replay warps' plus two."""
+        return self.replays + 2
+
+
+def _consumers(compiled, plan):
+    """Within-sample reads ``{(src, port): [(mid, input idx), ...]}`` in the
+    one-thread backward's order of accumulation: consumers in reverse plan
+    order, each one's inputs in port order."""
+    out = {}
+    for mid in reversed(plan):
+        for i, c in enumerate(compiled.instances[mid][2]):
+            if c is not None and compiled.plan_pos[c[0]] < \
+                    compiled.plan_pos[mid]:
+                out.setdefault(c, []).append((mid, i))
+    return out
+
+
+def bwd_replays(compiled, part) -> int:
+    """Replay warps: two where one thread's forward step of the whole plan
+    costs more than the costliest sweep stage, else one (a replay warp then
+    replays half a chunk step's samples)."""
+    fwd = sum(module_ops(compiled, m) for m in compiled.plan)
+    return 2 if fwd > max(part.costs) else 1
+
+
+def bwd_shape(compiled, part, lanes, layout, chunk, t_chunk) -> BwdShape:
+    """The scratch rows, lanes, cotangent rings and shared memory of K10's
+    split backward with sub-chunks of ``chunk`` samples."""
+    stage_of = part.stage_of()
+    G = part.n_stages
+    xwires = tuple(w for w, _, _ in part.wires)
+    s_rows = layout.n_sf + layout.n_si
+    cons = _consumers(compiled, compiled.plan)
+    words = []
+    for g, mods in enumerate(part.stages):
+        rows = []
+        for leaf in layout.state:
+            if _leaf_mid(leaf) in mods:
+                base = leaf.row if leaf.kind == "f" else layout.n_sf + leaf.row
+                rows += range(base, base + leaf.rows)
+        rows += [s_rows + i for i, (w, a, _) in enumerate(part.wires)
+                 if a < g and any(stage_of[mid] == g for mid, _ in
+                                  cons.get(w, ()))]
+        words.append(tuple(rows))
+    lanes_of = stage_lanes(compiled, part, lanes, None, layout)
+    rings = []
+    for w, a, _ in part.wires:
+        later = [(mid, i) for mid, i in cons[w] if stage_of[mid] > a]
+        if w in compiled.fb_keys:
+            rings += [(("c", w, j), stage_of[mid], a)
+                      for j, (mid, _) in enumerate(later)]
+        else:
+            hops = sorted({stage_of[mid] for mid, _ in later}, reverse=True)
+            rings += [(("p", w), b, c) for b, c in zip(hops, hops[1:] + [a])]
+    out_stage = stage_of.get(compiled.output_id)
+    off, offsets = 0, {}
+    for g in range(G):
+        offsets[("words", g)] = off
+        off += 2 * chunk * len(words[g]) * WARP
+        for k in lanes_of[g]:
+            offsets[("lane", g, k)] = off
+            off += 2 * chunk * WARP
+    if out_stage is not None:
+        offsets["cta"] = off
+        off += 2 * compiled.cfg.channels * WARP * (chunk + 1)
+    for key, b, c in rings:
+        offsets[("ring", key, b)] = off
+        off += (b - c + 1) * chunk * WARP
+    return BwdShape(chunk, bwd_replays(compiled, part), xwires, tuple(words),
+                    lanes_of, tuple(rings), out_stage, offsets, off)
+
+
+def pick_bwd_chunk(compiled, part, lanes, layout, t_chunk):
+    """The backward's sub-chunk: the largest power of two from ``CHUNK_MIN``
+    to ``CHUNK_MAX`` that divides ``t_chunk`` into at least G sub-chunks
+    (the replay's lead) and whose buffers and rings fit ``SMEM_BUDGET``;
+    None if none does (the one-thread twin runs)."""
+    chunk = CHUNK_MAX
+    while chunk >= CHUNK_MIN:
+        if (t_chunk % chunk == 0 and t_chunk // chunk >= part.n_stages
+                and bwd_shape(compiled, part, lanes, layout, chunk,
+                              t_chunk).nbytes <= SMEM_BUDGET):
+            return chunk
+        chunk //= 2
+    return None
+
+
+def _generate_bwd_pipeline(compiled, layout: Layout, lanes: tuple,
+                           t_chunk: int, part, chunk) -> str:
+    """K10's backward for a plan cut into ``part.n_stages`` sweep stages
+    (``partition(..., cost=sweep_ops)``), fed by replay warps.
+
+    One CTA holds 32 voices, one warp per sweep stage and ``R``
+    (:func:`bwd_replays`) replay warps.  Time goes in sub-chunks of
+    ``chunk`` = T samples, in lock step ending in a named barrier.  Chunks
+    of ``t_chunk`` samples (the checkpoints' spacing) are taken last first;
+    chunk ``q`` of that order holds sub-chunk steps ``[q m, q m + m)``,
+    ``m = t_chunk / T`` (the last chunk in time padded at its end, so
+    every chunk holds ``m``).
+
+    * Replay warp ``j`` replays the chunks ``q = j (mod R)``: chunk ``q``
+      from its checkpoint ``ck`` during steps ``[q m, q m + R m)``, T / R
+      samples a step, with the forward's step code; it stores the state
+      before each sample and every cross-stage forward wire into the
+      scratch ``scr`` (``[R + 2, t_chunk, W, V]`` int32 words, W = S plus
+      the wires; chunk ``c`` in buffer ``c % (R + 2)``).
+    * Sweep stage ``g`` runs reverse sub-chunk step ``r`` at step ``r + D +
+      G - 1 - g`` (``D = R m + 1``): the output stage leads.  It prefetches
+      the next sub-chunk's scratch rows (its state and the wires it reads),
+      its lanes and, for the Output's stage, the audio cotangent into
+      shared double buffers (``cp.async``); then, sample by sample in
+      reverse, it re-runs its modules' steps and calls their adjoints in
+      reverse plan order.  The partial cotangent of a wire from an earlier
+      stage goes down a shared ring to the next earlier stage that reads
+      it, or to its source's; a feedback source's wire sends each of its
+      later readers' contributions on its own ring, since the one-thread
+      kernel adds the carried cotangent first.
+    * Replay leads by ``D``: a chunk is replayed a step before its first
+      sub-chunk is fetched, and ``R + 2`` buffers keep it until stage 0
+      has read it (``m >= G``, :func:`pick_bwd_chunk`).
+
+    Every float cotangent takes the one-thread kernel's operations in its
+    order, so the two agree bit for bit.  The host build
+    (``srk_vjp_bwd_host``) runs the same lock step, the stages before the
+    replay within a step, through the same buffers."""
+    plan = compiled.plan
+    cfg = compiled.cfg
+    n_ch = cfg.channels
+    G = part.n_stages
+    sh = bwd_shape(compiled, part, lanes, layout, chunk, t_chunk)
+    R = sh.replays
+    if t_chunk % chunk or t_chunk // chunk < G or chunk % R:
+        raise ValueError(f"sub-chunks of {chunk} samples do not divide "
+                         f"t_chunk {t_chunk} into at least {G}")
+    if sh.nbytes > SMEM_BUDGET:
+        raise ValueError(f"the backward's {G} stages take {sh.nbytes} bytes "
+                         f"of shared memory, over {SMEM_BUDGET}")
+    lane_idx = {k: i for i, k in enumerate(lanes)}
+    params_of, state_of = _args_of(layout)
+    stage_of = part.stage_of()
+    if set(stage_of) != set(plan):
+        raise ValueError("the partition does not cover the plan")
+    s_rows = layout.n_sf + layout.n_si
+    xrow = {w: s_rows + i for i, w in enumerate(sh.xwires)}
+    xfrom = {w: a for w, a, _ in part.wires}
+    pleaf = {leaf.path: leaf for leaf in layout.params}
+    L = _header(compiled, plan, lanes, "backward kernel of the fused VJP "
+                f"(K10), {G} sweep stages and {R} replay warps")
+    L += [f"// Stage {g}: " + ", ".join(mods) + f" ({part.costs[g]} ops)."
+          for g, mods in enumerate(part.stages)]
+    L += [f"#define SRK_STAGES {G}",
+          f"#define SRK_REPLAYS {R}",
+          f"#define SRK_THREADS {WARP * (G + R)}",
+          f"#define SRK_T {chunk}",
+          f"#define SRK_T_CHUNK {int(t_chunk)}",
+          f"#define SRK_M {int(t_chunk) // chunk}",
+          f"#define SRK_D {R * (int(t_chunk) // chunk) + 1}",
+          f"#define SRK_NB {sh.buffers}",
+          f"#define SRK_S_ROWS {s_rows}",
+          f"#define SRK_W_ROWS {s_rows + len(sh.xwires)}",
+          f"#define SRK_SMEM_FLOATS {sh.floats}",
+          '#include "modules_adj.cuh"',
+          '#include "pipeline.cuh"',
+          "",
+          "// does reverse sub-chunk step r hold samples?",
+          "SRK_HD bool srk_sub_live(int r, int n, int n_chunks) {",
+          "  return r >= 0 && r < n_chunks * SRK_M"
+          " && (n_chunks * SRK_M - 1 - r) * SRK_T < n;",
+          "}",
+          "",
+          "// the scratch word of row w for sample row `row` of buffer b",
+          "#define SRK_SCR(b, row, w) ((((size_t)(b) * SRK_T_CHUNK + (row)) "
+          "* SRK_W_ROWS + (w)) * V + v)"]
+    ptrs = ("const float* __restrict__ lanes, const int* __restrict__ ck, "
+            "const float* __restrict__ cta, int* __restrict__ scr, "
+            "float* __restrict__ sm")
+    # -- the replay warps: the whole plan, one thread per voice ------------
+    members, loads = [], []
+    for leaf in layout.params + layout.state:
+        arr = ("p" if leaf in layout.params else "s") + leaf.kind
+        member, load = _struct_leaf(leaf, arr)
+        members.append(member)
+        if leaf in layout.params:
+            loads += load
+    L += ["", "struct srk_rp {"] + members + ["};", "",
+          "SRK_HD void srk_rp_load(srk_rp& S, int v, int V, "
+          "const float* __restrict__ pf, const int* __restrict__ pi) {"]
+    L += loads + ["}", "",
+                  "// replay warp j at step k: T / R samples of its chunk",
+                  "SRK_HD void srk_rp_step(srk_rp& S, int k, int j, int v, "
+                  f"int V, int n, int n_chunks, {ptrs}) {{"]
+    for leaf in layout.params + layout.state:
+        var = _var(leaf.path)
+        q = "const auto&" if leaf in layout.params else "auto&"
+        L.append(f"  {q} {var} = S.{var};")
+    L += ["  const int qk = k / SRK_M;",
+          "  const int q = qk - ((qk - j) % SRK_REPLAYS + SRK_REPLAYS) "
+          "% SRK_REPLAYS;",
+          "  if (q < 0 || q >= n_chunks) return;",
+          "  const int u = k - q * SRK_M;    // in [0, R m)",
+          "  const int c = n_chunks - 1 - q;",
+          "  const int t0 = c * SRK_T_CHUNK;",
+          "  const int b = c % SRK_NB;",
+          "  if (u == 0) {  // the chunk's checkpoint",
+          "    const int* ckr = ck + (size_t)c * SRK_S_ROWS * V + v;"]
+    L += ["  " + x for x in _state_row_loads(layout, "ckr")]
+    L += ["  }",
+          "  const int r0 = u * (SRK_T / SRK_REPLAYS);",
+          "  for (int i = 0; i < SRK_T / SRK_REPLAYS; ++i) {",
+          "    const int row = r0 + i, t = t0 + row;",
+          "    if (t >= n) break;",
+          "    int* sr = scr + SRK_SCR(b, row, 0);",
+          "    (void)sr;"]
+    L += ["  " + x for x in _state_row_stores(layout, "sr")]
+    L += _lane_loads(lane_idx)
+    L += _emit_calls(compiled, plan, lane_idx, params_of, state_of, None,
+                     False, audio=False)
+    L += _fb_updates(compiled)
+    L += [f"    scr[SRK_SCR(b, row, {xrow[w]})] = "
+          f"srk_float_bits(w_{_ident(w[0])}[{w[1]}]);" for w in sh.xwires]
+    L += ["  }", "}"]
+    # -- the sweep stages ----------------------------------------------------
+    cons = _consumers(compiled, plan)
+    ring_of = {(key, b): (c, sh.offsets[("ring", key, b)])
+               for key, b, c in sh.rings}
+    ring_into = {}
+    for key, b, c in sh.rings:
+        ring_into.setdefault(c, []).append((key, b))
+    for g, mods in enumerate(part.stages):
+        mods = list(mods)
+        pls = [leaf for leaf in layout.params if _leaf_mid(leaf) in mods]
+        sls = [leaf for leaf in layout.state if _leaf_mid(leaf) in mods]
+        members, loads, stores = [], [], []
+        for leaf in pls:
+            member, load = _struct_leaf(leaf, "p" + leaf.kind)
+            members.append(member)
+            loads += load
+        for leaf in pls + sls:
+            if leaf.kind != "f":
+                continue
+            var = "d_" + _var(leaf.path)
+            arr = "ctf" if leaf in sls else None
+            members.append(f"  float {var}[{leaf.rows}];" if leaf.rest
+                           else f"  float {var};")
+            for j in range(leaf.rows):
+                lhs = f"S.{var}[{j}]" if leaf.rest else f"S.{var}"
+                loads.append(f"  {lhs} = "
+                             + (_row(arr, leaf, j) if arr else "0.0f") + ";")
+                stores.append(f"  {_row('dsf' if arr else 'dpf', leaf, j)} "
+                              f"= {lhs};")
+        members.append("  float d_sink;")
+        loads.append("  S.d_sink = 0.0f;")
+        words = sh.words[g]
+        nw = len(words)
+        wpos = {w: i for i, w in enumerate(words)}
+        L += ["", f"struct srk_bg{g} {{"] + members + ["};", "",
+              f"SRK_HD void srk_bg{g}_load(srk_bg{g}& S, int v, int V, "
+              "const float* __restrict__ pf, const int* __restrict__ pi, "
+              "const float* __restrict__ ctf) {"]
+        L += loads + ["}", "",
+                      f"SRK_HD void srk_bg{g}_store(const srk_bg{g}& S, "
+                      "int v, int V, float* __restrict__ dpf, "
+                      "float* __restrict__ dsf) {"]
+        L += stores + ["}"]
+        # the prefetch of reverse sub-chunk r: scratch rows, lanes, cta
+        woff = sh.offsets[("words", g)]
+        L += ["",
+              f"SRK_HD void srk_bg{g}_fetch(int r, int lane, int v, int V, "
+              f"int n, int n_chunks, {ptrs}) {{",
+              "  if (!srk_sub_live(r, n, n_chunks)) return;",
+              "  const int s = n_chunks * SRK_M - 1 - r;",
+              "  const int t0 = s * SRK_T;",
+              "  const int cnt = n - t0 < SRK_T ? n - t0 : SRK_T;",
+              "  const int c = s / SRK_M, row0 = (s % SRK_M) * SRK_T;",
+              "  const int b = c % SRK_NB;",
+              "  (void)b; (void)row0;",
+              "  for (int tc = 0; tc < cnt; ++tc) {"]
+        if nw:
+            L += [f"    float* dst = sm + {woff} + ((r & 1) * SRK_T + tc) * "
+                  f"{nw * WARP} + lane;",
+                  "    const int* src = scr + SRK_SCR(b, row0 + tc, 0);"]
+            L += [f"    srk_cp_async4(dst + {i * WARP}, (const float*)(src "
+                  f"+ {w} * (size_t)V));" for i, w in enumerate(words)]
+        L += [f"    srk_cp_async4(sm + {sh.offsets[('lane', g, k)]} + "
+              "((r & 1) * SRK_T + tc) * 32 + lane, lanes + "
+              f"((size_t){lane_idx[k]} * n + t0 + tc) * V + v);"
+              for k in sh.lanes_of[g]]
+        if g == sh.out_stage:
+            L += [f"    srk_cp_async4(sm + {sh.offsets['cta']} + ((r & 1) * "
+                  f"{n_ch} * 32 + {c} * 32 + lane) * (SRK_T + 1) + tc, "
+                  f"cta + ((size_t)v * {n_ch} + {c}) * n + t0 + tc);"
+                  for c in range(n_ch)]
+        L += ["  }", "}"]
+        # one reverse sub-chunk
+        L += ["",
+              f"SRK_HD void srk_bg{g}_sub(srk_bg{g}& S, int r, int lane, "
+              f"int v, int V, int n, int n_chunks, {ptrs}) {{"]
+        for leaf in pls:
+            L.append(f"  const auto& {_var(leaf.path)} = S.{_var(leaf.path)};")
+        for leaf in pls + sls:
+            if leaf.kind == "f":
+                var = "d_" + _var(leaf.path)
+                L.append(f"  auto& {var} = S.{var};")
+        L += ["  auto& d_sink = S.d_sink;",
+              "  const int s = n_chunks * SRK_M - 1 - r;",
+              "  const int t0 = s * SRK_T;",
+              "  const int cnt = n - t0 < SRK_T ? n - t0 : SRK_T;"]
+        for leaf in sls:
+            var = _var(leaf.path)
+            L.append(f"  {leaf.ctype} {var}[{leaf.rows}];" if leaf.rest
+                     else f"  {leaf.ctype} {var};")
+        if g == sh.out_stage:
+            L += [f"  const float* ctp{c} = sm + {sh.offsets['cta']} + ((r & 1)"
+                  f" * {n_ch} * 32 + {c} * 32 + lane) * (SRK_T + 1);"
+                  for c in range(n_ch)]
+        L += ["  for (int tc = cnt - 1; tc >= 0; --tc) {",
+              "    const int t = t0 + tc;",
+              "    (void)t;"]
+        if nw:
+            L.append(f"    const int wb = {woff} + ((r & 1) * SRK_T + tc) * "
+                     f"{nw * WARP} + lane;")
+        # the state before the sample, then its locals
+        for leaf in sls:
+            var = _var(leaf.path)
+            base = leaf.row if leaf.kind == "f" else layout.n_sf + leaf.row
+            vals = []
+            for j in range(leaf.rows):
+                at = f"wb + {wpos[base + j] * WARP}"
+                vals.append(f"sm[{at}]" if leaf.kind == "f"
+                            else f"srk_ld_word(sm + {at})")
+            if leaf.rest:
+                L.append(f"    const {leaf.ctype} o_{var}[{leaf.rows}] = "
+                         f"{{{', '.join(vals)}}};")
+                L += [f"    {var}[{j}] = o_{var}[{j}];"
+                      for j in range(leaf.rows)]
+            else:
+                L += [f"    const {leaf.ctype} o_{var} = {vals[0]};",
+                      f"    {var} = o_{var};"]
+        L += [f"    const float {_lane_var(k)} = sm[{sh.offsets[('lane', g, k)]}"
+              " + ((r & 1) * SRK_T + tc) * 32 + lane];"
+              for k in sh.lanes_of[g]]
+        ins = {}
+        for mid in mods:
+            for c in compiled.instances[mid][2]:
+                if (c is not None and stage_of[c[0]] != g
+                        and compiled.plan_pos[c[0]] < compiled.plan_pos[mid]):
+                    ins.setdefault(c[0], set()).add(c[1])
+        for src, ports in ins.items():
+            mdef, statics, _ = compiled.instances[src]
+            n_out = max(mdef.num_outputs(cfg, statics), 1)
+            L.append(f"    float w_{_ident(src)}[{n_out}];")
+            L += [f"    w_{_ident(src)}[{p}] = sm[wb + "
+                  f"{wpos[xrow[(src, p)]] * WARP}];" for p in sorted(ports)]
+        L += _emit_calls(compiled, mods, lane_idx, params_of, state_of, None,
+                         False, scoped=False, audio=False)
+        L.append("    // the wires' cotangents")
+        for mid in mods:
+            if mid != compiled.output_id:
+                mdef, statics, _ = compiled.instances[mid]
+                n_out = max(mdef.num_outputs(cfg, statics), 1)
+                L.append(f"    float dw_{_ident(mid)}[{n_out}] = "
+                         f"{_zeros(n_out)};")
+        for k in compiled.fb_keys:
+            if stage_of[k[0]] == g:
+                d = "d_" + _var(("fb", k))
+                L.append(f"    dw_{_ident(k[0])}[{k[1]}] += {d}; {d} = 0.0f;")
+
+        def ring_at(key, b, r="r"):
+            c, off = ring_of[(key, b)]
+            return (f"sm[{off} + ({r} % {b - c + 1}) * SRK_T * 32 + tc * 32 "
+                    "+ lane]")
+        # cotangents arriving from later stages, in the one-thread order
+        for key, b in sorted(ring_into.get(g, ()),
+                             key=lambda kb: (kb[0][1], kb[0][2:])):
+            w = key[1]
+            if xfrom[w] == g:
+                if key[0] == "p":
+                    L.append(f"    dw_{_ident(w[0])}[{w[1]}] = "
+                             f"{ring_at(key, b)};")
+                else:
+                    L.append(f"    dw_{_ident(w[0])}[{w[1]}] += "
+                             f"{ring_at(key, b)};")
+        # partial sums of wires from earlier stages read here
+        targets = {}
+        for w, a, _ in part.wires:
+            if a >= g or w in compiled.fb_keys:
+                continue
+            readers = [mid for mid, _ in cons[w] if stage_of[mid] == g]
+            if not readers:
+                continue
+            var = f"dx_{_ident(*w)}"
+            inflow = [b for key, b in ring_into.get(g, ())
+                      if key == ("p", w)]
+            L.append(f"    float {var} = "
+                     + (ring_at(("p", w), inflow[0]) if inflow else "0.0f")
+                     + ";")
+            targets[w] = var
+        contrib = {}
+        for w, a, _ in part.wires:
+            if w in compiled.fb_keys and a < g:
+                later = [(mid, i) for mid, i in cons[w] if stage_of[mid] > a]
+                for j, (mid, i) in enumerate(later):
+                    if stage_of[mid] == g:
+                        contrib[(mid, i)] = ("c", w, j)
+
+        def target(mid, i, conn):
+            src, sport = conn
+            if (mid, i) in contrib:
+                key = contrib[(mid, i)]
+                return f"dc_{_ident(*key[1])}_{key[2]}"
+            if compiled.plan_pos[src] >= compiled.plan_pos[mid]:
+                return "d_" + _var(("fb", (src, sport)))
+            if stage_of[src] != g:
+                return targets[conn]
+            return f"dw_{_ident(src)}[{sport}]"
+        for key in contrib.values():
+            L.append(f"    float dc_{_ident(*key[1])}_{key[2]} = 0.0f;")
+        L.append("    // the adjoints, in reverse plan order")
+        for mid in reversed(mods):
+            mdef, statics, inputs = compiled.instances[mid]
+            if mid == compiled.output_id:
+                L += [f"    {mdef.cuda_adj}(ctp{c}, tc, "
+                      f"{target(mid, c, c_)});"
+                      for c, c_ in enumerate(inputs) if c_ is not None]
+                continue
+            ins_, conn = _inputs_of(compiled, mid, None, False)
+            tmpl = ", ".join([str(conn)] + _statics_args(statics))
+            keys = params_of.get(mid, [])
+            args = _param_args(compiled, mid, keys, lane_idx)
+            args += ["o_" + var for var in state_of.get(mid, [])]
+            if mid in lane_idx:
+                args.append(_lane_var(mid))
+            args.append(f"in_{_ident(mid)}" if ins_ else "nullptr")
+            for key in keys:
+                if pleaf[(mid, key)].kind == "f":
+                    auto = compiled._auto_key(mid, key) in lane_idx
+                    args.append("d_sink" if auto else "d_" + _var((mid, key)))
+            args += ["d_" + _var(leaf.path) for leaf in sls
+                     if leaf.path[0] == "states" and leaf.path[1] == mid
+                     and leaf.kind == "f"]
+            args.append(f"dw_{_ident(mid)}")
+            call = f"{mdef.cuda_adj}<{tmpl}>("
+            if ins_:
+                L.append(f"    {{ float din[{len(ins_)}] = "
+                         f"{_zeros(len(ins_))};")
+                L.append(f"      {call}" + ", ".join(args + ["din"]) + ");")
+                L += [f"      {target(mid, i, c_)} += din[{i}];"
+                      for i, c_ in enumerate(inputs) if c_ is not None]
+                L.append("    }")
+            else:
+                L.append(f"    {call}" + ", ".join(args + ["nullptr"]) + ");")
+        # hand the partial sums and contributions on
+        for (key, b), (c, _) in ring_of.items():
+            if b != g:
+                continue
+            val = (targets[key[1]] if key[0] == "p"
+                   else f"dc_{_ident(*key[1])}_{key[2]}")
+            L.append(f"    {ring_at(key, b)} = {val};")
+        L += ["  }", "}"]
+    L += _bwd_pipeline_entries(part, R)
+    return "\n".join(L) + "\n"
+
+
+def _bwd_pipeline_entries(part, R) -> list:
+    """The split backward kernel (a warp per sweep stage, then the replay
+    warps), its launch (which sets the dynamic shared memory) and the host
+    build's lock step, with the one-thread backward's arguments."""
+    decl = ("const float* pf, const int* pi, const float* lanes, "
+            "const int* ck, const float* cta, const float* ctf, int* scr, "
+            "float* dpf, float* dsf, int V, int n")
+    args = "pf, pi, lanes, ck, cta, ctf, scr, dpf, dsf, V, n"
+    tail = "v, V, n, n_chunks, lanes, ck, cta, scr, sm"
+    G = part.n_stages
+    L = ["", "#ifdef __CUDACC__",
+         "__global__ void __launch_bounds__(SRK_THREADS) "
+         f"srk_vjp_bwd_kernel({decl}) {{",
+         "  extern __shared__ float sm[];",
+         "  const int w = threadIdx.x >> 5;",
+         "  const int lane = threadIdx.x & 31;",
+         "  const int v = blockIdx.x * 32 + lane;",
+         "  const bool live = v < V;",
+         "  const int n_chunks = (n + SRK_T_CHUNK - 1) / SRK_T_CHUNK;",
+         "  const int steps = n_chunks > 0 ? n_chunks * SRK_M + SRK_D + "
+         "SRK_STAGES - 1 : 0;",
+         "  if (w >= SRK_STAGES) {",
+         "    srk_rp S;",
+         "    if (live) srk_rp_load(S, v, V, pf, pi);",
+         "    for (int k = 0; k < steps; ++k) {",
+         f"      if (live) srk_rp_step(S, k, w - SRK_STAGES, {tail});",
+         "      srk_step_barrier(SRK_THREADS);",
+         "    }"]
+    for g in range(G):
+        lead = f"SRK_D + {G - 1 - g}"
+        L += [f"  }} else if (w == {g}) {{",
+              f"    srk_bg{g} S;",
+              f"    if (live) srk_bg{g}_load(S, v, V, pf, pi, ctf);",
+              "    for (int k = 0; k < steps; ++k) {",
+              f"      const int r = k - ({lead});",
+              "      if (live) {",
+              f"        srk_bg{g}_fetch(r + 1, lane, {tail});",
+              "        srk_cp_commit();",
+              "        if (srk_sub_live(r, n, n_chunks)) {",
+              "          srk_cp_wait1();",
+              f"          srk_bg{g}_sub(S, r, lane, {tail});",
+              "        }",
+              "      }",
+              "      srk_step_barrier(SRK_THREADS);",
+              "    }",
+              f"    if (live) srk_bg{g}_store(S, v, V, dpf, dsf);"]
+    L += ["  }", "}", "",
+          f'extern "C" int srk_vjp_bwd_launch({decl}, void* stream) {{',
+          "  const int blocks = (V + 31) / 32;",
+          "  const int bytes = SRK_SMEM_FLOATS * (int)sizeof(float);",
+          "  cudaError_t err = cudaFuncSetAttribute(srk_vjp_bwd_kernel, "
+          "cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);",
+          "  if (err != cudaSuccess) return (int)err;",
+          "  srk_vjp_bwd_kernel<<<blocks, SRK_THREADS, bytes, "
+          f"(cudaStream_t)stream>>>({args});",
+          "  return (int)cudaGetLastError();",
+          "}",
+          "#else",
+          "#include <vector>",
+          "",
+          f'extern "C" int srk_vjp_bwd_host({decl}) {{',
+          "  std::vector<float> smem(SRK_SMEM_FLOATS);",
+          "  float* sm = smem.data();",
+          "  const int n_chunks = (n + SRK_T_CHUNK - 1) / SRK_T_CHUNK;",
+          "  const int steps = n_chunks > 0 ? n_chunks * SRK_M + SRK_D + "
+          "SRK_STAGES - 1 : 0;",
+          "  for (int v0 = 0; v0 < V; v0 += 32) {",
+          "    const int live = V - v0 < 32 ? V - v0 : 32;",
+          "    std::vector<srk_rp> P(32 * SRK_REPLAYS);"]
+    L += [f"    std::vector<srk_bg{g}> S{g}(32);" for g in range(G)]
+    L += ["    for (int lane = 0; lane < live; ++lane) {",
+          "      const int v = v0 + lane;",
+          "      for (int j = 0; j < SRK_REPLAYS; ++j) "
+          "srk_rp_load(P[32 * j + lane], v, V, pf, pi);"]
+    L += [f"      srk_bg{g}_load(S{g}[lane], v, V, pf, pi, ctf);"
+          for g in range(G)]
+    L += ["    }",
+          "    // the card's lock step; within a step the stages, then the "
+          "replay",
+          "    for (int k = 0; k < steps; ++k) {"]
+    for g in range(G):
+        L += [f"      {{ const int r = k - (SRK_D + {G - 1 - g});",
+              "        for (int lane = 0; lane < live; ++lane) {",
+              "          const int v = v0 + lane;",
+              f"          srk_bg{g}_fetch(r + 1, lane, {tail});",
+              "          if (srk_sub_live(r, n, n_chunks))",
+              f"            srk_bg{g}_sub(S{g}[lane], r, lane, {tail});",
+              "        } }"]
+    L += ["      for (int j = 0; j < SRK_REPLAYS; ++j)",
+          "        for (int lane = 0; lane < live; ++lane) {",
+          "          const int v = v0 + lane;",
+          f"          srk_rp_step(P[32 * j + lane], k, j, {tail});",
+          "        }",
+          "    }",
+          "    for (int lane = 0; lane < live; ++lane) {",
+          "      const int v = v0 + lane;"]
+    L += [f"      srk_bg{g}_store(S{g}[lane], v, V, dpf, dsf);"
+          for g in range(G)]
+    L += ["    }", "  }", "  return 0;", "}", "#endif"]
+    return L
 
 
 # the entry's argument types, without the stream: the nine operand

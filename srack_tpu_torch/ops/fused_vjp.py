@@ -10,31 +10,62 @@ generator of K1 (``ops/fused.py::generate_source``) in two more modes:
   at every ``t_chunk`` boundary into ``ck`` (``[n_chunks, S, V]`` int32
   words, floats as their bits, S = ``n_sf + n_si``): 4 * S bytes per voice
   and chunk, coalesced across voices.  Audio and final state equal K1's.
-* **backward, ``fused_vjp_bwd``** (mode ``"bwd"``): one thread per voice
-  walks the chunks in reverse.  For each chunk it reloads the checkpoint
-  and replays the forward with the same emitted step code and the same
-  flags (``--fmad=false``, no fast math), so int phases, envelope modes
-  and edge detectors replay bit for bit; the state before each sample goes
-  to a scratch ``[t_chunk, S, V]`` in device memory (10.5 MB for the
-  subtractive voice at 1,024 voices and t_chunk 128: it stays in the 50 MB
-  L2).  Then it sweeps the chunk backwards: at each sample it reloads the
-  stored state, re-runs the step to get every wire, and calls the modules'
-  adjoints (``csrc/modules_adj.cuh``) in reverse plan order.  The float
-  params' cotangents accumulate in registers over the render; the float
-  state's (the feedback carries' included) start from the final state's,
-  which enters at sample n-1 (n need not be a multiple of ``t_chunk``),
-  and end as the initial state's.
+* **backward, ``fused_vjp_bwd``** (mode ``"bwd"`` with a partition,
+  ``ops/fused.py::_generate_bwd_pipeline``): a reverse pipeline of sweep
+  stage warps fed by replay warps, one CTA per 32 voices.
+
+  - The plan is cut into at most four sweep stages of consecutive modules
+    (``partition(..., cost=sweep_ops)``: a module weighs its step's re-run
+    plus its adjoint; a feedback carry's cycle is never cut).
+  - One or two replay warps (two where the whole forward step costs more
+    than the costliest stage) replay the chunks of ``t_chunk`` samples
+    from their checkpoints, last chunk first, with the forward's step
+    code and flags (``--fmad=false``, no fast math), so int phases,
+    envelope modes and edge detectors replay bit for bit.  They store the
+    state before each sample and every cross-stage forward wire into a
+    scratch in device memory (``[R + 2, t_chunk, W, V]`` int32 words,
+    48.2 MB for the training voice at 1,024 voices, of which the two
+    chunks in use at a time, 24.1 MB, stay in the 50 MB L2), a chunk ahead
+    of the sweep.  Shared memory would hold the scratch only at chunks of
+    a few samples, fewer sub-chunks than the pipeline has stages.
+  - The sweep warps walk sub-chunks of T samples in reverse, the output
+    stage leading.  Warp g prefetches its next sub-chunk's scratch rows
+    (its modules' state, the wires it reads), its lanes and, for the
+    Output's stage, the audio cotangent into shared double buffers
+    (``cp.async``), then per sample re-runs its modules' steps and calls
+    their adjoints (``csrc/modules_adj.cuh``) in reverse plan order.  A
+    wire's partial cotangent goes down a shared-memory ring to the next
+    earlier stage that reads it or to its source's; a feedback source's
+    wire sends each later reader's contribution on a ring of its own,
+    since the one-thread kernel adds the carried cotangent first.  So
+    every float cotangent takes the one-thread kernel's operations in its
+    order: the two agree bit for bit.
+  - A named barrier ends each sub-chunk step.  The replay leads the
+    output stage by ``R m + 1`` steps (``m = t_chunk / T``), so a chunk is
+    replayed before its first sub-chunk is fetched, and ``R + 2`` buffers
+    keep it until stage 0 has read it (``m >= G``).
+
+  The params' cotangents accumulate in each stage's registers over the
+  render; the float state's (the feedback carries' included) start from
+  the final state's, which enters at sample n-1 (n need not be a multiple
+  of ``t_chunk``), and end as the initial state's.
+* **the twin, ``fused_vjp_bwd_twin``** (mode ``"bwd"`` without a
+  partition, ``_generate_bwd``): the backward it replaced, one thread per
+  voice that replays each chunk into a ``[t_chunk, S, V]`` scratch and
+  then sweeps it.  It runs where a plan has one sweep stage, or where no
+  sub-chunk of 8 to 32 samples both divides ``t_chunk`` into at least one
+  sub-chunk per stage and fits the shared-memory budget
+  (``ops/fused.py::pick_bwd_chunk``); ``stages=1`` builds it.
 
 None of the TPU layout is carried over: no (8, 128) tiles, no 1,024-voice
 padding, no padded tail, no ``bwd_unroll`` groups, no packed audio.
 
-What bounds it: like K1, each thread's serial chain, not memory.  The
-backward does about three times K1's work per sample (the replay, the
-re-run and the adjoints), and per voice-sample it moves the audio
-cotangent in (4 * C bytes, strided as K1's audio writes are) and S words
-of scratch out and back in (L2 hits).  1,024 voices fill 32 warps, one per
-SM scheduler at most: nothing hides latency but each thread's own
-instruction-level parallelism.
+What bounds it: each warp's serial chain, not memory.  The split
+backward's sample costs the slower of its costliest sweep stage's chain
+and a replay warp's forward step over R; per voice-sample it moves the
+audio cotangent in (4 * C bytes) and W scratch words out and back in
+(L2 hits).  At 1,024 voices a CTA holds 4 + R warps on one SM: nothing
+hides latency but each warp's own instruction-level parallelism.
 
 The wrapper :class:`FusedVJPKernel` holds both builds and their launch
 counts; :func:`make_fused_vjp` returns its ``torch.autograd.Function``.
@@ -60,8 +91,9 @@ import torch
 from ..compiler import tree_leaves
 from ..modules.base import CV_DTYPE
 from .cuda_lib import CudaLib, I, P, require_cuda
-from .fused import (Layout, _get, eligible, generate_source, pack,
-                    pack_lanes, state_tree, unpack)
+from .fused import (Layout, _get, bwd_shape, eligible, generate_source, pack,
+                    pack_lanes, pick_bwd_chunk, state_tree, unpack)
+from .partition import MAX_STAGES, partition, sweep_ops
 
 # the entries' argument types, without the stream: the operand pointers of
 # :meth:`FusedVJPKernel.run_fwd` / :meth:`FusedVJPKernel.run_bwd`, then V, n
@@ -93,7 +125,8 @@ class FusedVJPKernel:
 
     plain = "autograd through the scan engine"
 
-    def __init__(self, compiled, lanes=(), t_chunk: int = 128):
+    def __init__(self, compiled, lanes=(), t_chunk: int = 128,
+                 stages: int = MAX_STAGES, chunk: int = None):
         if not vjp_eligible(compiled):
             raise ValueError(
                 "patch not eligible for the fused VJP (needs a patch the "
@@ -110,14 +143,44 @@ class FusedVJPKernel:
         self.fwd = CudaLib("fused_vjp_fwd", generate_source(
             compiled, lay, self.lanes, mode="ckpt", t_chunk=self.t_chunk),
             "fused-VJP forward kernel")
-        self.bwd = CudaLib("fused_vjp_bwd", generate_source(
-            compiled, lay, self.lanes, mode="bwd", t_chunk=self.t_chunk),
-            "fused-VJP backward kernel")
+        self.partition = partition(compiled, max_stages=stages,
+                                   cost=sweep_ops)
+        self.chunk, self.shape = None, None
+        if self.partition.n_stages > 1:
+            self.chunk = chunk or pick_bwd_chunk(
+                compiled, self.partition, self.lanes, lay, self.t_chunk)
+        if self.chunk is None:
+            # the twin: one stage, or no sub-chunk fits shared memory
+            self.bwd = CudaLib("fused_vjp_bwd_twin", generate_source(
+                compiled, lay, self.lanes, mode="bwd",
+                t_chunk=self.t_chunk), "fused-VJP backward kernel (twin)")
+        else:
+            self.shape = bwd_shape(compiled, self.partition, self.lanes, lay,
+                                   self.chunk, self.t_chunk)
+            self.bwd = CudaLib("fused_vjp_bwd", generate_source(
+                compiled, lay, self.lanes, mode="bwd", t_chunk=self.t_chunk,
+                split=self.partition, chunk=self.chunk),
+                "fused-VJP backward kernel")
         self._functions = {}
 
     @property
     def s_rows(self) -> int:
         return self.layout.n_sf + self.layout.n_si
+
+    @property
+    def twin(self) -> bool:
+        """Does the backward run one thread per voice?"""
+        return self.shape is None
+
+    def scratch_shape(self, v: int, n: int) -> tuple:
+        """The backward's scratch: the split kernel's ``[chunks in flight,
+        t_chunk, W, V]`` (W = S plus the cross-stage wires), the twin's
+        ``[t_chunk, S, V]``."""
+        if self.twin:
+            return (max(min(self.t_chunk, n), 1), max(self.s_rows, 1), v)
+        n_chunks = -(-n // self.t_chunk)
+        return (max(min(self.shape.buffers, n_chunks), 1), self.t_chunk,
+                self.s_rows + len(self.shape.xwires), v)
 
     def _call(self, lib, entry, argtypes, operands, v, n):
         """Launch ``entry`` of ``lib`` on the operands' device."""
@@ -146,9 +209,8 @@ class FusedVJPKernel:
         and the final float state's ``ctf`` ``[n_sf, V]`` in; ``(dpf
         [n_pf, V], dsf [n_sf, V])`` out."""
         device = pf.device
-        scr = torch.empty((max(min(self.t_chunk, n), 1),
-                           max(self.s_rows, 1), v),
-                          dtype=torch.int32, device=device)
+        scr = torch.empty(self.scratch_shape(v, n), dtype=torch.int32,
+                          device=device)
         dpf = torch.zeros((max(self.layout.n_pf, 1), v), dtype=CV_DTYPE,
                           device=device)
         dsf = torch.zeros((max(self.layout.n_sf, 1), v), dtype=CV_DTYPE,

@@ -5,7 +5,9 @@ Kernels K1 (``fused_voice``), K2 (``fused_voice_buffer``) and K3
 modules in a CTA of ``G`` stage warps (``ops/fused.py``): warp ``g`` runs
 the modules of stage ``g`` for the CTA's 32 voices, one chunk of samples
 behind warp ``g - 1``, and the wires between stages pass through
-shared-memory rings.  :func:`partition` chooses the stages.
+shared-memory rings.  K10's backward (``fused_vjp_bwd``) runs the same
+cut in reverse, the last stage leading, with the wires' cotangents in the
+rings.  :func:`partition` chooses the stages.
 
 The rules:
 
@@ -16,8 +18,10 @@ The rules:
   its delayed wires from its ring and a stage from lanes, and neither
   carries anything);
 * the stages minimise the costliest stage's operations per sample
-  (:func:`module_ops`), then the number of cross-stage wires (each one a
-  shared-memory ring), then the number of stages;
+  (:func:`module_ops`; K10's backward weighs each module by
+  :func:`sweep_ops`, its step's re-run plus its adjoint), then the number
+  of cross-stage wires (each one a shared-memory ring), then the number of
+  stages;
 * at most :data:`MAX_STAGES` stages, one warp for each of an SM's four
   schedulers.
 
@@ -68,6 +72,56 @@ def module_ops(compiled, mid) -> int:
     return 0                                        # Input, Noise, Output
 
 
+# f32 operations per sample of each adjoint of csrc/modules_adj.cuh on the
+# path a sample takes, counted as module_ops counts the steps, but only the
+# derivative's own: the primal values an adjoint recomputes (the phase in
+# turns, the ladder's stages, exp2's polynomial, the envelope's selects) are
+# the step's, which module_ops counts.  A clip's derivative with JAX's tie
+# rule counts 6.  K10's backward partition weighs its stages by them, and
+# its bound counts them.
+def adjoint_ops(compiled, mid) -> int:
+    mdef, statics, inputs = compiled.instances[mid]
+    t = mdef.type_name
+    conn = [c is not None for c in inputs]
+    auto = mid in compiled._auto_by_mid
+    if t == "Oscillator":
+        ops = 17 + (1 if conn[1] else 0)           # sinpi', shadow phase
+        if statics[1]:
+            ops += 30                               # both polyBLEP VJPs
+        if conn[0] or auto:
+            ops += 25                               # exp2'
+        return ops
+    if t == "Moog Filter":                          # ladder, 5 clips'
+        return 102 + (37 if conn[1] or auto else 0) + (8 if auto else 0)
+    if t == "ADSR":
+        return 27 + (15 if auto else 0)
+    if t == "VCA":
+        return 0 if not all(conn) else 5
+    if t == "Mono Mixer":
+        return 4 * sum(conn)
+    if t == "Multiply":
+        return 4
+    if t in ("Add", "Subtract"):
+        return 2
+    if t == "Non-Linear":
+        return 60                                   # 3 powf, 2 logf
+    if t == "Grid Sequencer":
+        return 8
+    if t == "Pattern Sequencer":
+        return 4                                    # one add per row
+    if t == "Output":
+        return 4 * sum(conn)                        # nan_to_num, add
+    if t == "Input":
+        return 1
+    return 0                                        # Noise
+
+
+def sweep_ops(compiled, mid) -> int:
+    """A module's operations per sample in K10's backward sweep: its step,
+    re-run for the wires its adjoint needs, plus its adjoint."""
+    return module_ops(compiled, mid) + adjoint_ops(compiled, mid)
+
+
 @dataclasses.dataclass(frozen=True)
 class Partition:
     """Stages of one plan: ``stages[g]`` the module ids of stage ``g`` in
@@ -90,11 +144,11 @@ class Partition:
                           for m, c in zip(self.stages, self.costs))
 
 
-def one_stage(compiled, plan=None) -> Partition:
+def one_stage(compiled, plan=None, cost=module_ops) -> Partition:
     """The whole plan as one stage: the one-thread kernel."""
     plan = list(compiled.plan if plan is None else plan)
     return Partition((tuple(plan),),
-                     (sum(module_ops(compiled, m) for m in plan),), ())
+                     (sum(cost(compiled, m) for m in plan),), ())
 
 
 def _edges(compiled, plan, carried: bool):
@@ -116,15 +170,16 @@ def _edges(compiled, plan, carried: bool):
 
 
 def partition(compiled, plan=None, carried: bool = True,
-              max_stages: int = MAX_STAGES) -> Partition:
+              max_stages: int = MAX_STAGES, cost=module_ops) -> Partition:
     """The stages of ``plan`` (the whole plan by default, or a serial
     stage's); ``carried``: feedback reads are carries (sample mode) rather
-    than lanes (a buffer-mode stage)."""
+    than lanes (a buffer-mode stage); ``cost(compiled, mid)``: a module's
+    operations per sample (K10's backward: :func:`sweep_ops`)."""
     plan = list(compiled.plan if plan is None else plan)
     m = len(plan)
     if m == 0 or max_stages <= 1:
-        return one_stage(compiled, plan)
-    cost = [module_ops(compiled, mid) for mid in plan]
+        return one_stage(compiled, plan, cost)
+    cost = [cost(compiled, mid) for mid in plan]
     prefix = [0]
     for c in cost:
         prefix.append(prefix[-1] + c)

@@ -4,72 +4,140 @@
 One launch computes the whole Sample player of ``modules/sample.py``'s
 block form for ``[R, n]`` gate (and CV) lanes and per-row tables ``[R, K]``:
 edges, rate, the segmented prefix sum, the last-trigger fill, the end stop,
-the table read and the end state.  The kernel is ``csrc/sample_play.cu``:
-one CTA per row, K4's launch shape and K4's order of combination (the CTA
-scan of ``csrc/row_scan.cuh``), so that it equals the unfused form on
-K4 and K6 bit for bit.  Its source note states what bounds it (bytes).
+the table read and the end state.  Two entries of ``csrc/sample_play.cu``,
+both in K4's order of combination (the CTA scan of ``csrc/row_scan.cuh``),
+so that they equal the unfused form on K4 and K6, and each other, bit for
+bit:
 
-The plain version is ``modules/sample.py::play_unfused`` (on CPU tensors
-the log-doubling scans and one ``torch.gather``), which the module's block
-form runs for CPU tensors.  This wrapper launches the kernel for CUDA
-tensors or raises.
+* ``sample_play`` (:data:`SAMPLE_PLAY`, entry ``srk_sample_play``), the
+  main path's: a CTA takes 8 voices and stages each chunk of their gate
+  (and CV) in shared memory one chunk ahead (``cp.async``), reading the
+  lanes as 2-D views with any strides, so the block engine's transposed
+  stage outputs (``[V, n]`` views of K3's ``[n, V]`` rows) go in without a
+  copy; 4 warps play each voice's chunk.
+* ``sample_play_twin`` (:data:`SAMPLE_PLAY_TWIN`, entry
+  ``srk_sample_play_twin``), the kernel it replaced: one CTA per row on
+  contiguous rows (its wrapper copies a strided lane first).  No main path
+  runs it; ``chip_smoke.py`` holds the new entry to it.
+
+Their source notes state what bounds them (bytes).  The plain version is
+``modules/sample.py::play_unfused`` (on CPU tensors the log-doubling scans
+and one ``torch.gather``), which the module's block form runs for CPU
+tensors.  These wrappers launch their kernel for CUDA tensors or raise.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .cuda_lib import CudaLib, I, P, csrc, require_cuda
+
+LL = ctypes.c_longlong
+# the tile shapes of ``srk_sample_play`` (csrc/sample_play.cu,
+# SRK_TILE_SHAPES): (voices per CTA, warps per voice); the main path's,
+# (8, 4), was the fastest of them on an H100 (chip_smoke.py's K7 times)
+TILE_SHAPES = ((8, 1), (8, 2), (8, 4), (4, 8))
 
 
 class SamplePlay(CudaLib):
     """K7: ``run(gate, cv, table, base, pos0, playing0, gate_last0,
     length)``."""
 
-    def __init__(self):
-        super().__init__("sample_play", csrc("sample_play.cu"),
-                         "Sample-player kernel (K7)")
+    def __init__(self, name: str = "sample_play",
+                 entry: str = "srk_sample_play",
+                 what: str = "Sample-player kernel (K7)"):
+        super().__init__(name, csrc("sample_play.cu"), what)
+        self.entry = entry
+        self.shape = TILE_SHAPES.index((8, 4))
 
-    def run(self, gate, cv, table, base, pos0, playing0, gate_last0, length):
-        """``gate`` (and ``cv``, or None: the constant-rate entry) ``[R, n]``
-        f32; ``table [R, K]`` f32; per row ``base`` and ``pos0`` f32,
-        ``playing0`` and ``gate_last0`` bool, ``length`` int32.  Returns
-        ``(out [R, n], pos_end [R], playing_end [R] bool, gate_last [R]
-        bool)``."""
+    def operands(self, gate, cv, table, base, pos0, playing0, gate_last0,
+                 length):
+        """Check the operands; the table and per-row values contiguous,
+        the flags as int32.  Returns ``(table, base, pos0, ints, device)``."""
         rows, n = gate.shape
-        k = table.shape[-1]
-        f32 = [gate.contiguous(), table.contiguous(), base.contiguous(),
-               pos0.contiguous()]
-        if cv is not None:
-            f32.append(cv.contiguous())
+        lanes = [gate] if cv is None else [gate, cv]
+        small = [table.contiguous(), base.contiguous(), pos0.contiguous()]
         ints = [playing0.to(torch.int32).contiguous(),
                 gate_last0.to(torch.int32).contiguous(),
                 length.contiguous()]
-        device = require_cuda(*f32, *ints)
-        for t in f32:
+        device = require_cuda(*small, *ints)
+        for t in lanes + small:
             if t.dtype != torch.float32:
                 raise TypeError(f"the Sample player takes f32 lanes, tables "
                                 f"and rates; got {t.dtype}")
+            if t.device != device:
+                raise ValueError(f"the kernel takes CUDA tensors on one "
+                                 f"device; got {t.device}")
         if ints[2].dtype != torch.int32:
             raise TypeError(f"Sample length of {ints[2].dtype}: int32")
-        if table.shape[0] != rows or (cv is not None and cv.shape != gate.shape) \
-                or any(t.shape != (rows,) for t in f32[2:4] + ints):
+        if gate.dim() != 2 or table.dim() != 2 or table.shape[0] != rows \
+                or (cv is not None and cv.shape != gate.shape) \
+                or any(t.shape != (rows,) for t in small[1:] + ints):
             raise ValueError("the Sample player takes [R, n] lanes, an [R, K] "
                              "table and [R] per-row values")
-        if k < 1:
+        if table.shape[-1] < 1:
             raise ValueError("the Sample player needs a table of at least "
                              "one frame")
-        out = torch.empty_like(f32[0])
-        pos_end = f32[3].clone()
+        return small, ints, device
+
+    def run(self, gate, cv, table, base, pos0, playing0, gate_last0, length):
+        """``gate`` (and ``cv``, or None: the constant-rate entry) ``[R, n]``
+        f32 views of any strides; ``table [R, K]`` f32; per row ``base`` and
+        ``pos0`` f32, ``playing0`` and ``gate_last0`` bool, ``length``
+        int32.  Returns ``(out [R, n], pos_end [R], playing_end [R] bool,
+        gate_last [R] bool)``."""
+        (table, base, pos0), ints, device = self.operands(
+            gate, cv, table, base, pos0, playing0, gate_last0, length)
+        rows, n = gate.shape
+        out = torch.empty((rows, n), dtype=torch.float32, device=device)
+        pos_end = pos0.clone()
         playing_end, gate_last = ints[0].clone(), ints[1].clone()
-        if n:
-            self.launch("srk_sample_play", [P] * 12 + [I, I, I], (
-                f32[0].data_ptr(), None if cv is None else f32[4].data_ptr(),
-                f32[1].data_ptr(), f32[2].data_ptr(), f32[3].data_ptr(),
-                ints[0].data_ptr(), ints[1].data_ptr(), ints[2].data_ptr(),
-                out.data_ptr(), pos_end.data_ptr(), playing_end.data_ptr(),
-                gate_last.data_ptr(), rows, n, k), device)
+        if n and rows:
+            self._launch(gate, cv, table, base, pos0, ints, out, pos_end,
+                         playing_end, gate_last, device)
         return out, pos_end, playing_end != 0, gate_last != 0
+
+    def _launch(self, gate, cv, table, base, pos0, ints, out, pos_end,
+                playing_end, gate_last, device):
+        rows, n = gate.shape
+        lanes = [gate] if cv is None else [gate, cv]
+        vec = all(t.stride(1) == 1 and t.stride(0) % 4 == 0
+                  and t.data_ptr() % 16 == 0 for t in lanes)
+        c = cv if cv is not None else gate
+        self.launch(self.entry, [P, LL, LL, P, LL, LL] + [P] * 10
+                    + [I, I, I, I, I], (
+                        gate.data_ptr(), gate.stride(0), gate.stride(1),
+                        None if cv is None else cv.data_ptr(), c.stride(0),
+                        c.stride(1), table.data_ptr(), base.data_ptr(),
+                        pos0.data_ptr(), ints[0].data_ptr(),
+                        ints[1].data_ptr(), ints[2].data_ptr(),
+                        out.data_ptr(), pos_end.data_ptr(),
+                        playing_end.data_ptr(), gate_last.data_ptr(), rows,
+                        n, table.shape[-1], int(vec), self.shape), device)
+
+
+class SamplePlayTwin(SamplePlay):
+    """K7's one-CTA-per-row twin: contiguous rows only (a strided lane is
+    copied first)."""
+
+    def __init__(self):
+        super().__init__("sample_play_twin", "srk_sample_play_twin",
+                         "Sample-player kernel (K7, twin)")
+
+    def _launch(self, gate, cv, table, base, pos0, ints, out, pos_end,
+                playing_end, gate_last, device):
+        rows, n = gate.shape
+        gate = gate.contiguous()
+        cv = None if cv is None else cv.contiguous()
+        self.launch(self.entry, [P] * 12 + [I, I, I], (
+            gate.data_ptr(), None if cv is None else cv.data_ptr(),
+            table.data_ptr(), base.data_ptr(), pos0.data_ptr(),
+            ints[0].data_ptr(), ints[1].data_ptr(), ints[2].data_ptr(),
+            out.data_ptr(), pos_end.data_ptr(), playing_end.data_ptr(),
+            gate_last.data_ptr(), rows, n, table.shape[-1]), device)
 
 
 SAMPLE_PLAY = SamplePlay()
+SAMPLE_PLAY_TWIN = SamplePlayTwin()

@@ -27,7 +27,8 @@ held against its plain version on the same inputs:
 * K5/K6, the row gather (``csrc/row_gather.cu``), both entries, f32 and
   int32 tables, indices in and out of range: exact against the plain
   gather;
-* K7, the Sample player (``csrc/sample_play.cu``): bit-exact against its
+* K7, the Sample player (``csrc/sample_play.cu``, its main path's entry
+  ``srk_sample_play`` on ``[R, n]`` rows): bit-exact against its
   unfused form run with the host build of K4 for its two scans -- the
   check that K7 combines in K4's order, at base 0.937 where the order
   shows -- and exact against the plain version (log-doubling scans) at
@@ -59,7 +60,7 @@ from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
               "-shared", "-fPIC")
 SR = 4800
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @pytest.fixture(scope="module")
@@ -471,12 +472,16 @@ def _play_host(lib, args):
     play_end, last_end = (torch.empty(v, dtype=torch.int32),
                           torch.empty(v, dtype=torch.int32))
     ints = [playing0.to(torch.int32), last0.to(torch.int32)]
-    assert _fn(lib, "srk_sample_play", [P] * 12 + [I, I, I])(
-        gate.data_ptr(), None if cvl is None else cvl.data_ptr(),
-        table.data_ptr(), base.data_ptr(), pos0.data_ptr(),
+    # the main path's entry, on contiguous [R, n] rows
+    vec = int(n % 4 == 0)
+    assert _fn(lib, "srk_sample_play", [P, LL, LL, P, LL, LL] + [P] * 10
+               + [I] * 5)(
+        gate.data_ptr(), n, 1, None if cvl is None else cvl.data_ptr(), n,
+        1, table.data_ptr(), base.data_ptr(), pos0.data_ptr(),
         ints[0].data_ptr(), ints[1].data_ptr(), length.data_ptr(),
         out.data_ptr(), pos_end.data_ptr(), play_end.data_ptr(),
-        last_end.data_ptr(), v, n, table.shape[1]) == 0
+        last_end.data_ptr(), v, n, table.shape[1], vec,
+        SAMPLE_PLAY.shape) == 0
     return out, pos_end, play_end != 0, last_end != 0
 
 
