@@ -40,7 +40,9 @@ Phases, each reported on its own lines with its seconds:
    480000, params=farm_params(patch, 1024)), stereo, on the default
    device -- requires the serial-stage kernel K3, the Freeverb kernel K8
    and the ring-alignment kernel K9 to launch, finite audio, peak <=
-   1.002; timed, and each kernel timed alone at its shapes there; its
+   1.002; timed (the median of 5 renders: the block engine's host-side
+   work swings between renders), and each kernel timed alone
+   at its shapes there; its
    warm-up render holds K8 against its plain version on the very inputs
    the render gives it, [1,024, 480,000];
 10. block_check_patch (mono, automated room_size and wet) the same way,
@@ -171,6 +173,24 @@ no copy); phase 15 holds the split backward to its twin at 1,024 x
 drums, sampler and kit-check renders (the twin on a contiguous copy), bit
 for bit, both timed in one call.
 
+K10's forward (``fused_vjp_fwd``) also runs on K1's stage-warp
+pipeline, each stage warp storing its own checkpoint rows
+(``srack_tpu_torch/ops/fused.py::_generate_pipeline`` with ``t_chunk``),
+the one-thread forward staying as its twin (``fused_vjp_fwd_twin``); K9
+(``csrc/ring_align.cu``) moves the lines through a shared-memory tile of
+32 voices x P positions (entry ``srk_ring_align_tile``), the old kernel
+staying as its twin (``ring_align_twin``, entry ``srk_ring_align_twin``).
+Phase 2 builds both twins and the training voice's forward at chunks of
+64 and 128, and logs each K10 forward's stages, chunk and shared memory
+and K9's tile; phase 3 requires every K10 case to take the split forward;
+phase 14 must launch ``fused_vjp_fwd`` and never its twin; phases 6, 9
+and 10 time K9's launch alone (its arguments made once); phase 15 holds
+the split forward to its twin at 1,024 x 48,000 (farm_params and phase
+14's params: audio, final state and checkpoints bit for bit, also at T =
+64 and 128) and K9 to its twin on the operands of both K9 calls of the
+reverb and block-check renders (bit for bit, every tile length of
+``K9_TILES`` timed), each pair timed in one call.
+
 Each main path (phases 4, 5, 7-14, 16) runs with the launch counts set
 to 0 just before it and read just after.  Any failure raises and exits
 non-zero.  The line before the last is a JSON record of the kernels; the
@@ -207,6 +227,9 @@ BUFFER_N = 491520  # 480 blocks of 1,024, 10.24 s
 ATOL = 1e-5  # fused-vs-scan audio tolerance of the JAX package's tests
 PEAK_MAX = 1.002
 PEAK = {}  # device memory peaks of the last main path: warm-up, render
+RENDER_MS = []  # each timed render of the last main path, ms
+BLOCK_RENDERS = 5  # phases 9 and 10 time this many renders: their
+                   # host-side rest swings from render to render
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
 # and device memory bandwidth
 PEAK_F32 = 67e12
@@ -386,6 +409,7 @@ def phase_build(stt):
     log(f"[2 build] row_gather_long: the library of row_gather "
         f"(csrc/row_gather.cu, entries srk_gather_long_*)")
     k8_shape(stt)
+    k9_shape(stt)
     return kernels
 
 
@@ -412,6 +436,29 @@ def k8_shape(stt) -> dict:
         f" shared memory, {ctas.value} CTAs per SM; ptxas: "
         f"{ptxas(fvk.FREEVERB)}")
     return K8_SHAPE
+
+
+def k9_shape(stt) -> dict:
+    """Build K9's twin (the second entry of K9's source, found by hash) and
+    record the tile's shape at 48 kHz in ``K9_SHAPE``: voices and positions
+    a tile, warps a CTA, shared memory, and the CTAs of one launch over the
+    24 lines of 1,024 voices."""
+    from srack_tpu_torch.ops import freeverb_kernel as fvk
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN, RING_ALIGN_TWIN
+    RING_ALIGN_TWIN.build()
+    lens = fvk.all_lengths(stt.AudioConfig(sample_rate=SR))
+    p = RING_ALIGN.tile
+    tiles = sum(-(-x // p) for x in lens)
+    K9_SHAPE.update(voices=32, positions=p, warps=8,
+                    smem_bytes=4 * 32 * (p + 1),
+                    ctas=tiles * -(-VOICES // 32))
+    log(f"[2 build] ring_align_twin: the library of ring_align (csrc/"
+        f"ring_align.cu, entry srk_ring_align_twin); ring_align: tiles of 32 "
+        f"voices x {p} positions, one CTA of 8 warps each, "
+        f"{K9_SHAPE['smem_bytes']} B shared memory, {K9_SHAPE['ctas']} CTAs "
+        f"for the 24 lines of {VOICES} voices at {SR} Hz; ptxas: "
+        f"{ptxas(RING_ALIGN)}")
+    return K9_SHAPE
 
 
 def _state_diff(got: dict, want: dict, where: str) -> float:
@@ -513,19 +560,17 @@ def _counters(kernels):
     2's cases, the serial-stage kernels and the fixed sources."""
     from srack_tpu_torch.ops.freeverb_kernel import FREEVERB, FREEVERB_TWIN
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER, ROW_GATHER_LONG
-    from srack_tpu_torch.ops.ring_roll import RING_ALIGN
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN, RING_ALIGN_TWIN
     from srack_tpu_torch.ops.sample_kernel import (SAMPLE_PLAY,
                                                    SAMPLE_PLAY_TWIN)
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
     out = [kernel for _, _, kernel in kernels.values()]
     out += [lib for _, _, k in VJP.values() for lib in (k.fwd, k.bwd)]
-    # phase 15's K10 builds (the twin's forward is the main path's source,
-    # never launched)
-    out += [k.bwd for k in VJP_AB.values()]
-    out += [k.fwd for name, k in VJP_AB.items() if name != "train"]
+    # phase 15's K10 builds, the twins named apart
+    out += [lib for k in VJP_AB.values() for lib in (k.fwd, k.bwd)]
     out += list(STAGES.values()) + list(CHECK_STAGES.values()) + [
-        ROW_SCAN, FREEVERB, FREEVERB_TWIN, RING_ALIGN, ROW_GATHER,
-        ROW_GATHER_LONG, SAMPLE_PLAY, SAMPLE_PLAY_TWIN]
+        ROW_SCAN, FREEVERB, FREEVERB_TWIN, RING_ALIGN, RING_ALIGN_TWIN,
+        ROW_GATHER, ROW_GATHER_LONG, SAMPLE_PLAY, SAMPLE_PLAY_TWIN]
     # the one-thread twins of phase 15, named apart: a main path that
     # launched one would count as another kernel
     out += [one for _, one in AB.values()]
@@ -533,12 +578,14 @@ def _counters(kernels):
     return list({id(k): k for k in out}.values())
 
 
-def _timed_main(kernels, render, names, warmup_within=None):
+def _timed_main(kernels, render, names, warmup_within=None, renders=1):
     """Warm up (inside the context manager ``warmup_within``, if given),
-    then one render timed with CUDA events, with every kernel's launch
-    count set to 0 just before it and read just after.  Every kernel in
-    ``names`` must have launched, and no other.  Returns ``(audio, ms,
-    {name: launches})``."""
+    then ``renders`` renders, each timed with CUDA events, with every
+    kernel's launch count set to 0 just before them and read just after.
+    Every kernel in ``names`` must have launched, the same number of times
+    in each render, and no other.  Returns ``(audio, ms, {name: launches
+    per render})``, ``ms`` the median render (each render's time in
+    ``RENDER_MS``)."""
     names = (names,) if isinstance(names, str) else tuple(names)
     with warmup_within or contextlib.nullcontext():
         audio, _, _ = render()
@@ -550,14 +597,18 @@ def _timed_main(kernels, render, names, warmup_within=None):
         kernel.launches = 0
     PEAK["warm-up"] = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(lambda: out.update(r=render()))
+    RENDER_MS[:] = [cuda_ms(lambda: out.update(r=render()))
+                    for _ in range(renders)]
+    ms = float(np.median(RENDER_MS))
     PEAK["render"] = torch.cuda.max_memory_allocated()
     counts = {}
     for kernel in counters:
         counts[kernel.name] = counts.get(kernel.name, 0) + kernel.launches
     launches = {name: counts.pop(name) for name in names}
     for name, k in launches.items():
-        check(k >= 1, f"the main path did not launch {name}")
+        check(k >= 1 and k % renders == 0, f"the main path launched {name} "
+              f"{k} times in {renders} renders")
+        launches[name] = k // renders
     check(not any(counts.values()),
           f"the main path launched other kernels: {counts}")
     if len(names) == 1:
@@ -677,6 +728,7 @@ FV_OPS = 16 * 6 + 8 * 3 + 2 + 10
 STAGES = {}         # case -> the StageKernel (K3) of its serial stage
 K8_SHAPE = {}       # the shared-memory K8 at 48 kHz: rows, T, CTAs per SM
 K8_WRAPPER = {}     # cell -> K8's wrapper timed apart (phases 9, 10)
+K9_SHAPE = {}       # K9's tile at 48 kHz: voices, positions, warps, CTAs
 
 
 def _cuda(stt, tree):
@@ -911,6 +963,14 @@ def ring_to_lines(rings, lens, idx):
     lines = [torch.empty((n, VOICES), device="cuda") for n in lens]
     RING_ALIGN.move(rings, lines, lens, VOICES, idx=idx, dst_lines=True)
     return lines
+
+
+def k9_call(kernel, src, dst, lens, v, **kw):
+    """One K9 launch (``kernel``: an entry of ``ops/ring_roll.py``) with its
+    arguments made once, for timing the kernel without the wrapper's
+    per-call host work; ``src`` and ``dst`` must outlive it."""
+    call = kernel.call(src, dst, lens, v, **kw)
+    return lambda: kernel.launch(*call)
 
 
 def compare_ring(stt):
@@ -1150,7 +1210,7 @@ def block_times(stt, scan_x):
     shapes."""
     from srack_tpu_torch.modules import freeverb as fv
     from srack_tpu_torch.ops import basic, freeverb_kernel as fvk
-    from srack_tpu_torch.ops.ring_roll import ring_align_plain
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN, ring_align_plain
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
     out = {}
     n = CHECK_NS[0]
@@ -1179,16 +1239,18 @@ def block_times(stt, scan_x):
     gidx = [((idx[j].to(torch.int64)
               + torch.arange(length, device="cuda").unsqueeze(-1)) % length)
             for j, length in enumerate(lens)]
+    lines = [torch.empty((n, VOICES), device="cuda") for n in lens]
     out["ring_align"] = (
-        cuda_ms(lambda: ring_to_lines(rings, lens, idx), repeats=20,
-                warmup=1),
+        cuda_ms(k9_call(RING_ALIGN, rings, lines, lens, VOICES, idx=idx,
+                        dst_lines=True), repeats=20, warmup=1),
         cuda_ms(lambda: [ring_align_plain(r, idx[j]).T.contiguous()
                          for j, r in enumerate(rings)], repeats=5),
         cuda_ms(lambda: [torch.gather(r.T, 0, g)
                          for r, g in zip(rings, gidx)], repeats=20),
         _bound(8 * VOICES * sum(lens) + 4 * idx.numel(), 0),
-        f"24 lines x {VOICES} voices, rings -> lines (library: "
-        f"torch.gather)")
+        f"24 lines x {VOICES} voices, rings -> lines, the launch alone "
+        f"(library: torch.gather)")
+    del lines
     cfg, gains, state, l_in, r_in = _freeverb_inputs(stt, n, False, n)
     lines = torch.cat([state[k].T for k in fv.LINE_KEYS]).contiguous()
     fs = torch.stack([state[k] for k in fv.FS_KEYS], dim=1).contiguous()
@@ -1235,8 +1297,11 @@ def _split(stt, name, patch, params, n, automation, total_ms, card):
     sd = state["states"][verb]
     rings = [sd[k] for k in fv.LINE_KEYS]
     idx = torch.zeros((24, VOICES), dtype=torch.int32, device="cuda")
-    k9_ms = cuda_ms(lambda: ring_to_lines(rings, lens, idx), repeats=20,
-                    warmup=1)
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN
+    rows = [torch.empty((x, VOICES), device="cuda") for x in lens]
+    k9_ms = cuda_ms(k9_call(RING_ALIGN, rings, rows, lens, VOICES, idx=idx,
+                            dst_lines=True), repeats=20, warmup=1)
+    del rows
     pv = dict(p[verb])
     for (mid, pname), lane in (automation or {}).items():
         pv[pname] = lane
@@ -1565,7 +1630,8 @@ def phase_reverb(stt, kernels, card):
     audio, ms, launches = _timed_main(
         kernels, lambda: stt.render_batch(patch, HEADLINE_N, params=params),
         ("serial_stage", "freeverb", "ring_align"),
-        held_against_plain(found))
+        held_against_plain(found), BLOCK_RENDERS)
+    renders = ", ".join(f"{x:.3f}" for x in RENDER_MS)
     check("freeverb" in found, "the reverb render did not call K8's wrapper")
     held = _log_held("9 reverb", found, card)
     check(audio.device.type == "cuda", "render_batch did not default to "
@@ -1579,9 +1645,10 @@ def phase_reverb(stt, kernels, card):
         lambda: stt.render_batch(patch, HEADLINE_N, params=params),
         "reverb_patch", card)
     log(f"[9 reverb] reverb_patch V={VOICES} n={HEADLINE_N} stereo via "
-        f"render_batch -> block engine, launches {launches}; {ms:.3f} "
-        f"ms/render, {rate / 1e9:.4f} G samples/s, aggregate real-time "
-        f"{rate / SR:.0f}x, peak {peak:.5f} [{card}]")
+        f"render_batch -> block engine, launches {launches} per render; "
+        f"{ms:.3f} ms/render (the median of {renders}), {rate / 1e9:.4f} G "
+        f"samples/s, aggregate real-time {rate / SR:.0f}x, peak "
+        f"{peak:.5f} [{card}]")
     return launches, held
 
 
@@ -1610,7 +1677,8 @@ def phase_block_check(stt, kernels, card):
         kernels, lambda: stt.render_batch(patch, HEADLINE_N, params=params,
                                           automation=automation),
         ("row_scan", "serial_stage", "freeverb", "ring_align"),
-        held_against_plain(found))
+        held_against_plain(found), BLOCK_RENDERS)
+    renders = ", ".join(f"{x:.3f}" for x in RENDER_MS)
     check(set(found) == {"freeverb", "row_scan"},
           f"the block check render called the wrappers of {sorted(found)}")
     held = _log_held("10 block check", found, card)
@@ -1626,8 +1694,9 @@ def phase_block_check(stt, kernels, card):
         "block_check_patch", card)
     log(f"[10 block check] block_check_patch V={VOICES} n={HEADLINE_N} "
         f"mono, 2 automation lanes, via render_batch -> block engine, "
-        f"launches {launches}; {ms:.3f} ms/render, {rate / 1e9:.4f} G "
-        f"samples/s, peak {peak:.5f} [{card}]")
+        f"launches {launches} per render; {ms:.3f} ms/render (the median of "
+        f"{renders}), {rate / 1e9:.4f} G samples/s, peak {peak:.5f} "
+        f"[{card}]")
     return launches, held
 
 
@@ -2107,8 +2176,12 @@ VJP_NAMES = ("subtractive_voice", "gradient_patch", "feedback_patch",
 TRAIN_N, TRAIN_STEPS, TRAIN_MULTI = 48000, 3, 32   # bench.py:205-262
 VJP = {}   # case -> (patch, compiled, FusedVJPKernel); "train" at 48 kHz
 VJP_AB = {}  # phase 15's other builds of the training voice: "train"
-             # with the one-thread backward (fused_vjp_bwd_twin), "t_chunk
-             # 64" with checkpoints every 64 samples (fused_vjp_bwd_t64)
+             # with the one-thread forward and backward (fused_vjp_fwd_twin,
+             # fused_vjp_bwd_twin), "t_chunk 64" with checkpoints every 64
+             # samples (fused_vjp_bwd_t64), "fwd T=64" and "fwd T=128" with
+             # the split forward at those chunks (fused_vjp_fwd_T64, _T128)
+FWD_SWEEP_CHUNKS = (64, 128)
+TRAIN_PARAMS = {}  # phase 14's trained params, [V, ...], for phase 15
 
 
 def vjp_cases(stt) -> dict:
@@ -2154,14 +2227,38 @@ def vjp_kernels(stt) -> dict:
     VJP_AB["t_chunk 64"] = FusedVJPKernel(compiled, (), t_chunk=64)
     for lib in (VJP_AB["t_chunk 64"].fwd, VJP_AB["t_chunk 64"].bwd):
         lib.name += "_t64"
-    jobs = {"train@k10_bwd_twin": VJP_AB["train"].bwd,
+    jobs = {"train@k10_fwd_twin": VJP_AB["train"].fwd,
+            "train@k10_bwd_twin": VJP_AB["train"].bwd,
             "train@k10_bwd t_chunk 64": VJP_AB["t_chunk 64"].bwd,
             "train@k10 t_chunk 64": VJP_AB["t_chunk 64"].fwd}
+    # the split forward at longer chunks, where shared memory allows
+    for t in FWD_SWEEP_CHUNKS:
+        try:
+            k = FusedVJPKernel(compiled, (), fwd_chunk=t)
+        except ValueError as err:
+            log(f"[2 build] train@k10 forward at T={t}: not built ({err})")
+            continue
+        k.fwd.name += f"_T{t}"
+        VJP_AB[f"fwd T={t}"] = k
+        jobs[f"train@k10 forward T={t}"] = k.fwd
     for name, (_, _, kernel) in VJP.items():
         jobs[f"{name}@k10"] = kernel.fwd
         jobs[f"{name}@k10_bwd"] = kernel.bwd
+        log(f"[2 build] {name}@k10: {fwd_form(kernel)}")
         log(f"[2 build] {name}@k10_bwd: {bwd_form(kernel)}")
     return jobs
+
+
+def fwd_form(kernel) -> str:
+    """How a K10 build runs its forward: its stages (G), chunk (T) and
+    shared memory, or one thread per voice."""
+    if kernel.fwd_twin:
+        return "forward: one thread per voice (the twin)"
+    part = kernel.fwd_partition
+    return (f"forward: G={part.n_stages} stages of {list(part.costs)} ops, "
+            f"T={kernel.fwd_chunk} of t_chunk {kernel.t_chunk}, "
+            f"{kernel.fwd_smem_bytes} B shared memory, {len(part.wires)} "
+            f"cross-stage wires, checkpoint rows stored by their stages")
 
 
 def bwd_form(kernel) -> str:
@@ -2301,6 +2398,8 @@ def phase_compare_vjp(stt):
         patch, compiled, kernel = VJP[name]
         check(not kernel.twin, f"K10 {name}: the backward is the one-thread "
               f"twin, not the split kernel")
+        check(not kernel.fwd_twin, f"K10 {name}: the forward is the "
+              f"one-thread twin, not the split kernel")
         params, state, xs = _vjp_inputs(stt, name, patch, compiled, n)
         rng = np.random.default_rng(23)
         w = torch.from_numpy(rng.standard_normal(
@@ -2347,7 +2446,7 @@ def phase_compare_vjp(stt):
             f"leaves ({flowing} non-zero, {nan_leaves} NaN in both), max "
             f"|err| {worst:.3e}, at most {ratio:.3f} of the tolerance; "
             f"plain version {plain_f:.2f} s forward + {plain_b:.2f} s "
-            f"backward; backward: {bwd_form(kernel)}; "
+            f"backward; {fwd_form(kernel)}; backward: {bwd_form(kernel)}; "
             f"{time.perf_counter() - t0:.1f} s")
         if name == "train":
             keep = {"params": params, "state": state, "xs": xs, "n": n,
@@ -2460,12 +2559,13 @@ def phase_train(stt, kernels, card):
     state = stt.compiler.tree_map(
         lambda a: a.expand((v,) + a.shape).contiguous().cuda(),
         compiled.init_state())
+    TRAIN_PARAMS.update(params_b)
     fwd_ms, bwd_ms = vjp_times(stt, kernel, params_b, state, n, {})
     bounds = {}
     for which, ms in (("fwd", fwd_ms), ("bwd", bwd_ms)):
         b_ms, b_by, nbytes, ops = vjp_bound(compiled, kernel, v, n, which)
         bounds[which] = (b_ms, b_by)
-        form = f" ({bwd_form(kernel)})" if which == "bwd" else ""
+        form = f" ({bwd_form(kernel) if which == 'bwd' else fwd_form(kernel)})"
         log(f"[14 train] fused_vjp_{which}{form} alone V={v} n={n}: "
             f"{ms:.3f} ms; "
             f"bound {nbytes} bytes, {ops} f32 operations -> {b_ms:.4f} ms "
@@ -2644,8 +2744,11 @@ def phase_ab(stt, kernels, card) -> dict:
     for cell, (patch, automation) in k8_cells(stt).items():
         out[f"k8 {cell}"] = k8_ab(stt, cell, patch, automation, card)
     out["k10 train"] = k10_ab(stt, card)
+    out["k10 fwd"] = k10_fwd_ab(stt, card)
     for name in KIT_NAMES:
         out[f"k7 {name}"] = k7_ab(stt, name, card)
+    for cell, (patch, automation) in k8_cells(stt).items():
+        out[f"k9 {cell}"] = k9_ab(stt, cell, patch, automation, card)
     return out
 
 
@@ -2718,6 +2821,150 @@ def k10_ab(stt, card) -> dict:
     del outs, ck, cta
     torch.cuda.empty_cache()
     return rec
+
+
+def k10_fwd_ab(stt, card) -> dict:
+    """K10's split forward against its one-thread twin at the training
+    width, 1,024 voices x 48,000 samples, on the training voice from
+    farm_params and from phase 14's trained params (the initial state):
+    audio, final state and checkpoints equal bit for bit, both timed in one
+    call in turns (twin, split, split, twin); the split forward at the
+    chunks of ``FWD_SWEEP_CHUNKS`` that fit, each timed once and held to
+    it."""
+    patch, compiled, kernel = VJP["train"]
+    twin = VJP_AB["train"]
+    check(not kernel.fwd_twin and twin.fwd_twin
+          and twin.fwd.name == "fused_vjp_fwd_twin",
+          "K10's forward pair is not the split kernel and its twin")
+    v, n = VOICES, TRAIN_N
+    state = _cuda(stt, stt.compiler.tree_map(
+        lambda a: a.expand((v,) + a.shape).contiguous(),
+        compiled.init_state()))
+    rec = {"shape": [v, n], "stages": kernel.fwd_partition.n_stages,
+           "stage_ops": list(kernel.fwd_partition.costs),
+           "chunk": kernel.fwd_chunk, "t_chunk": kernel.t_chunk,
+           "smem_bytes": kernel.fwd_smem_bytes,
+           "registers": registers(kernel.fwd),
+           "twin_registers": registers(twin.fwd)}
+    for cell, params in (("farm_params", _cuda(
+            stt, stt.presets.farm_params(patch, v))),
+            ("phase 14's params", TRAIN_PARAMS)):
+        check(bool(params), f"K10 forward a/b: no {cell}")
+        with torch.no_grad():
+            lanes, pi, si, floats = kernel.operands(params, state, n, {})
+            pf, sf = kernel.float_rows(floats, v, pi.device)
+
+            def run(k):
+                return k.run_fwd(pf, pi, sf, si, lanes, v, n)
+            times, outs = _turns(kernel, twin, run)
+            check(_same_nan(outs["split"], outs["one"]), f"K10's split "
+                  f"forward differs from its twin ({cell}: audio, final "
+                  f"state or checkpoints)")
+            chunks = {kernel.fwd_chunk: min(times["split"])}
+            for t in FWD_SWEEP_CHUNKS:
+                k = VJP_AB.get(f"fwd T={t}")
+                if k is None:
+                    continue
+                chunks[t] = cuda_ms(lambda: run(k), warmup=1)
+                check(_same_nan(run(k), outs["split"]), f"K10's forward at "
+                      f"T={t} differs ({cell})")
+        sounding = int((outs["one"][0].abs().amax(dim=(1, 2)) > 0).sum())
+        one_ms, split_ms = min(times["one"]), min(times["split"])
+        rec[cell] = {"twin_ms": one_ms, "ms": split_ms,
+                     "ratio": split_ms / one_ms,
+                     "ms_by_chunk": {str(t): ms for t, ms in
+                                     sorted(chunks.items())}}
+        log(f"[15 a/b] K10 forward, training voice, {cell}, V={v} n={n}: "
+            f"twin {one_ms:.3f} ms ({times['one'][0]:.3f}, "
+            f"{times['one'][1]:.3f}; {rec['twin_registers']} registers), "
+            f"split {split_ms:.3f} ms ({times['split'][0]:.3f}, "
+            f"{times['split'][1]:.3f}; {fwd_form(kernel)}, "
+            f"{rec['registers']} registers): split / twin = "
+            f"{split_ms / one_ms:.3f}; audio, final state and "
+            f"{outs['one'][3].shape[0]} checkpoint rows equal bit for bit "
+            f"({sounding} voices not silent); by chunk: " + ", ".join(
+                f"T={t} {ms:.3f} ms" for t, ms in sorted(chunks.items()))
+            + f" [{card}]")
+        del outs, lanes, pi, si, floats, pf, sf
+        torch.cuda.empty_cache()
+    log(f"[15 a/b] K10 forward ptxas: split {ptxas(kernel.fwd)}; twin "
+        f"{ptxas(twin.fwd)}")
+    return rec
+
+
+K9_TILES = (32, 64, 128, 256)   # positions a tile, timed in phase 15
+
+
+def k9_ab(stt, cell, patch, automation, card) -> dict:
+    """K9's tile against its twin on the very operands of both K9 calls of
+    one render (1,024 voices x 480,000 samples; caught at the wrapper, the
+    render going on): rings -> the Freeverb kernel's lines with the voices'
+    write indices ("in"), and lines -> rings with a shift per line ("out").
+    Each entry into buffers of its own: equal bit for bit; both launches
+    timed alone (arguments made once) in turns (twin, tile, tile, twin), a
+    mean over 20 launches each; the tile also at every length of
+    ``K9_TILES``, each equal to the twin."""
+    from srack_tpu_torch.ops import ring_roll as rr
+    params = stt.presets.farm_params(patch, VOICES)
+    recs = {}
+    move = rr.RING_ALIGN.move
+    kernels = {"split": rr.RING_ALIGN, "one": rr.RING_ALIGN_TWIN}
+
+    def hook(src, dst, lens, v, idx=None, shifts=None, src_lines=False,
+             dst_lines=False):
+        which = "out" if src_lines else "in"
+        kw = dict(idx=idx, shifts=shifts, src_lines=src_lines,
+                  dst_lines=dst_lines)
+        outs = {k: [torch.empty_like(d) for d in dst] for k in kernels}
+        calls = {k: k9_call(kern, src, outs[k], lens, v, **kw)
+                 for k, kern in kernels.items()}
+        times = {"one": [], "split": []}
+        for k in ("one", "split", "split", "one"):
+            times[k].append(cuda_ms(calls[k], repeats=20, warmup=1))
+        torch.cuda.synchronize()
+        check(_same(outs["split"], outs["one"]), f"K9 {cell} {which}: the "
+              f"tile differs from its twin")
+        by_tile, chosen = {}, rr.RING_ALIGN.tile
+        try:
+            for p in K9_TILES:
+                rr.RING_ALIGN.tile = p
+                got = [torch.empty_like(d) for d in dst]
+                by_tile[str(p)] = cuda_ms(k9_call(
+                    rr.RING_ALIGN, src, got, lens, v, **kw), repeats=20,
+                    warmup=1)
+                check(_same(got, outs["one"]), f"K9 {cell} {which}: the "
+                      f"tile of {p} positions differs from the twin")
+                del got
+        finally:
+            rr.RING_ALIGN.tile = chosen
+        one_ms, new_ms = min(times["one"]), min(times["split"])
+        b_ms = _bound(8 * v * sum(lens) + (4 * idx.numel() if idx is not None
+                                           else 0), 0)[0]
+        recs[which] = {"twin_ms": one_ms, "ms": new_ms,
+                       "ratio": new_ms / one_ms, "bound_ms": b_ms,
+                       "ms_by_tile": by_tile, **K9_SHAPE}
+        log(f"[15 a/b] K9 {cell} {which} ({'lines -> rings, a shift per '
+            'line' if src_lines else 'rings -> lines, per-voice indices'}) "
+            f"V={v}, 24 lines: twin {one_ms:.4f} ms ({times['one'][0]:.4f}, "
+            f"{times['one'][1]:.4f}), tile {new_ms:.4f} ms "
+            f"({times['split'][0]:.4f}, {times['split'][1]:.4f}; 32 voices x "
+            f"{chosen} positions): tile / twin = {new_ms / one_ms:.3f}, "
+            f"{100 * b_ms / new_ms:.1f} % of its bound {b_ms:.4f} ms; by "
+            f"tile: " + ", ".join(f"{p} {ms:.4f} ms" for p, ms in
+                                  by_tile.items())
+            + f"; each equal bit for bit [{card}]")
+        del outs, calls
+        return move(src, dst, lens, v, **kw)
+    rr.RING_ALIGN.move = hook
+    try:
+        stt.render_batch(patch, HEADLINE_N, params=params,
+                         automation=automation)
+    finally:
+        del rr.RING_ALIGN.move
+    check(set(recs) == {"in", "out"}, f"the {cell} render made K9 calls "
+          f"{sorted(recs)}")
+    torch.cuda.empty_cache()
+    return recs
 
 
 def k7_ab(stt, name, card) -> list:
@@ -3219,6 +3466,9 @@ def main() -> int:
             entries[-1]["one_voice"] = one["reverb_patch"]
         if name == "sample_play":
             entries[-1]["twin"] = {c: ab[f"k7 {c}"] for c in KIT_NAMES}
+        if name == "ring_align":
+            entries[-1]["twin"] = {c: ab[f"k9 {c}"] for c in ("reverb",
+                                                            "block check")}
     plain_ms = dict(zip(("fwd", "bwd"), vjp_plain))
     for i, (which, line) in enumerate((("fwd", 92), ("bwd", 212))):
         name = f"fused_vjp_{which}"
@@ -3243,8 +3493,7 @@ def main() -> int:
                             f"{SR} Hz"),
             "ms_at_plain_shape": vjp_check_ms[i],
         })
-        if which == "bwd":
-            entries[-1]["twin"] = ab["k10 train"]
+        entries[-1]["twin"] = ab[f"k10 {'train' if which == 'bwd' else which}"]
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,14 +16,41 @@
 // exit lines -> rings with shift[j] = n % L_j and no per-voice index (the
 // rings back in the module's block convention: time order, index 0).
 //
-// Launch shape: a grid of (ceil(V / 32), ceil(max L / 256), n_lines) CTAs
-// of 32 x 8 threads; threadIdx.x is the voice, threadIdx.y the position
-// within the CTA's 256, stepping by 8.  In the lines layout a warp's 32
-// voices touch 128 contiguous bytes; in the rings layout the 8 warps of a
-// CTA read or write 8 neighbouring positions of the same 32 voices, so
-// their 32-byte sectors are filled from L1 or merged in L2.  Bound: bytes,
-// each element read once and written once: 2 x 108 MiB for the 24 lines
-// of 1,024 voices at 48 kHz.  A pure move: exact.
+// Bound: bytes, each element read once and written once: 2 x 108 MiB for
+// the 24 lines of 1,024 voices at 48 kHz, 0.068 ms at 3.35 TB/s.  A pure
+// move: exact.  Two entries:
+//
+// * srk_ring_align_tile (its tile length P chosen by the wrapper): a
+//   rotated transpose through a shared-memory tile.  One
+//   CTA of 8 warps per (tile of P destination positions of one line, 32
+//   voices); the tiles of all lines are numbered in one grid dimension
+//   (line j's first tile at tile0[j]), so no CTA idles on a short line.
+//   For voice v the tile's source positions are one run, (s_v + i0) ..
+//   (s_v + i0 + P - 1) mod L_j, which wraps at most once.  So each side is
+//   walked the way it lies: a [V, L_j] ring by warps that walk one voice's
+//   positions (128 contiguous bytes a warp access, the rotation folded into
+//   the run's start), an [L_j, V] line by warps that walk voices (128
+//   contiguous bytes at one position).  The tile sits in shared memory as
+//   [32][P + 1] floats: the padding puts both passes' 32 lanes on 32
+//   banks.  One __syncthreads between the pass in and the pass out.  The
+//   lines side of the exit call rotates by a per-line shift, the same for
+//   every voice, so its reads stay on one row; a lines source with
+//   per-voice indices (no call of the wrapper) would scatter them.  On an
+//   NVIDIA H100 80GB HBM3 at 700 W the 24 lines of 1,024 voices at 48 kHz
+//   take about 0.095 ms a call in either direction, 70 % of the bound,
+//   at P = 128 (P = 256 is as fast, 32 and 64 slower; chip_smoke.py
+//   phase 15 times each).
+// * srk_ring_align_twin, the kernel it replaced: a grid of (ceil(V / 32),
+//   ceil(max L / 256), n_lines) CTAs of 32 x 8 threads; threadIdx.x the
+//   voice, threadIdx.y the position within the CTA's 256, stepping by 8.
+//   In the lines layout a warp's 32 voices touch 128 contiguous bytes; in
+//   the rings layout its 32 lanes touch 32 rows L_j floats apart, 32
+//   sectors an access, and the 8 warps of a CTA leave L1 and L2 to merge
+//   them: about 0.13 ms rings -> lines and 0.61 ms lines -> rings at the
+//   same shapes.
+//
+// The host build (g++, for the tests) runs the same tile passes, thread by
+// thread over a host tile, and the twin's per-element loop.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -32,13 +59,16 @@
 #include <cuda_runtime.h>
 #define SRK_HD __host__ __device__ __forceinline__
 #else
+#include <vector>
 #define SRK_HD inline
 #endif
 
 #define SRK_RING_MAX_LINES 32
-#define SRK_RING_VOICES 32  // threadIdx.x
-#define SRK_RING_ROWS 8     // threadIdx.y
-#define SRK_RING_CHUNK 256  // positions per CTA
+#define SRK_RING_VOICES 32  // threadIdx.x (the twin); voices per tile
+#define SRK_RING_ROWS 8     // threadIdx.y (the twin); warps per tile
+#define SRK_RING_CHUNK 256  // positions per CTA (the twin)
+#define SRK_RING_TILE_MIN 32
+#define SRK_RING_TILE_MAX 256
 
 // the offset of (voice v, position i) in a line of length len
 SRK_HD size_t srk_ring_at(int len, int V, int v, int i, int lines) {
@@ -63,18 +93,154 @@ SRK_HD void srk_ring_move(const float* src, float* dst, int len, int V,
       src[srk_ring_at(len, V, v, k, src_lines)];
 }
 
-#ifdef __CUDACC__
-
 struct SrkRingLines {
   const float* src[SRK_RING_MAX_LINES];
   float* dst[SRK_RING_MAX_LINES];
   int len[SRK_RING_MAX_LINES];
   int shift[SRK_RING_MAX_LINES];
+  int tile0[SRK_RING_MAX_LINES + 1];  // line j: tiles tile0[j] .. tile0[j+1]
 };
 
+// -- the tile: one CTA's part, written per thread ------------------------
+
+struct SrkRingTile {
+  int j, len, i0, cnt;   // line, its length, first position, positions
+  int v0, nv;            // first voice, voices
+};
+
+// tile b of voice group y (blockIdx.x, blockIdx.y on the card)
+SRK_HD SrkRingTile srk_ring_tile(const SrkRingLines& a, int n_lines, int b,
+                                 int y, int V, int P) {
+  SrkRingTile t;
+  t.j = 0;
+  while (t.j + 1 < n_lines && a.tile0[t.j + 1] <= b) ++t.j;
+  t.len = a.len[t.j];
+  t.i0 = (b - a.tile0[t.j]) * P;
+  t.cnt = t.len - t.i0 < P ? t.len - t.i0 : P;
+  t.v0 = y * SRK_RING_VOICES;
+  t.nv = V - t.v0 < SRK_RING_VOICES ? V - t.v0 : SRK_RING_VOICES;
+  return t;
+}
+
+// thread (warp, lane)'s part of the pass in: tile[u][p] = src[v0 + u,
+// (s_u + i0 + p) % len] for the tile's voices u and positions p
+SRK_HD void srk_ring_tile_in(const SrkRingLines& a, const int* idx,
+                             const SrkRingTile& t, float* tile, int P,
+                             int V, int lines, int warp, int lane) {
+  const float* src = a.src[t.j];
+  const int shift = a.shift[t.j], w = P + 1;
+  if (lines) {   // a warp walks voices at one position: lane = voice
+    if (lane >= t.nv) return;
+    const int v = t.v0 + lane;
+    int k = srk_ring_start(idx, shift, t.j, v, V, t.len) + t.i0 + warp;
+    if (k >= t.len) k -= t.len;
+#pragma unroll 4
+    for (int p = warp; p < t.cnt; p += SRK_RING_ROWS) {
+      tile[lane * w + p] = src[(size_t)k * V + v];
+      k += SRK_RING_ROWS;
+      if (k >= t.len) k -= t.len;
+    }
+  } else {       // a warp walks one voice's run: lane = position
+    for (int u = warp; u < t.nv; u += SRK_RING_ROWS) {
+      const int v = t.v0 + u;
+      const float* row = src + (size_t)v * t.len;
+      int k = srk_ring_start(idx, shift, t.j, v, V, t.len) + t.i0 + lane;
+      if (k >= t.len) k -= t.len;
+#pragma unroll 4
+      for (int p = lane; p < t.cnt; p += 32) {
+        tile[u * w + p] = row[k];
+        k += 32;
+        if (k >= t.len) k -= t.len;
+      }
+    }
+  }
+}
+
+// thread (warp, lane)'s part of the pass out: dst[v0 + u, i0 + p] =
+// tile[u][p]
+SRK_HD void srk_ring_tile_out(const SrkRingLines& a, const SrkRingTile& t,
+                              const float* tile, int P, int V, int lines,
+                              int warp, int lane) {
+  float* dst = a.dst[t.j];
+  const int w = P + 1;
+  if (lines) {
+    if (lane >= t.nv) return;
+    const int v = t.v0 + lane;
+#pragma unroll 4
+    for (int p = warp; p < t.cnt; p += SRK_RING_ROWS)
+      dst[(size_t)(t.i0 + p) * V + v] = tile[lane * w + p];
+  } else {
+    for (int u = warp; u < t.nv; u += SRK_RING_ROWS) {
+      float* row = dst + (size_t)(t.v0 + u) * t.len + t.i0;
+#pragma unroll 4
+      for (int p = lane; p < t.cnt; p += 32) row[p] = tile[u * w + p];
+    }
+  }
+}
+
+// the lines' table and the number of tiles of P positions; -1 if the
+// arguments are out of range
+static int srk_ring_lines(SrkRingLines* a, const float* const* src,
+                          float* const* dst, const int* lens,
+                          const int* shifts, int n_lines, int P) {
+  if (n_lines < 0 || n_lines > SRK_RING_MAX_LINES || P < SRK_RING_TILE_MIN
+      || P > SRK_RING_TILE_MAX || P % 32)
+    return -1;
+  int tiles = 0;
+  for (int j = 0; j < n_lines; ++j) {
+    a->src[j] = src[j];
+    a->dst[j] = dst[j];
+    a->len[j] = lens[j];
+    a->shift[j] = shifts[j];
+    a->tile0[j] = tiles;
+    tiles += (lens[j] + P - 1) / P;
+  }
+  a->tile0[n_lines] = tiles;
+  return tiles;
+}
+
+#ifdef __CUDACC__
+
+// the table stays in the parameter space (__grid_constant__): the passes
+// index it by line and take it by reference without a local copy
 __global__ void __launch_bounds__(SRK_RING_VOICES * SRK_RING_ROWS)
-    srk_ring_align_kernel(SrkRingLines a, const int* __restrict__ idx, int V,
-                          int src_lines, int dst_lines) {
+    srk_ring_tile_kernel(const __grid_constant__ SrkRingLines a,
+                         const int* __restrict__ idx,
+                         int n_lines, int V, int src_lines, int dst_lines,
+                         int P) {
+  extern __shared__ float tile[];   // [32][P + 1]
+  const SrkRingTile t = srk_ring_tile(a, n_lines, blockIdx.x, blockIdx.y,
+                                      V, P);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  srk_ring_tile_in(a, idx, t, tile, P, V, src_lines, warp, lane);
+  __syncthreads();
+  srk_ring_tile_out(a, t, tile, P, V, dst_lines, warp, lane);
+}
+
+// src, dst, lens, shifts: host arrays of n_lines entries; idx: [n_lines, V]
+// int32 on the device, or NULL; P: positions per tile (32 .. 256, a
+// multiple of 32)
+extern "C" int srk_ring_align_tile(const float* const* src, float* const* dst,
+                                   const int* lens, const int* shifts,
+                                   const int* idx, int n_lines, int V,
+                                   int src_lines, int dst_lines, int P,
+                                   void* stream) {
+  SrkRingLines a;
+  const int tiles = srk_ring_lines(&a, src, dst, lens, shifts, n_lines, P);
+  if (tiles < 0) return (int)cudaErrorInvalidValue;
+  if (tiles > 0 && V > 0) {
+    const dim3 grid(tiles, (V + SRK_RING_VOICES - 1) / SRK_RING_VOICES);
+    const size_t bytes = sizeof(float) * SRK_RING_VOICES * (P + 1);
+    srk_ring_tile_kernel<<<grid, SRK_RING_VOICES * SRK_RING_ROWS, bytes,
+                           (cudaStream_t)stream>>>(a, idx, n_lines, V,
+                                                   src_lines, dst_lines, P);
+  }
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(SRK_RING_VOICES * SRK_RING_ROWS)
+    srk_ring_align_twin_kernel(SrkRingLines a, const int* __restrict__ idx,
+                               int V, int src_lines, int dst_lines) {
   const int j = blockIdx.z, len = a.len[j];
   const int v = blockIdx.x * SRK_RING_VOICES + threadIdx.x;
   const int i0 = blockIdx.y * SRK_RING_CHUNK;
@@ -85,39 +251,55 @@ __global__ void __launch_bounds__(SRK_RING_VOICES * SRK_RING_ROWS)
     srk_ring_move(a.src[j], a.dst[j], len, V, v, i, s, src_lines, dst_lines);
 }
 
-// src, dst, lens, shifts: host arrays of n_lines entries; idx: [n_lines, V]
-// int32 on the device, or NULL
-extern "C" int srk_ring_align(const float* const* src, float* const* dst,
-                              const int* lens, const int* shifts,
-                              const int* idx, int n_lines, int V,
-                              int src_lines, int dst_lines, void* stream) {
-  if (n_lines < 0 || n_lines > SRK_RING_MAX_LINES)
-    return (int)cudaErrorInvalidValue;
+extern "C" int srk_ring_align_twin(const float* const* src, float* const* dst,
+                                   const int* lens, const int* shifts,
+                                   const int* idx, int n_lines, int V,
+                                   int src_lines, int dst_lines,
+                                   void* stream) {
   SrkRingLines a;
+  if (srk_ring_lines(&a, src, dst, lens, shifts, n_lines, 32) < 0)
+    return (int)cudaErrorInvalidValue;
   int max_len = 0;
-  for (int j = 0; j < n_lines; ++j) {
-    a.src[j] = src[j];
-    a.dst[j] = dst[j];
-    a.len[j] = lens[j];
-    a.shift[j] = shifts[j];
+  for (int j = 0; j < n_lines; ++j)
     if (lens[j] > max_len) max_len = lens[j];
-  }
-  if (n_lines > 0 && V > 0 && max_len > 0) {
+  if (n_lines > 0 && V > 0) {
     const dim3 grid((V + SRK_RING_VOICES - 1) / SRK_RING_VOICES,
                     (max_len + SRK_RING_CHUNK - 1) / SRK_RING_CHUNK, n_lines);
-    srk_ring_align_kernel<<<grid, dim3(SRK_RING_VOICES, SRK_RING_ROWS), 0,
-                            (cudaStream_t)stream>>>(a, idx, V, src_lines,
-                                                    dst_lines);
+    srk_ring_align_twin_kernel<<<grid, dim3(SRK_RING_VOICES, SRK_RING_ROWS),
+                                 0, (cudaStream_t)stream>>>(
+        a, idx, V, src_lines, dst_lines);
   }
   return (int)cudaGetLastError();
 }
 
 #else
 
-extern "C" int srk_ring_align(const float* const* src, float* const* dst,
-                              const int* lens, const int* shifts,
-                              const int* idx, int n_lines, int V,
-                              int src_lines, int dst_lines) {
+extern "C" int srk_ring_align_tile(const float* const* src, float* const* dst,
+                                   const int* lens, const int* shifts,
+                                   const int* idx, int n_lines, int V,
+                                   int src_lines, int dst_lines, int P) {
+  SrkRingLines a;
+  const int tiles = srk_ring_lines(&a, src, dst, lens, shifts, n_lines, P);
+  if (tiles < 0) return 1;
+  std::vector<float> tile((size_t)SRK_RING_VOICES * (P + 1));
+  for (int y = 0; y < (V + SRK_RING_VOICES - 1) / SRK_RING_VOICES; ++y)
+    for (int b = 0; b < tiles; ++b) {
+      const SrkRingTile t = srk_ring_tile(a, n_lines, b, y, V, P);
+      for (int warp = 0; warp < SRK_RING_ROWS; ++warp)
+        for (int lane = 0; lane < 32; ++lane)
+          srk_ring_tile_in(a, idx, t, tile.data(), P, V, src_lines, warp,
+                           lane);
+      for (int warp = 0; warp < SRK_RING_ROWS; ++warp)
+        for (int lane = 0; lane < 32; ++lane)
+          srk_ring_tile_out(a, t, tile.data(), P, V, dst_lines, warp, lane);
+    }
+  return 0;
+}
+
+extern "C" int srk_ring_align_twin(const float* const* src, float* const* dst,
+                                   const int* lens, const int* shifts,
+                                   const int* idx, int n_lines, int V,
+                                   int src_lines, int dst_lines) {
   if (n_lines < 0 || n_lines > SRK_RING_MAX_LINES) return 1;
   for (int j = 0; j < n_lines; ++j)
     for (int v = 0; v < V; ++v) {

@@ -17,9 +17,11 @@ for V voices over n samples.
 All three are one source, generated per plan with a buffer-mode and a
 stage-mode switch, each run as a pipeline of stage warps (K2 too;
 ``stages=1`` builds the one-thread twin).  The same generator emits
-K10's forward and its backward, the latter as a reverse pipeline of
-sweep stage warps fed by replay warps (:func:`_generate_bwd_pipeline`,
-``ops/fused_vjp.py``).  They carry none of the TPU
+K10's forward, K1's pipeline with a checkpoint switch (each stage warp
+stores its own state rows at every ``t_chunk`` boundary), and its
+backward, a reverse pipeline of sweep stage warps fed by replay warps
+(:func:`_generate_bwd_pipeline`, ``ops/fused_vjp.py``).  They carry none
+of the TPU
 layout over: no (8, 128) tiles, no 1,024-voice padding, no time chunks with
 a scratch carry, no padded-tail snapshot, and for K2 no outer scan of one
 kernel call per block.
@@ -44,8 +46,9 @@ Design:
   80GB HBM3 at 700 W the headline voice (stages of 38/67/35/38
   operations against 178) renders 1,024 x 480,000 in 129.4 ms where one
   thread per voice takes 186.0, the 32-module sequencer in 338.2 against
-  952.0 (chip_smoke.py phase 15).  The one-thread form stays: K10 and
-  ``stages=1`` build it.
+  952.0 (chip_smoke.py phase 15).  The one-thread form stays: ``stages=1``
+  builds it, and so does K10 where its twin rule sends a plan
+  (:func:`pick_fwd_chunk`).
 * **Occupancy.**  1,024 voices give 32 CTAs of 4 warps on 132 SMs, one
   CTA per SM; 16,384 voices give 512 CTAs, all resident at once at
   ``T = 32`` (28.8 KB of shared memory for the headline), about 16 warps
@@ -324,12 +327,12 @@ def _emit_calls(compiled, plan, lane_idx, params_of, state_of, stage,
     return L
 
 
-def _state_row_stores(layout, ptr: str) -> list:
+def _state_row_stores(layout, ptr: str, leaves=None) -> list:
     """Store the state row to ``ptr`` (one voice's column of ``[S, V]``
     int32 words, S = n_sf + n_si): float leaves first, as their bits, then
-    int and bool leaves."""
+    int and bool leaves; with ``leaves``, only those leaves' rows."""
     L = []
-    for leaf in layout.state:
+    for leaf in layout.state if leaves is None else leaves:
         var = _var(leaf.path)
         base = leaf.row if leaf.kind == "f" else layout.n_sf + leaf.row
         for j in range(leaf.rows):
@@ -386,9 +389,11 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     backward kernel (:func:`_generate_bwd`).
 
     ``split`` (an ``ops.partition.Partition`` of the plan) of more than
-    one stage makes K1, K2 or K3 a pipeline of stage warps
+    one stage makes K1, K2, K3 or K10's forward a pipeline of stage warps
     (:func:`_generate_pipeline`) with chunks of ``chunk`` samples
-    (:func:`pick_chunk` by default); without one, or with one stage, the
+    (:func:`pick_chunk` by default; for K10's forward one that divides
+    ``t_chunk``), and K10's backward a reverse pipeline
+    (:func:`_generate_bwd_pipeline`); without one, or with one stage, the
     kernel runs the whole plan in one thread per voice.
 
     Deterministic: the same plan and lanes give the same text.  In buffer
@@ -413,20 +418,18 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
                              f"bytes of shared memory and t_chunk {t_chunk}")
         return _generate_bwd_pipeline(compiled, layout, lanes, t_chunk,
                                       split, chunk)
-    if split is not None and split.n_stages > 1:
-        if mode is not None:
-            raise ValueError("only K1, K2, K3 and K10's backward run as a "
-                             "pipeline of stages")
-        plan = compiled.plan if stage is None else stage.stage_plan
-        return _generate_pipeline(
-            compiled, layout or Layout.of(
-                compiled, None if stage is None else plan),
-            tuple(lanes), stage, split, chunk)
     if mode is not None and (stage is not None or cfg.buffer_feedback):
         raise ValueError("the fused VJP kernels take a whole sample-mode "
                          "patch")
     if mode is not None and t_chunk < 1:
         raise ValueError(f"t_chunk must be >= 1, got {t_chunk}")
+    if split is not None and split.n_stages > 1:
+        plan = compiled.plan if stage is None else stage.stage_plan
+        return _generate_pipeline(
+            compiled, layout or Layout.of(
+                compiled, None if stage is None else plan),
+            tuple(lanes), stage, split, chunk,
+            t_chunk=int(t_chunk) if mode == "ckpt" else None)
     if mode == "bwd":
         return _generate_bwd(compiled, layout or Layout.of(compiled),
                              tuple(lanes), t_chunk)
@@ -708,21 +711,37 @@ def smem_layout(part, lanes_of, channels: int, chunk: int,
 
 
 def pick_chunk(part, lanes_of, channels: int, limit: int = CHUNK_MAX,
-               rings=()):
+               rings=(), t_chunk: int = None):
     """The chunk length: the largest power of two from ``CHUNK_MIN`` to
     ``CHUNK_MAX`` and at most ``limit`` (K2's ring, :func:`ring_chunk_limit`)
-    whose rings, lane buffers and tile fit ``SMEM_BUDGET``; None if none
-    does (a plan with that many cross-stage wires and lanes, or a block too
-    short for its feedback ring, runs one thread per voice)."""
+    that divides ``t_chunk`` (K10's forward: every checkpoint falls on a
+    chunk's first sample) and whose rings, lane buffers and tile fit
+    ``SMEM_BUDGET``; None if none does (a plan with that many cross-stage
+    wires and lanes, a block too short for its feedback ring, or a
+    ``t_chunk`` no such chunk divides, runs one thread per voice)."""
     chunk = CHUNK_MAX
     while chunk > limit:
         chunk //= 2
     while chunk >= CHUNK_MIN:
-        if smem_layout(part, lanes_of, channels, chunk,
-                       rings).nbytes <= SMEM_BUDGET:
+        if ((t_chunk is None or t_chunk % chunk == 0)
+                and smem_layout(part, lanes_of, channels, chunk,
+                                rings).nbytes <= SMEM_BUDGET):
             return chunk
         chunk //= 2
     return None
+
+
+def pick_fwd_chunk(compiled, part, lanes, layout, t_chunk: int):
+    """The twin rule of K10's forward, in one place: the chunk of its
+    stage-warp pipeline (:func:`pick_chunk` with ``t_chunk``), or None where
+    the plan takes the one-thread twin (``fused_vjp_fwd_twin``): a
+    partition of one stage, no chunk of 8 to 32 samples whose buffers fit
+    ``SMEM_BUDGET``, or none that divides ``t_chunk``."""
+    if part.n_stages < 2:
+        return None
+    lanes_of, channels, _, _ = split_needs(compiled, part, lanes, None,
+                                           layout)
+    return pick_chunk(part, lanes_of, channels, t_chunk=t_chunk)
 
 
 def split_needs(compiled, part, lanes, stage, layout) -> tuple:
@@ -791,8 +810,9 @@ def _struct_leaf(leaf, arr) -> tuple:
 
 
 def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
-                       chunk) -> str:
-    """K1, K2 or K3 for a plan cut into ``part.n_stages`` pipeline stages.
+                       chunk, t_chunk: int = None) -> str:
+    """K1, K2 or K3 for a plan cut into ``part.n_stages`` pipeline stages;
+    with ``t_chunk``, K10's forward (K1 plus the checkpoints).
 
     One CTA holds 32 voices and one warp per stage.  Time goes in chunks of
     ``chunk`` samples, in lock step: at chunk step ``k`` warp ``g`` runs
@@ -815,6 +835,15 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     Every module is called as in the one-thread kernel, with the same
     arguments in the same order, so the result is the same bit for bit.
 
+    K10's forward (``t_chunk``; ``chunk`` must divide it, so every
+    checkpoint falls on a chunk's first sample): at the top of a chunk
+    whose first sample ``t`` has ``t % t_chunk == 0``, each stage warp
+    stores the state rows of the leaves it owns (its modules' state and
+    the feedback carries whose cycle it holds), as they stand before
+    sample ``t``, into ``ck[t / t_chunk]`` at the rows
+    :func:`_state_row_stores` gives them, 32 neighbouring voices a store.
+    So ``ck`` is the one-thread forward's ``[n_chunks, S, V]``.
+
     Each stage is a struct ``srk_st<g>`` and three functions: ``_load``,
     ``_chunk`` (one chunk of samples) and ``_store``; ``_fetch`` copies a
     chunk of its lanes.  The card runs them in the stage warps; the host
@@ -835,18 +864,29 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     stage_of = part.stage_of()
     if set(stage_of) != set(plan):
         raise ValueError("the partition does not cover the plan")
+    ckpt = t_chunk is not None
     lanes_of, n_tile, rings, limit = split_needs(compiled, part, lanes,
                                                  stage, layout)
-    chunk = chunk or pick_chunk(part, lanes_of, n_tile, limit, rings)
-    if chunk is None or chunk < 1:
-        raise ValueError(f"no chunk of the {G} stages fits "
-                         f"{SMEM_BUDGET} bytes of shared memory" if chunk
-                         is None else f"chunk must be >= 1, got {chunk}")
+    chunk = chunk or pick_chunk(part, lanes_of, n_tile, limit, rings,
+                                t_chunk)
+    if chunk is None:
+        raise ValueError(f"no chunk of the {G} stages fits {SMEM_BUDGET} "
+                         "bytes of shared memory"
+                         + (f" and divides t_chunk {t_chunk}" if ckpt else ""))
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
     if buffer and chunk > limit:
         raise ValueError(f"a chunk of {chunk} samples is longer than K2's "
                          f"feedback ring allows (block {cfg.block_size}: "
                          f"at most {limit})")
     sm = smem_layout(part, lanes_of, n_tile, chunk, rings)
+    if ckpt and t_chunk % chunk:
+        raise ValueError(f"a chunk of {chunk} samples does not divide "
+                         f"t_chunk {t_chunk}")
+    if ckpt and sm.nbytes > SMEM_BUDGET:
+        raise ValueError(f"the forward's {G} stages take {sm.nbytes} bytes "
+                         f"of shared memory at a chunk of {chunk}, over "
+                         f"{SMEM_BUDGET}")
     wire_at = {w: (off, slots) for w, off, slots in sm.wires}
     wire_from = {w: a for w, a, _ in part.wires}
     lane_at = dict(sm.lanes)
@@ -854,6 +894,8 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     out_stage = None if stage is not None else stage_of[compiled.output_id]
     if stage is not None:
         kind = "serial-stage kernel (K3)"
+    elif ckpt:
+        kind = "forward kernel of the fused VJP (K10)"
     else:
         kind = ("fused buffer-feedback kernel (K2)" if buffer
                 else "fused voice kernel (K1)")
@@ -864,14 +906,18 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
           f"{h}." for k, g, h in rings]
     if buffer:
         L.append(f"#define SRK_FB_BLOCK {int(cfg.block_size)}")
+    if ckpt:
+        L += [f"#define SRK_T_CHUNK {int(t_chunk)}",
+              f"#define SRK_S_ROWS {layout.n_sf + layout.n_si}"]
     L += [f"#define SRK_STAGES {G}",
           f"#define SRK_THREADS {WARP * G}",
           f"#define SRK_T {chunk}",
           f"#define SRK_SMEM_FLOATS {sm.floats}",
-          '#include "modules.cuh"',
+          '#include "modules_adj.cuh"' if ckpt else '#include "modules.cuh"',
           '#include "pipeline.cuh"']
     ptrs = ("const float* __restrict__ lanes, float* __restrict__ ring, "
-            "float* __restrict__ audio, float* __restrict__ sm")
+            "float* __restrict__ audio, float* __restrict__ sm"
+            + (", int* __restrict__ ck" if ckpt else ""))
 
     def fb_slot(k):
         return (f"ring[((size_t){compiled.fb_keys.index(k)} * SRK_FB_BLOCK "
@@ -924,6 +970,14 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
             L.append(f"  {q} {var} = S.{var};")
         L += ["  const int t0 = c * SRK_T;",
               "  const int cnt = n - t0 < SRK_T ? n - t0 : SRK_T;"]
+        owned = [leaf for leaf in leaves if leaf in layout.state]
+        if ckpt and owned:
+            L += ["  if (t0 % SRK_T_CHUNK == 0) {  // this stage's checkpoint "
+                  "rows",
+                  "      int* ckr = ck + (size_t)(t0 / SRK_T_CHUNK) * "
+                  "SRK_S_ROWS * V + v;"]
+            L += _state_row_stores(layout, "ckr", owned)
+            L.append("  }")
         if lanes_of[g]:
             L += [f"  if (c + 1 < n_chunks) srk_st{g}_fetch(c + 1, lane, v, "
                   "V, n, lanes, sm);",
@@ -1014,22 +1068,26 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
               "    }",
               "  }",
               "}"]
-    L += _pipeline_entries(part, lanes_of, out_stage)
+    L += _pipeline_entries(part, lanes_of, out_stage, ckpt)
     return "\n".join(L) + "\n"
 
 
-def _pipeline_entries(part, lanes_of, out_stage) -> list:
+def _pipeline_entries(part, lanes_of, out_stage, ckpt=False) -> list:
     """The split kernel (one warp per stage), its ``extern "C"`` launch
     (which sets the dynamic shared memory) and the host build's lock-step
-    loop, with the one-thread kernel's arguments."""
+    loop, with the one-thread kernel's arguments (``ckpt``: K10's forward,
+    entry ``srk_vjp_fwd``, with the checkpoints ``ck``)."""
+    entry = "srk_vjp_fwd" if ckpt else "srk_fused"
+    ck = ", int* ck" if ckpt else ""
     decl = ("const float* pf, const int* pi, const float* sf, const int* si, "
             "const float* lanes, float* ring, float* audio, float* sf_out, "
-            "int* si_out, int V, int n")
-    args = "pf, pi, sf, si, lanes, ring, audio, sf_out, si_out, V, n"
-    chunk_args = "lane, v, V, n, lanes, ring, audio, sm"
+            f"int* si_out{ck}, int V, int n")
+    ck = ", ck" if ckpt else ""
+    args = f"pf, pi, sf, si, lanes, ring, audio, sf_out, si_out{ck}, V, n"
+    chunk_args = f"lane, v, V, n, lanes, ring, audio, sm{ck}"
     L = ["", "#ifdef __CUDACC__",
          "__global__ void __launch_bounds__(SRK_THREADS) "
-         f"srk_fused_kernel({decl}) {{",
+         f"{entry}_kernel({decl}) {{",
          "  extern __shared__ float sm[];",
          "  const int g = threadIdx.x >> 5;",
          "  const int lane = threadIdx.x & 31;",
@@ -1062,20 +1120,20 @@ def _pipeline_entries(part, lanes_of, out_stage) -> list:
               "    }",
               f"    if (live) srk_st{g}_store(S, v, V, sf_out, si_out);"]
     L += ["  }", "}", "",
-          f'extern "C" int srk_fused_launch({decl}, void* stream) {{',
+          f'extern "C" int {entry}_launch({decl}, void* stream) {{',
           "  const int blocks = (V + 31) / 32;",
           "  const int bytes = SRK_SMEM_FLOATS * (int)sizeof(float);",
-          "  cudaError_t err = cudaFuncSetAttribute(srk_fused_kernel, "
+          f"  cudaError_t err = cudaFuncSetAttribute({entry}_kernel, "
           "cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);",
           "  if (err != cudaSuccess) return (int)err;",
-          "  srk_fused_kernel<<<blocks, SRK_THREADS, bytes, "
+          f"  {entry}_kernel<<<blocks, SRK_THREADS, bytes, "
           f"(cudaStream_t)stream>>>({args});",
           "  return (int)cudaGetLastError();",
           "}",
           "#else",
           "#include <vector>",
           "",
-          f'extern "C" int srk_fused_host({decl}) {{',
+          f'extern "C" int {entry}_host({decl}) {{',
           "  std::vector<float> smem(SRK_SMEM_FLOATS);",
           "  float* sm = smem.data();",
           "  const int n_chunks = (n + SRK_T - 1) / SRK_T;",

@@ -5,11 +5,30 @@ Replaces ``srack_tpu/ops/fused_vjp.py::make_fused_vjp`` (its two Pallas
 kernels, ``fwd_pallas`` and ``bwd_pallas``).  Both sources come from the
 generator of K1 (``ops/fused.py::generate_source``) in two more modes:
 
-* **forward, ``fused_vjp_fwd``** (mode ``"ckpt"``): K1, one thread per
-  voice with the state in registers, plus a store of the whole state row
-  at every ``t_chunk`` boundary into ``ck`` (``[n_chunks, S, V]`` int32
-  words, floats as their bits, S = ``n_sf + n_si``): 4 * S bytes per voice
-  and chunk, coalesced across voices.  Audio and final state equal K1's.
+* **forward, ``fused_vjp_fwd``** (mode ``"ckpt"`` with a partition,
+  ``ops/fused.py::_generate_pipeline``): K1's pipeline of stage warps,
+  one CTA per 32 voices, with K1's partition (``partition(compiled,
+  carried=True)``, weighted by ``module_ops``) and chunk rule, the chunk
+  T also dividing ``t_chunk``.  At the top of each chunk that starts a
+  checkpoint chunk, each stage warp stores the state rows of the leaves
+  it owns (its modules' state, the feedback carries whose cycle it holds)
+  into ``ck`` (``[n_chunks, S, V]`` int32 words, floats as their bits, S =
+  ``n_sf + n_si``): 4 * S bytes per voice and chunk in all, 32 voices a
+  store.  Audio goes through the Output stage's shared tile, lanes
+  through ``cp.async`` double buffers, wires through shared rings, as in
+  K1.  Audio, final state and ``ck`` equal the twin's bit for bit: every
+  module is called with the same arguments in the same order.  On an
+  NVIDIA H100 80GB HBM3 at 700 W the training voice (stages of 38/67/35/38
+  operations, T = 32) renders 1,024 x 48,000 in about 7.9 ms where the
+  twin takes 15.1 (chip_smoke.py phase 15); still ~60x its operation
+  bound: a sample costs the 67-operation stage's chain, and 1,024 voices
+  fill 32 of the 132 SMs.
+* **the forward's twin, ``fused_vjp_fwd_twin``** (mode ``"ckpt"`` without
+  a partition): the forward it replaced, one thread per voice.  The twin
+  rule is :func:`ops.fused.pick_fwd_chunk`: it runs where the plan's
+  partition has one stage, or where no chunk of 8 to 32 samples both fits
+  the shared-memory budget and divides ``t_chunk``; ``stages=1`` builds
+  it.  A forced ``fwd_chunk`` that does not fit or divide raises.
 * **backward, ``fused_vjp_bwd``** (mode ``"bwd"`` with a partition,
   ``ops/fused.py::_generate_bwd_pipeline``): a reverse pipeline of sweep
   stage warps fed by replay warps, one CTA per 32 voices.
@@ -92,7 +111,8 @@ from ..compiler import tree_leaves
 from ..modules.base import CV_DTYPE
 from .cuda_lib import CudaLib, I, P, require_cuda
 from .fused import (Layout, _get, bwd_shape, eligible, generate_source, pack,
-                    pack_lanes, pick_bwd_chunk, state_tree, unpack)
+                    pack_lanes, pick_bwd_chunk, pick_fwd_chunk, smem_layout,
+                    split_needs, state_tree, unpack)
 from .partition import MAX_STAGES, partition, sweep_ops
 
 # the entries' argument types, without the stream: the operand pointers of
@@ -126,7 +146,8 @@ class FusedVJPKernel:
     plain = "autograd through the scan engine"
 
     def __init__(self, compiled, lanes=(), t_chunk: int = 128,
-                 stages: int = MAX_STAGES, chunk: int = None):
+                 stages: int = MAX_STAGES, chunk: int = None,
+                 fwd_chunk: int = None):
         if not vjp_eligible(compiled):
             raise ValueError(
                 "patch not eligible for the fused VJP (needs a patch the "
@@ -140,9 +161,28 @@ class FusedVJPKernel:
         self.pi = [leaf for leaf in lay.params if leaf.kind == "i"]
         self.sf = [leaf for leaf in lay.state if leaf.kind == "f"]
         self.si = [leaf for leaf in lay.state if leaf.kind == "i"]
-        self.fwd = CudaLib("fused_vjp_fwd", generate_source(
-            compiled, lay, self.lanes, mode="ckpt", t_chunk=self.t_chunk),
-            "fused-VJP forward kernel")
+        # the forward: K1's partition and chunk rule, the chunk dividing
+        # t_chunk; the twin where pick_fwd_chunk finds none
+        self.fwd_partition = partition(compiled, carried=True,
+                                       max_stages=stages)
+        if fwd_chunk and self.fwd_partition.n_stages < 2:
+            raise ValueError("a forward chunk for a plan of one stage")
+        self.fwd_chunk = fwd_chunk or pick_fwd_chunk(
+            compiled, self.fwd_partition, self.lanes, lay, self.t_chunk)
+        self.fwd_smem_bytes = 0
+        if self.fwd_chunk is None:
+            self.fwd = CudaLib("fused_vjp_fwd_twin", generate_source(
+                compiled, lay, self.lanes, mode="ckpt",
+                t_chunk=self.t_chunk), "fused-VJP forward kernel (twin)")
+        else:
+            self.fwd = CudaLib("fused_vjp_fwd", generate_source(
+                compiled, lay, self.lanes, mode="ckpt", t_chunk=self.t_chunk,
+                split=self.fwd_partition, chunk=self.fwd_chunk),
+                "fused-VJP forward kernel")
+            lanes_of, channels, _, _ = split_needs(
+                compiled, self.fwd_partition, self.lanes, None, lay)
+            self.fwd_smem_bytes = smem_layout(
+                self.fwd_partition, lanes_of, channels, self.fwd_chunk).nbytes
         self.partition = partition(compiled, max_stages=stages,
                                    cost=sweep_ops)
         self.chunk, self.shape = None, None
@@ -171,6 +211,11 @@ class FusedVJPKernel:
     def twin(self) -> bool:
         """Does the backward run one thread per voice?"""
         return self.shape is None
+
+    @property
+    def fwd_twin(self) -> bool:
+        """Does the forward run one thread per voice?"""
+        return self.fwd_chunk is None
 
     def scratch_shape(self, v: int, n: int) -> tuple:
         """The backward's scratch: the split kernel's ``[chunks in flight,

@@ -1,7 +1,7 @@
 """The plan of a fused kernel cut into pipeline stages.
 
-Kernels K1 (``fused_voice``), K2 (``fused_voice_buffer``) and K3
-(``serial_stage``) run a plan's
+Kernels K1 (``fused_voice``), K2 (``fused_voice_buffer``), K3
+(``serial_stage``) and K10's forward (``fused_vjp_fwd``) run a plan's
 modules in a CTA of ``G`` stage warps (``ops/fused.py``): warp ``g`` runs
 the modules of stage ``g`` for the CTA's 32 voices, one chunk of samples
 behind warp ``g - 1``, and the wires between stages pass through

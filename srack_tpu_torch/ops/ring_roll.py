@@ -6,8 +6,17 @@ that its state stays interchangeable with the per-sample step.  The block
 path wants the lines in time order, oldest first: ``chrono[i] =
 buf[(idx + i) % L]``.  ``csrc/ring_align.cu`` does that for every line of
 a Freeverb in one launch, and moves each line between the module's ring
-layout ``[V, L]`` and the Freeverb kernel's ``[L, V]`` on the way (its
-source note states the launch shape and the bound, bytes).
+layout ``[V, L]`` and the Freeverb kernel's ``[L, V]`` on the way.  It has
+two entries, each with a launch count here (its source note states the
+launch shapes and the bound, bytes):
+
+* ``ring_align`` (:data:`RING_ALIGN`, entry ``srk_ring_align_tile``), the
+  main path's: a rotated transpose through a shared-memory tile of 32
+  voices x :attr:`RingAlign.tile` positions, each side read or written
+  128 contiguous bytes a warp access;
+* ``ring_align_twin`` (:data:`RING_ALIGN_TWIN`, entry
+  ``srk_ring_align_twin``), the kernel it replaced, one thread per voice
+  and position; nothing but ``chip_smoke.py``'s comparison launches it.
 
 The plain version is :func:`ring_align_plain`, a ``torch.gather`` with the
 rotated index (and a transpose where the layout changes); that gather is
@@ -35,12 +44,17 @@ def ring_align_plain(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(buf, -1, pos.expand(buf.shape))
 
 
-class RingAlign(CudaLib):
-    """K9: :meth:`move` of up to 32 lines in one launch."""
+TILE_MIN, TILE_MAX = 32, 256  # SRK_RING_TILE_MIN, _MAX
 
-    def __init__(self):
-        super().__init__("ring_align", csrc("ring_align.cu"),
-                         "ring-alignment kernel (K9)")
+
+class RingAlign(CudaLib):
+    """K9: :meth:`move` of up to 32 lines in one launch, through the tiled
+    entry (``tile``: positions per tile) or, with ``tile=None``, the
+    twin."""
+
+    def __init__(self, name: str, what: str, tile):
+        super().__init__(name, csrc("ring_align.cu"), what)
+        self.tile = tile
 
     def move(self, src: list, dst: list, lens, v: int, idx=None,
              shifts=None, src_lines: bool = False,
@@ -51,6 +65,13 @@ class RingAlign(CudaLib):
         with ``src_lines`` / ``dst_lines``, an ``[L_j, V]`` block;
         ``idx``: ``[n_lines, V]`` int32 or None (0); ``shifts``: ints or
         None (0)."""
+        self.launch(*self.call(src, dst, lens, v, idx, shifts, src_lines,
+                               dst_lines))
+
+    def call(self, src: list, dst: list, lens, v: int, idx=None,
+             shifts=None, src_lines: bool = False, dst_lines: bool = False):
+        """The checked arguments of :meth:`move`'s launch: ``(entry,
+        argtypes, args, device)``; the tensors must outlive a launch."""
         n = len(lens)
         if not (len(src) == len(dst) == n <= MAX_LINES):
             raise ValueError(f"ring alignment of {len(src)} into {len(dst)} "
@@ -66,15 +87,25 @@ class RingAlign(CudaLib):
         device = require_cuda(*src, *dst,
                               *([] if idx is None else [idx]))
         shifts = [0] * n if shifts is None else [int(s) for s in shifts]
-        self.launch("srk_ring_align", [P, P, P, P, P, I, I, I, I],
-                    ((P * n)(*[t.data_ptr() for t in src]),
-                     (P * n)(*[t.data_ptr() for t in dst]),
-                     (ctypes.c_int * n)(*lens), (ctypes.c_int * n)(*shifts),
-                     None if idx is None else idx.data_ptr(), n, v,
-                     int(src_lines), int(dst_lines)), device)
+        args = ((P * n)(*[t.data_ptr() for t in src]),
+                (P * n)(*[t.data_ptr() for t in dst]),
+                (ctypes.c_int * n)(*lens), (ctypes.c_int * n)(*shifts),
+                None if idx is None else idx.data_ptr(), n, v,
+                int(src_lines), int(dst_lines))
+        argtypes = [P, P, P, P, P, I, I, I, I]
+        if self.tile is None:
+            return "srk_ring_align_twin", argtypes, args, device
+        if not (TILE_MIN <= self.tile <= TILE_MAX and self.tile % 32 == 0):
+            raise ValueError(f"a tile of {self.tile} positions (a multiple "
+                             f"of 32 from {TILE_MIN} to {TILE_MAX})")
+        return ("srk_ring_align_tile", argtypes + [I], args + (self.tile,),
+                device)
 
 
-RING_ALIGN = RingAlign()
+# the tile's 128 positions: chip_smoke.py phase 15 times 32 to 256
+RING_ALIGN = RingAlign("ring_align", "ring-alignment kernel (K9)", 128)
+RING_ALIGN_TWIN = RingAlign("ring_align_twin",
+                            "ring-alignment kernel, twin (K9)", None)
 
 
 def ring_align(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -223,13 +223,14 @@ def test_row_affine_on_host_matches_plain(gxx, tmp_path, n):
 
 def _ring_align_host(lib, src, dst, lens, v, idx, shifts, src_lines,
                      dst_lines):
-    """The host entry of K9 with the wrapper's arguments."""
+    """The host entry of K9's main-path kernel (the tile) with the
+    wrapper's arguments and tile length."""
     n = len(lens)
-    return _fn(lib, "srk_ring_align", [P, P, P, P, P, I, I, I, I])(
+    return _fn(lib, "srk_ring_align_tile", [P, P, P, P, P, I, I, I, I, I])(
         (P * n)(*[t.data_ptr() for t in src]),
         (P * n)(*[t.data_ptr() for t in dst]), (I * n)(*lens),
         (I * n)(*shifts), None if idx is None else idx.data_ptr(), n, v,
-        int(src_lines), int(dst_lines))
+        int(src_lines), int(dst_lines), RING_ALIGN.tile)
 
 
 @pytest.mark.parametrize("src_lines,dst_lines",

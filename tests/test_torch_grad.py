@@ -329,6 +329,7 @@ def test_k10_host_matches_jax_fused_vjp(jax_ref, gxx, tmp_path):
         _complete(_tree(jax_ref, "vjp/state"), mids, state=True))
     n = 32
     kernel = host_k10(compiled, (), 16, gxx, tmp_path)
+    assert kernel.fwd.name == "fused_vjp_fwd"
     p = tree_map(lambda a: a.clone().requires_grad_(True), params)
     audio, _ = kernel.apply(p, state, n, {})
     np.testing.assert_array_equal(audio.detach().numpy(),

@@ -6,11 +6,21 @@ CUDA tensors it launches K9 (``csrc/ring_align.cu``).  Here, on the CPU, the
 plain version is held against the JAX package's Pallas kernel
 ``_align_rows`` in interpret mode (run by ``tests/torch_parity_worker.py``)
 and against ``np.roll``, for several row counts and line lengths: exact.
-The host build of K9 itself is checked in ``test_torch_block_host.py``.
+The host build of K9 itself is checked in ``test_torch_block_host.py``;
+here its two entries are held against each other and the plain version
+on the host (g++, the same tile passes the card runs, thread by thread):
+the shared-memory tile ``srk_ring_align_tile`` at every tile length the
+wrapper takes against the twin ``srk_ring_align_twin``, both directions
+between rings and the Freeverb kernel's lines and rings to rings, per-voice
+write indices (negative and out of range) and per-line shifts, V of 1, 3
+and 33, lines shorter and longer than a tile and not a multiple of it:
+exact.
 """
 
+import ctypes
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -18,12 +28,18 @@ import numpy as np
 import pytest
 import torch
 
+from srack_tpu_torch.ops import ring_roll as rr
+from srack_tpu_torch.ops.cuda_lib import build
 from srack_tpu_torch.ops.ring_roll import (RING_ALIGN, ring_align,
                                            ring_align_plain)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 WORKER = ROOT / "tests" / "torch_parity_worker.py"
 SHAPES = ("3x5", "33x121", "7x178", "4x1")
+HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+              "-shared", "-fPIC")
+P, I = ctypes.c_void_p, ctypes.c_int
+LENS = (1, 5, 31, 32, 33, 127, 129, 257, 300)   # around every tile length
 
 
 @pytest.fixture(scope="module")
@@ -74,3 +90,95 @@ def test_ring_align_kernel_takes_cuda_tensors_only():
         RING_ALIGN.move([buf], [torch.empty_like(buf)], (5,), 2,
                         idx=idx.reshape(1, 2))
     assert RING_ALIGN.launches == launches
+
+
+# -- the tile against its twin, on the host ------------------------------------
+
+@pytest.fixture(scope="module")
+def host_k9(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ unavailable")
+    path, _ = build(RING_ALIGN.source, compiler=gxx, flags=HOST_FLAGS,
+                    root=tmp_path_factory.mktemp("k9"))
+    return ctypes.CDLL(str(path))
+
+
+def _host_move(lib, entry, src, dst, v, idx, shifts, src_lines, dst_lines,
+               tile=None):
+    """A host entry of K9 with the wrapper's arguments (and the tile's
+    length for ``srk_ring_align_tile``)."""
+    n = len(LENS)
+    fn = getattr(lib, entry)
+    fn.restype = I
+    fn.argtypes = [P] * 5 + [I] * 4 + ([I] if tile else [])
+    assert fn((P * n)(*[t.data_ptr() for t in src]),
+              (P * n)(*[t.data_ptr() for t in dst]), (I * n)(*LENS),
+              (I * n)(*shifts), None if idx is None else idx.data_ptr(), n,
+              v, int(src_lines), int(dst_lines),
+              *([tile] if tile else [])) == 0
+
+
+@pytest.mark.parametrize("rotation", ["idx", "shift"])
+@pytest.mark.parametrize("direction", ["rings->lines", "lines->rings",
+                                       "rings->rings"])
+@pytest.mark.parametrize("v", [1, 3, 33])
+def test_ring_align_tile_on_host_matches_its_twin_and_plain(
+        host_k9, v, direction, rotation):
+    src_lines = direction.startswith("lines")
+    dst_lines = direction.endswith("lines")
+    rng = np.random.default_rng(v)
+    rings = [torch.from_numpy(rng.standard_normal((v, n)).astype(np.float32))
+             for n in LENS]
+    src = [r.T.contiguous() if src_lines else r for r in rings]
+    idx, shifts = None, [0] * len(LENS)
+    if rotation == "idx":
+        idx = torch.from_numpy(rng.integers(-5000, 5000, (len(LENS), v))
+                               .astype(np.int32))
+    else:
+        shifts = [int(x) for x in rng.integers(-5000, 5000, len(LENS))]
+
+    def empty():
+        return [torch.full((n, v) if dst_lines else (v, n), float("nan"))
+                for n in LENS]
+    twin = empty()
+    _host_move(host_k9, "srk_ring_align_twin", src, twin, v, idx, shifts,
+               src_lines, dst_lines)
+    for j, n in enumerate(LENS):
+        start = (idx[j].to(torch.int64) if idx is not None
+                 else torch.zeros(v, dtype=torch.int64)) + shifts[j]
+        want = ring_align_plain(rings[j], start % n)
+        assert torch.equal(twin[j].T if dst_lines else twin[j], want), j
+    for tile in range(rr.TILE_MIN, rr.TILE_MAX + 1, 32):
+        got = empty()
+        _host_move(host_k9, "srk_ring_align_tile", src, got, v, idx, shifts,
+                   src_lines, dst_lines, tile)
+        for j in range(len(LENS)):
+            assert torch.equal(got[j], twin[j]), (tile, j)
+    assert RING_ALIGN.launches == 0 and rr.RING_ALIGN_TWIN.launches == 0
+
+
+def test_ring_align_entries_and_their_wrappers(monkeypatch):
+    """The main path's K9 is the tile (``srk_ring_align_tile``, 128
+    positions); the twin is an entry of its own of the same source; both
+    wrappers refuse CPU tensors, and a tile length the kernel does not
+    take raises before a launch."""
+    assert RING_ALIGN.name == "ring_align" and RING_ALIGN.tile == 128
+    assert rr.RING_ALIGN_TWIN.name == "ring_align_twin"
+    assert rr.RING_ALIGN_TWIN.tile is None
+    assert rr.RING_ALIGN_TWIN.source == RING_ALIGN.source
+    for entry in ("srk_ring_align_tile", "srk_ring_align_twin"):
+        assert f'extern "C" int {entry}(' in RING_ALIGN.source
+    src, dst = [torch.zeros((2, 5))], [torch.zeros((2, 5))]
+    for wrapper in (RING_ALIGN, rr.RING_ALIGN_TWIN):
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper.move(src, dst, (5,), 2)
+    monkeypatch.setattr(rr, "require_cuda", lambda *t: torch.device("cpu"))
+    assert RING_ALIGN.call(src, dst, (5,), 2)[0] == "srk_ring_align_tile"
+    assert rr.RING_ALIGN_TWIN.call(src, dst, (5,), 2)[0] == \
+        "srk_ring_align_twin"
+    for bad in (16, 100, 512):
+        monkeypatch.setattr(RING_ALIGN, "tile", bad)
+        with pytest.raises(ValueError, match="tile"):
+            RING_ALIGN.call(src, dst, (5,), 2)
+    assert RING_ALIGN.launches == 0 and rr.RING_ALIGN_TWIN.launches == 0

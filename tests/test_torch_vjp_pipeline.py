@@ -16,6 +16,17 @@ voices staged in shared memory, checked on the CPU.
   per stage; a forced chunk that does not fit raises.
 * The split backward against the JAX package's fused VJP in interpret
   mode (``test_k10_split_host_matches_jax_fused_vjp``).
+* K10's forward on K1's stage-warp pipeline (``ops/fused.py::
+  _generate_pipeline`` with ``t_chunk``), its host build (the same lock
+  step and shared buffers as ``srk_fused_host``) held bit for bit to the
+  one-thread forward, its twin, in audio, checkpoints ``ck`` and final
+  float and int state, NaN where NaN: on the five patches, chunks of 8, 16
+  and 32 samples, t_chunk 64 and 128, n = 300, and at n = 1, 23 and 129;
+  the split backward fed the split forward's ``ck`` as fed the twin's; the
+  twin's rule (one stage, no chunk that fits, none that divides
+  ``t_chunk``) and a forced chunk that does not fit raising; the split
+  forward against the JAX fused VJP's forward over three checkpoint
+  chunks (``test_k10_split_forward_matches_jax_over_checkpoint_chunks``).
 * K7 (``csrc/sample_play.cu``): the tiled entry ``srk_sample_play`` bit
   for bit against the twin ``srk_sample_play_twin`` in both entries
   (constant rate and CV), from ``[R, n]`` rows and from transposed views
@@ -116,6 +127,30 @@ def _bwd_operands(lib_of, kernel, params, state, xs, n, seed):
     return pf, pi, lanes, ck, cta, ctf
 
 
+def _fwd(lib_of, kernel, operands, v, n):
+    """``(audio, sf_out, si_out, ck)`` of one host launch of ``kernel``'s
+    forward, from outputs filled with a pattern the kernel must overwrite
+    (NaN, -7)."""
+    pf, pi, sf, si, lanes = operands
+    audio = torch.full((v, kernel.compiled.cfg.channels, n), float("nan"))
+    sf_out = torch.full_like(sf, float("nan"))
+    si_out = torch.full_like(si, -7)
+    ck = torch.full((max(-(-n // kernel.t_chunk), 1), kernel.s_rows, v), -7,
+                    dtype=torch.int32)
+    _call(lib_of(kernel.fwd.source), "srk_vjp_fwd_host",
+          (pf, pi, sf, si, lanes, torch.zeros(1), audio, sf_out, si_out, ck),
+          v, n)
+    return audio, sf_out, si_out, ck
+
+
+def _fwd_operands(kernel, params, state, xs, n):
+    """The forward's packed operands ``(pf, pi, sf, si, lanes)``."""
+    with torch.no_grad():
+        lanes, pi, si, floats = kernel.operands(params, state, n, xs)
+        pf, sf = kernel.float_rows(floats, HOST_V, "cpu")
+    return pf, pi, sf, si, lanes
+
+
 # -- the backward's partition -------------------------------------------------
 
 @pytest.mark.parametrize("name", HOST_PATCHES)
@@ -200,6 +235,101 @@ def test_the_twin_runs_only_where_its_rule_sends_a_plan():
     assert FusedVJPKernel(stt.compile_patch(p)).twin
 
 
+# -- the split forward against its twin -----------------------------------------
+
+@pytest.mark.parametrize("t_chunk", [64, 128])
+@pytest.mark.parametrize("chunk", [8, 16, 32])
+@pytest.mark.parametrize("name", HOST_PATCHES)
+def test_split_fwd_on_host_is_bit_identical_to_its_twin(host_libs, name,
+                                                        chunk, t_chunk):
+    patch, compiled, params, state, xs = _host_case(name, N)
+    split = FusedVJPKernel(compiled, xs, t_chunk, fwd_chunk=chunk)
+    twin = FusedVJPKernel(compiled, xs, t_chunk, stages=1)
+    assert not split.fwd_twin and twin.fwd_twin
+    assert split.fwd_chunk == chunk
+    assert split.fwd.name == "fused_vjp_fwd"
+    assert twin.fwd.name == "fused_vjp_fwd_twin"
+    assert split.fwd_partition == partition(compiled, carried=True)
+    ops = _fwd_operands(split, params, state, xs, N)
+    got = _fwd(host_libs, split, ops, HOST_V, N)
+    want = _fwd(host_libs, twin, ops, HOST_V, N)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    assert got[0].abs().nan_to_num().max() > 0
+    assert (got[3] != -7).all()    # every checkpoint row written
+    assert split.fwd.launches == 0 and twin.fwd.launches == 0
+
+
+@pytest.mark.parametrize("n", [1, 23, 129])
+def test_split_fwd_short_renders_are_bit_identical(host_libs, n):
+    """n below one chunk, below one checkpoint chunk, one past one."""
+    patch, compiled, params, state, xs = _host_case("lane_check_patch", n)
+    split = FusedVJPKernel(compiled, xs, T_CHUNK)
+    twin = FusedVJPKernel(compiled, xs, T_CHUNK, stages=1)
+    assert not split.fwd_twin
+    ops = _fwd_operands(split, params, state, xs, n)
+    got = _fwd(host_libs, split, ops, HOST_V, n)
+    want = _fwd(host_libs, twin, ops, HOST_V, n)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+
+
+@pytest.mark.parametrize("name", HOST_PATCHES)
+def test_split_bwd_fed_by_the_split_fwd_matches_the_twins_checkpoints(
+        host_libs, name):
+    """The split backward on the split forward's checkpoints gives the
+    cotangents it gives on the one-thread forward's."""
+    patch, compiled, params, state, xs = _host_case(name, N)
+    split = FusedVJPKernel(compiled, xs, T_CHUNK)
+    twin = FusedVJPKernel(compiled, xs, T_CHUNK, stages=1)
+    assert not split.fwd_twin and not split.twin
+    fwd_ops = _fwd_operands(split, params, state, xs, N)
+    ck_split = _fwd(host_libs, split, fwd_ops, HOST_V, N)[3]
+    ck_twin = _fwd(host_libs, twin, fwd_ops, HOST_V, N)[3]
+    pf, pi, _, _, lanes = fwd_ops
+    rng = np.random.default_rng(7)
+    cta = torch.from_numpy(rng.standard_normal(
+        (HOST_V, compiled.cfg.channels, N)).astype(np.float32))
+    ctf = torch.from_numpy(rng.standard_normal(
+        (max(split.layout.n_sf, 1), HOST_V)).astype(np.float32))
+    got = _bwd(host_libs, split, (pf, pi, lanes, ck_split, cta, ctf), HOST_V,
+               N)
+    want = _bwd(host_libs, split, (pf, pi, lanes, ck_twin, cta, ctf), HOST_V,
+                N)
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    assert got[0].abs().nan_to_num().max() > 0
+
+
+def test_the_forward_twin_runs_only_where_its_rule_sends_a_plan(monkeypatch):
+    compiled = stt.compile_patch(_port_grad_patch("subtractive_voice"))
+    kernel = FusedVJPKernel(compiled)
+    assert not kernel.fwd_twin and kernel.fwd.name == "fused_vjp_fwd"
+    assert kernel.fwd_chunk == 32 and kernel.fwd_partition.n_stages == 4
+    # one stage
+    assert FusedVJPKernel(compiled, stages=1).fwd_twin
+    p = stt.Patch(stt.AudioConfig(sample_rate=4800, channels=1))
+    one = FusedVJPKernel(stt.compile_patch(p))
+    assert one.fwd_twin and one.fwd.name == "fused_vjp_fwd_twin"
+    # no chunk of 8-32 divides t_chunk 12; t_chunk 16 takes 16, 24 takes 8
+    assert FusedVJPKernel(compiled, t_chunk=12).fwd_twin
+    assert FusedVJPKernel(compiled, t_chunk=16).fwd_chunk == 16
+    assert FusedVJPKernel(compiled, t_chunk=24).fwd_chunk == 8
+    # no chunk whose rings, lane buffers and tile fit the budget
+    need = fused.smem_layout(kernel.fwd_partition, fused.stage_lanes(
+        compiled, kernel.fwd_partition, (), None, kernel.layout),
+        compiled.cfg.channels, 8).nbytes
+    monkeypatch.setattr(fused, "SMEM_BUDGET", need - 4)
+    tight = FusedVJPKernel(compiled)
+    assert tight.fwd_twin and tight.fwd.name == "fused_vjp_fwd_twin"
+    # a forced chunk that does not fit raises, it never falls back
+    with pytest.raises(ValueError, match="shared memory"):
+        FusedVJPKernel(compiled, fwd_chunk=8)
+    monkeypatch.undo()
+    # so does one that does not divide t_chunk
+    with pytest.raises(ValueError, match="t_chunk"):
+        FusedVJPKernel(compiled, t_chunk=48, fwd_chunk=32)
+
+
 # -- against JAX -----------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -208,7 +338,8 @@ def jax_vjp(tmp_path_factory):
     import sys
     from test_torch_slice import ROOT, WORKER, _env
     out = tmp_path_factory.mktemp("jax_vjp") / "ref.npz"
-    proc = subprocess.run([sys.executable, str(WORKER), str(out), "vjp"],
+    proc = subprocess.run([sys.executable, str(WORKER), str(out), "vjp",
+                           "vjp_long"],
                           cwd=ROOT, env=_env(), capture_output=True,
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
@@ -229,6 +360,7 @@ def test_k10_split_host_matches_jax_fused_vjp(jax_vjp, gxx, tmp_path):
         _complete(_tree(jax_vjp, "vjp/state"), mids, state=True))
     kernel = host_k10(compiled, (), T_CHUNK, gxx, tmp_path)
     assert not kernel.twin
+    assert kernel.fwd.name == "fused_vjp_fwd"
     p = tree_map(lambda a: a.clone().requires_grad_(True), params)
     audio, _ = kernel.apply(p, state, 32, {})
     np.testing.assert_array_equal(audio.detach().numpy(),
@@ -240,6 +372,34 @@ def test_k10_split_host_matches_jax_fused_vjp(jax_vjp, gxx, tmp_path):
         assert_rule_b(leaf.grad.numpy(), want[path], str(path))
         nonzero += bool(np.abs(want[path]).max() > 0)
     assert nonzero >= 4
+
+
+def test_k10_split_forward_matches_jax_over_checkpoint_chunks(jax_vjp, gxx,
+                                                            tmp_path):
+    """The split forward (t_chunk 128: 4 stages, chunks of 32) against the
+    JAX package's fused VJP forward in interpret mode (t_chunk 128) over n
+    = 300, three checkpoint chunks: subtractive voice, V=2; the audio and
+    the final state, bit for bit."""
+    compiled = stt.compile_patch(_port_grad_patch("subtractive_voice"))
+    mids = list(compiled.instances)
+    params = interop.params_from_numpy(
+        _complete(_tree(jax_vjp, "vjp_long/params"), mids, state=False))
+    state = interop.state_from_numpy(
+        _complete(_tree(jax_vjp, "vjp_long/state"), mids, state=True))
+    kernel = host_k10(compiled, (), T_CHUNK, gxx, tmp_path)
+    assert kernel.fwd.name == "fused_vjp_fwd" and kernel.fwd_chunk == 32
+    with torch.no_grad():
+        audio, final = kernel.apply(params, state, 300, {})
+    np.testing.assert_array_equal(audio.numpy(), jax_vjp["vjp_long/audio"])
+    assert np.abs(jax_vjp["vjp_long/audio"]).max() > 0
+    want = dict(tree_items(_complete(_tree(jax_vjp, "vjp_long/final"), mids,
+                                     state=True)))
+    got = dict(tree_items(interop.to_numpy(final)))
+    assert set(got) == set(want) and want
+    for path, w in want.items():
+        assert got[path].dtype == w.dtype, path
+        np.testing.assert_array_equal(got[path], w, err_msg=str(path))
+    assert kernel.fwd.launches == 0
 
 
 # -- K7 ---------------------------------------------------------------------------

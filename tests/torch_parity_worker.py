@@ -61,6 +61,8 @@ Slice 5's cases (gradients and training), inputs from numpy seeds:
   a weighted sum of the audio and the final float state, V=2, n=256;
 * ``vjp``: the JAX fused VJP, both Pallas kernels in interpret mode
   (``make_fused_vjp``, t_chunk=16), V=2, n=32;
+* ``vjp_long``: its forward over n=300 in chunks of t_chunk=128, V=2:
+  the audio and the final state;
 * ``losses``: ``utils/losses.py`` and its gradients in float64;
 * ``train``: three ``batched_train_step`` steps with ``optax.adam(1e-3)``.
 
@@ -799,6 +801,28 @@ def vjp_case(out: dict) -> None:
     flat("vjp/grads", jax.grad(loss)(params), out)
 
 
+def vjp_long_case(out: dict) -> None:
+    """The JAX fused VJP's forward (``make_fused_vjp``, interpret mode) over
+    n=300 samples in checkpoint chunks of t_chunk=128 (three chunks, the
+    last ragged) on the subtractive voice with a fast gate clock, V=2: the
+    audio and the final state."""
+    from srack_tpu.ops.fused_vjp import make_fused_vjp
+    patch = grad_build("subtractive_voice")
+    compiled = st.compile_patch(patch)
+    v, n = 2, 300
+    params = presets.farm_params(patch, v)
+    state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
+                         compiled.init_state())
+    keys = jax.random.split(jax.random.PRNGKey(0), v)
+    render = make_fused_vjp(compiled, n, t_chunk=128, unroll=4,
+                            interpret=True)
+    audio, _, final = render(params, state, keys, {})
+    flat("vjp_long/params", params, out)
+    flat("vjp_long/state", state, out)
+    flat("vjp_long/audio", audio, out)
+    flat("vjp_long/final", final, out)
+
+
 def losses_case(out: dict) -> None:
     """``srack_tpu/utils/losses.py`` in float64 on random signals (in
     float32 both packages' FFT gradients sit ~1e-6 from the float64 one,
@@ -873,6 +897,7 @@ SPECIAL = {"freeverb": freeverb_case, "osc_block": osc_block_case,
            "scan": scan_case, "ring_roll": ring_roll_case,
            "sample": sample_case, "gather": gather_case,
            "seq_block": seq_block_case, "vjp": vjp_case,
+           "vjp_long": vjp_long_case,
            "losses": losses_case, "train": train_case,
            **{f"grad:{name}": (lambda out, name=name: grad_case(name, out))
               for name in GRAD_NAMES}}
