@@ -191,8 +191,40 @@ the split forward to its twin at 1,024 x 48,000 (farm_params and phase
 reverb and block-check renders (bit for bit, every tile length of
 ``K9_TILES`` timed), each pair timed in one call.
 
-Each main path (phases 4, 5, 7-14, 16) runs with the launch counts set
-to 0 just before it and read just after.  Any failure raises and exits
+For slice 10, exact precision (``AudioConfig(precision="exact")``): f64
+builds of K3 (``serial_stage_f64``: a stage with f64 leaves, the exact
+Oscillator's phase in double rows), K4 (``row_scan_f64``: entries
+``srk_scan_{sum,max,fill}_f64``), K8 (``freeverb_f64`` and its twin
+``freeverb_twin_f64``: the Freeverb's f64 core) and K9 (``ring_align_f64``
+and ``ring_align_twin_f64``: 8-byte elements), each with a launch count
+of its own.  Phase 2 builds the exact stages' K3 (48 kHz and 4,800 Hz)
+and finds the fixed sources' f64 entries in their libraries; phase 3
+holds K4 f64 (sum within 1e-12 relative, max and fills exact), K9 f64 and
+its twin (exact), K8 f64 through its wrapper (2e-5, n = 2048 and 2047,
+with and without automation) and its twin (bit for bit), the exact
+stages' K3 (outputs within 1e-6, f64 state within 1e-12) and the exact
+block engine against the exact scan engine at 4,800 Hz (subtractive_voice,
+feedback_patch, reverb_patch and the three kits, the Sample on K7; within
+5e-6);
+
+17. exact: three main paths through ``render_batch`` (engine auto, the
+   scan engine fenced off), 1,024 voices x 480,000 samples at 48 kHz:
+   subtractive_voice with ``segment=96000`` (bench.py's exact rung: the
+   f64 Oscillator block forms on K4's f64 sum, K3 for the Moog and ADSR),
+   reverb_patch, stereo, the same segments (plus K9 f64, K8 f64, K9 f64)
+   and feedback_patch unsegmented (K3 f64: both f64 Oscillators in the
+   stage): each must launch its f64 builds and nothing else, give finite
+   audio with peak <= 1.002, and 1,024 samples from random f64 phases
+   within 5e-6 of the exact scan engine on the card; each is timed (CUDA
+   events, after a warm-up) with its memory peak and each kernel alone at
+   its shapes, its fast render's first 48,000 samples are compared with
+   the exact ones (reported), and a segmented path also tries one
+   unsegmented render (fits or not); then one unbatched exact voice
+   through ``render`` (1 s) and ``render_stream`` (4 blocks), and
+   ``tests/test_precision.py``'s sine fast against exact within 1e-3.
+
+Each main path (phases 4, 5, 7-14, 16, 17) runs with the launch counts
+set to 0 just before it and read just after.  Any failure raises and exits
 non-zero.  The line before the last is a JSON record of the kernels; the
 last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -233,7 +265,9 @@ BLOCK_RENDERS = 5  # phases 9 and 10 time this many renders: their
 # H100 SXM peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores,
 # and device memory bandwidth
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12    # f64 outside the tensor cores (exact precision's work)
 PEAK_BYTES = 3.35e12
+F64 = torch.float64
 
 
 class SmokeFailure(RuntimeError):
@@ -391,6 +425,7 @@ def phase_build(stt):
     jobs.update(block_kernels(stt))
     jobs.update(vjp_kernels(stt))
     jobs.update(ab_kernels(kernels))
+    jobs.update(exact_kernels(stt))
 
     def build(name):
         t0 = time.perf_counter()
@@ -410,6 +445,7 @@ def phase_build(stt):
         f"(csrc/row_gather.cu, entries srk_gather_long_*)")
     k8_shape(stt)
     k9_shape(stt)
+    exact_shapes(stt)
     return kernels
 
 
@@ -571,6 +607,8 @@ def _counters(kernels):
     out += list(STAGES.values()) + list(CHECK_STAGES.values()) + [
         ROW_SCAN, FREEVERB, FREEVERB_TWIN, RING_ALIGN, RING_ALIGN_TWIN,
         ROW_GATHER, ROW_GATHER_LONG, SAMPLE_PLAY, SAMPLE_PLAY_TWIN]
+    # slice 10: exact precision's stages and the f64 builds
+    out += list(EXACT_STAGES.values()) + f64_libs()
     # the one-thread twins of phase 15, named apart: a main path that
     # launched one would count as another kernel
     out += [one for _, one in AB.values()]
@@ -722,6 +760,7 @@ SCAN_ROWS, SCAN_N = 1024, 48000
 BLOCK_ATOL = 5e-6   # block-vs-scan audio (tests/test_block_engine.py)
 SCAN_TOL = {"sum": 2e-4, "affine": 3e-4}  # tests/test_scan_kernel.py
 FV_TOL = 2e-5       # K8 vs its chunked plain version
+F64_SUM_TOL = 1e-12  # K4's f64 sum vs its log-doubling form, abs + rel
 # tests/test_freeverb_kernel.py; f32 operations per voice-sample of K8:
 # 16 combs x 6, 8 allpasses x 3, the input gain 2, the stereo mix 10
 FV_OPS = 16 * 6 + 8 * 3 + 2 + 10
@@ -800,7 +839,9 @@ def _random_state(stt, compiled, v, seed):
         compiled.init_state())
     for mid, (mdef, _, _) in compiled.instances.items():
         sd = state["states"][mid]
-        if mdef.type_name == "Oscillator":
+        if mdef.type_name == "Oscillator" and sd["pos"].dtype == F64:
+            sd["pos"] = torch.from_numpy(rng.uniform(0.0, 1.0, v))
+        elif mdef.type_name == "Oscillator":
             sd["pos"] = torch.from_numpy(rng.integers(
                 -2 ** 31, 2 ** 31 - 1, v, dtype=np.int64).astype(np.int32))
         elif mdef.type_name == "Freeverb":
@@ -810,7 +851,9 @@ def _random_state(stt, compiled, v, seed):
                         0, sd[k[:-4]].shape[-1], v).astype(np.int32))
                 else:
                     sd[k] = torch.from_numpy((rng.standard_normal(
-                        tuple(sd[k].shape)) * 0.05).astype(np.float32))
+                        tuple(sd[k].shape)) * 0.05).astype(
+                            np.float64 if sd[k].dtype == F64
+                            else np.float32))
         elif mdef.type_name.endswith("Sequencer"):
             steps = int(compiled.default_params[mid]["n_steps"])
             sd["current_step"] = torch.from_numpy(
@@ -943,14 +986,14 @@ def compare_scans():
     return worst, x
 
 
-def _ring_inputs(stt):
+def _ring_inputs(stt, f64=False):
     """The 24 rings [1,024, L_j] of a 48 kHz Freeverb and their write
-    indices [24, 1,024], random."""
+    indices [24, 1,024], random (``f64``: the rings as doubles)."""
     from srack_tpu_torch.ops.freeverb_kernel import all_lengths
     rng = np.random.default_rng(1)
     lens = all_lengths(stt.AudioConfig(sample_rate=SR))
     rings = [torch.from_numpy(rng.standard_normal((VOICES, n)).astype(
-        np.float32)).cuda() for n in lens]
+        np.float64 if f64 else np.float32)).cuda() for n in lens]
     idx = torch.from_numpy(np.stack([rng.integers(0, n, VOICES)
                                      for n in lens]).astype(np.int32)).cuda()
     return lens, rings, idx
@@ -958,10 +1001,13 @@ def _ring_inputs(stt):
 
 def ring_to_lines(rings, lens, idx):
     """K9 as the Freeverb wrapper calls it on entry: the rings in time
-    order, written as [L_j, V] lines.  Returns the lines."""
-    from srack_tpu_torch.ops.ring_roll import RING_ALIGN
-    lines = [torch.empty((n, VOICES), device="cuda") for n in lens]
-    RING_ALIGN.move(rings, lines, lens, VOICES, idx=idx, dst_lines=True)
+    order, written as [L_j, V] lines (the build of the rings' dtype).
+    Returns the lines."""
+    from srack_tpu_torch.ops.ring_roll import ring_align_for
+    lines = [torch.empty((n, VOICES), dtype=rings[0].dtype, device="cuda")
+             for n in lens]
+    ring_align_for(rings[0].dtype).move(rings, lines, lens, VOICES, idx=idx,
+                                        dst_lines=True)
     return lines
 
 
@@ -973,14 +1019,18 @@ def k9_call(kernel, src, dst, lens, v, **kw):
     return lambda: kernel.launch(*call)
 
 
-def compare_ring(stt):
+def compare_ring(stt, f64=False):
     """K9 on every line length of a 48 kHz Freeverb, [1,024, L] each, one
     launch for all 24 lines: rings to the Freeverb kernel's [L, V] lines
     with random write indices (the wrapper's entry), lines back to rings
     with a shift per line (its exit), and rings to rings: exact against
-    the plain gather (and transpose)."""
-    from srack_tpu_torch.ops.ring_roll import RING_ALIGN, ring_align_plain
-    lens, rings, idx = _ring_inputs(stt)
+    the plain gather (and transpose).  ``f64``: K9's f64 build on f64
+    rings, and its twin's too."""
+    from srack_tpu_torch.ops.ring_roll import (RING_ALIGN_TWIN_F64,
+                                               ring_align_for,
+                                               ring_align_plain)
+    lens, rings, idx = _ring_inputs(stt, f64)
+    RING_ALIGN = ring_align_for(rings[0].dtype)
     lines = ring_to_lines(rings, lens, idx)
     for j, (line, r) in enumerate(zip(lines, rings)):
         check(torch.equal(line, ring_align_plain(r, idx[j]).T),
@@ -996,24 +1046,31 @@ def compare_ring(stt):
     for j, (b, r) in enumerate(zip(back, rings)):
         check(torch.equal(b, ring_align_plain(r, idx[j])),
               f"K9 rings -> rings differs from its plain version, line {j}")
-    log(f"[3 compare] ring_align: 24 lines x {VOICES} voices, lengths "
-        f"{min(lens)}..{max(lens)}, rings -> lines, lines -> rings, rings "
-        f"-> rings: exact")
+    if f64:
+        RING_ALIGN_TWIN_F64.move(rings, back, lens, VOICES, idx=idx)
+        for j, (b, r) in enumerate(zip(back, rings)):
+            check(torch.equal(b, ring_align_plain(r, idx[j])),
+                  f"K9's f64 twin differs from its plain version, line {j}")
+    log(f"[3 compare] {RING_ALIGN.name}: 24 lines x {VOICES} voices, "
+        f"lengths {min(lens)}..{max(lens)}, {rings[0].dtype}, rings -> "
+        f"lines, lines -> rings, rings -> rings"
+        + (" (and the twin)" if f64 else "") + ": exact")
     return 0.0
 
 
-def _freeverb_inputs(stt, n, automated, seed):
+def _freeverb_inputs(stt, n, automated, seed, exact=False):
     from srack_tpu_torch.modules import freeverb as fv
-    cfg = stt.AudioConfig(sample_rate=SR, channels=2)
+    cfg = stt.AudioConfig(sample_rate=SR, channels=2,
+                          precision="exact" if exact else "fast")
+    core = np.float64 if exact else np.float32
     rng = np.random.default_rng(seed)
     v = VOICES
     state = {}
     for k, length in zip(fv.LINE_KEYS, sum(fv.line_lengths(SR), ())):
-        state[k] = (rng.standard_normal((v, length)) * 0.1).astype(
-            np.float32)
+        state[k] = (rng.standard_normal((v, length)) * 0.1).astype(core)
         state[f"{k}_idx"] = rng.integers(0, length, v).astype(np.int32)
     for k in fv.FS_KEYS:
-        state[k] = (rng.standard_normal(v) * 0.1).astype(np.float32)
+        state[k] = (rng.standard_normal(v) * 0.1).astype(core)
     _, p0 = fv.FREEVERB.make(cfg, room_size=0.7, dampening=0.4, wet=0.3,
                              dry=0.2)
     params = {k: a.expand(v).clone().numpy() for k, a in p0.items()}
@@ -1027,24 +1084,29 @@ def _freeverb_inputs(stt, n, automated, seed):
 
     def dev(tree):
         return {k: torch.from_numpy(a).cuda() for k, a in tree.items()}
-    return (cfg, fv.block_gains(dev(params), v), dev(state),
+    return (cfg, fv.block_gains(dev(params), v, F64 if exact else
+                                torch.float32), dev(state),
             *[torch.from_numpy(a).cuda() for a in lanes])
 
 
-def compare_freeverb(stt, n, automated):
+def compare_freeverb(stt, n, automated, exact=False):
     """K8 through its wrapper (K9 on entry and exit; at 48 kHz the
     shared-memory entry, not the twin) against the chunked plain version,
     from random rings with non-zero write indices and random filter
     states: audio, final filter states and lines (both in time order,
-    write index 0) within 2e-5 (abs + rel)."""
+    write index 0) within 2e-5 (abs + rel).  ``exact``: the f64 core, on
+    K8's and K9's f64 builds, against the f64 plain version."""
     from srack_tpu_torch.modules import freeverb as fv
     from srack_tpu_torch.ops import freeverb_kernel as fvk
     t0 = time.perf_counter()
-    cfg, gains, state, l_in, r_in = _freeverb_inputs(stt, n, automated, n)
-    launched = (fvk.FREEVERB.launches, fvk.FREEVERB_TWIN.launches)
+    cfg, gains, state, l_in, r_in = _freeverb_inputs(stt, n, automated, n,
+                                                     exact)
+    tiled, twin = ((fvk.FREEVERB_F64, fvk.FREEVERB_TWIN_F64) if exact
+                   else (fvk.FREEVERB, fvk.FREEVERB_TWIN))
+    launched = (tiled.launches, twin.launches)
     st_k, outs_k = fvk.render(cfg, l_in, r_in, False, gains, state, n)
-    check((fvk.FREEVERB.launches - launched[0],
-           fvk.FREEVERB_TWIN.launches - launched[1]) == (1, 0),
+    check((tiled.launches - launched[0],
+           twin.launches - launched[1]) == (1, 0),
           "K8's wrapper did not launch the shared-memory entry once")
     torch.cuda.synchronize()
     st_p, outs_p = fv.block_plain(l_in, r_in, gains, state, n)
@@ -1059,7 +1121,7 @@ def compare_freeverb(stt, n, automated):
         check(bool((d <= FV_TOL + FV_TOL * w.abs()).all()),
               f"K8 n={n}: off by {d.max().item()}")
         err = max(err, d.max().item())
-    log(f"[3 compare] freeverb V={VOICES} n={n}"
+    log(f"[3 compare] {tiled.name} V={VOICES} n={n}"
         f"{' automated room_size and wet' if automated else ''}: max abs "
         f"err {err:.3e} (audio, 16 filter states, 24 lines); "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1196,7 +1258,7 @@ def k8_call(cfg, l_in, r_in, gains, fs, lines, n, skip_r=False):
     into."""
     from srack_tpu_torch.ops import freeverb_kernel as fvk
     lens = fvk.all_lengths(cfg)
-    kernel = fvk.kernel_for(lens)
+    kernel = fvk.kernel_for(lens, fs.dtype)
     tables = fvk.line_tables(lens, fs.device)
     args, argtypes, keep, _, _ = kernel.entry_args(
         cfg, l_in, r_in, gains, fs, lines, n, skip_r, tables)
@@ -1479,15 +1541,18 @@ def gather_bound(table, idx):
 
 @contextlib.contextmanager
 def held_against_plain(found: dict):
-    """While open, each call of K8's wrapper, of K4's two entries, of K7 and
-    of K5 also runs its plain version on the very inputs the main path
-    gave it and holds its result to it: K8 (block_plain) audio, filter
-    states and lines within 2e-5 abs + rel, write indices exact; K4 (the
-    log-doubling forms) int32 sums, maxes and fills exact (fills where a
-    value is defined), f32 sum within 2e-4 and affine within 3e-4 abs +
-    rel; K7 bit-exact against its unfused form (K4's scans and the row
-    gather K6), in slices of HELD_ROWS rows; K5 exact against torch.gather.
-    ``found[kernel]`` gathers ``(what, shape, max abs err, plain s)``;
+    """While open, each call of K8's wrapper, of K4's two entries (and
+    their f64 build's), of K7 and of K5 also runs its plain version on the
+    very inputs the main path gave it and holds its result to it: K8
+    (block_plain, in the core's dtype: f32, or f64 in exact precision)
+    audio, filter states and lines (so also the K9 moves around it) within
+    2e-5 abs + rel, write indices exact; K4 (the log-doubling forms) int32
+    sums, maxes and fills exact (fills where a value is defined), f32 sum
+    within 2e-4 and affine within 3e-4 abs + rel, f64 sum within 1e-12 abs
+    + rel, f64 max and fill exact; K7 bit-exact against its unfused form
+    (K4's scans and the row gather K6), in slices of HELD_ROWS rows; K5
+    exact against torch.gather.  ``found[kernel]`` gathers ``(what, shape,
+    max abs err, plain s)``, under the name of the build that launched;
     ``HELD_CALLS`` keeps the K7 and K5 calls' inputs for timing them
     alone."""
     from srack_tpu_torch.modules import freeverb as fv
@@ -1495,7 +1560,7 @@ def held_against_plain(found: dict):
     from srack_tpu_torch.ops import basic, freeverb_kernel as fvk
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER
     from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
-    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN, ROW_SCAN_F64
     HELD_CALLS.clear()
 
     def render(cfg, l_in, r_in, mono, gains, state, n, skip_r=False):
@@ -1513,30 +1578,37 @@ def held_against_plain(found: dict):
         if not skip_r:
             pairs.append((outs[1], want[1], None))
         pairs += [(new_state[k], w, None) for k, w in want_state.items()]
-        err = _held(pairs, FV_TOL, f"K8 at [{v}, {n}]")
-        found.setdefault("freeverb", []).append(
-            ("audio, 16 filter states, 24 lines against block_plain",
-             (v, n), err, secs))
+        core = state["cl0"].dtype
+        err = _held(pairs, FV_TOL, f"K8 {str(core)[6:]} at [{v}, {n}]")
+        found.setdefault(fvk.kernel_for(fvk.all_lengths(cfg), core).name,
+                         []).append(
+            (f"audio, 16 filter states, 24 lines against block_plain "
+             f"({str(core)[6:]} core)", (v, n), err, secs))
         return new_state, outs
 
-    def run(kind, arrs):
-        got = scan_run(kind, arrs)
-        t0 = time.perf_counter()
-        if kind == "affine":
-            want = basic.affine_scan_plain(*arrs)
-        else:
-            want = ((basic.cumsum_plain if kind == "sum"
-                     else basic.cummax_plain)(arrs[0]),)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        exact = kind == "max" or arrs[0].dtype == torch.int32
-        what = (f"{kind} {str(arrs[0].dtype)[6:]} against the log-doubling "
-                f"form")
-        err = _held([(g, w, None) for g, w in zip(got, want)],
-                    0 if exact else SCAN_TOL[kind], f"K4 {what}")
-        found.setdefault("row_scan", []).append(
-            (what, tuple(arrs[0].shape), err, secs))
-        return got
+    def held_run(lib, scan_run):
+        def run(kind, arrs):
+            got = scan_run(kind, arrs)
+            t0 = time.perf_counter()
+            if kind == "affine":
+                want = basic.affine_scan_plain(*arrs)
+            else:
+                want = ((basic.cumsum_plain if kind == "sum"
+                         else basic.cummax_plain)(arrs[0]),)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            dtype = arrs[0].dtype
+            tol = (0 if kind == "max" or dtype == torch.int32
+                   else F64_SUM_TOL if dtype == torch.float64
+                   else SCAN_TOL[kind])
+            what = (f"{kind} {str(dtype)[6:]} against the log-doubling "
+                    f"form")
+            err = _held([(g, w, None) for g, w in zip(got, want)], tol,
+                        f"K4 {what}")
+            found.setdefault(lib.name, []).append(
+                (what, tuple(arrs[0].shape), err, secs))
+            return got
+        return run
 
     def fill(values, mask):
         got, ok = scan_fill(values, mask)
@@ -1548,8 +1620,10 @@ def held_against_plain(found: dict):
                 f"log-doubling form")
         _held([(ok, want_ok, None)] + [(g, w, ok) for g, w in zip(got, want)],
               0, f"K4 {what}")
-        found.setdefault("row_scan", []).append(
-            (what, tuple(mask.shape), 0.0, secs))
+        for name in {"row_scan_f64" if x.dtype == torch.float64
+                     else "row_scan" for x in values}:
+            found.setdefault(name, []).append(
+                (what, tuple(mask.shape), 0.0, secs))
         return got, ok
 
     def play(*args):
@@ -1588,15 +1662,17 @@ def held_against_plain(found: dict):
         return got
 
     k8_render = fvk.render
-    scan_run, scan_fill = ROW_SCAN.run, ROW_SCAN.fill
+    scan_fill = ROW_SCAN.fill
     play_run, gather_run = SAMPLE_PLAY.run, ROW_GATHER.run
-    fvk.render, ROW_SCAN.run, ROW_SCAN.fill = render, run, fill
+    fvk.render, ROW_SCAN.fill = render, fill
+    for lib in (ROW_SCAN, ROW_SCAN_F64):
+        lib.run = held_run(lib, lib.run)
     SAMPLE_PLAY.run, ROW_GATHER.run = play, gather
     try:
         yield found
     finally:
         fvk.render = k8_render
-        del ROW_SCAN.run, ROW_SCAN.fill
+        del ROW_SCAN.run, ROW_SCAN.fill, ROW_SCAN_F64.run
         del SAMPLE_PLAY.run, ROW_GATHER.run
 
 
@@ -1934,7 +2010,7 @@ def _noise_drivers(stt, patch, n, seed):
         for inst in patch if inst.mdef.type_name == "Noise"}
 
 
-def compare_kit_engine(stt, name, mode):
+def compare_kit_engine(stt, name, mode, case=None, n=None):
     """The block engine against the scan engine on the card, 1,024 voices,
     4,800 Hz, n = 2,048, from random oscillator phases, sequencer steps
     and Sample positions, Noise fed one random lane in both: audio within
@@ -1944,8 +2020,8 @@ def compare_kit_engine(stt, name, mode):
     the final fb lanes within 5e-6).  Each Sample's gate must rise in the
     run, so the check cannot pass on silence."""
     t0 = time.perf_counter()
-    patch, compiled = kit_check_cases(stt)[(name, mode)]
-    n = CHECK_NS[0]
+    patch, compiled = case or kit_check_cases(stt)[(name, mode)]
+    n = n or CHECK_NS[0]
     params = _cuda(stt, stt.presets.farm_params(patch, VOICES))
     state = _random_state(stt, compiled, VOICES, 11)
     drivers = _noise_drivers(stt, patch, n, 12)
@@ -1983,6 +2059,9 @@ def compare_kit_engine(stt, name, mode):
     check(cont <= BLOCK_ATOL, f"{name} {mode}: halves off one render by "
           f"{cont}")
     serr = 0.0
+    # Freeverb rings in time order (the block form returns them so)
+    final_b = _canonical(stt, compiled, final_b)
+    final_s = _canonical(stt, compiled, final_s)
     for mid, sd in final_s["states"].items():
         inputs = compiled.instances[mid][2]
         for k, w in sd.items():
@@ -2005,13 +2084,16 @@ def compare_kit_engine(stt, name, mode):
         d = (final_b["fb"][k] - w).abs().max().item()
         check(d <= BLOCK_ATOL, f"{name} {mode} final fb {k}: off by {d}")
         serr = max(serr, d)
+    sounding = int((audio_s != 0).sum())
+    check(sounding > 0, f"{name} {mode}: the scan render is silent")
     log(f"[3 compare] {name} {mode} mode block engine vs scan engine "
         f"V={VOICES} {KIT_SR} Hz n={n}: max |audio| err {err:.3e} "
         f"(bit-exact: {torch.equal(audio_b, audio_s)}), halves vs one "
         f"render {cont:.3e}, max float-state err {serr:.3e}"
         f"{' (final fb included)' if mode == 'buffer' else ''}; gate edges "
-        f"per Sample {edges}; block {t1 - t0:.1f} s, scan "
-        f"{t2 - t1:.1f} s, {time.perf_counter() - t0:.1f} s in all")
+        f"per Sample {edges}; {sounding} samples not silent; block "
+        f"{t1 - t0:.1f} s, scan {t2 - t1:.1f} s, "
+        f"{time.perf_counter() - t0:.1f} s in all")
     return err
 
 
@@ -3262,6 +3344,579 @@ def phase_one_voice(stt, kernels, card) -> dict:
                      "bit_exact": exact, "max_abs_err": err}
     return rec
 
+# -- slice 10: exact precision: the f64 builds of K3, K4, K8 and K9 ----------
+
+EXACT_NAMES = ("subtractive_voice", "reverb_patch", "feedback_patch")
+EXACT_CHECK_NAMES = ("subtractive_voice", "feedback_patch",
+                     "reverb_patch") + KIT_NAMES
+EXACT_N = HEADLINE_N    # 10 s at 48 kHz
+EXACT_SEGMENT = 96000   # bench.py's exact rung (bench.py:266-292)
+EXACT_PREFIX = 1024     # held to the exact scan engine on the card
+EXACT_CHECK_N = 1024    # phase 3's exact block-vs-scan length at 4,800 Hz
+DRIFT_N = 48000         # fast against exact over 1 s (tests/test_precision)
+DRIFT_TOL = 1e-3
+EXACT_STAGES = {}       # (case, rate) -> K3 of an exact stage
+EXACT_TIMES = {}        # f64 build -> its check-shape times and bound
+_EXACT = {}
+
+
+def f64_libs() -> list:
+    """The fixed sources' f64 builds, each with a launch count of its own:
+    K4 (row_scan_f64), K8 and its twin (freeverb_f64, freeverb_twin_f64),
+    K9 and its twin (ring_align_f64, ring_align_twin_f64)."""
+    from srack_tpu_torch.ops.freeverb_kernel import (FREEVERB_F64,
+                                                     FREEVERB_TWIN_F64)
+    from srack_tpu_torch.ops.ring_roll import (RING_ALIGN_F64,
+                                               RING_ALIGN_TWIN_F64)
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN_F64
+    return [ROW_SCAN_F64, FREEVERB_F64, FREEVERB_TWIN_F64, RING_ALIGN_F64,
+            RING_ALIGN_TWIN_F64]
+
+
+def exact_cases(stt) -> dict:
+    """Exact precision's patches, compiled once: ``(name, 48000)`` for
+    phase 17's paths and ``(name, 4800)`` for phase 3's block-vs-scan
+    checks (reverb_patch stereo, the others mono)."""
+    if not _EXACT:
+        for names, rate in ((EXACT_NAMES, SR), (EXACT_CHECK_NAMES, KIT_SR)):
+            for name in names:
+                patch = getattr(stt.presets, name)(stt.AudioConfig(
+                    sample_rate=rate, precision="exact",
+                    channels=2 if name == "reverb_patch" else 1))
+                _EXACT[(name, rate)] = (patch, stt.compile_patch(patch))
+    return _EXACT
+
+
+def exact_kernels(stt) -> dict:
+    """K3 for each exact case's stage (``EXACT_STAGES``), for phase 2's
+    build; a patch whose exact stage is empty (sampler_kit: no seed in
+    exact precision) has none."""
+    jobs = {}
+    for key, (_, compiled) in exact_cases(stt).items():
+        prog = compiled.block_program()
+        if not prog.stage_plan:
+            continue
+        EXACT_STAGES[key] = prog.stage_kernel(stage_lane_keys(prog))
+        jobs[f"exact {key[0]} {key[1]} Hz stage"] = EXACT_STAGES[key]
+    return jobs
+
+
+def exact_shapes(stt) -> None:
+    """Build the fixed sources' f64 builds (entries of the f32 builds'
+    libraries, found by hash) and log K8's f64 shape at 48 kHz: T, shared
+    memory, CTAs per SM (the card's occupancy query)."""
+    from srack_tpu_torch.ops import freeverb_kernel as fvk
+    for lib in f64_libs():
+        lib.build()
+    lens = fvk.all_lengths(stt.AudioConfig(sample_rate=SR))
+    tile = fvk.tile_for(lens, 8)
+    ctas = ctypes.c_int(-1)
+    fn = fvk.FREEVERB_F64.build().srk_freeverb_ctas_per_sm_f64
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], \
+        ctypes.c_int
+    check(fn(sum(lens), tile, ctypes.byref(ctas)) == 0,
+          "K8's f64 occupancy query failed")
+    K8_SHAPE.update(f64_tile=tile, f64_ctas_per_sm=ctas.value,
+                    f64_smem_bytes=fvk.tile_bytes(lens, tile, 8))
+    log(f"[2 build] f64 builds (entries of the same libraries): "
+        + ", ".join(lib.name for lib in f64_libs())
+        + f"; freeverb_f64 at {SR} Hz: T={tile}, "
+        f"{K8_SHAPE['f64_smem_bytes']} B shared memory, {ctas.value} CTAs "
+        f"per SM")
+
+
+def _bound2(nbytes, ops32, ops64):
+    """The larger of the bytes over bandwidth and the operations over the
+    peaks of their types (f32 at 67, f64 at 34 TFLOP/s)."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = ops32 / PEAK_F32 + ops64 / PEAK_F64
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return 1e3 * max(t_bytes, t_ops), by, nbytes, ops32 + ops64
+
+
+def stage_bound_f64(compiled, kernel, v, n):
+    """K3's bound with f64 leaves: its f32 rows and lanes at 4 bytes, its
+    double rows at 8, the exact Oscillator's f64 operations over the f64
+    peak and the rest over the f32 peak."""
+    from srack_tpu_torch.ops.partition import module_ops_f64
+    lay = kernel.layout
+    rows = lay.n_pf + lay.n_pi + 2 * (lay.n_sf + lay.n_si)
+    wires = len(kernel.lanes) + len(kernel.program.stage_out)
+    nbytes = v * (4 * rows + 8 * (lay.n_pd + 2 * lay.n_sd) + 4 * wires * n)
+    plan = kernel.program.stage_plan
+    ops64 = sum(module_ops_f64(compiled, m) for m in plan) * v * n
+    ops32 = sum(module_ops(compiled, m) for m in plan) * v * n - ops64
+    return _bound2(nbytes, ops32, ops64)
+
+
+def freeverb_bound_f64(lens, v, n, lanes_in, lanes_out):
+    """K8's f64 bound: f32 lanes, f64 lines and filter states in and out,
+    FV_OPS f64 operations per voice-sample."""
+    nbytes = v * (4 * (lanes_in + lanes_out) * n + 16 * (sum(lens) + 16))
+    return _bound2(nbytes, 0, FV_OPS * v * n)
+
+
+def compare_scans_f64():
+    """K4's f64 build on [1,024, 48,000] f64 rows (an increment's range,
+    [0, 0.1)): the sum within 1e-12 relative of the log-doubling form, the
+    max exact, fills of one and two arrays exact where a value is
+    defined; times the sum, its plain version and torch.cumsum."""
+    from srack_tpu_torch.ops import basic
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN, ROW_SCAN_F64
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    shape = (SCAN_ROWS, SCAN_N)
+    x = torch.from_numpy(rng.uniform(0.0, 0.1, shape)).cuda()
+    y = torch.from_numpy(rng.standard_normal(shape)).cuda()
+    mask = torch.from_numpy(rng.uniform(size=shape) < 1e-3).cuda()
+    got, = ROW_SCAN_F64.run("sum", (x,))
+    want = basic.cumsum_plain(x)
+    rel = ((got - want).abs() / want.abs().clamp(min=1e-300)).max().item()
+    check(rel <= F64_SUM_TOL, f"K4 f64 sum: relative error {rel}")
+    err = (got - want).abs().max().item()
+    got, = ROW_SCAN_F64.run("max", (y,))
+    check(torch.equal(got, basic.cummax_plain(y)), "K4 f64 max: not exact")
+    for vals in ((x,), (x, y)):
+        filled, ok = ROW_SCAN.fill(vals, mask)
+        want_f, want_ok = basic.forward_fill_multi_plain(vals, mask)
+        check(torch.equal(ok, want_ok), "K4 f64 fill: validity differs")
+        for g, w in zip(filled, want_f):
+            check(torch.equal(g[ok], w[ok]), "K4 f64 fill: not exact")
+    EXACT_TIMES["row_scan_f64"] = (
+        cuda_ms(lambda: ROW_SCAN_F64.run("sum", (x,)), repeats=20),
+        cuda_ms(lambda: basic.cumsum_plain(x), repeats=3),
+        cuda_ms(lambda: torch.cumsum(x, dim=-1), repeats=20),
+        _bound2(16 * x.numel(), 0, x.numel()),
+        f"f64 sum [{SCAN_ROWS}, {SCAN_N}] (library: torch.cumsum)")
+    log(f"[3 compare] row_scan_f64 [{SCAN_ROWS}, {SCAN_N}]: sum max abs err "
+        f"{err:.3e} (max relative {rel:.3e}, tolerance 1e-12 relative), max "
+        f"exact, fills x1 and x2 exact where a value is defined; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def compare_freeverb_twin_f64(stt, n):
+    """K8's two f64 entries on the same operands (random rings and filter
+    states, the wrapper's K9 in): the shared-memory entry and the twin
+    equal bit for bit."""
+    from srack_tpu_torch.modules import freeverb as fv
+    from srack_tpu_torch.ops import freeverb_kernel as fvk
+    cfg, gains, state, l_in, r_in = _freeverb_inputs(stt, n, True, n + 1,
+                                                     True)
+    lens = fvk.all_lengths(cfg)
+    idx = torch.stack([state[f"{k}_idx"] for k in fv.LINE_KEYS]).to(
+        torch.int32).contiguous()
+    outs = []
+    for kernel in (fvk.FREEVERB_F64, fvk.FREEVERB_TWIN_F64):
+        lines = torch.cat(ring_to_lines([state[k] for k in fv.LINE_KEYS],
+                                        lens, idx)).contiguous()
+        fs = torch.stack([state[k] for k in fv.FS_KEYS], dim=1).contiguous()
+        o = kernel.launch_lines(cfg, l_in, r_in, gains, fs, lines, n)
+        outs.append((*o, fs, lines))
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    check(same, "K8's f64 entries differ")
+    log(f"[3 compare] freeverb_f64 and freeverb_twin_f64 V={VOICES} n={n}, "
+        f"automated room_size and wet: audio, filter states and lines bit "
+        f"for bit equal")
+
+
+def compare_exact_stage(stt, key, n):
+    """An exact stage's K3 against its torch loop at 48 kHz, from random
+    f64 phases: outputs within 1e-6, f64 state within 1e-12, f32 state
+    within 1e-6, int32/bool exact; both timed (CUDA events)."""
+    t0 = time.perf_counter()
+    patch, compiled = exact_cases(stt)[key]
+    prog = compiled.block_program()
+    kernel = EXACT_STAGES[key]
+    rng = np.random.default_rng(n)
+    params = _cuda(stt, stt.presets.farm_params(patch, VOICES))
+    state = _random_state(stt, compiled, VOICES, n)
+    stage_state = {"states": {m: state["states"][m]
+                              for m in prog.stage_plan}, "fb": state["fb"]}
+    lanes = {k: torch.from_numpy(rng.uniform(-1, 1, (VOICES, n)).astype(
+        np.float32)).cuda() for k in kernel.lanes}
+    derived = compiled.derived_params(params)
+    plain_params = {m: derived[m] for m in prog.stage_plan}
+    res = {}
+    k_ms = cuda_ms(lambda: res.update(k=kernel.run(params, stage_state,
+                                                   lanes, n)), warmup=1)
+    with torch.no_grad():
+        p_ms = cuda_ms(lambda: res.update(p=prog.stage_plain(
+            plain_params, stage_state, lanes, n)))
+    (outs_k, final_k), (outs_p, final_p) = res["k"], res["p"]
+    err, exact = 0.0, True
+    for w in prog.stage_out:
+        check(bool(torch.isfinite(outs_p[w]).all()),
+              f"exact {key[0]} stage plain version not finite")
+        err = max(err, (outs_k[w] - outs_p[w]).abs().max().item())
+        exact = exact and torch.equal(outs_k[w], outs_p[w])
+    check(err <= 1e-6, f"exact {key[0]} stage n={n}: outputs off by {err}")
+    serr64 = 0.0
+    for mid, sd in final_p["states"].items():
+        for k, w in sd.items():
+            g = final_k["states"][mid][k]
+            where = f"exact {key[0]} stage state {mid}.{k}"
+            check(g.shape == w.shape and g.dtype == w.dtype, where)
+            if w.dtype in (torch.int32, torch.bool):
+                check(torch.equal(g, w), f"{where}: not exact")
+                continue
+            d = (g - w).abs().max().item()
+            check(d <= (1e-12 if w.dtype == F64 else 1e-6), f"{where}: {d}")
+            if w.dtype == F64:
+                serr64 = max(serr64, d)
+    if kernel.layout.doubles:
+        EXACT_TIMES["serial_stage_f64"] = (
+            k_ms, p_ms, None, stage_bound_f64(compiled, kernel, VOICES, n),
+            f"exact {key[0]} stage V={VOICES} n={n}")
+    log(f"[3 compare] exact {key[0]} stage ({kernel.name}"
+        f"{pipeline(kernel)}, {len(prog.stage_plan)} modules) V={VOICES} "
+        f"n={n}: max |out| err {err:.3e} (bit-exact: {exact}), max f64 "
+        f"state err {serr64:.3e}; kernel {k_ms:.3f} ms, plain version "
+        f"{p_ms:.1f} ms; {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def phase_compare_exact(stt) -> dict:
+    """Phase 3 for exact precision: each f64 build against its plain
+    version on the card, and the exact block engine against the exact
+    scan engine at 4,800 Hz.  Returns each build's largest error."""
+    from srack_tpu_torch.modules import freeverb as fv
+    from srack_tpu_torch.ops import freeverb_kernel as fvk
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN_F64, ring_align_plain
+    errs = {"row_scan_f64": compare_scans_f64(),
+            "ring_align_f64": compare_ring(stt, f64=True)}
+    errs["freeverb_f64"] = max(compare_freeverb(stt, n, automated, True)
+                               for n in CHECK_NS
+                               for automated in (False, True))
+    compare_freeverb_twin_f64(stt, CHECK_NS[0])
+    errs["serial_stage_f64"] = max(
+        compare_exact_stage(stt, ("feedback_patch", SR), n)
+        for n in PLAIN_NS)
+    compare_exact_stage(stt, ("subtractive_voice", SR), PLAIN_NS[0])
+    for name in EXACT_CHECK_NAMES:
+        compare_kit_engine(stt, name, "exact",
+                           case=exact_cases(stt)[(name, KIT_SR)],
+                           n=EXACT_CHECK_N)
+    # the f64 builds' plain versions at phase 3's shapes (K3's came with its
+    # comparison)
+    n = CHECK_NS[0]
+    cfg, gains, state, l_in, r_in = _freeverb_inputs(stt, n, False, n, True)
+    EXACT_TIMES["freeverb_f64"] = (
+        cuda_ms(lambda: fvk.render(cfg, l_in, r_in, False, gains, state, n),
+                repeats=20, warmup=1),
+        cuda_ms(lambda: fv.block_plain(l_in, r_in, gains, state, n),
+                repeats=3), None,
+        freeverb_bound_f64(fvk.all_lengths(cfg), VOICES, n, 2, 2),
+        f"V={VOICES} n={n}, stereo in, the wrapper (K9 in, K8, K9 out)")
+    lens, rings, idx = _ring_inputs(stt, True)
+    lines = [torch.empty((m, VOICES), dtype=F64, device="cuda")
+             for m in lens]
+    gidx = [((idx[j].to(torch.int64) + torch.arange(
+        length, device="cuda").unsqueeze(-1)) % length)
+        for j, length in enumerate(lens)]
+    EXACT_TIMES["ring_align_f64"] = (
+        cuda_ms(k9_call(RING_ALIGN_F64, rings, lines, lens, VOICES, idx=idx,
+                        dst_lines=True), repeats=20, warmup=1),
+        cuda_ms(lambda: [ring_align_plain(r, idx[j]).T.contiguous()
+                         for j, r in enumerate(rings)], repeats=5),
+        cuda_ms(lambda: [torch.gather(r.T, 0, g)
+                         for r, g in zip(rings, gidx)], repeats=20),
+        _bound2(16 * VOICES * sum(lens) + 4 * idx.numel(), 0, 0),
+        f"24 f64 lines x {VOICES} voices, rings -> lines, the launch alone "
+        f"(library: torch.gather)")
+    return errs
+
+
+def _exact_split(stt, name, compiled, n, launches, total_ms, card) -> dict:
+    """Each kernel of one exact render timed alone at its shapes there
+    (``n``: the segment), times its launches per render, and the rest."""
+    from srack_tpu_torch.block_engine import wire_key
+    from srack_tpu_torch.modules import freeverb as fv
+    from srack_tpu_torch.ops import freeverb_kernel as fvk
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN_F64
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN_F64
+    prog = compiled.block_program()
+    patch = exact_cases(stt)[(name, SR)][0]
+    params = _cuda(stt, stt.presets.farm_params(patch, VOICES))
+    state = _cuda(stt, stt.compiler.tree_map(
+        lambda a: a.expand((VOICES,) + a.shape).contiguous(),
+        compiled.init_state()))
+    alone, bounds = {}, {}
+    kernel = EXACT_STAGES[(name, SR)]
+    stage_state = {"states": {m: state["states"][m]
+                              for m in prog.stage_plan}, "fb": state["fb"]}
+    lanes = {wire_key(w): torch.zeros((VOICES, n), device="cuda")
+             for w in prog.stage_in}
+    alone[kernel.name] = cuda_ms(
+        lambda: kernel.run(params, stage_state, lanes, n), warmup=1)
+    bounds[kernel.name] = (stage_bound_f64 if kernel.layout.doubles
+                           else stage_bound)(compiled, kernel, VOICES, n)
+    lanes.clear()
+    if "row_scan_f64" in launches:
+        x = torch.full((VOICES, n), 1e-3, dtype=F64, device="cuda")
+        alone["row_scan_f64"] = cuda_ms(
+            lambda: ROW_SCAN_F64.run("sum", (x,)), warmup=1, repeats=3)
+        bounds["row_scan_f64"] = _bound2(16 * x.numel(), 0, x.numel())
+        del x
+    if "freeverb_f64" in launches:
+        verb = next(m for m in compiled.plan
+                    if compiled.instances[m][0].type_name == "Freeverb")
+        lens = fvk.all_lengths(compiled.cfg)
+        sd = state["states"][verb]
+        rings = [sd[k] for k in fv.LINE_KEYS]
+        idx = torch.zeros((24, VOICES), dtype=torch.int32, device="cuda")
+        rows = [torch.empty((m, VOICES), dtype=F64, device="cuda")
+                for m in lens]
+        alone["ring_align_f64"] = cuda_ms(k9_call(
+            RING_ALIGN_F64, rings, rows, lens, VOICES, idx=idx,
+            dst_lines=True), repeats=20, warmup=1)
+        bounds["ring_align_f64"] = _bound2(
+            16 * VOICES * sum(lens) + 4 * 24 * VOICES, 0, 0)
+        gains = fv.block_gains(params[verb], VOICES, F64)
+        lines = torch.cat(rows).contiguous()
+        fs = torch.stack([sd[k] for k in fv.FS_KEYS], dim=1).contiguous()
+        lane = torch.zeros((VOICES, n), device="cuda")
+        right = prog._outs_used.get(verb, (True, True))[1]
+        call, keep = k8_call(compiled.cfg, lane, lane, gains, fs, lines, n,
+                             not right)
+        alone["freeverb_f64"] = cuda_ms(call, warmup=1)
+        bounds["freeverb_f64"] = freeverb_bound_f64(lens, VOICES, n, 1,
+                                                    2 if right else 1)
+        del rows, lines, call, keep, lane
+    torch.cuda.empty_cache()
+    rest = total_ms - sum(alone[k] * launches[k] for k in alone)
+    for k, (b_ms, b_by, nbytes, ops) in bounds.items():
+        log(f"[17 exact] bound of {k} in exact {name} V={VOICES} n={n}: "
+            f"{nbytes} bytes, {ops} operations -> {b_ms:.4f} ms ({b_by}); "
+            f"alone it takes {alone[k]:.3f} ms, {alone[k] / b_ms:.1f}x its "
+            f"bound")
+    log(f"[17 exact] split of exact {name} V={VOICES} n={EXACT_N} in "
+        f"launches of n={n}: " + ", ".join(
+            f"{k} {alone[k]:.3f} ms x {launches[k]}" for k in alone)
+        + f", the rest (block phases, the f64 Oscillator forms, transposes, "
+        f"wrappers) {rest:.3f} ms of {total_ms:.3f} [{card}]")
+    return {"alone_ms": alone, "rest_ms": rest, "n": n,
+            "bounds": {k: b[:2] for k, b in bounds.items()}}
+
+
+def _drift(stt, name, head, card) -> float:
+    """The fast render of the same params against the first DRIFT_N
+    samples of the exact one (each render's own engine on the card)."""
+    channels = 2 if name == "reverb_patch" else 1
+    patch = getattr(stt.presets, name)(stt.AudioConfig(
+        sample_rate=SR, channels=channels))
+    fast, _, _ = stt.render_batch(patch, DRIFT_N,
+                                  params=stt.presets.farm_params(patch,
+                                                                 VOICES))
+    return (fast - head).abs().max().item()
+
+
+def exact_path(stt, kernels, card, name, segment, names) -> dict:
+    """One exact main path at 1,024 voices x 10 s, 48 kHz, through
+    ``render_batch`` (engine auto) with the scan engine fenced off: the
+    launches of ``names`` must move and no other kernel's; the warm-up
+    render holds K4's and K8's f64 builds against their plain versions at
+    the shapes it gives them (:func:`held_against_plain`); finite audio,
+    peak <= 1.002; timed after a warm-up (CUDA events), its memory peak;
+    1,024 samples from random f64 phases within 5e-6 of the exact scan
+    engine on the card; the fast render's first 48,000 samples against
+    the exact one's; each kernel alone; and, where ``segment`` is set,
+    whether one unsegmented render fits the card."""
+    patch, compiled = exact_cases(stt)[(name, SR)]
+    params = stt.presets.farm_params(patch, VOICES)
+    channels = compiled.cfg.channels
+    found = {}
+    with no_scan_engine():
+        audio, ms, launches = _timed_main(
+            kernels, lambda: stt.render_batch(patch, EXACT_N, params=params,
+                                              segment=segment), names,
+            held_against_plain(found))
+    if not isinstance(launches, dict):   # one kernel's count
+        launches = {names[0]: launches}
+    wrapped = {"row_scan_f64", "freeverb_f64"} & set(names)
+    check(set(found) == wrapped, f"exact {name}: the warm-up called the "
+          f"wrappers of {sorted(found)}, the path launches {sorted(wrapped)}")
+    held = _log_held(f"17 exact {name}", found, card)
+    mem = PEAK["render"]
+    peak = _check_audio(audio, (VOICES, channels, EXACT_N), f"exact {name}")
+    head = audio[..., :DRIFT_N].clone()
+    del audio
+    torch.cuda.empty_cache()
+    drift = _drift(stt, name, head, card)
+    del head
+    # the prefix from random phases (the gate clocks sound at once), the
+    # scan engine on the card the reference
+    p = _cuda(stt, params)
+    state = _random_state(stt, compiled, VOICES, 17)
+    with no_scan_engine():
+        pre_b, _, _ = compiled.render(EXACT_PREFIX, params=p, state=state,
+                                      batched=True, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pre_s, _ = compiled.render_scan(p, state, EXACT_PREFIX, batched=True,
+                                        nograd=True)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    err = (pre_b - pre_s).abs().max().item()
+    sounding = int((pre_s != 0).sum())
+    check(sounding > 0, f"exact {name}: the held prefix is silent")
+    check(err <= BLOCK_ATOL, f"exact {name}: the first {EXACT_PREFIX} "
+          f"samples off the exact scan engine by {err}")
+    del pre_b, pre_s
+    unsegmented = None
+    if segment:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with no_scan_engine():
+                a = stt.render_batch(patch, EXACT_N, params=params)[0]
+            torch.cuda.synchronize()
+            unsegmented = {"fits": True,
+                           "peak_bytes": torch.cuda.max_memory_allocated()}
+            del a
+        except torch.cuda.OutOfMemoryError:
+            unsegmented = {"fits": False}
+        torch.cuda.empty_cache()
+    rate = VOICES * EXACT_N / (ms / 1e3)
+    split = _exact_split(stt, name, compiled, segment or EXACT_N, launches,
+                         ms, card)
+    log(f"[17 exact] exact {name} V={VOICES} n={EXACT_N} at {SR} Hz via "
+        f"render_batch(segment={segment}) -> block engine (scan engine "
+        f"fenced off), launches {launches} per render; {ms:.3f} ms/render, "
+        f"{rate / 1e9:.4f} G samples/s, peak {peak:.5f}, device memory "
+        f"peak {mem / 2 ** 30:.2f} GiB; first {EXACT_PREFIX} samples from "
+        f"random phases within {err:.3e} of the exact scan engine "
+        f"(bit-exact: {err == 0.0}, {sounding} samples not silent, scan "
+        f"{scan_s:.1f} s); fast vs exact over the first {DRIFT_N}: max "
+        f"|diff| {drift:.3e}"
+        + ("" if unsegmented is None else
+           f"; unsegmented: {'fits, peak %.2f GiB' % (unsegmented['peak_bytes'] / 2 ** 30) if unsegmented['fits'] else 'does not fit the card'}")
+        + f" [{card}]")
+    return {"ms": ms, "g_samples_per_s": rate / 1e9, "launches": launches,
+            "memory_peak_bytes": mem, "prefix_err": err, "drift": drift,
+            "segment": segment, "unsegmented": unsegmented, "split": split,
+            "held": held}
+
+
+def exact_drift_sine(stt, card) -> float:
+    """``tests/test_precision.py`` on the card: a sine at val 0.25, 1 s at
+    48 kHz, fast against exact within 1e-3 (each on its engine: K1, and the
+    exact Oscillator's closed form)."""
+    out = {}
+    for precision in ("fast", "exact"):
+        p = stt.Patch(stt.AudioConfig(sample_rate=SR, channels=1,
+                                      precision=precision))
+        o = p.add("Oscillator", val=0.25)
+        p.connect(o, "Sine", p.output, 0)
+        out[precision] = stt.render(p, DRIFT_N)[0]
+    d = (out["fast"] - out["exact"]).abs().max().item()
+    check(d <= DRIFT_TOL, f"fast vs exact sine over 1 s: {d}")
+    log(f"[17 exact] tests/test_precision.py's sine (val 0.25, 1 s at {SR} "
+        f"Hz) fast vs exact on the card: max |diff| {d:.3e} (<= "
+        f"{DRIFT_TOL}) [{card}]")
+    return d
+
+
+def exact_one_voice(stt, kernels, card) -> dict:
+    """One unbatched voice of the exact subtractive_voice through
+    ``stt.render`` (1 s) and ``render_stream`` (4 blocks), the scan engine
+    fenced off: the block engine as a batch of one (K3 and K4's f64
+    build, once per render or block), held to the exact scan engine over
+    1,024 samples from a sounding gate clock."""
+    patch = stt.presets.subtractive_voice(stt.AudioConfig(
+        sample_rate=SR, channels=1, precision="exact"))
+    compiled = stt.compile_patch(patch)
+    per = {"serial_stage": 1, "row_scan_f64": 1}
+    with no_scan_engine():
+        stt.render(patch, ONE_N)
+        (audio, _, _), counts = _counted(kernels,
+                                         lambda: stt.render(patch, ONE_N))
+        ms = cuda_ms(lambda: stt.render(patch, ONE_N))
+        streamed, s_counts = _counted(kernels, lambda: [
+            a for a, _, _ in stt.render_stream(patch, n_blocks=4)])
+    check(counts == per, f"exact one voice via render launched {counts}")
+    check(s_counts == {k: 4 * c for k, c in per.items()},
+          f"exact one voice via render_stream launched {s_counts}")
+    check(tuple(audio.shape) == (1, ONE_N), "exact one voice shape")
+    peak = _check_audio(audio, (1, ONE_N), "exact one voice")
+    block = compiled.cfg.block_size
+    stream_err = (torch.cat(streamed, dim=-1)
+                  - audio[..., :4 * block]).abs().max().item()
+    check(stream_err <= BLOCK_ATOL, f"exact render_stream off render by "
+          f"{stream_err}")
+    clock = next(i.id for i in patch if i.name == "gate_clock")
+    state = compiled.init_state()
+    state["states"][clock]["pos"] = torch.tensor(0.49, dtype=F64)
+    with no_scan_engine():
+        prefix = stt.render(patch, EXACT_PREFIX, state=state)[0]
+    with torch.no_grad():
+        scan = stt.render(patch, EXACT_PREFIX, state=state, engine="scan")[0]
+    err = (prefix - scan).abs().max().item()
+    sounding = int((scan != 0).sum())
+    check(sounding > 0 and err <= BLOCK_ATOL, f"exact one voice off the "
+          f"scan engine by {err} ({sounding} samples not silent)")
+    log(f"[17 exact] exact subtractive_voice, one voice, 1 s at {SR} Hz via "
+        f"stt.render (scan engine fenced off): launches {counts}, {ms:.3f} "
+        f"ms; render_stream (4 blocks of {block}) {s_counts}, off render by "
+        f"{stream_err:.3e}; first {EXACT_PREFIX} samples from a sounding "
+        f"gate clock within {err:.3e} of the scan engine ({sounding} not "
+        f"silent); peak {peak:.5f} [{card}]")
+    return {"ms": ms, "launches": {"render": counts,
+                                   "render_stream": s_counts},
+            "prefix_err": err, "stream_err": stream_err}
+
+
+# each parent's f64 build in the kernels' record: its name and the phase-17
+# path whose launches and split it reports
+F64_BUILDS = {"serial_stage": ("serial_stage_f64", "feedback"),
+              "row_scan": ("row_scan_f64", "headline"),
+              "freeverb": ("freeverb_f64", "reverb"),
+              "ring_align": ("ring_align_f64", "reverb")}
+
+
+def f64_entry(parent, source, replaces, errs, exact) -> dict:
+    """The kernels' record of ``parent``'s f64 build, listed under it: the
+    same keys, its launches on its phase-17 path, its time alone and its
+    bound at that path's shapes, its plain version at phase 3's shape."""
+    name, cell = F64_BUILDS[parent]
+    rec = exact[cell]
+    split = rec["split"]
+    b_ms, b_by = split["bounds"][name]
+    check_ms, plain_ms, lib_ms, check_bound, shape = EXACT_TIMES[name]
+    by_phase = {f"17 {c}": exact[c]["launches"].get(name, 0)
+                for c in ("headline", "reverb", "feedback")}
+    by_phase["17 one voice"] = \
+        exact["one voice"]["launches"]["render"].get(name, 0)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "f64_build_of": parent,
+            "pallas_counterpart": "none: the JAX package runs exact "
+                                  "precision's path in XLA",
+            "launches": rec["launches"][name],
+            "launches_by_phase": by_phase, "max_abs_err": errs[name],
+            "ms": split["alone_ms"][name], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": f"exact {cell}, [{VOICES}, {split['n']}] a launch",
+            "ms_at_plain_shape": check_ms,
+            "bound_ms_at_plain_shape": check_bound[0],
+            "plain_shape": shape}
+
+
+def phase_exact(stt, kernels, card) -> dict:
+    """Phase 17: exact precision's main paths on the card."""
+    rec = {"headline": exact_path(stt, kernels, card, "subtractive_voice",
+                                  EXACT_SEGMENT,
+                                  ("serial_stage", "row_scan_f64"))}
+    rec["reverb"] = exact_path(stt, kernels, card, "reverb_patch",
+                               EXACT_SEGMENT,
+                               ("serial_stage", "row_scan_f64",
+                                "freeverb_f64", "ring_align_f64"))
+    rec["feedback"] = exact_path(stt, kernels, card, "feedback_patch", None,
+                                 ("serial_stage_f64",))
+    rec["one voice"] = exact_one_voice(stt, kernels, card)
+    rec["sine drift"] = exact_drift_sine(stt, card)
+    return rec
+
 
 def main() -> int:
     card = phase_device()
@@ -3282,6 +3937,10 @@ def main() -> int:
     vjp_errs, vjp_keep = phase_compare_vjp(stt)
     errs.update(vjp_errs)
     log(f"[3 compare] slice 5 (K10): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    errs.update(phase_compare_exact(stt))
+    log(f"[3 compare] slice 10 (exact precision): "
+        f"{time.perf_counter() - t1:.1f} s")
     log(f"[3 compare] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     main_launches, _ = phase_main(stt, kernels, card,
@@ -3357,6 +4016,12 @@ def main() -> int:
     log(f"[16 one voice] {time.perf_counter() - t0:.1f} s")
     one_k1 = sum(one["subtractive_voice"]["launches"]["render"].values())
     one_k3 = one["reverb_patch"]["launches"]["render"]
+    t0 = time.perf_counter()
+    exact = phase_exact(stt, kernels, card)
+    log(f"[17 exact] {time.perf_counter() - t0:.1f} s")
+    for cell in ("headline", "reverb", "feedback"):  # full-width comparisons
+        for name, err in exact[cell]["held"].items():
+            errs[name] = max(errs[name], err)
 
     entries = []
     meta = {
@@ -3426,8 +4091,9 @@ def main() -> int:
                        kit_launches["13 kit check"]["row_gather"],
                        {"13 kit check":
                         kit_launches["13 kit check"]["row_gather"]}),
-        # K6 is JAX's path where K7 declines (exact precision): no main
-        # path of this slice launches it; phase 3 runs it under K7
+        # K6 is the Sample's unfused read: no main path launches it (an
+        # exact Sample takes K7, as in the JAX package, whose K7 takes the
+        # exact Sample's f32 gate and table); phase 3 runs it under K7
         "row_gather_long": ("srack_tpu_torch/csrc/row_gather.cu",
                             "srack_tpu/ops/sample_gather.py:167", 0, {}),
         "sample_play": ("srack_tpu_torch/csrc/sample_play.cu",
@@ -3469,6 +4135,8 @@ def main() -> int:
         if name == "ring_align":
             entries[-1]["twin"] = {c: ab[f"k9 {c}"] for c in ("reverb",
                                                             "block check")}
+        if name in F64_BUILDS:
+            entries.append(f64_entry(name, source, replaces, errs, exact))
     plain_ms = dict(zip(("fwd", "bwd"), vjp_plain))
     for i, (which, line) in enumerate((("fwd", 92), ("bwd", 212))):
         name = f"fused_vjp_{which}"

@@ -22,6 +22,13 @@ This engine shrinks the per-sample region to what needs it:
    (``ops/fused.py::StageKernel``) for CUDA tensors, its plain version, a
    torch loop over :meth:`BlockProgram._stage_step`, for CPU tensors.
 
+Exact precision (``cfg.exact``) follows the JAX package's rules: no
+synthesized stage seed and no absorption, so the stage holds only the
+serial core (and what a feedback cycle forces into it); the Oscillators
+outside it run their f64 block forms.  K3 runs an exact stage too, its f64
+leaves (the Oscillator's phase) in a row array of doubles.  State leaves
+keep their dtype through every phase, segment and carried state.
+
 Buffer-feedback mode (``cfg.buffer_feedback``, the counterpart of
 ``_make_run_buffer``): a feedback edge reads the previous block's lane, so
 one block's graph is acyclic; the three phases run block by block in a
@@ -254,8 +261,9 @@ class BlockProgram:
                     for p in range(mdef.num_outputs(self.cfg, statics)))
 
         # the stage can run on kernel K3: every module has a device function
-        self.kernel_ok = all(safe(m) for m in self.stage_plan) \
-            and not self.cfg.exact
+        # (in exact precision too: the generator takes f64 leaves, and
+        # csrc/modules.cuh has the exact Oscillator's device function)
+        self.kernel_ok = all(safe(m) for m in self.stage_plan)
 
         # automation: stage modules read their lanes per sample, block-phase
         # modules get [V, n] lanes in place of the params
@@ -499,12 +507,10 @@ class BlockProgram:
 
 
 def eligible(compiled) -> bool:
-    """Can the port's block engine render this patch on the card?  Fast
-    precision (either feedback mode), no Output module in the stage, and a
-    stage that kernel K3 can run (on the card the stage has no plain
+    """Can the port's block engine render this patch on the card?  Either
+    precision and either feedback mode, no Output module in the stage, and
+    a stage that kernel K3 can run (on the card the stage has no plain
     fallback)."""
-    if compiled.cfg.exact:
-        return False
     prog = compiled.block_program()
     return prog.kernel_ok and compiled.output_id not in prog.stage_set
 

@@ -33,6 +33,12 @@ sample's value.
   block's fb lanes (the counterpart of ``_render_buffer_mode``), and the
   fused engine runs kernel K2's counterpart.
 
+Precision: ``cfg.exact`` keeps the reference's f64 leaves (the Oscillator's
+phase, the Freeverb's core) as ``torch.float64`` through every engine,
+carried state and segment; torch needs no x64 switch.  An exact patch is
+never fused-eligible (as in the JAX package), so on the card it renders on
+the block engine, whose kernels have f64 builds.
+
 Hoisted lanes: per-sample sources with no state (Noise draws, Input
 drivers) and automation lanes (a scalar param promoted to a per-sample
 array) are made once per render outside the sample loop and read sample by
@@ -450,9 +456,10 @@ class CompiledPatch:
 
     def auto_engine(self, batched: bool, device) -> str:
         """Pick the engine by device: on a CUDA device the fused kernel if
-        the patch is eligible, else the block engine if it is eligible; the
-        scan engine otherwise.  A render of one unbatched voice takes the
-        same engine as a batched render (it runs as a batch of one)."""
+        the patch is eligible, else the block engine if it is eligible
+        (every exact patch whose stage K3 can run); the scan engine
+        otherwise.  A render of one unbatched voice takes the same engine
+        as a batched render (it runs as a batch of one)."""
         if torch.device(device).type == "cuda":
             if self.fused_eligible():
                 return "fused"

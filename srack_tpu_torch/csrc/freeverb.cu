@@ -90,6 +90,22 @@
 // 80GB HBM3 at 700.00 W: chip_smoke.py, PR 6's run).  It stays for the
 // A/B of chip_smoke.py phase 15 and for lines too long for shared memory.
 //
+// The f64 build (entries srk_freeverb_f64, srk_freeverb_twin_f64): exact
+// precision's core.  Every function below is a template on the core type
+// C, float or double: the lines, the 16 comb filter states, the gains, the
+// comb sums, the allpass chains, the mix and every constant on the way
+// (0, 0.5, 1 as C) are C; the input lanes and the outputs stay f32, an
+// input lane taken to C before the sum (l + r), an output rounded to f32
+// once after the mix, as the module's f64 block form does.  A voice's
+// lines take 8 * (rows + 2T) bytes: 223,552 B at 48 kHz (T = 128), one CTA
+// per SM (the 227 KB per-block limit is 232,448 B), 1,024 CTAs in 7.8
+// waves; at 96 kHz (445 KB) they do not fit and the wrapper's rule sends
+// the voice to the f64 twin.  Shared-memory banks: a reader warp reads 32
+// consecutive doubles of one line (256 B, two wavefronts, no conflict);
+// the writer warp's 16 comb lanes each read and write one double of its
+// own line, at offsets as scattered as the f32 build's words, two banks
+// each.
+//
 // What bounds K8: the bytes it must move are its lanes in and out and the
 // lines and filter states in and out once (1.828 ms at 3.35 TB/s for the
 // stereo reverb cell); its f32 operations (132 per voice-sample) take
@@ -119,20 +135,24 @@
 #define SRK_FV_THREADS (SRK_FV_TILE_MAX + 32)  // and one writer warp
 
 // A sample's input lanes and output gains: l, r (a missing input lane is
-// 0) and wet1, wet2, dry (per voice, [V], or a lane, [V, n]).
+// 0; f32 lanes) and wet1, wet2, dry (per voice, [V], or a lane, [V, n]; in
+// the core type C).
+template <typename C>
 struct srk_fv_in {
-  float l, r, w1, w2, d;
+  float l, r;
+  C w1, w2, d;
 };
 
 #define SRK_FV_IN_PARAMS                                                    \
-  const float *l_in, const float *r_in, const float *wet1, int wet1_lane,  \
-      const float *wet2, int wet2_lane, const float *dry, int dry_lane
+  const float *l_in, const float *r_in, const C *wet1, int wet1_lane,      \
+      const C *wet2, int wet2_lane, const C *dry, int dry_lane
 #define SRK_FV_IN_ARGS \
   l_in, r_in, wet1, wet1_lane, wet2, wet2_lane, dry, dry_lane
 
 // element i of [V, n], voice v
-SRK_HD srk_fv_in srk_fv_in_at(size_t i, size_t v, SRK_FV_IN_PARAMS) {
-  srk_fv_in x;
+template <typename C>
+SRK_HD srk_fv_in<C> srk_fv_in_at(size_t i, size_t v, SRK_FV_IN_PARAMS) {
+  srk_fv_in<C> x;
   x.l = l_in ? l_in[i] : 0.0f;
   x.r = r_in ? r_in[i] : 0.0f;
   x.w1 = wet1[wet1_lane ? i : v];
@@ -142,20 +162,27 @@ SRK_HD srk_fv_in srk_fv_in_at(size_t i, size_t v, SRK_FV_IN_PARAMS) {
 }
 
 // The output mix of element i from the channels' raw outputs: the same
-// expressions, in the same order, as the module's block form.
-SRK_HD void srk_fv_mix_out(size_t i, const srk_fv_in& x, float rl, float rr,
+// expressions, in the same order, as the module's block form, in C, then
+// rounded to f32 once.
+template <typename C>
+SRK_HD void srk_fv_mix_out(size_t i, const srk_fv_in<C>& x, C rl, C rr,
                            float* out_l, float* out_r) {
-  out_l[i] = rl * x.w1 + rr * x.w2 + x.l * x.d;
-  if (out_r) out_r[i] = rr * x.w1 + rl * x.w2 + x.r * x.d;
+  out_l[i] = (float)(rl * x.w1 + rr * x.w2 + (C)x.l * x.d);
+  if (out_r) out_r[i] = (float)(rr * x.w1 + rl * x.w2 + (C)x.r * x.d);
 }
 
-#define SRK_FV_ARGS                                                         \
-  const float *l_in, const float *r_in, const float *damp, int damp_lane,   \
-      const float *feed, int feed_lane, const float *in_gain,               \
-      const float *wet1, int wet1_lane, const float *wet2, int wet2_lane,   \
-      const float *dry, int dry_lane, float *fs, float *lines,              \
-      const int *lens, const int *offs, float *raw, float *out_l,           \
-      float *out_r, int V, int n, int chunk
+// the entries' arguments for the core type C (float or double)
+#define SRK_FV_ARGS_T(C)                                                    \
+  const float *l_in, const float *r_in, const C *damp, int damp_lane,       \
+      const C *feed, int feed_lane, const C *in_gain, const C *wet1,        \
+      int wet1_lane, const C *wet2, int wet2_lane, const C *dry,            \
+      int dry_lane, C *fs, C *lines, const int *lens, const int *offs,      \
+      C *raw, float *out_l, float *out_r, int V, int n, int chunk
+#define SRK_FV_ARGS SRK_FV_ARGS_T(C)
+#define SRK_FV_CALL                                                         \
+  l_in, r_in, damp, damp_lane, feed, feed_lane, in_gain, wet1, wet1_lane,   \
+      wet2, wet2_lane, dry, dry_lane, fs, lines, lens, offs, raw, out_l,    \
+      out_r, V, n, chunk
 
 // -- srk_freeverb: one CTA per voice, lines in shared memory -----------------
 
@@ -187,14 +214,15 @@ SRK_HD void srk_fv_taps_next(srk_fv_taps& L, int T) {
 // Sample i = row + t0 + tc of voice v, its inputs x: both channels' comb
 // reads and allpass chains in the voice's buffer sm, the combs' input
 // into mix[tc] and the output mix.
+template <typename C>
 SRK_HD void srk_fv_tile_read(const srk_fv_taps& L, int tc, size_t i,
-                             const srk_fv_in& x, float g, float* sm,
-                             float* mix, float* out_l, float* out_r) {
-  mix[tc] = (x.l + x.r) * g;
-  float raw_out[2];
+                             const srk_fv_in<C>& x, C g, C* sm, C* mix,
+                             float* out_l, float* out_r) {
+  mix[tc] = ((C)x.l + (C)x.r) * g;
+  C raw_out[2];
 #pragma unroll
   for (int ch = 0; ch < 2; ++ch) {
-    float out = 0.0f;
+    C out = (C)0;
 #pragma unroll
     for (int j = 0; j < SRK_FV_COMBS; ++j) {
       const int k = ch * SRK_FV_COMBS + j;
@@ -207,10 +235,10 @@ SRK_HD void srk_fv_tile_read(const srk_fv_taps& L, int tc, size_t i,
       const int k = 2 * SRK_FV_COMBS + ch * SRK_FV_PASSES + a;
       int s = L.pos[k] + tc;
       if (s >= L.len[k]) s -= L.len[k];
-      float* slot = sm + L.off[k] + s;
-      const float delayed = *slot;
-      const float o = delayed - out;
-      *slot = out + delayed * 0.5f;
+      C* slot = sm + L.off[k] + s;
+      const C delayed = *slot;
+      const C o = delayed - out;
+      *slot = out + delayed * (C)0.5;
       out = o;
     }
     raw_out[ch] = out;
@@ -219,22 +247,24 @@ SRK_HD void srk_fv_tile_read(const srk_fv_taps& L, int tc, size_t i,
 }
 
 // One comb's serial state: a writer lane.
+template <typename C>
 struct srk_fv_comb {
-  float f;          // the damping one-pole's state
-  float dmp, omd, fd;  // dampening, 1 - dampening, feedback
+  C f;              // the damping one-pole's state
+  C dmp, omd, fd;   // dampening, 1 - dampening, feedback
   int p;            // the write index of the next sample
   int next;         // the next sample at which the damp/feed lanes are read
 };
 
-SRK_HD void srk_fv_comb_init(srk_fv_comb& C, const float* fs0,
-                             const float* damp, int damp_lane,
-                             const float* feed, int feed_lane, size_t v) {
-  C.f = *fs0;
-  C.dmp = damp_lane ? 0.0f : damp[v];
-  C.omd = 1.0f - C.dmp;
-  C.fd = feed_lane ? 0.0f : feed[v];
-  C.p = 0;
-  C.next = 0;
+template <typename C>
+SRK_HD void srk_fv_comb_init(srk_fv_comb<C>& K, const C* fs0, const C* damp,
+                             int damp_lane, const C* feed, int feed_lane,
+                             size_t v) {
+  K.f = *fs0;
+  K.dmp = damp_lane ? (C)0 : damp[v];
+  K.omd = (C)1 - K.dmp;
+  K.fd = feed_lane ? (C)0 : feed[v];
+  K.p = 0;
+  K.next = 0;
 }
 
 // Samples t0 .. t0 + cnt - 1 of one comb (line of length len >= 16 in the
@@ -244,49 +274,50 @@ SRK_HD void srk_fv_comb_init(srk_fv_comb& C, const float* fs0,
 // start (the same sample for every comb) or the chunk's end, and a line's
 // wrap is a select per sample.  Sixteen samples' loads go ahead of their
 // chain, so the chain waits on shared memory once per sixteen samples.
-SRK_HD void srk_fv_tile_comb(srk_fv_comb& C, float* line, int len,
-                             const float* mix, int t0, int cnt, size_t row,
-                             const float* damp, int damp_lane,
-                             const float* feed, int feed_lane, int chunk) {
+template <typename C>
+SRK_HD void srk_fv_tile_comb(srk_fv_comb<C>& K, C* line, int len,
+                             const C* mix, int t0, int cnt, size_t row,
+                             const C* damp, int damp_lane, const C* feed,
+                             int feed_lane, int chunk) {
   int tc = 0;
   while (tc < cnt) {
     const int t = t0 + tc;
-    if (t == C.next) {  // the lanes' snapshot at each hold's start
-      if (damp_lane) C.dmp = damp[row + t];
-      if (feed_lane) C.fd = feed[row + t];
-      C.omd = 1.0f - C.dmp;
-      C.next += chunk;
+    if (t == K.next) {  // the lanes' snapshot at each hold's start
+      if (damp_lane) K.dmp = damp[row + t];
+      if (feed_lane) K.fd = feed[row + t];
+      K.omd = (C)1 - K.dmp;
+      K.next += chunk;
     }
     int seg = cnt - tc;
-    if (seg > C.next - t) seg = C.next - t;
-    const float* m = mix + tc;
+    if (seg > K.next - t) seg = K.next - t;
+    const C* m = mix + tc;
     int i = 0;
     for (; i + 16 <= seg; i += 16) {
       int q[16];
-      float y[16], x[16];
+      C y[16], x[16];
 #pragma unroll
       for (int u = 0; u < 16; ++u) {
-        q[u] = C.p + u;
+        q[u] = K.p + u;
         if (q[u] >= len) q[u] -= len;
         y[u] = line[q[u]];
         x[u] = m[i + u];
       }
 #pragma unroll
       for (int u = 0; u < 16; ++u) {
-        const float fsn = y[u] * C.omd + C.f * C.dmp;
-        C.f = fsn;
-        y[u] = x[u] + fsn * C.fd;
+        const C fsn = y[u] * K.omd + K.f * K.dmp;
+        K.f = fsn;
+        y[u] = x[u] + fsn * K.fd;
       }
 #pragma unroll
       for (int u = 0; u < 16; ++u) line[q[u]] = y[u];
-      C.p += 16;
-      if (C.p >= len) C.p -= len;
+      K.p += 16;
+      if (K.p >= len) K.p -= len;
     }
     for (; i < seg; ++i) {
-      const float fsn = line[C.p] * C.omd + C.f * C.dmp;
-      C.f = fsn;
-      line[C.p] = m[i] + fsn * C.fd;
-      if (++C.p == len) C.p = 0;
+      const C fsn = line[K.p] * K.omd + K.f * K.dmp;
+      K.f = fsn;
+      line[K.p] = m[i] + fsn * K.fd;
+      if (++K.p == len) K.p = 0;
     }
     tc += seg;
   }
@@ -296,13 +327,13 @@ SRK_HD void srk_fv_tile_comb(srk_fv_comb& C, float* line, int len,
 
 // One voice and channel over the whole render.  Lines: combs c<ch>0..7
 // are lines ch*8 + j, allpasses a<ch>0..3 are lines 16 + ch*4 + a.
+template <typename C>
 SRK_HD void srk_fv_voice(int v, int ch, int V, int n, int chunk,
-                         const float* l_in, const float* r_in,
-                         const float* damp, int damp_lane,
-                         const float* feed, int feed_lane,
-                         const float* in_gain, float* fs, float* lines,
-                         const int* lens, const int* offs, float* raw) {
-  float* line[SRK_FV_LINES];
+                         const float* l_in, const float* r_in, const C* damp,
+                         int damp_lane, const C* feed, int feed_lane,
+                         const C* in_gain, C* fs, C* lines, const int* lens,
+                         const int* offs, C* raw) {
+  C* line[SRK_FV_LINES];
   int len[SRK_FV_LINES], idx[SRK_FV_LINES];
   for (int j = 0; j < SRK_FV_LINES; ++j) {
     const int k = j < SRK_FV_COMBS ? ch * SRK_FV_COMBS + j
@@ -312,39 +343,39 @@ SRK_HD void srk_fv_voice(int v, int ch, int V, int n, int chunk,
     len[j] = lens[k];
     idx[j] = 0;
   }
-  float f[SRK_FV_COMBS];
+  C f[SRK_FV_COMBS];
   for (int j = 0; j < SRK_FV_COMBS; ++j)
     f[j] = fs[(size_t)v * SRK_FV_FS + ch * SRK_FV_COMBS + j];
-  const float g = in_gain[v];
+  const C g = in_gain[v];
   const size_t row = (size_t)v * n;
-  float dmp = damp_lane ? 0.0f : damp[v];
-  float fd = feed_lane ? 0.0f : feed[v];
-  float* out_row = raw + ((size_t)ch * V + v) * n;
+  C dmp = damp_lane ? (C)0 : damp[v];
+  C fd = feed_lane ? (C)0 : feed[v];
+  C* out_row = raw + ((size_t)ch * V + v) * n;
   for (int t = 0; t < n; ++t) {
     if (t % chunk == 0) {  // the lanes' snapshot at each chunk's start
       if (damp_lane) dmp = damp[row + t];
       if (feed_lane) fd = feed[row + t];
     }
-    const float l = l_in ? l_in[row + t] : 0.0f;
-    const float r = r_in ? r_in[row + t] : 0.0f;
-    const float mixed = (l + r) * g;
-    float y[SRK_FV_LINES];
+    const C l = l_in ? (C)l_in[row + t] : (C)0;
+    const C r = r_in ? (C)r_in[row + t] : (C)0;
+    const C mixed = (l + r) * g;
+    C y[SRK_FV_LINES];
 #pragma unroll
     for (int j = 0; j < SRK_FV_LINES; ++j)
       y[j] = line[j][(size_t)idx[j] * V];
-    float out = 0.0f;
+    C out = (C)0;
 #pragma unroll
     for (int j = 0; j < SRK_FV_COMBS; ++j) {
-      const float fsn = y[j] * (1.0f - dmp) + f[j] * dmp;
+      const C fsn = y[j] * ((C)1 - dmp) + f[j] * dmp;
       f[j] = fsn;
       line[j][(size_t)idx[j] * V] = mixed + fsn * fd;
       out = out + y[j];
     }
 #pragma unroll
     for (int a = SRK_FV_COMBS; a < SRK_FV_LINES; ++a) {
-      const float delayed = y[a];
-      const float o = delayed - out;
-      line[a][(size_t)idx[a] * V] = out + delayed * 0.5f;
+      const C delayed = y[a];
+      const C o = delayed - out;
+      line[a][(size_t)idx[a] * V] = out + delayed * (C)0.5;
       out = o;
     }
     out_row[t] = out;
@@ -357,21 +388,24 @@ SRK_HD void srk_fv_voice(int v, int ch, int V, int n, int chunk,
 }
 
 // The twin's second pass, element i of [V, n].
-SRK_HD void srk_fv_mix(size_t i, int V, int n, const float* raw,
-                       const float* l_in, const float* r_in,
-                       const float* wet1, int wet1_lane, const float* wet2,
-                       int wet2_lane, const float* dry, int dry_lane,
-                       float* out_l, float* out_r) {
-  srk_fv_mix_out(i, srk_fv_in_at(i, i / (size_t)n, SRK_FV_IN_ARGS), raw[i],
-                 raw[(size_t)V * n + i], out_l, out_r);
+template <typename C>
+SRK_HD void srk_fv_mix(size_t i, int V, int n, const C* raw,
+                       const float* l_in, const float* r_in, const C* wet1,
+                       int wet1_lane, const C* wet2, int wet2_lane,
+                       const C* dry, int dry_lane, float* out_l,
+                       float* out_r) {
+  srk_fv_mix_out<C>(i, srk_fv_in_at<C>(i, i / (size_t)n, SRK_FV_IN_ARGS),
+                    raw[i], raw[(size_t)V * n + i], out_l, out_r);
 }
 
 #ifdef __CUDACC__
 
+template <typename C>
 __global__ void __launch_bounds__(SRK_FV_THREADS, 2)
     srk_fv_tile_kernel(SRK_FV_ARGS, int rows, int T) {
-  extern __shared__ float sm[];
-  float* mix = sm + rows;   // [2][T]
+  extern __shared__ __align__(16) unsigned char srk_fv_smem[];
+  C* sm = reinterpret_cast<C*>(srk_fv_smem);
+  C* mix = sm + rows;   // [2][T]
   const int v = blockIdx.x;
   const int tid = threadIdx.x;
   for (int r = tid; r < rows; r += SRK_FV_THREADS)
@@ -385,18 +419,19 @@ __global__ void __launch_bounds__(SRK_FV_THREADS, 2)
     // set the step's length)
     srk_fv_taps L;
     srk_fv_taps_init(L, lens, offs);
-    const float g = in_gain[v];
-    srk_fv_in x = {};
-    if (tid < T && tid < n) x = srk_fv_in_at(row + tid, v, SRK_FV_IN_ARGS);
+    const C g = in_gain[v];
+    srk_fv_in<C> x = {};
+    if (tid < T && tid < n)
+      x = srk_fv_in_at<C>(row + tid, v, SRK_FV_IN_ARGS);
     for (int k = 0; k <= n_chunks; ++k) {
       const int t = k * T + tid;
       const bool mine = k < n_chunks && tid < T && t < n;
-      const srk_fv_in cur = x;
+      const srk_fv_in<C> cur = x;
       if (tid < T && t + T < n)
-        x = srk_fv_in_at(row + t + T, v, SRK_FV_IN_ARGS);
+        x = srk_fv_in_at<C>(row + t + T, v, SRK_FV_IN_ARGS);
       if (mine)
-        srk_fv_tile_read(L, tid, row + t, cur, g, sm, mix + (k & 1) * T,
-                         out_l, out_r);
+        srk_fv_tile_read<C>(L, tid, row + t, cur, g, sm, mix + (k & 1) * T,
+                            out_l, out_r);
       srk_fv_taps_next(L, T);
       __syncwarp();
       __syncthreads();
@@ -406,164 +441,201 @@ __global__ void __launch_bounds__(SRK_FV_THREADS, 2)
     // behind the readers
     const int c = tid - SRK_FV_TILE_MAX;
     const bool live = c < SRK_FV_FS;
-    srk_fv_comb C;
+    srk_fv_comb<C> K;
     int len = 1;
-    float* line = sm;
+    C* line = sm;
     if (live) {
-      srk_fv_comb_init(C, fs + (size_t)v * SRK_FV_FS + c, damp, damp_lane,
-                       feed, feed_lane, v);
+      srk_fv_comb_init<C>(K, fs + (size_t)v * SRK_FV_FS + c, damp,
+                          damp_lane, feed, feed_lane, v);
       len = lens[c];
       line = sm + offs[c];
     }
     for (int k = 0; k <= n_chunks; ++k) {
       const int t0 = (k - 1) * T;
       if (live && k > 0)
-        srk_fv_tile_comb(C, line, len, mix + ((k - 1) & 1) * T, t0,
-                         n - t0 < T ? n - t0 : T, row, damp, damp_lane, feed,
-                         feed_lane, chunk);
+        srk_fv_tile_comb<C>(K, line, len, mix + ((k - 1) & 1) * T, t0,
+                            n - t0 < T ? n - t0 : T, row, damp, damp_lane,
+                            feed, feed_lane, chunk);
       __syncwarp();
       __syncthreads();
     }
-    if (live) fs[(size_t)v * SRK_FV_FS + c] = C.f;
+    if (live) fs[(size_t)v * SRK_FV_FS + c] = K.f;
   }
   __syncthreads();
   for (int r = tid; r < rows; r += SRK_FV_THREADS)
     lines[(size_t)r * V + v] = sm[r];
 }
 
+template <typename C>
 __global__ void __launch_bounds__(SRK_FV_BLOCK)
-    srk_fv_kernel(const float* l_in, const float* r_in, const float* damp,
-                  int damp_lane, const float* feed, int feed_lane,
-                  const float* in_gain, float* fs, float* lines,
-                  const int* lens, const int* offs, float* raw, int V, int n,
-                  int chunk) {
+    srk_fv_kernel(const float* l_in, const float* r_in, const C* damp,
+                  int damp_lane, const C* feed, int feed_lane,
+                  const C* in_gain, C* fs, C* lines, const int* lens,
+                  const int* offs, C* raw, int V, int n, int chunk) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= 2 * V) return;
   const int ch = g / V, v = g - ch * V;
-  srk_fv_voice(v, ch, V, n, chunk, l_in, r_in, damp, damp_lane, feed,
-               feed_lane, in_gain, fs, lines, lens, offs, raw);
+  srk_fv_voice<C>(v, ch, V, n, chunk, l_in, r_in, damp, damp_lane, feed,
+                  feed_lane, in_gain, fs, lines, lens, offs, raw);
 }
 
+template <typename C>
 __global__ void __launch_bounds__(SRK_FV_MIX_BLOCK)
-    srk_fv_mix_kernel(int V, int n, const float* raw, const float* l_in,
-                      const float* r_in, const float* wet1, int wet1_lane,
-                      const float* wet2, int wet2_lane, const float* dry,
+    srk_fv_mix_kernel(int V, int n, const C* raw, const float* l_in,
+                      const float* r_in, const C* wet1, int wet1_lane,
+                      const C* wet2, int wet2_lane, const C* dry,
                       int dry_lane, float* out_l, float* out_r) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)V * n) return;
-  srk_fv_mix(i, V, n, raw, l_in, r_in, wet1, wet1_lane, wet2, wet2_lane, dry,
-             dry_lane, out_l, out_r);
+  srk_fv_mix<C>(i, V, n, raw, l_in, r_in, wet1, wet1_lane, wet2, wet2_lane,
+                dry, dry_lane, out_l, out_r);
 }
 
+template <typename C>
 static size_t srk_fv_tile_bytes(int rows, int T) {
-  return sizeof(float) * ((size_t)rows + 2 * (size_t)T);
+  return sizeof(C) * ((size_t)rows + 2 * (size_t)T);
+}
+
+template <typename C>
+static cudaError_t srk_fv_tile_attrs(size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      srk_fv_tile_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(srk_fv_tile_kernel<C>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 // rows: the lines' rows (sum of lens); T: the chunk, SRK_FV_TILE_MIN <= T
 // <= SRK_FV_TILE_MAX, at most every line's length and half the shortest
 // comb's (the wrapper's tile_for).  raw is not used.
-extern "C" int srk_freeverb(SRK_FV_ARGS, int rows, int T, void* stream) {
+template <typename C>
+static int srk_freeverb_run(SRK_FV_ARGS, int rows, int T, void* stream) {
   if (V <= 0 || n <= 0) return 0;
   if (T < SRK_FV_TILE_MIN || T > SRK_FV_TILE_MAX || rows < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = srk_fv_tile_bytes(rows, T);
-  cudaError_t err = cudaFuncSetAttribute(
-      srk_fv_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+  const size_t bytes = srk_fv_tile_bytes<C>(rows, T);
+  cudaError_t err = srk_fv_tile_attrs<C>(bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(srk_fv_tile_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  srk_fv_tile_kernel<<<V, SRK_FV_THREADS, bytes, (cudaStream_t)stream>>>(
-      l_in, r_in, damp, damp_lane, feed, feed_lane, in_gain, wet1, wet1_lane,
-      wet2, wet2_lane, dry, dry_lane, fs, lines, lens, offs, raw, out_l,
-      out_r, V, n, chunk, rows, T);
+  srk_fv_tile_kernel<C><<<V, SRK_FV_THREADS, bytes, (cudaStream_t)stream>>>(
+      SRK_FV_CALL, rows, T);
   return (int)cudaGetLastError();
 }
 
 // CTAs of srk_freeverb resident on one SM at these rows and T (into
 // *ctas); the smoke run logs it beside the source note's arithmetic.
-extern "C" int srk_freeverb_ctas_per_sm(int rows, int T, int* ctas) {
-  const size_t bytes = srk_fv_tile_bytes(rows, T);
-  cudaError_t err = cudaFuncSetAttribute(
-      srk_fv_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(srk_fv_tile_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
+template <typename C>
+static int srk_freeverb_ctas(int rows, int T, int* ctas) {
+  const size_t bytes = srk_fv_tile_bytes<C>(rows, T);
+  cudaError_t err = srk_fv_tile_attrs<C>(bytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, srk_fv_tile_kernel, SRK_FV_THREADS, bytes);
+      ctas, srk_fv_tile_kernel<C>, SRK_FV_THREADS, bytes);
 }
 
-extern "C" int srk_freeverb_twin(SRK_FV_ARGS, void* stream) {
+template <typename C>
+static int srk_freeverb_twin_run(SRK_FV_ARGS, void* stream) {
   if (V <= 0 || n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  srk_fv_kernel<<<(2 * V + SRK_FV_BLOCK - 1) / SRK_FV_BLOCK, SRK_FV_BLOCK, 0,
-                  s>>>(l_in, r_in, damp, damp_lane, feed, feed_lane, in_gain,
-                       fs, lines, lens, offs, raw, V, n, chunk);
+  srk_fv_kernel<C><<<(2 * V + SRK_FV_BLOCK - 1) / SRK_FV_BLOCK,
+                     SRK_FV_BLOCK, 0, s>>>(l_in, r_in, damp, damp_lane, feed,
+                                           feed_lane, in_gain, fs, lines,
+                                           lens, offs, raw, V, n, chunk);
   const size_t total = (size_t)V * n;
-  srk_fv_mix_kernel<<<(unsigned)((total + SRK_FV_MIX_BLOCK - 1) /
-                                 SRK_FV_MIX_BLOCK),
-                      SRK_FV_MIX_BLOCK, 0, s>>>(
+  srk_fv_mix_kernel<C><<<(unsigned)((total + SRK_FV_MIX_BLOCK - 1) /
+                                    SRK_FV_MIX_BLOCK),
+                         SRK_FV_MIX_BLOCK, 0, s>>>(
       V, n, raw, l_in, r_in, wet1, wet1_lane, wet2, wet2_lane, dry, dry_lane,
       out_l, out_r);
   return (int)cudaGetLastError();
 }
 
+#define SRK_FV_STREAM , void* stream
+#define SRK_FV_PASS_STREAM , stream
+
 #else
 
 // The card's schedule on the host: per voice its buffer, then at step k
 // the readers of chunk k and the writer of chunk k - 1.
-extern "C" int srk_freeverb(SRK_FV_ARGS, int rows, int T) {
+template <typename C>
+static int srk_freeverb_run(SRK_FV_ARGS, int rows, int T) {
   if (V <= 0 || n <= 0) return 0;
   if (T < SRK_FV_TILE_MIN || T > SRK_FV_TILE_MAX || rows < 1) return 1;
-  std::vector<float> buf((size_t)rows + 2 * (size_t)T);
-  float* sm = buf.data();
-  float* mix = sm + rows;
+  std::vector<C> buf((size_t)rows + 2 * (size_t)T);
+  C* sm = buf.data();
+  C* mix = sm + rows;
   const int n_chunks = (n + T - 1) / T;
   for (int v = 0; v < V; ++v) {
     for (int r = 0; r < rows; ++r) sm[r] = lines[(size_t)r * V + v];
     const size_t row = (size_t)v * n;
     srk_fv_taps L;
     srk_fv_taps_init(L, lens, offs);
-    srk_fv_comb C[SRK_FV_FS];
+    srk_fv_comb<C> K[SRK_FV_FS];
     for (int c = 0; c < SRK_FV_FS; ++c)
-      srk_fv_comb_init(C[c], fs + (size_t)v * SRK_FV_FS + c, damp,
-                       damp_lane, feed, feed_lane, v);
+      srk_fv_comb_init<C>(K[c], fs + (size_t)v * SRK_FV_FS + c, damp,
+                          damp_lane, feed, feed_lane, v);
     for (int k = 0; k <= n_chunks; ++k) {
       const int t0 = k * T;
       for (int tc = 0; k < n_chunks && tc < T && t0 + tc < n; ++tc)
-        srk_fv_tile_read(L, tc, row + t0 + tc,
-                         srk_fv_in_at(row + t0 + tc, v, SRK_FV_IN_ARGS),
-                         in_gain[v], sm, mix + (k & 1) * T, out_l, out_r);
+        srk_fv_tile_read<C>(L, tc, row + t0 + tc,
+                            srk_fv_in_at<C>(row + t0 + tc, v, SRK_FV_IN_ARGS),
+                            in_gain[v], sm, mix + (k & 1) * T, out_l, out_r);
       srk_fv_taps_next(L, T);
       if (k == 0) continue;
       const int w0 = t0 - T;
       for (int c = 0; c < SRK_FV_FS; ++c)
-        srk_fv_tile_comb(C[c], sm + offs[c], lens[c],
-                         mix + ((k - 1) & 1) * T, w0,
-                         n - w0 < T ? n - w0 : T, row, damp, damp_lane,
-                         feed, feed_lane, chunk);
+        srk_fv_tile_comb<C>(K[c], sm + offs[c], lens[c],
+                            mix + ((k - 1) & 1) * T, w0,
+                            n - w0 < T ? n - w0 : T, row, damp, damp_lane,
+                            feed, feed_lane, chunk);
     }
     for (int c = 0; c < SRK_FV_FS; ++c)
-      fs[(size_t)v * SRK_FV_FS + c] = C[c].f;
+      fs[(size_t)v * SRK_FV_FS + c] = K[c].f;
     for (int r = 0; r < rows; ++r) lines[(size_t)r * V + v] = sm[r];
   }
   return 0;
 }
 
-extern "C" int srk_freeverb_twin(SRK_FV_ARGS) {
+template <typename C>
+static int srk_freeverb_twin_run(SRK_FV_ARGS) {
   for (int ch = 0; ch < 2; ++ch)
     for (int v = 0; v < V; ++v)
-      srk_fv_voice(v, ch, V, n, chunk, l_in, r_in, damp, damp_lane, feed,
-                   feed_lane, in_gain, fs, lines, lens, offs, raw);
+      srk_fv_voice<C>(v, ch, V, n, chunk, l_in, r_in, damp, damp_lane, feed,
+                      feed_lane, in_gain, fs, lines, lens, offs, raw);
   for (size_t i = 0; i < (size_t)V * n; ++i)
-    srk_fv_mix(i, V, n, raw, l_in, r_in, wet1, wet1_lane, wet2, wet2_lane,
-               dry, dry_lane, out_l, out_r);
+    srk_fv_mix<C>(i, V, n, raw, l_in, r_in, wet1, wet1_lane, wet2,
+                  wet2_lane, dry, dry_lane, out_l, out_r);
   return 0;
 }
 
+#define SRK_FV_STREAM
+#define SRK_FV_PASS_STREAM
+
+#endif
+
+// -- entry points: f32 and f64 cores (the host build takes no stream) -----
+
+#undef SRK_FV_ARGS
+#define SRK_FV_ENTRIES(C, SUFFIX)                                           \
+  extern "C" int srk_freeverb##SUFFIX(SRK_FV_ARGS_T(C), int rows,           \
+                                      int T SRK_FV_STREAM) {                \
+    return srk_freeverb_run<C>(SRK_FV_CALL, rows, T SRK_FV_PASS_STREAM);    \
+  }                                                                         \
+  extern "C" int srk_freeverb_twin##SUFFIX(SRK_FV_ARGS_T(C)                 \
+                                               SRK_FV_STREAM) {             \
+    return srk_freeverb_twin_run<C>(SRK_FV_CALL SRK_FV_PASS_STREAM);        \
+  }
+
+SRK_FV_ENTRIES(float, )
+SRK_FV_ENTRIES(double, _f64)
+
+#ifdef __CUDACC__
+extern "C" int srk_freeverb_ctas_per_sm(int rows, int T, int* ctas) {
+  return srk_freeverb_ctas<float>(rows, T, ctas);
+}
+
+extern "C" int srk_freeverb_ctas_per_sm_f64(int rows, int T, int* ctas) {
+  return srk_freeverb_ctas<double>(rows, T, ctas);
+}
 #endif

@@ -3,7 +3,8 @@
 // code (the kernel built with nvcc).
 //
 // Each function mirrors the torch step of srack_tpu_torch/modules/*.py and
-// the JAX step of srack_tpu/modules/*.py expression by expression, in f32,
+// the JAX step of srack_tpu/modules/*.py expression by expression, in f32
+// (the exact Oscillator's phase in double),
 // so the three agree to the rounding: build with `--fmad=false` (nvcc) or
 // `-ffp-contract=off` (g++), and never with fast math, so that a*b+c stays
 // two roundings and divisions stay IEEE.
@@ -213,6 +214,79 @@ SRK_HD void srk_oscillator(float val, int& pos, float& pos_g, int& sync_last,
   const float delta = srk_fast_exp2(octs) * SRK_K440_SR;
   const int dfix = srk_delta_to_fixed(delta);
   srk_osc_core<CONN, ANTIALIAS>(delta, dfix, pos, pos_g, sync_last, in, out);
+}
+
+// ---------------------------------------------------------------------------
+// Oscillator (modules/oscillator.py), exact precision: the reference's f64
+// phase.  state (sorted): pos (double), sync_last (bool as int); params:
+// delta (double, hoisted with CV unconnected) and val.  The phase, the
+// increment 440 * 2^octs / sr (in that order), the floor-mod wrap, sin and
+// the polyBLEPs are doubles; the outputs are cast to f32, as the torch
+// step's.  The overloads differ from the fast ones in their arity and in
+// the double& phase, so a plan's call resolves by its leaves' types.
+// ---------------------------------------------------------------------------
+
+// jnp.mod(x, 1.0) / torch.remainder in double: x - trunc(x) is exact and
+// equals fmod(x, 1.0) for every finite x but the sign of a zero result,
+// moved into [0, 1) when negative (r + 1.0 rounds as theirs does)
+SRK_HD double srk_mod1_f64(double x) {
+  const double r = x - trunc(x);
+  return r < 0.0 ? r + 1.0 : r;
+}
+
+// polyBLEP of the exact phase (ops/basic.py::poly_blep); with dt == 0 the
+// selects give 0
+SRK_HD double srk_poly_blep(double t, double dt) {
+  const double lo = t / dt;
+  const double lo_val = lo + lo - lo * lo - 1.0;
+  const double hi = (t - 1.0) / dt;
+  const double hi_val = hi * hi + hi + hi + 1.0;
+  return t < dt ? lo_val : (t > 1.0 - dt ? hi_val : 0.0);
+}
+
+template <int CONN, int ANTIALIAS>
+SRK_HD void srk_osc_exact(double delta, double& pos, int& sync_last,
+                          const float* in, float* out) {
+  bool fired = false;
+  if constexpr ((CONN & 2) != 0) {
+    bool above = in[1] > 0.0f;
+    fired = above && !sync_last;
+    sync_last = above;
+  } else {
+    sync_last = 0;  // Sync unconnected: the detector state becomes False
+  }
+  const double p = fired ? 0.0 : pos;
+  pos = srk_mod1_f64(p + delta);
+  out[0] = (float)sin(p * 6.283185307179586);  // 2 pi, as Python's double
+  const float naive_square = p < 0.5 ? -1.0f : 1.0f;
+  const float naive_saw = (float)p * 2.0f - 1.0f;
+  if constexpr (ANTIALIAS != 0) {
+    const double blep0 = srk_poly_blep(p, delta);
+    const double blep_half = srk_poly_blep(srk_mod1_f64(p + 0.5), delta);
+    out[1] = naive_square - (float)(blep0 - blep_half);
+    out[2] = naive_saw - (float)blep0;
+  } else {
+    out[1] = naive_square;
+    out[2] = naive_saw;
+  }
+}
+
+// CV unconnected: the increment was hoisted (params delta, val)
+template <int CONN, int ANTIALIAS>
+SRK_HD void srk_oscillator(double delta, float val, double& pos,
+                           int& sync_last, const float* in, float* out) {
+  static_assert((CONN & 1) == 0, "hoisted pitch needs CV unconnected");
+  srk_osc_exact<CONN, ANTIALIAS>(delta, pos, sync_last, in, out);
+}
+
+// the exact increment computed per sample (params: val)
+template <int CONN, int ANTIALIAS>
+SRK_HD void srk_oscillator(float val, double& pos, int& sync_last,
+                           const float* in, float* out) {
+  const double octs = (CONN & 1) != 0 ? (double)in[0] + (double)val
+                                      : (double)val;
+  const double delta = 440.0 * exp2(octs) / (double)SRK_SAMPLE_RATE;
+  srk_osc_exact<CONN, ANTIALIAS>(delta, pos, sync_last, in, out);
 }
 
 // ---------------------------------------------------------------------------

@@ -49,6 +49,15 @@
 //   them: about 0.13 ms rings -> lines and 0.61 ms lines -> rings at the
 //   same shapes.
 //
+// The f64 entries (srk_ring_align_tile_f64, srk_ring_align_twin_f64) are
+// the same templates at T = double, for exact precision's f64 Freeverb
+// lines: [V, L] rings of doubles.  Moving the doubles as pairs of 32-bit
+// words would not do: on the [L, V] side a pair would interleave two
+// voices' words.  The tile is [32][P + 1] doubles (33 KB at P = 128); the
+// padding still keeps both passes off bank conflicts (a half-warp's 16
+// doubles a row apart start 2 * 129 words apart: 16 distinct bank pairs).
+// Twice the bytes of the f32 build, the same bound by bytes; exact.
+//
 // The host build (g++, for the tests) runs the same tile passes, thread by
 // thread over a host tile, and the twin's per-element loop.
 
@@ -84,18 +93,19 @@ SRK_HD int srk_ring_start(const int* idx, int shift, int j, int v, int V,
 }
 
 // one element: dst[v, i] = src[v, (s + i) % len]
-SRK_HD void srk_ring_move(const float* src, float* dst, int len, int V,
-                          int v, int i, int s, int src_lines,
-                          int dst_lines) {
+template <typename T>
+SRK_HD void srk_ring_move(const T* src, T* dst, int len, int V, int v, int i,
+                          int s, int src_lines, int dst_lines) {
   int k = i + s;
   if (k >= len) k -= len;
   dst[srk_ring_at(len, V, v, i, dst_lines)] =
       src[srk_ring_at(len, V, v, k, src_lines)];
 }
 
+template <typename T>
 struct SrkRingLines {
-  const float* src[SRK_RING_MAX_LINES];
-  float* dst[SRK_RING_MAX_LINES];
+  const T* src[SRK_RING_MAX_LINES];
+  T* dst[SRK_RING_MAX_LINES];
   int len[SRK_RING_MAX_LINES];
   int shift[SRK_RING_MAX_LINES];
   int tile0[SRK_RING_MAX_LINES + 1];  // line j: tiles tile0[j] .. tile0[j+1]
@@ -109,8 +119,9 @@ struct SrkRingTile {
 };
 
 // tile b of voice group y (blockIdx.x, blockIdx.y on the card)
-SRK_HD SrkRingTile srk_ring_tile(const SrkRingLines& a, int n_lines, int b,
-                                 int y, int V, int P) {
+template <typename T>
+SRK_HD SrkRingTile srk_ring_tile(const SrkRingLines<T>& a, int n_lines,
+                                 int b, int y, int V, int P) {
   SrkRingTile t;
   t.j = 0;
   while (t.j + 1 < n_lines && a.tile0[t.j + 1] <= b) ++t.j;
@@ -124,10 +135,11 @@ SRK_HD SrkRingTile srk_ring_tile(const SrkRingLines& a, int n_lines, int b,
 
 // thread (warp, lane)'s part of the pass in: tile[u][p] = src[v0 + u,
 // (s_u + i0 + p) % len] for the tile's voices u and positions p
-SRK_HD void srk_ring_tile_in(const SrkRingLines& a, const int* idx,
-                             const SrkRingTile& t, float* tile, int P,
-                             int V, int lines, int warp, int lane) {
-  const float* src = a.src[t.j];
+template <typename T>
+SRK_HD void srk_ring_tile_in(const SrkRingLines<T>& a, const int* idx,
+                             const SrkRingTile& t, T* tile, int P, int V,
+                             int lines, int warp, int lane) {
+  const T* src = a.src[t.j];
   const int shift = a.shift[t.j], w = P + 1;
   if (lines) {   // a warp walks voices at one position: lane = voice
     if (lane >= t.nv) return;
@@ -143,7 +155,7 @@ SRK_HD void srk_ring_tile_in(const SrkRingLines& a, const int* idx,
   } else {       // a warp walks one voice's run: lane = position
     for (int u = warp; u < t.nv; u += SRK_RING_ROWS) {
       const int v = t.v0 + u;
-      const float* row = src + (size_t)v * t.len;
+      const T* row = src + (size_t)v * t.len;
       int k = srk_ring_start(idx, shift, t.j, v, V, t.len) + t.i0 + lane;
       if (k >= t.len) k -= t.len;
 #pragma unroll 4
@@ -158,10 +170,11 @@ SRK_HD void srk_ring_tile_in(const SrkRingLines& a, const int* idx,
 
 // thread (warp, lane)'s part of the pass out: dst[v0 + u, i0 + p] =
 // tile[u][p]
-SRK_HD void srk_ring_tile_out(const SrkRingLines& a, const SrkRingTile& t,
-                              const float* tile, int P, int V, int lines,
+template <typename T>
+SRK_HD void srk_ring_tile_out(const SrkRingLines<T>& a, const SrkRingTile& t,
+                              const T* tile, int P, int V, int lines,
                               int warp, int lane) {
-  float* dst = a.dst[t.j];
+  T* dst = a.dst[t.j];
   const int w = P + 1;
   if (lines) {
     if (lane >= t.nv) return;
@@ -171,7 +184,7 @@ SRK_HD void srk_ring_tile_out(const SrkRingLines& a, const SrkRingTile& t,
       dst[(size_t)(t.i0 + p) * V + v] = tile[lane * w + p];
   } else {
     for (int u = warp; u < t.nv; u += SRK_RING_ROWS) {
-      float* row = dst + (size_t)(t.v0 + u) * t.len + t.i0;
+      T* row = dst + (size_t)(t.v0 + u) * t.len + t.i0;
 #pragma unroll 4
       for (int p = lane; p < t.cnt; p += 32) row[p] = tile[u * w + p];
     }
@@ -180,9 +193,10 @@ SRK_HD void srk_ring_tile_out(const SrkRingLines& a, const SrkRingTile& t,
 
 // the lines' table and the number of tiles of P positions; -1 if the
 // arguments are out of range
-static int srk_ring_lines(SrkRingLines* a, const float* const* src,
-                          float* const* dst, const int* lens,
-                          const int* shifts, int n_lines, int P) {
+template <typename T>
+static int srk_ring_lines(SrkRingLines<T>* a, const T* const* src,
+                          T* const* dst, const int* lens, const int* shifts,
+                          int n_lines, int P) {
   if (n_lines < 0 || n_lines > SRK_RING_MAX_LINES || P < SRK_RING_TILE_MIN
       || P > SRK_RING_TILE_MAX || P % 32)
     return -1;
@@ -203,18 +217,39 @@ static int srk_ring_lines(SrkRingLines* a, const float* const* src,
 
 // the table stays in the parameter space (__grid_constant__): the passes
 // index it by line and take it by reference without a local copy
+template <typename T>
 __global__ void __launch_bounds__(SRK_RING_VOICES * SRK_RING_ROWS)
-    srk_ring_tile_kernel(const __grid_constant__ SrkRingLines a,
+    srk_ring_tile_kernel(const __grid_constant__ SrkRingLines<T> a,
                          const int* __restrict__ idx,
                          int n_lines, int V, int src_lines, int dst_lines,
                          int P) {
-  extern __shared__ float tile[];   // [32][P + 1]
+  extern __shared__ __align__(16) unsigned char srk_ring_smem[];
+  T* tile = reinterpret_cast<T*>(srk_ring_smem);   // [32][P + 1]
   const SrkRingTile t = srk_ring_tile(a, n_lines, blockIdx.x, blockIdx.y,
                                       V, P);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   srk_ring_tile_in(a, idx, t, tile, P, V, src_lines, warp, lane);
   __syncthreads();
   srk_ring_tile_out(a, t, tile, P, V, dst_lines, warp, lane);
+}
+
+template <typename T>
+static int srk_ring_align_tile_run(const T* const* src, T* const* dst,
+                                   const int* lens, const int* shifts,
+                                   const int* idx, int n_lines, int V,
+                                   int src_lines, int dst_lines, int P,
+                                   void* stream) {
+  SrkRingLines<T> a;
+  const int tiles = srk_ring_lines(&a, src, dst, lens, shifts, n_lines, P);
+  if (tiles < 0) return (int)cudaErrorInvalidValue;
+  if (tiles > 0 && V > 0) {
+    const dim3 grid(tiles, (V + SRK_RING_VOICES - 1) / SRK_RING_VOICES);
+    const size_t bytes = sizeof(T) * SRK_RING_VOICES * (P + 1);
+    srk_ring_tile_kernel<T><<<grid, SRK_RING_VOICES * SRK_RING_ROWS, bytes,
+                              (cudaStream_t)stream>>>(
+        a, idx, n_lines, V, src_lines, dst_lines, P);
+  }
+  return (int)cudaGetLastError();
 }
 
 // src, dst, lens, shifts: host arrays of n_lines entries; idx: [n_lines, V]
@@ -225,21 +260,23 @@ extern "C" int srk_ring_align_tile(const float* const* src, float* const* dst,
                                    const int* idx, int n_lines, int V,
                                    int src_lines, int dst_lines, int P,
                                    void* stream) {
-  SrkRingLines a;
-  const int tiles = srk_ring_lines(&a, src, dst, lens, shifts, n_lines, P);
-  if (tiles < 0) return (int)cudaErrorInvalidValue;
-  if (tiles > 0 && V > 0) {
-    const dim3 grid(tiles, (V + SRK_RING_VOICES - 1) / SRK_RING_VOICES);
-    const size_t bytes = sizeof(float) * SRK_RING_VOICES * (P + 1);
-    srk_ring_tile_kernel<<<grid, SRK_RING_VOICES * SRK_RING_ROWS, bytes,
-                           (cudaStream_t)stream>>>(a, idx, n_lines, V,
-                                                   src_lines, dst_lines, P);
-  }
-  return (int)cudaGetLastError();
+  return srk_ring_align_tile_run<float>(src, dst, lens, shifts, idx, n_lines,
+                                        V, src_lines, dst_lines, P, stream);
 }
 
+extern "C" int srk_ring_align_tile_f64(const double* const* src,
+                                       double* const* dst, const int* lens,
+                                       const int* shifts, const int* idx,
+                                       int n_lines, int V, int src_lines,
+                                       int dst_lines, int P, void* stream) {
+  return srk_ring_align_tile_run<double>(src, dst, lens, shifts, idx,
+                                         n_lines, V, src_lines, dst_lines, P,
+                                         stream);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(SRK_RING_VOICES * SRK_RING_ROWS)
-    srk_ring_align_twin_kernel(SrkRingLines a, const int* __restrict__ idx,
+    srk_ring_align_twin_kernel(SrkRingLines<T> a, const int* __restrict__ idx,
                                int V, int src_lines, int dst_lines) {
   const int j = blockIdx.z, len = a.len[j];
   const int v = blockIdx.x * SRK_RING_VOICES + threadIdx.x;
@@ -251,12 +288,13 @@ __global__ void __launch_bounds__(SRK_RING_VOICES * SRK_RING_ROWS)
     srk_ring_move(a.src[j], a.dst[j], len, V, v, i, s, src_lines, dst_lines);
 }
 
-extern "C" int srk_ring_align_twin(const float* const* src, float* const* dst,
+template <typename T>
+static int srk_ring_align_twin_run(const T* const* src, T* const* dst,
                                    const int* lens, const int* shifts,
                                    const int* idx, int n_lines, int V,
                                    int src_lines, int dst_lines,
                                    void* stream) {
-  SrkRingLines a;
+  SrkRingLines<T> a;
   if (srk_ring_lines(&a, src, dst, lens, shifts, n_lines, 32) < 0)
     return (int)cudaErrorInvalidValue;
   int max_len = 0;
@@ -265,23 +303,44 @@ extern "C" int srk_ring_align_twin(const float* const* src, float* const* dst,
   if (n_lines > 0 && V > 0) {
     const dim3 grid((V + SRK_RING_VOICES - 1) / SRK_RING_VOICES,
                     (max_len + SRK_RING_CHUNK - 1) / SRK_RING_CHUNK, n_lines);
-    srk_ring_align_twin_kernel<<<grid, dim3(SRK_RING_VOICES, SRK_RING_ROWS),
-                                 0, (cudaStream_t)stream>>>(
+    srk_ring_align_twin_kernel<T><<<grid, dim3(SRK_RING_VOICES,
+                                               SRK_RING_ROWS),
+                                    0, (cudaStream_t)stream>>>(
         a, idx, V, src_lines, dst_lines);
   }
   return (int)cudaGetLastError();
 }
 
+extern "C" int srk_ring_align_twin(const float* const* src, float* const* dst,
+                                   const int* lens, const int* shifts,
+                                   const int* idx, int n_lines, int V,
+                                   int src_lines, int dst_lines,
+                                   void* stream) {
+  return srk_ring_align_twin_run<float>(src, dst, lens, shifts, idx, n_lines,
+                                        V, src_lines, dst_lines, stream);
+}
+
+extern "C" int srk_ring_align_twin_f64(const double* const* src,
+                                       double* const* dst, const int* lens,
+                                       const int* shifts, const int* idx,
+                                       int n_lines, int V, int src_lines,
+                                       int dst_lines, void* stream) {
+  return srk_ring_align_twin_run<double>(src, dst, lens, shifts, idx,
+                                         n_lines, V, src_lines, dst_lines,
+                                         stream);
+}
+
 #else
 
-extern "C" int srk_ring_align_tile(const float* const* src, float* const* dst,
+template <typename T>
+static int srk_ring_align_tile_run(const T* const* src, T* const* dst,
                                    const int* lens, const int* shifts,
                                    const int* idx, int n_lines, int V,
                                    int src_lines, int dst_lines, int P) {
-  SrkRingLines a;
+  SrkRingLines<T> a;
   const int tiles = srk_ring_lines(&a, src, dst, lens, shifts, n_lines, P);
   if (tiles < 0) return 1;
-  std::vector<float> tile((size_t)SRK_RING_VOICES * (P + 1));
+  std::vector<T> tile((size_t)SRK_RING_VOICES * (P + 1));
   for (int y = 0; y < (V + SRK_RING_VOICES - 1) / SRK_RING_VOICES; ++y)
     for (int b = 0; b < tiles; ++b) {
       const SrkRingTile t = srk_ring_tile(a, n_lines, b, y, V, P);
@@ -296,7 +355,8 @@ extern "C" int srk_ring_align_tile(const float* const* src, float* const* dst,
   return 0;
 }
 
-extern "C" int srk_ring_align_twin(const float* const* src, float* const* dst,
+template <typename T>
+static int srk_ring_align_twin_run(const T* const* src, T* const* dst,
                                    const int* lens, const int* shifts,
                                    const int* idx, int n_lines, int V,
                                    int src_lines, int dst_lines) {
@@ -309,6 +369,40 @@ extern "C" int srk_ring_align_twin(const float* const* src, float* const* dst,
                       dst_lines);
     }
   return 0;
+}
+
+extern "C" int srk_ring_align_tile(const float* const* src, float* const* dst,
+                                   const int* lens, const int* shifts,
+                                   const int* idx, int n_lines, int V,
+                                   int src_lines, int dst_lines, int P) {
+  return srk_ring_align_tile_run<float>(src, dst, lens, shifts, idx, n_lines,
+                                        V, src_lines, dst_lines, P);
+}
+
+extern "C" int srk_ring_align_tile_f64(const double* const* src,
+                                       double* const* dst, const int* lens,
+                                       const int* shifts, const int* idx,
+                                       int n_lines, int V, int src_lines,
+                                       int dst_lines, int P) {
+  return srk_ring_align_tile_run<double>(src, dst, lens, shifts, idx,
+                                         n_lines, V, src_lines, dst_lines, P);
+}
+
+extern "C" int srk_ring_align_twin(const float* const* src, float* const* dst,
+                                   const int* lens, const int* shifts,
+                                   const int* idx, int n_lines, int V,
+                                   int src_lines, int dst_lines) {
+  return srk_ring_align_twin_run<float>(src, dst, lens, shifts, idx, n_lines,
+                                        V, src_lines, dst_lines);
+}
+
+extern "C" int srk_ring_align_twin_f64(const double* const* src,
+                                       double* const* dst, const int* lens,
+                                       const int* shifts, const int* idx,
+                                       int n_lines, int V, int src_lines,
+                                       int dst_lines) {
+  return srk_ring_align_twin_run<double>(src, dst, lens, shifts, idx,
+                                         n_lines, V, src_lines, dst_lines);
 }
 
 #endif

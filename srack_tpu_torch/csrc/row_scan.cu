@@ -4,8 +4,8 @@
 // streams [rows, n] arrays through VMEM in (32, 2048) tiles.  Inclusive
 // scans along each row of a row-major [R, n] array, four kinds:
 //
-//   sum     f32 or int32 (int32 adds wrap mod 2^32)
-//   max     f32 or int32
+//   sum     f32, f64 or int32 (int32 adds wrap mod 2^32)
+//   max     f32, f64 or int32
 //   fill    "the last value where the mask held": K value rows (K <= 4, one
 //           dtype) and one int32 mask; out values and an int32 "any valid"
 //   affine  compose y -> a[t]*y + b[t]: (A, B) with y[t] = A[t]*y0 + B[t]
@@ -29,6 +29,16 @@
 // (ok_b ? v_b : v_a, ok_a | ok_b); the affine combine of an earlier (a_1,
 // b_1) with a later (a_2, b_2) is (a_2 * a_1, a_2 * b_1 + b_2), as in the
 // JAX package's _scan_block.  Built with --fmad=false: a*b+c rounds twice.
+//
+// The f64 entries (srk_scan_sum_f64, srk_scan_max_f64, srk_scan_fill_f64)
+// are the same templates at V = double: exact precision's [V, n] f64 rows
+// (the exact Oscillator block form's prefix sum of its increments and the
+// fill of its Sync).  A double moves through the warp shuffle as two
+// 32-bit words (srk_shfl_up), so the order of combination is the one
+// above.  They read and write 8 bytes per element, twice the f32 sum's
+// bytes, and stay bound by them: 7.9 GB at [1,024, 480,000], 2.3 ms at
+// 3.35 TB/s.  The JAX package computes these scans in XLA (its K4 takes
+// f32 and int32 only), so no Pallas kernel stands behind the f64 entries.
 //
 // The per-row body is written twice from one description: the kernel
 // (shuffles, shared memory) and srk_scan_row_host, which runs the same
@@ -205,6 +215,11 @@ extern "C" int srk_scan_sum_i32(const int* x, int* y, int rows,
   SRK_SCAN_RUN((srk_scan1<int, srk_add>{x, y, n}), rows, n);
 }
 
+extern "C" int srk_scan_sum_f64(const double* x, double* y, int rows,
+                                int n SRK_STREAM) {
+  SRK_SCAN_RUN((srk_scan1<double, srk_add>{x, y, n}), rows, n);
+}
+
 extern "C" int srk_scan_max_f32(const float* x, float* y, int rows,
                                 int n SRK_STREAM) {
   SRK_SCAN_RUN((srk_scan1<float, srk_max>{x, y, n}), rows, n);
@@ -213,6 +228,11 @@ extern "C" int srk_scan_max_f32(const float* x, float* y, int rows,
 extern "C" int srk_scan_max_i32(const int* x, int* y, int rows,
                                 int n SRK_STREAM) {
   SRK_SCAN_RUN((srk_scan1<int, srk_max>{x, y, n}), rows, n);
+}
+
+extern "C" int srk_scan_max_f64(const double* x, double* y, int rows,
+                                int n SRK_STREAM) {
+  SRK_SCAN_RUN((srk_scan1<double, srk_max>{x, y, n}), rows, n);
 }
 
 extern "C" int srk_scan_affine_f32(const float* a, const float* b,
@@ -247,6 +267,18 @@ extern "C" int srk_scan_fill_i32(const int* vals, const int* mask,
     SRK_FILL_CASE(int, 2)
     SRK_FILL_CASE(int, 3)
     SRK_FILL_CASE(int, 4)
+  }
+  return -1;
+}
+
+extern "C" int srk_scan_fill_f64(const double* vals, const int* mask,
+                                 double* out_vals, int* out_ok, int k,
+                                 int rows, int n SRK_STREAM) {
+  switch (k) {
+    SRK_FILL_CASE(double, 1)
+    SRK_FILL_CASE(double, 2)
+    SRK_FILL_CASE(double, 3)
+    SRK_FILL_CASE(double, 4)
   }
   return -1;
 }

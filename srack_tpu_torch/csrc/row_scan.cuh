@@ -70,6 +70,8 @@ struct srk_max {
 template <>
 SRK_HD float srk_max<float>::id() { return -INFINITY; }
 template <>
+SRK_HD double srk_max<double>::id() { return -INFINITY; }
+template <>
 SRK_HD int srk_max<int>::id() { return INT32_MIN; }
 
 // phase A over loaded elements: loc[k] = loc[0] e ... e loc[k]

@@ -6,7 +6,8 @@ same module ids for a patch built the same way.  These helpers move such
 trees across as numpy arrays: ``np.asarray`` of a JAX tree goes in, and
 :func:`to_numpy` of a torch tree comes out.  Bool leaves stay bool (a
 Sample's ``playing`` and ``gate_last``), int32 stays int32 (its
-``length``), and a Sample's ``samples`` table is ``[K]`` (batched: ``[V,
+``length``), f64 stays f64 (exact precision's Oscillator phase and
+Freeverb core), and a Sample's ``samples`` table is ``[K]`` (batched: ``[V,
 K]``) in both.  In buffer-feedback mode an ``fb`` leaf is ``[block]``
 (batched: ``[V, block]``) in both packages.  :func:`train_from_numpy`
 carries a JAX ``SoundMatcher`` state's trainable and frozen params across.

@@ -1,5 +1,4 @@
-"""Freeverb stereo reverb, fast precision (counterpart:
-``srack_tpu/modules/freeverb.py``).
+"""Freeverb stereo reverb (counterpart: ``srack_tpu/modules/freeverb.py``).
 
 The Schroeder/Jezar "Freeverb" topology: per channel 8 parallel
 lowpass-feedback combs summed, then 4 series allpasses, the right channel's
@@ -11,7 +10,9 @@ stereo width.
 
 State: 24 ring buffers with one write index each (``cl0..7``, ``cr0..7``,
 ``al0..3``, ``ar0..3`` and ``<line>_idx``) and the 16 comb filter states
-(``c{l,r}{0..7}_fs``), all f32 but the int32 indices.
+(``c{l,r}{0..7}_fs``), in the core dtype (:func:`_core_dtype`: f32, and
+in exact precision f64, as the crate computes; the inputs and outputs stay
+f32) but the int32 indices.
 
 * ``_step``: one sample, for the scan engine and the serial stage.  It
   writes the rings in place (``ModuleDef.step_in_place``): the engines
@@ -67,17 +68,15 @@ def line_lengths(sample_rate: int):
     return cl, cr, al, ar
 
 
-def _require_fast(cfg: AudioConfig) -> None:
-    if cfg.exact:
-        raise NotImplementedError(
-            "exact precision (the f64 Freeverb core) is not ported yet: "
-            "slice 4 of the port (ROADMAP.md); use precision='fast'")
+def _core_dtype(cfg: AudioConfig) -> torch.dtype:
+    """The dtype of the lines, filter states and gains: f64 in exact
+    precision (the crate's; the module casts f32 in and out), else f32."""
+    return torch.float64 if cfg.exact else CV_DTYPE
 
 
 def _make(cfg: AudioConfig, dampening: float = 0.5, freeze: bool = False,
           wet: float = 1.0, width: float = 0.5, room_size: float = 0.5,
           dry: float = 0.0):
-    _require_fast(cfg)
     params = {
         "dampening": cv(dampening),
         "freeze": torch.tensor(bool(freeze)),
@@ -90,31 +89,36 @@ def _make(cfg: AudioConfig, dampening: float = 0.5, freeze: bool = False,
 
 
 def _init_state(cfg: AudioConfig, statics):
-    _require_fast(cfg)
+    dt = _core_dtype(cfg)
     cl, cr, al, ar = line_lengths(cfg.sample_rate)
     state = {}
     for name, lens in (("cl", cl), ("cr", cr), ("al", al), ("ar", ar)):
         for i, n in enumerate(lens):
-            state[f"{name}{i}"] = torch.zeros((n,), dtype=CV_DTYPE)
+            state[f"{name}{i}"] = torch.zeros((n,), dtype=dt)
             state[f"{name}{i}_idx"] = torch.tensor(0, dtype=torch.int32)
     for key in FS_KEYS:
-        state[key] = torch.tensor(0.0, dtype=CV_DTYPE)
+        state[key] = torch.tensor(0.0, dtype=dt)
     return state
 
 
-def freeverb_gains(params):
+def freeverb_gains(params, dtype=CV_DTYPE):
     """Derived gains (the crate's setter math): ``(damp, feed, in_gain,
-    wet1, wet2, dry)``, elementwise over whatever shape the params have."""
+    wet1, wet2, dry)`` in ``dtype``, elementwise over whatever shape the
+    params have.  The params are taken to ``dtype`` first and the
+    constants stay Python floats, so in f64 nothing is rounded to f32."""
+    def f(v):
+        return v.to(dtype)
     frozen = params["freeze"]
-    damp = torch.where(frozen, 0.0, params["dampening"] * SCALE_DAMPENING)
+    damp = torch.where(frozen, 0.0, f(params["dampening"]) * SCALE_DAMPENING)
     feed = torch.where(frozen, 1.0,
-                       params["room_size"] * SCALE_ROOM + OFFSET_ROOM)
-    in_gain = torch.where(frozen, 0.0, FIXED_GAIN)
-    wet = params["wet"] * SCALE_WET
-    width = params["width"]
+                       f(params["room_size"]) * SCALE_ROOM + OFFSET_ROOM)
+    in_gain = torch.where(frozen, 0.0,
+                          torch.full_like(frozen, FIXED_GAIN, dtype=dtype))
+    wet = f(params["wet"]) * SCALE_WET
+    width = f(params["width"])
     wet1 = wet * (width / 2.0 + 0.5)
     wet2 = wet * ((1.0 - width) / 2.0)
-    return damp, feed, in_gain, wet1, wet2, params["dry"]
+    return damp, feed, in_gain, wet1, wet2, f(params["dry"])
 
 
 def _comb_tick(state, key, x, damp, feed):
@@ -142,14 +146,16 @@ def _allpass_tick(state, key, x):
 
 def _step(cfg: AudioConfig, statics, params, state, ins, x=None):
     """One sample.  The rings are written in place; the returned state
-    holds the same ring tensors with the new indices and filter states."""
+    holds the same ring tensors with the new indices and filter states.
+    The core runs in :func:`_core_dtype`, the outputs are f32."""
+    dt = _core_dtype(cfg)
     like = state["cl0_fs"]
-    l_in = in_or(ins[0], 0.0, like)
-    r_in = in_or(ins[1], 0.0, like)
-    damp, feed, in_gain, wet1, wet2, dry = freeverb_gains(params)
+    l_in = in_or(ins[0], 0.0, like).to(dt)
+    r_in = in_or(ins[1], 0.0, like).to(dt)
+    damp, feed, in_gain, wet1, wet2, dry = freeverb_gains(params, dt)
     state = dict(state)
     mixed = (l_in + r_in) * in_gain
-    out_l = out_r = torch.zeros((), dtype=CV_DTYPE, device=like.device)
+    out_l = out_r = torch.zeros((), dtype=dt, device=like.device)
     for i in range(len(COMB_TUNINGS)):
         out_l = out_l + _comb_tick(state, f"cl{i}", mixed, damp, feed)
         out_r = out_r + _comb_tick(state, f"cr{i}", mixed, damp, feed)
@@ -158,15 +164,15 @@ def _step(cfg: AudioConfig, statics, params, state, ins, x=None):
         out_r = _allpass_tick(state, f"ar{i}", out_r)
     final_l = out_l * wet1 + out_r * wet2 + l_in * dry
     final_r = out_r * wet1 + out_l * wet2 + r_in * dry
-    return state, (final_l, final_r)
+    return state, (final_l.to(CV_DTYPE), final_r.to(CV_DTYPE))
 
 
-def block_gains(params, v: int):
+def block_gains(params, v: int, dtype=CV_DTYPE):
     """:func:`freeverb_gains` for ``[V, n]`` rows: per-voice params as
     ``[V, 1]`` columns, automation lanes as ``[V, n]``."""
     cols = {k: (p if p.dim() == 2 else p.reshape(v, 1))
             for k, p in params.items()}
-    return freeverb_gains(cols)
+    return freeverb_gains(cols, dtype)
 
 
 def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
@@ -177,7 +183,7 @@ def _block(cfg: AudioConfig, statics, params, state, ins, xs, n,
     v = state["cl0"].shape[0]
     device = state["cl0"].device
     mono = ins[0] is ins[1]
-    gains = block_gains(params, v)
+    gains = block_gains(params, v, _core_dtype(cfg))
     if device.type == "cuda":
         from ..ops import freeverb_kernel
         return freeverb_kernel.render(cfg, ins[0], ins[1], mono, gains,
@@ -249,7 +255,7 @@ def block_plain(l_in, r_in, gains, state, n: int):
         new_state[k] = fs[k[:-3]]
     out_l = raw_l * wet1 + raw_r * wet2 + l_in * dry
     out_r = raw_r * wet1 + raw_l * wet2 + r_in * dry
-    return new_state, (out_l, out_r)
+    return new_state, (out_l.to(CV_DTYPE), out_r.to(CV_DTYPE))
 
 
 _nin, _inlabels = const_ports(2, ("Left", "Right"))

@@ -1,43 +1,48 @@
-"""Oscillator module, fast precision (counterpart:
-``srack_tpu/modules/oscillator.py``).
+"""Oscillator module (counterpart: ``srack_tpu/modules/oscillator.py``).
 
 Pitch convention 1.0 CV = 1 octave with 0.0 -> 440 Hz; sine, square and saw
 outputs with polyBLEP band-limiting; a Sync input that resets phase on a
-rising edge.  Phase is an int32 fixed-point accumulator that wraps mod 2^32
-(zero drift over long renders), with ``pos_g``, a float shadow of the phase
-whose primal contribution cancels exactly (straight-through) and which
-carries d(phase)/d(pitch) for autograd.
+rising edge.
 
-Noise is a hoisted lane of uniform draws (``make_xs``).  Exact precision
-(f64 phase) is slice 4 of the port.
+* Fast precision: the phase is an int32 fixed-point accumulator that wraps
+  mod 2^32 (zero drift over long renders), with ``pos_g``, a float shadow of
+  the phase whose primal contribution cancels exactly (straight-through)
+  and which carries d(phase)/d(pitch) for autograd.
+* Exact precision (``cfg.exact``): the reference's f64 phase.  ``pos`` and
+  the increment ``delta = 440 * 2^val / sr`` are ``torch.float64`` (no
+  ``pos_g``), the phase wraps by floor-mod (``torch.remainder``, as
+  ``jnp.mod``), the waves are computed in f64 (``sin``, the f64
+  :func:`~..ops.basic.poly_blep`) and cast to f32.  The block form takes
+  an f64 prefix sum, which kernel K4's f64 entries run on CUDA tensors.
+
+Noise is a hoisted lane of uniform draws (``make_xs``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..config import AudioConfig
 from ..ops.basic import (block_transitions, delta_to_fixed, fast_cumsum,
                          fast_exp2, fast_sinpi, fold_in, forward_fill,
-                         phase_fixed_init, poly_blep_signed, signed_turns,
-                         t_index, transition, transition_init, wrap_i32)
+                         phase_fixed_init, poly_blep, poly_blep_signed,
+                         signed_turns, t_index, transition, transition_init,
+                         wrap_i32)
 from .base import CV_DTYPE, ModuleDef, const_ports, cv
 
-
-def _require_fast(cfg: AudioConfig) -> None:
-    if cfg.exact:
-        raise NotImplementedError(
-            "exact precision is not ported yet: slice 4 of the port "
-            "(ROADMAP.md); use precision='fast'")
+F64 = torch.float64
 
 
 def _osc_make(cfg: AudioConfig, val: float = 0.0, antialiasing: bool = True):
-    _require_fast(cfg)
     return ("antialias", bool(antialiasing)), {"val": cv(val)}
 
 
 def _osc_init_state(cfg: AudioConfig, statics):
-    _require_fast(cfg)
+    if cfg.exact:
+        return {"pos": torch.tensor(0.0, dtype=F64),
+                "sync_last": transition_init()}
     return {"pos": phase_fixed_init(),
             "pos_g": torch.tensor(0.0, dtype=CV_DTYPE),
             "sync_last": transition_init()}
@@ -50,16 +55,63 @@ def _pitch(cfg: AudioConfig, octs: torch.Tensor):
     return delta, delta_to_fixed(delta)
 
 
+def _exact_pitch(cfg: AudioConfig, val, cv_in=None):
+    """The exact increment ``440 * 2^octs / sr`` in f64, in the JAX
+    package's order (no pre-folded ``440 / sr``); ``octs`` is ``val`` plus
+    the CV, each taken to f64 first."""
+    octs = val.to(F64) if cv_in is None else cv_in.to(F64) + val.to(F64)
+    return 440.0 * torch.exp2(octs) / cfg.sample_rate
+
+
 def _osc_derive(cfg: AudioConfig, statics, params, connected):
     """With the CV input unconnected the pitch chain is loop-invariant."""
     if connected and connected[0]:
         return {}
+    if cfg.exact:
+        return {"delta": _exact_pitch(cfg, params["val"])}
     delta, dfix = _pitch(cfg, params["val"])
     return {"delta": delta, "dfix": dfix}
 
 
+def _exact_waves(pos, delta, antialias: bool):
+    """The exact waves of an f64 phase in [0, 1): sine, square and saw in
+    f64, cast to f32 (the saw from the f32 phase, as the reference)."""
+    sine = torch.sin(pos * (2.0 * math.pi)).to(CV_DTYPE)
+    naive_square = torch.where(pos < 0.5, -1.0, 1.0).to(CV_DTYPE)
+    naive_saw = pos.to(CV_DTYPE) * 2.0 - 1.0
+    if not antialias:
+        return sine, naive_square, naive_saw
+    blep0 = poly_blep(pos, delta)
+    blep_half = poly_blep(torch.remainder(pos + 0.5, 1.0), delta)
+    square = naive_square - (blep0 - blep_half).to(CV_DTYPE)
+    saw = naive_saw - blep0.to(CV_DTYPE)
+    return sine, square, saw
+
+
+def _osc_step_exact(cfg: AudioConfig, statics, params, state, ins):
+    """One sample of the f64 phase: the reset, the increment (hoisted by
+    derive, else per sample), the floor-mod wrap, the waves."""
+    (_, antialias) = statics
+    cv_in, sync_in = ins
+    if sync_in is None:
+        sync_last, fired = torch.zeros((), dtype=torch.bool), None
+    else:
+        sync_last, fired = transition(state["sync_last"], sync_in)
+    pos = state["pos"] if fired is None else torch.where(fired, 0.0,
+                                                         state["pos"])
+    if cv_in is None and "delta" in params:
+        delta = params["delta"]  # hoisted by derive
+    else:
+        delta = _exact_pitch(cfg, params["val"], cv_in)
+    new_pos = torch.remainder(pos + delta, 1.0)
+    return ({"pos": new_pos, "sync_last": sync_last},
+            _exact_waves(pos, delta, antialias))
+
+
 def _osc_step(cfg: AudioConfig, statics, params, state, ins, x=None,
               with_ste: bool = True):
+    if cfg.exact:
+        return _osc_step_exact(cfg, statics, params, state, ins)
     (_, antialias) = statics
     cv_in, sync_in = ins
     if sync_in is None:
@@ -128,7 +180,11 @@ def _osc_block(cfg: AudioConfig, statics, params, state, ins, x, n: int):
     closed form ``dfix * t`` and no scan.  The waves are :func:`_fast_waves`
     of the same phases, so they equal the per-sample step bit for bit; the
     end value of the float shadow ``pos_g`` is an f32 sum and is only
-    close.  Scans launch kernel K4 on CUDA tensors (``ops/basic.py``)."""
+    close.  Scans launch kernel K4 on CUDA tensors (``ops/basic.py``).
+
+    Exact precision: :func:`_osc_block_exact`."""
+    if cfg.exact:
+        return _osc_block_exact(cfg, statics, params, state, ins, n)
     (_, antialias) = statics
     cv_in, sync_in = ins
     tidx = t_index(n, state["pos"].device)
@@ -175,6 +231,49 @@ def _osc_block(cfg: AudioConfig, statics, params, state, ins, x, n: int):
     sine, square, saw = _fast_waves(pos_acc, delta_f, None, antialias)
     new_state = {"pos": next_pos, "pos_g": acc_end, "sync_last": sync_last}
     return new_state, (sine, square, saw)
+
+
+def _osc_block_exact(cfg: AudioConfig, statics, params, state, ins, n: int):
+    """The exact whole-block oscillator over ``[V, n]`` rows: the f64 phase
+    by a (segmented) f64 prefix sum of the increments, the closed form
+    ``delta * t`` at a constant rate, then the floor-mod wrap and the
+    per-sample step's waves.  The prefix sum reassociates the step's serial
+    additions, so it differs from the step by rounding only (the JAX
+    package's own block-vs-scan tolerance, 5e-6)."""
+    (_, antialias) = statics
+    cv_in, sync_in = ins
+    tidx = t_index(n, state["pos"].device)
+    val_varies = params["val"].dim() == 2
+    const_rate = cv_in is None and not val_varies
+    if const_rate and "delta" in params:
+        delta = params["delta"].unsqueeze(-1)
+    else:
+        val = params["val"] if val_varies else params["val"].unsqueeze(-1)
+        delta = _exact_pitch(cfg, val, cv_in)
+    full = (state["pos"].shape[0], n)
+    if const_rate:
+        excl = delta * tidx.to(F64)
+        incl = delta * (tidx + 1.0)
+    else:
+        delta = delta.expand(full).contiguous()
+        incl = fast_cumsum(delta)
+        excl = incl - delta
+    delta = delta.expand(full)
+    pos0 = state["pos"].unsqueeze(-1)
+    if sync_in is None:
+        sync_last = state["sync_last"]
+        pos_acc = pos0 + excl
+        next_pos = pos0[:, 0] + incl[:, -1]
+    else:
+        sync_last, fires = block_transitions(state["sync_last"], sync_in)
+        excl_at_fire, fired_yet = forward_fill(
+            excl.expand(full).contiguous(), fires)
+        pos_acc = torch.where(fired_yet, excl - excl_at_fire, pos0 + excl)
+        next_pos = pos_acc[:, -1] + delta[:, -1]
+    pos_f = torch.remainder(pos_acc, 1.0)
+    new_state = {"pos": torch.remainder(next_pos, 1.0),
+                 "sync_last": sync_last}
+    return new_state, _exact_waves(pos_f, delta, antialias)
 
 
 _osc_nin, _osc_inlabels = const_ports(2, ("CV", "Sync"))

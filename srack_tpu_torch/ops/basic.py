@@ -1,4 +1,4 @@
-"""Fast-mode DSP primitives (counterpart: ``srack_tpu/ops/basic.py``).
+"""DSP primitives (counterpart: ``srack_tpu/ops/basic.py``).
 
 Per-sample register math shared by the module steps.  Each function is
 elementwise over any shape and evaluates the same f32 expression, in the
@@ -7,9 +7,9 @@ Python float constants combine with f32 tensors as f32 (rounded once), the
 same rule jnp applies to its weak-typed constants.
 
 Below them, the block engine's whole-block primitives over ``[V, n]`` rows
-and the scan wrappers, which launch kernel K4 for CUDA tensors and run
-their plain versions, the JAX package's log-doubling passes, for CPU
-tensors; and the whole-row table lookup, which launches kernel K5 or K6
+and the scan wrappers, which launch kernel K4 for CUDA tensors (its f64
+build for exact precision's f64 rows) and run their plain versions, the
+JAX package's log-doubling passes, for CPU tensors; and the whole-row table lookup, which launches kernel K5 or K6
 for CUDA tensors and runs one ``torch.gather`` for CPU tensors.
 """
 
@@ -170,6 +170,20 @@ def table_lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                         j.expand(batch).unsqueeze(-1)).squeeze(-1)
 
 
+def poly_blep(t: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
+    """polyBLEP band-limiting correction of the exact (f64) phase ``t`` in
+    [0, 1) with increment ``dt``: the reference's piecewise quadratic, a
+    2-sample smoothing of the discontinuity at phase 0, branchless.  With
+    ``dt == 0`` both region predicates are false (``t`` is in [0, 1)), so
+    the selects give 0 and never the division's values."""
+    lo = t / dt
+    lo_val = lo + lo - lo * lo - 1.0
+    hi = (t - 1.0) / dt
+    hi_val = hi * hi + hi + hi + 1.0
+    return torch.where(t < dt, lo_val,
+                       torch.where(t > 1.0 - dt, hi_val, 0.0))
+
+
 def poly_blep_signed(u: torch.Tensor) -> torch.Tensor:
     """polyBLEP in the signed-phase domain: ``sign(-u) * (1 - |u|)^2`` for
     ``|u| < 1``, else 0 (``u`` is the signed distance from the
@@ -288,19 +302,25 @@ def linear_recurrence_plain(a, b: torch.Tensor):
     return A, Y
 
 
-def _k4():
+def _k4(dtype=None):
+    """Kernel K4's wrapper for rows of ``dtype``: its f64 build
+    (``row_scan_f64``, exact precision's rows) or the f32/int32 one."""
     from . import scan_kernel
-    return scan_kernel.ROW_SCAN
+    return (scan_kernel.ROW_SCAN_F64 if dtype == torch.float64
+            else scan_kernel.ROW_SCAN)
 
 
 def fast_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum along the last axis (f32 or int32, wrapping)."""
-    return _k4().run("sum", (x,))[0] if x.is_cuda else cumsum_plain(x)
+    """Inclusive cumsum along the last axis (f32, f64 or int32,
+    wrapping)."""
+    return _k4(x.dtype).run("sum", (x,))[0] if x.is_cuda \
+        else cumsum_plain(x)
 
 
 def fast_cummax(x: torch.Tensor) -> torch.Tensor:
     """Inclusive running max along the last axis."""
-    return _k4().run("max", (x,))[0] if x.is_cuda else cummax_plain(x)
+    return _k4(x.dtype).run("max", (x,))[0] if x.is_cuda \
+        else cummax_plain(x)
 
 
 def forward_fill_multi(values: tuple, mask: torch.Tensor):

@@ -18,6 +18,15 @@ Both run the module's exact per-sample ticks in the same order, so they
 agree bit for bit; the source note states the launch shapes, the
 shared-memory arithmetic and what bounds each.
 
+Exact precision's f64 core has its own build of both entries,
+:data:`FREEVERB_F64` (``srk_freeverb_f64``) and :data:`FREEVERB_TWIN_F64`
+(``srk_freeverb_twin_f64``): the same templates with the lines, filter
+states and gains in double, the lanes in and out f32.  A voice's lines then
+take ``8 * (rows + 2T)`` bytes of shared memory, 223,552 B at 48 kHz: one
+CTA per SM.  At 96 kHz they do not fit, and the same rule sends the voice
+to the f64 twin.  The JAX package runs its exact Freeverb in XLA (its K8
+takes f32 only), so these builds port no Pallas kernel.
+
 **Which entry runs** is a rule on the line lengths, fixed by the sample
 rate (:func:`kernel_for`): the shared-memory kernel when its chunk and the
 voice's lines fit (:func:`tile_for`: ``T = min(128, shortest line,
@@ -51,7 +60,7 @@ import torch
 from ..modules.base import CV_DTYPE
 from ..modules.freeverb import FS_KEYS, LINE_KEYS, line_lengths
 from .cuda_lib import CudaLib, I, P, csrc, require_cuda
-from .ring_roll import RING_ALIGN
+from .ring_roll import ring_align_for
 
 # the entries' shared arguments (SRK_FV_ARGS), without the stream; the
 # shared-memory entry adds the rows and T
@@ -69,13 +78,14 @@ def all_lengths(cfg) -> tuple:
     return cl + cr + al + ar
 
 
-def tile_bytes(lens, t: int) -> int:
+def tile_bytes(lens, t: int, itemsize: int = 4) -> int:
     """The shared memory of one CTA of the shared-memory kernel: the
-    voice's lines and the mix buffers ``[2][T]``."""
-    return 4 * (sum(lens) + 2 * t)
+    voice's lines and the mix buffers ``[2][T]``, of ``itemsize``-byte
+    words (8 for the f64 core)."""
+    return itemsize * (sum(lens) + 2 * t)
 
 
-def tile_for(lens) -> int:
+def tile_for(lens, itemsize: int = 4) -> int:
     """The shared-memory kernel's chunk ``T`` for these 24 line lengths, or
     None when it cannot run them: ``T`` is at most every line (a chunk
     never reads its own writes) and half the shortest comb (the writer runs
@@ -83,7 +93,7 @@ def tile_for(lens) -> int:
     samples need combs of at least 16), and :func:`tile_bytes` must fit
     one block's shared memory."""
     t = min(TILE_MAX, min(lens), min(lens[:16]) // 2)
-    if t < TILE_MIN or tile_bytes(lens, t) > SMEM_MAX:
+    if t < TILE_MIN or tile_bytes(lens, t, itemsize) > SMEM_MAX:
         return None
     return t
 
@@ -110,11 +120,12 @@ def operands(cfg, l_in, r_in, gains, fs, lines, n: int, skip_r: bool,
     v = fs.shape[0]
     chunk = max(min(min(cl), min(cr), n), 1)
     damp, feed, in_gain, wet1, wet2, dry = gains
+    core = fs.dtype
     g = [_gain(x, v, n) for x in (damp, feed)]
     ing, _ = _gain(in_gain, v, 1)
     mix = [_gain(x, v, n) for x in (wet1, wet2, dry)]
     device = fs.device
-    raw_out = (torch.empty((2, v, n), dtype=CV_DTYPE, device=device) if raw
+    raw_out = (torch.empty((2, v, n), dtype=core, device=device) if raw
                else None)
     out_l = torch.empty((v, n), dtype=CV_DTYPE, device=device)
     out_r = None if skip_r else torch.empty_like(out_l)
@@ -126,6 +137,10 @@ def operands(cfg, l_in, r_in, gains, fs, lines, n: int, skip_r: bool,
                              f"{x.dtype}, expected contiguous [{v}, {n}] f32")
     if tuple(fs.shape) != (v, 16) or tuple(lines.shape) != (sum(lens), v):
         raise ValueError("Freeverb state in the wrong layout")
+    if lines.dtype != core or any(x.dtype != core for x, _ in g + mix) \
+            or ing.dtype != core:
+        raise TypeError(f"Freeverb lines, filter states and gains must "
+                        f"share one core dtype, {core}")
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -153,12 +168,15 @@ def line_tables(lens, device) -> tuple:
 
 class FreeverbKernel(CudaLib):
     """One entry of ``csrc/freeverb.cu``: the shared-memory kernel
-    (``tiled``) or its one-thread twin."""
+    (``tiled``) or its one-thread twin, for the core dtype ``core``."""
 
-    def __init__(self, name: str, entry: str, what: str, tiled: bool):
+    def __init__(self, name: str, entry: str, what: str, tiled: bool,
+                 core: torch.dtype = CV_DTYPE):
         super().__init__(name, csrc("freeverb.cu"), what)
         self.entry = entry
         self.tiled = tiled
+        self.core = core
+        self.itemsize = torch.empty((), dtype=core).element_size()
         self._tables: dict = {}  # (lens, device) -> line_tables
 
     def entry_args(self, cfg, l_in, r_in, gains, fs, lines, n: int,
@@ -167,12 +185,15 @@ class FreeverbKernel(CudaLib):
         keep, out_l, out_r)``, as :func:`operands`, the shared-memory entry
         with its rows and chunk."""
         lens = all_lengths(cfg)
+        if fs.dtype != self.core:
+            raise TypeError(f"the {self.what} takes a {self.core} core, "
+                            f"not {fs.dtype}")
         args, keep, out_l, out_r = operands(cfg, l_in, r_in, gains, fs,
                                             lines, n, skip_r, tables,
                                             raw=not self.tiled)
         if not self.tiled:
             return args, ARGTYPES, keep, out_l, out_r
-        t = tile_for(lens)
+        t = tile_for(lens, self.itemsize)
         if t is None:
             raise ValueError(f"the Freeverb lines of {cfg.sample_rate} Hz "
                              "do not fit the shared-memory kernel")
@@ -200,11 +221,22 @@ FREEVERB = FreeverbKernel("freeverb", "srk_freeverb",
 FREEVERB_TWIN = FreeverbKernel("freeverb_twin", "srk_freeverb_twin",
                                "Freeverb kernel, one-thread twin (K8)",
                                tiled=False)
+FREEVERB_F64 = FreeverbKernel("freeverb_f64", "srk_freeverb_f64",
+                              "Freeverb kernel, f64 build (K8)", tiled=True,
+                              core=torch.float64)
+FREEVERB_TWIN_F64 = FreeverbKernel(
+    "freeverb_twin_f64", "srk_freeverb_twin_f64",
+    "Freeverb kernel, f64 build, one-thread twin (K8)", tiled=False,
+    core=torch.float64)
 
 
-def kernel_for(lens) -> FreeverbKernel:
-    """K8's entry for these line lengths: the shared-memory kernel where
-    :func:`tile_for` gives a chunk, else the one-thread twin."""
+def kernel_for(lens, core: torch.dtype = CV_DTYPE) -> FreeverbKernel:
+    """K8's entry for these line lengths and core dtype: the shared-memory
+    kernel where :func:`tile_for` gives a chunk for its word size, else the
+    one-thread twin."""
+    if core == torch.float64:
+        return FREEVERB_F64 if tile_for(lens, 8) is not None \
+            else FREEVERB_TWIN_F64
     return FREEVERB if tile_for(lens) is not None else FREEVERB_TWIN
 
 
@@ -217,6 +249,8 @@ def render(cfg, l_in, r_in, mono: bool, gains, state: dict, n: int,
     lens = all_lengths(cfg)
     v = state["cl0"].shape[0]
     device = state["cl0"].device
+    core = state["cl0"].dtype        # f64 in exact precision
+    k9 = ring_align_for(core)
 
     def lane(x):
         return None if x is None else x.to(CV_DTYPE).expand(v, n) \
@@ -224,21 +258,20 @@ def render(cfg, l_in, r_in, mono: bool, gains, state: dict, n: int,
 
     l_in = lane(l_in)
     r_in = l_in if mono else lane(r_in)
-    lines = torch.empty((sum(lens), v), dtype=CV_DTYPE, device=device)
+    lines = torch.empty((sum(lens), v), dtype=core, device=device)
     line_rows = torch.split(lines, list(lens))
     idx = torch.stack([state[f"{k}_idx"] for k in LINE_KEYS]).to(
         torch.int32).contiguous()
-    RING_ALIGN.move([state[k].contiguous() for k in LINE_KEYS],
-                    line_rows, lens, v, idx=idx, dst_lines=True)
+    k9.move([state[k].contiguous() for k in LINE_KEYS],
+            line_rows, lens, v, idx=idx, dst_lines=True)
     fs = torch.stack([state[k] for k in FS_KEYS], dim=1).contiguous()
-    out_l, out_r = kernel_for(lens).launch_lines(cfg, l_in, r_in, gains, fs,
-                                                 lines, n, skip_r)
+    out_l, out_r = kernel_for(lens, core).launch_lines(
+        cfg, l_in, r_in, gains, fs, lines, n, skip_r)
     rings = [b.view(v, length) for b, length in zip(torch.split(
-        torch.empty(v * sum(lens), dtype=CV_DTYPE, device=device),
+        torch.empty(v * sum(lens), dtype=core, device=device),
         [v * x for x in lens]), lens)]
-    RING_ALIGN.move(line_rows, rings, lens, v,
-                    shifts=[n % length for length in lens],
-                    src_lines=True)
+    k9.move(line_rows, rings, lens, v, shifts=[n % length for length in lens],
+            src_lines=True)
     new_state = dict(state)
     for k, ring in zip(LINE_KEYS, rings):
         new_state[k] = ring

@@ -156,7 +156,8 @@ def eligible(compiled) -> bool:
 @dataclasses.dataclass(frozen=True)
 class Leaf:
     """One param or state leaf in the packed rows: ``rows`` rows from
-    ``row`` of the float (``kind="f"``) or int (``kind="i"``) array."""
+    ``row`` of the float (``kind="f"``), int (``kind="i"``) or double
+    (``kind="d"``: exact precision's f64 leaves) array."""
     path: tuple        # ("states", mid, key) / ("fb", key) / (mid, key)
     rest: tuple        # per-voice shape
     dtype: torch.dtype
@@ -172,24 +173,27 @@ class Leaf:
 
     @property
     def ctype(self) -> str:
-        return "float" if self.kind == "f" else "int"
+        return {"f": "float", "i": "int", "d": "double"}[self.kind]
 
 
 def _layout(entries):
-    """Assign rows to ``(path, tensor)`` entries: floats in one array,
-    int32 and bool (as int32) in the other."""
-    leaves, nxt = [], {"f": 0, "i": 0}
+    """Assign rows to ``(path, tensor)`` entries: f32 in one array, int32
+    and bool (as int32) in another, f64 in a third.  Returns ``(leaves,
+    float rows, int rows, double rows)``."""
+    leaves, nxt = [], {"f": 0, "i": 0, "d": 0}
     for path, t in entries:
         if t.dtype == torch.float32:
             kind = "f"
         elif t.dtype in (torch.int32, torch.bool):
             kind = "i"
+        elif t.dtype == torch.float64:
+            kind = "d"
         else:
             raise TypeError(f"{path}: unsupported leaf dtype {t.dtype}")
         leaf = Leaf(path, tuple(t.shape), t.dtype, kind, nxt[kind])
         nxt[kind] += leaf.rows
         leaves.append(leaf)
-    return tuple(leaves), nxt["f"], nxt["i"]
+    return tuple(leaves), nxt["f"], nxt["i"], nxt["d"]
 
 
 def _param_entries(compiled, params, mids):
@@ -213,13 +217,18 @@ def _state_entries(compiled, state, mids):
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """Where each param and state leaf of one plan sits in the packed rows,
-    from the plan's unbatched defaults (derived params included)."""
+    from the plan's unbatched defaults (derived params included).  Exact
+    precision's f64 leaves take ``n_pd`` and ``n_sd`` rows of doubles; a
+    layout with any (:attr:`doubles`) gives its kernel three more operands,
+    ``pd``, ``sd`` and ``sd_out`` (:data:`ARGTYPES_F64`)."""
     params: tuple
     n_pf: int
     n_pi: int
     state: tuple
     n_sf: int
     n_si: int
+    n_pd: int = 0
+    n_sd: int = 0
 
     @classmethod
     def of(cls, compiled, mids=None) -> "Layout":
@@ -227,9 +236,15 @@ class Layout:
         stage: its modules and the feedback carries)."""
         mids = list(compiled.instances if mids is None else mids)
         derived = compiled.derived_params(compiled.default_params)
-        p = _layout(_param_entries(compiled, derived, mids))
-        s = _layout(_state_entries(compiled, compiled.init_state(), mids))
-        return cls(*p, *s)
+        p, n_pf, n_pi, n_pd = _layout(_param_entries(compiled, derived,
+                                                     mids))
+        st, n_sf, n_si, n_sd = _layout(_state_entries(
+            compiled, compiled.init_state(), mids))
+        return cls(p, n_pf, n_pi, st, n_sf, n_si, n_pd, n_sd)
+
+    @property
+    def doubles(self) -> bool:
+        return bool(self.n_pd or self.n_sd)
 
 
 def _ident(*parts) -> str:
@@ -404,6 +419,9 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     cfg = compiled.cfg
     if mode not in (None, "ckpt", "bwd"):
         raise ValueError(f"unknown mode {mode!r}")
+    if mode is not None and cfg.exact:
+        raise ValueError("the fused VJP kernels take fast precision: exact "
+                         "precision's f64 leaves have no K10 path")
     if mode == "bwd" and split is not None and split.n_stages > 1:
         if stage is not None or cfg.buffer_feedback:
             raise ValueError("the fused VJP kernels take a whole sample-mode "
@@ -475,6 +493,7 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
         "const float* __restrict__ lanes, float* __restrict__ ring, "
         "float* __restrict__ audio, float* __restrict__ sf_out, "
         "int* __restrict__ si_out"
+        + (_DOUBLE_PARAMS if layout.doubles else "")
         + (", int* __restrict__ ck) {" if ckpt else ") {"),
         "  // params, loaded once",
     ]
@@ -523,6 +542,9 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     decl = ("const float* pf, const int* pi, const float* sf, const int* si, "
             "const float* lanes, float* ring, float* audio, float* sf_out, "
             "int* si_out")
+    if layout.doubles:
+        args += _DOUBLE_ARGS
+        decl += _DOUBLE_DECL
     if ckpt:
         args += ", ck"
         decl += ", int* ck"
@@ -530,6 +552,14 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
     entry = "srk_vjp_fwd" if ckpt else "srk_fused"
     L += _entries(entry, "srk_voice", args, decl)
     return "\n".join(L) + "\n"
+
+
+# the double rows' operands of a layout with f64 leaves (exact precision),
+# after the nine of every fused kernel
+_DOUBLE_PARAMS = (", const double* __restrict__ pd, "
+                  "const double* __restrict__ sd, double* __restrict__ sd_out")
+_DOUBLE_DECL = ", const double* pd, const double* sd, double* sd_out"
+_DOUBLE_ARGS = ", pd, sd, sd_out"
 
 
 def _args_of(layout):
@@ -936,11 +966,16 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
         L += ["};", "",
               f"SRK_HD void srk_st{g}_load(srk_st{g}& S, int v, int V, "
               "const float* __restrict__ pf, const int* __restrict__ pi, "
-              "const float* __restrict__ sf, const int* __restrict__ si) {"]
+              "const float* __restrict__ sf, const int* __restrict__ si"
+              + (", const double* __restrict__ pd, "
+                 "const double* __restrict__ sd" if layout.doubles else "")
+              + ") {"]
         L += loads + ["}", "",
                       f"SRK_HD void srk_st{g}_store(const srk_st{g}& S, "
                       "int v, int V, float* __restrict__ sf_out, "
-                      "int* __restrict__ si_out) {"]
+                      "int* __restrict__ si_out"
+                      + (", double* __restrict__ sd_out" if layout.doubles
+                         else "") + ") {"]
         for leaf in leaves:
             if leaf in layout.state:
                 var = _var(leaf.path)
@@ -1068,22 +1103,29 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
               "    }",
               "  }",
               "}"]
-    L += _pipeline_entries(part, lanes_of, out_stage, ckpt)
+    L += _pipeline_entries(part, lanes_of, out_stage, ckpt, layout.doubles)
     return "\n".join(L) + "\n"
 
 
-def _pipeline_entries(part, lanes_of, out_stage, ckpt=False) -> list:
+def _pipeline_entries(part, lanes_of, out_stage, ckpt=False,
+                      doubles=False) -> list:
     """The split kernel (one warp per stage), its ``extern "C"`` launch
     (which sets the dynamic shared memory) and the host build's lock-step
     loop, with the one-thread kernel's arguments (``ckpt``: K10's forward,
-    entry ``srk_vjp_fwd``, with the checkpoints ``ck``)."""
+    entry ``srk_vjp_fwd``, with the checkpoints ``ck``; ``doubles``: the
+    double rows ``pd``, ``sd``, ``sd_out`` of exact precision)."""
     entry = "srk_vjp_fwd" if ckpt else "srk_fused"
     ck = ", int* ck" if ckpt else ""
+    dd = _DOUBLE_DECL if doubles else ""
     decl = ("const float* pf, const int* pi, const float* sf, const int* si, "
             "const float* lanes, float* ring, float* audio, float* sf_out, "
-            f"int* si_out{ck}, int V, int n")
+            f"int* si_out{dd}{ck}, int V, int n")
     ck = ", ck" if ckpt else ""
-    args = f"pf, pi, sf, si, lanes, ring, audio, sf_out, si_out{ck}, V, n"
+    da = _DOUBLE_ARGS if doubles else ""
+    args = (f"pf, pi, sf, si, lanes, ring, audio, sf_out, si_out{da}{ck}, "
+            "V, n")
+    load = "pf, pi, sf, si" + (", pd, sd" if doubles else "")
+    store = "sf_out, si_out" + (", sd_out" if doubles else "")
     chunk_args = f"lane, v, V, n, lanes, ring, audio, sm{ck}"
     L = ["", "#ifdef __CUDACC__",
          "__global__ void __launch_bounds__(SRK_THREADS) "
@@ -1099,7 +1141,7 @@ def _pipeline_entries(part, lanes_of, out_stage, ckpt=False) -> list:
         L += [("  if" if g == 0 else "  } else if") + f" (g == {g}) {{",
               f"    srk_st{g} S;",
               "    if (live) {",
-              f"      srk_st{g}_load(S, v, V, pf, pi, sf, si);"]
+              f"      srk_st{g}_load(S, v, V, {load});"]
         if lanes_of[g]:
             L += ["      if (n_chunks > 0) {",
                   f"        srk_st{g}_fetch(0, lane, v, V, n, lanes, sm);",
@@ -1118,7 +1160,7 @@ def _pipeline_entries(part, lanes_of, out_stage, ckpt=False) -> list:
         L += ["      }",
               "      srk_step_barrier(SRK_THREADS);",
               "    }",
-              f"    if (live) srk_st{g}_store(S, v, V, sf_out, si_out);"]
+              f"    if (live) srk_st{g}_store(S, v, V, {store});"]
     L += ["  }", "}", "",
           f'extern "C" int {entry}_launch({decl}, void* stream) {{',
           "  const int blocks = (V + 31) / 32;",
@@ -1144,7 +1186,7 @@ def _pipeline_entries(part, lanes_of, out_stage, ckpt=False) -> list:
     L += ["    for (int lane = 0; lane < live; ++lane) {",
           "      const int v = v0 + lane;"]
     for g in range(part.n_stages):
-        L.append(f"      srk_st{g}_load(S{g}[lane], v, V, pf, pi, sf, si);")
+        L.append(f"      srk_st{g}_load(S{g}[lane], v, V, {load});")
         if lanes_of[g]:
             L.append(f"      if (n_chunks > 0) srk_st{g}_fetch(0, lane, v, V, "
                      "n, lanes, sm);")
@@ -1165,7 +1207,7 @@ def _pipeline_entries(part, lanes_of, out_stage, ckpt=False) -> list:
     L += ["    }",
           "    for (int lane = 0; lane < live; ++lane) {",
           "      const int v = v0 + lane;"]
-    L += [f"      srk_st{g}_store(S{g}[lane], v, V, sf_out, si_out);"
+    L += [f"      srk_st{g}_store(S{g}[lane], v, V, {store});"
           for g in range(part.n_stages)]
     L += ["    }", "  }", "  return 0;", "}", "#endif"]
     return L
@@ -1943,16 +1985,21 @@ def _bwd_pipeline_entries(part, R) -> list:
 
 
 # the entry's argument types, without the stream: the nine operand
-# pointers of :meth:`FusedKernel._launch`, then V and n
+# pointers of :meth:`FusedKernel._launch`, then V and n; a layout with f64
+# leaves adds its double rows pd, sd and sd_out after the nine
 ARGTYPES = [P] * 9 + [I, I]
+ARGTYPES_F64 = [P] * 12 + [I, I]
 
 
-def pack(leaves, n_f, n_i, tree_get, v: int, device):
-    """Pack leaves ``[V, *rest]`` into ``[n_f, V]`` f32 and ``[n_i, V]`` i32
-    rows (bool as int32).  Arrays are never empty (one dummy row)."""
-    pf = torch.zeros((max(n_f, 1), v), dtype=torch.float32, device=device)
-    pi = torch.zeros((max(n_i, 1), v), dtype=torch.int32, device=device)
+def _pack_rows(leaves, kinds: dict, tree_get, v: int, device) -> dict:
+    """Pack the leaves ``[V, *rest]`` of each kind in ``kinds`` (``{kind:
+    (rows, dtype)}``) into ``[rows, V]`` arrays of that dtype (bool as
+    int32), never empty (one dummy row)."""
+    out = {k: torch.zeros((max(rows, 1), v), dtype=dt, device=device)
+           for k, (rows, dt) in kinds.items()}
     for leaf in leaves:
+        if leaf.kind not in out:
+            continue
         t = tree_get(leaf.path)
         if tuple(t.shape) != (v,) + leaf.rest:
             raise ValueError(f"{leaf.path}: expected shape "
@@ -1962,16 +2009,32 @@ def pack(leaves, n_f, n_i, tree_get, v: int, device):
                             f"{t.dtype}")
         if t.device != torch.device(device):
             raise ValueError(f"{leaf.path} lies on {t.device}, not {device}")
-        dst = pf if leaf.kind == "f" else pi
-        dst[leaf.row:leaf.row + leaf.rows] = t.reshape(v, leaf.rows).T
-    return pf, pi
+        out[leaf.kind][leaf.row:leaf.row + leaf.rows] = \
+            t.reshape(v, leaf.rows).T
+    return out
 
 
-def unpack(leaves, sf, si, v: int) -> dict:
-    """Inverse of :func:`pack`: ``{path: tensor [V, *rest]}``."""
+def pack(leaves, n_f, n_i, tree_get, v: int, device):
+    """Pack leaves ``[V, *rest]`` into ``[n_f, V]`` f32 and ``[n_i, V]`` i32
+    rows (bool as int32).  Arrays are never empty (one dummy row).  f64
+    leaves are left to :func:`pack_doubles`."""
+    rows = _pack_rows(leaves, {"f": (n_f, torch.float32),
+                               "i": (n_i, torch.int32)}, tree_get, v, device)
+    return rows["f"], rows["i"]
+
+
+def pack_doubles(leaves, n_d, tree_get, v: int, device) -> torch.Tensor:
+    """The f64 leaves among ``leaves`` as ``[n_d, V]`` double rows."""
+    return _pack_rows(leaves, {"d": (n_d, torch.float64)}, tree_get, v,
+                      device)["d"]
+
+
+def unpack(leaves, sf, si, v: int, sd=None) -> dict:
+    """Inverse of :func:`pack` (and of :func:`pack_doubles` for the rows
+    ``sd``): ``{path: tensor [V, *rest]}``."""
     out = {}
     for leaf in leaves:
-        src = sf if leaf.kind == "f" else si
+        src = {"f": sf, "i": si, "d": sd}[leaf.kind]
         t = src[leaf.row:leaf.row + leaf.rows].T.reshape((v,) + leaf.rest)
         out[leaf.path] = (t != 0) if leaf.dtype == torch.bool else \
             t.contiguous()
@@ -2094,8 +2157,13 @@ class FusedKernel(CudaLib):
         return WARP * self.partition.n_stages
 
     def pack(self, params: dict, state: dict, n: int, xs: dict):
-        """The kernel's operands for one render on ``params``' device:
-        ``(pf, pi, sf, si, lanes, ring, v)``."""
+        """The kernel's f32 and i32 operands for one render on ``params``'
+        device: ``(pf, pi, sf, si, lanes, ring, v)``."""
+        return self.operands(params, state, n, xs)[:7]
+
+    def operands(self, params: dict, state: dict, n: int, xs: dict):
+        """:meth:`pack`'s operands and the double rows ``(pd, sd)`` of a
+        layout with f64 leaves (exact precision; None without them)."""
         compiled = self.compiled
         leaves = tree_leaves(params) + tree_leaves(state)
         if not leaves:
@@ -2116,15 +2184,23 @@ class FusedKernel(CudaLib):
                       lambda p: _get(derived, p), v, device)
         sf, si = pack(lay.state, lay.n_sf, lay.n_si,
                       lambda p: _get(state, p), v, device)
+        pd = sd = None
+        if lay.doubles:
+            pd = pack_doubles(lay.params, lay.n_pd,
+                              lambda p: _get(derived, p), v, device)
+            sd = pack_doubles(lay.state, lay.n_sd,
+                              lambda p: _get(state, p), v, device)
         lanes = pack_lanes(self.lanes, xs, v, n, device)
         ring = (pack_ring(compiled, state, v, device) if self.buffer
                 else torch.zeros((1,), dtype=CV_DTYPE, device=device))
-        return pf, pi, sf, si, lanes, ring, v
+        return pf, pi, sf, si, lanes, ring, v, pd, sd
 
-    def finish(self, sf_out, si_out, ring, v: int) -> dict:
-        """The final state tree from the kernel's outputs."""
+    def finish(self, sf_out, si_out, ring, v: int, sd_out=None) -> dict:
+        """The final state tree from the kernel's outputs (``sd_out``: the
+        double rows of a layout with f64 leaves)."""
         final = state_tree(self.compiled,
-                           unpack(self.layout.state, sf_out, si_out, v))
+                           unpack(self.layout.state, sf_out, si_out, v,
+                                  sd_out))
         if self.buffer:
             final["fb"] = unpack_ring(self.compiled, ring)
         return final
@@ -2140,14 +2216,20 @@ class FusedKernel(CudaLib):
             raise ValueError(
                 f"the {self.what} runs CUDA tensors; these lie on {device} "
                 f"(the CPU runs {self.plain})")
-        pf, pi, sf, si, lanes, ring, v = self.pack(params, state, n, xs)
+        pf, pi, sf, si, lanes, ring, v, pd, sd = self.operands(params, state,
+                                                               n, xs)
         out = torch.empty(out_shape(v), dtype=CV_DTYPE, device=device)
         sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
         operands = (pf, pi, sf, si, lanes, ring, out, sf_out, si_out)
+        sd_out, argtypes = None, ARGTYPES
+        if self.layout.doubles:
+            sd_out = torch.empty_like(sd)
+            operands += (pd, sd, sd_out)
+            argtypes = ARGTYPES_F64
         require_cuda(*operands)
-        self.launch("srk_fused_launch", ARGTYPES,
+        self.launch("srk_fused_launch", argtypes,
                     tuple(t.data_ptr() for t in operands) + (v, n), device)
-        return out, self.finish(sf_out, si_out, ring, v)
+        return out, self.finish(sf_out, si_out, ring, v, sd_out)
 
     def render(self, params: dict, state: dict, n: int, xs: dict = None):
         """Render ``n`` samples of V voices: ``params``, ``state`` and the
@@ -2178,7 +2260,16 @@ class StageKernel(FusedKernel):
     bound by the serial chain of its costliest stage, not by memory: per
     voice-sample it moves ``4 * (W + O)`` bytes.  Its plain version is
     ``BlockProgram.stage_plain``, a torch loop over the same module steps,
-    which it equals bit for bit (``--fmad=false``)."""
+    which it equals bit for bit (``--fmad=false``).
+
+    An exact stage that holds an Oscillator (e.g. feedback_patch's, both
+    its Oscillators on the feedback cycle) is K3's f64 build,
+    ``serial_stage_f64``: its f64 leaves (the phase, a hoisted increment)
+    sit in double rows beside the float and int ones, the exact
+    Oscillator's device function runs in double on the same stage-warp
+    pipeline, and the wires between stages stay f32.  The JAX package has
+    no Pallas stage in exact precision (it runs ``lax.scan``), so this
+    build ports no Pallas kernel."""
 
     plain = "BlockProgram.stage_plain"
 
@@ -2205,7 +2296,10 @@ class StageKernel(FusedKernel):
             compiled, program.stage_plan,
             carried=not compiled.cfg.buffer_feedback, max_stages=stages)
         self._pipeline(program, chunk)
-        CudaLib.__init__(self, "serial_stage", generate_source(
+        # a stage with f64 leaves (the exact Oscillator's phase) is K3's f64
+        # build, counted apart
+        CudaLib.__init__(self, "serial_stage_f64" if self.layout.doubles
+                         else "serial_stage", generate_source(
             compiled, self.layout, self.lanes, stage=program,
             split=self.partition, chunk=self.chunk),
             "serial-stage kernel")

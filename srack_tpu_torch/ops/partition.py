@@ -36,16 +36,19 @@ import dataclasses
 MAX_STAGES = 4
 
 
-# f32 operations per sample of each device function of csrc/modules.cuh,
-# read off its source: one each f32 add, sub, mul, div, compare, select,
-# min/max, abs, negation and int<->float conversion, on the path a sample
-# takes.  The partition weighs its stages by them, and the kernels' bounds
+# Operations per sample of each device function of csrc/modules.cuh, read
+# off its source: one each add, sub, mul, div, compare, select, min/max,
+# abs, negation and int<->float conversion, on the path a sample takes (f32
+# but for the exact Oscillator's f64 ones, :func:`module_ops_f64`).  The partition weighs its stages by them, and the kernels' bounds
 # count them.
 def module_ops(compiled, mid) -> int:
     mdef, statics, inputs = compiled.instances[mid]
     t = mdef.type_name
     conn = [c is not None for c in inputs]
     auto = mid in compiled._auto_by_mid
+    if t == "Oscillator" and compiled.cfg.exact:
+        return module_ops_f64(compiled, mid) + (2 if conn[1] else 0) + (
+            6 if statics[1] else 4)                 # sync; square, saw
     if t == "Oscillator":
         ops = 15 + (2 if conn[1] else 0)           # core, sync
         if statics[1]:
@@ -70,6 +73,23 @@ def module_ops(compiled, mid) -> int:
     if t == "Pattern Sequencer":
         return 19
     return 0                                        # Input, Noise, Output
+
+
+# The f64 operations per sample among them: the exact Oscillator's
+# (``srk_osc_exact``), whose phase, increment and waves are doubles.  The
+# libdevice calls are counted by their instructions on the path a phase in
+# [0, 1) takes: sin (range reduction and its polynomial) 30, exp2 25.
+# chip_smoke.py's bounds divide these by the card's f64 peak.
+def module_ops_f64(compiled, mid) -> int:
+    mdef, statics, inputs = compiled.instances[mid]
+    if mdef.type_name != "Oscillator" or not compiled.cfg.exact:
+        return 0
+    ops = 8 + 30                # reset, add, floor-mod wrap; sin(2 pi pos)
+    if statics[1]:
+        ops += 2 * 9 + 4 + 3    # two polyBLEPs, the half-phase wrap, casts
+    if inputs[0] is not None or mid in compiled._auto_by_mid:
+        ops += 5 + 25           # the pitch: casts, add, exp2, mul, div
+    return ops
 
 
 # f32 operations per sample of each adjoint of csrc/modules_adj.cuh on the

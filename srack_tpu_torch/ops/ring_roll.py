@@ -18,6 +18,13 @@ launch shapes and the bound, bytes):
   ``srk_ring_align_twin``), the kernel it replaced, one thread per voice
   and position; nothing but ``chip_smoke.py``'s comparison launches it.
 
+Exact precision's f64 Freeverb lines take the f64 build of both entries,
+:data:`RING_ALIGN_F64` (``srk_ring_align_tile_f64``) and
+:data:`RING_ALIGN_TWIN_F64` (``srk_ring_align_twin_f64``): the same
+templates on 8-byte elements, exact; the JAX package rotates its f64 rings
+in XLA, so these port no Pallas kernel.  :func:`ring_align_for` picks the
+build by dtype.
+
 The plain version is :func:`ring_align_plain`, a ``torch.gather`` with the
 rotated index (and a transpose where the layout changes); that gather is
 also the one PyTorch call that computes the same function.
@@ -50,19 +57,23 @@ TILE_MIN, TILE_MAX = 32, 256  # SRK_RING_TILE_MIN, _MAX
 class RingAlign(CudaLib):
     """K9: :meth:`move` of up to 32 lines in one launch, through the tiled
     entry (``tile``: positions per tile) or, with ``tile=None``, the
-    twin."""
+    twin; for lines of ``dtype`` (f32, or f64: the ``_f64`` entries)."""
 
-    def __init__(self, name: str, what: str, tile):
+    def __init__(self, name: str, what: str, tile,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(name, csrc("ring_align.cu"), what)
         self.tile = tile
+        self.dtype = dtype
+        self.suffix = "_f64" if dtype == torch.float64 else ""
 
     def move(self, src: list, dst: list, lens, v: int, idx=None,
              shifts=None, src_lines: bool = False,
              dst_lines: bool = False) -> None:
         """Line j of ``src`` in time order into line j of ``dst``:
         ``dst[j][v, i] = src[j][v, (idx[j, v] + shifts[j] + i) % lens[j]]``.
-        Each line is its own contiguous f32 tensor, a ``[V, L_j]`` ring or,
-        with ``src_lines`` / ``dst_lines``, an ``[L_j, V]`` block;
+        Each line is its own contiguous tensor of this build's dtype, a
+        ``[V, L_j]`` ring or, with ``src_lines`` / ``dst_lines``, an
+        ``[L_j, V]`` block;
         ``idx``: ``[n_lines, V]`` int32 or None (0); ``shifts``: ints or
         None (0)."""
         self.launch(*self.call(src, dst, lens, v, idx, shifts, src_lines,
@@ -77,7 +88,7 @@ class RingAlign(CudaLib):
             raise ValueError(f"ring alignment of {len(src)} into {len(dst)} "
                              f"lines of {n} lengths (at most {MAX_LINES})")
         for t, length in zip(list(src) + list(dst), list(lens) * 2):
-            if t.numel() != v * length or t.dtype != torch.float32:
+            if t.numel() != v * length or t.dtype != self.dtype:
                 raise ValueError(f"a line of {t.numel()} {t.dtype} for "
                                  f"{v} voices of length {length}")
         if idx is not None and (tuple(idx.shape) != (n, v)
@@ -94,18 +105,30 @@ class RingAlign(CudaLib):
                 int(src_lines), int(dst_lines))
         argtypes = [P, P, P, P, P, I, I, I, I]
         if self.tile is None:
-            return "srk_ring_align_twin", argtypes, args, device
+            return f"srk_ring_align_twin{self.suffix}", argtypes, args, device
         if not (TILE_MIN <= self.tile <= TILE_MAX and self.tile % 32 == 0):
             raise ValueError(f"a tile of {self.tile} positions (a multiple "
                              f"of 32 from {TILE_MIN} to {TILE_MAX})")
-        return ("srk_ring_align_tile", argtypes + [I], args + (self.tile,),
-                device)
+        return (f"srk_ring_align_tile{self.suffix}", argtypes + [I],
+                args + (self.tile,), device)
 
 
 # the tile's 128 positions: chip_smoke.py phase 15 times 32 to 256
 RING_ALIGN = RingAlign("ring_align", "ring-alignment kernel (K9)", 128)
 RING_ALIGN_TWIN = RingAlign("ring_align_twin",
                             "ring-alignment kernel, twin (K9)", None)
+RING_ALIGN_F64 = RingAlign("ring_align_f64",
+                           "ring-alignment kernel, f64 build (K9)", 128,
+                           torch.float64)
+RING_ALIGN_TWIN_F64 = RingAlign(
+    "ring_align_twin_f64", "ring-alignment kernel, f64 build, twin (K9)",
+    None, torch.float64)
+
+
+def ring_align_for(dtype: torch.dtype) -> RingAlign:
+    """The main path's K9 for lines of ``dtype``: the f64 build for exact
+    precision's lines, else the f32 one."""
+    return RING_ALIGN_F64 if dtype == torch.float64 else RING_ALIGN
 
 
 def ring_align(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -115,6 +138,7 @@ def ring_align(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return ring_align_plain(buf, idx)
     r, length = buf.shape
     out = torch.empty((r, length), dtype=buf.dtype, device=buf.device)
-    RING_ALIGN.move([buf.contiguous()], [out], (length,), r,
-                    idx=idx.to(torch.int32).reshape(1, r).contiguous())
+    ring_align_for(buf.dtype).move(
+        [buf.contiguous()], [out], (length,), r,
+        idx=idx.to(torch.int32).reshape(1, r).contiguous())
     return out

@@ -4,7 +4,15 @@ the Pallas kernel ``_scan_rows``).
 Inclusive scans along the last axis of ``[..., n]`` arrays, as the
 whole-block primitives of ``ops/basic.py`` use them on CUDA tensors: ``sum``
 (f32, int32), ``max`` (f32, int32), ``fill`` (k values of one dtype and a
-mask) and ``affine`` (A, B).  The kernel is ``csrc/row_scan.cu``: one CTA
+mask) and ``affine`` (A, B).
+
+Its f64 build, :data:`ROW_SCAN_F64` (``row_scan_f64``: entries
+``srk_scan_sum_f64``, ``srk_scan_max_f64`` and ``srk_scan_fill_f64`` of
+the same source and templates), takes exact precision's ``[V, n]`` f64
+rows: the exact Oscillator block form's prefix sum of its increments and
+the fill of its Sync.  The JAX package computes these in XLA (its K4
+takes only f32 and int32), so this build ports no Pallas kernel; its
+plain versions are the same log-doubling forms in f64.  The kernel is ``csrc/row_scan.cu``: one CTA
 per row, a warp-shuffle scan within each 1,024-element chunk of the row and
 the prefix of the chunks before carried in order.  Its source note states
 the order of combination (the Sample player's kernel, a later slice, must
@@ -22,12 +30,17 @@ import torch
 from .cuda_lib import CudaLib, I, P, csrc, require_cuda
 
 
-class RowScan(CudaLib):
-    """K4: ``run(kind, arrays)`` and ``fill(values, mask)``."""
+_SUFFIX = {torch.float32: "f32", torch.int32: "i32", torch.float64: "f64"}
 
-    def __init__(self):
-        super().__init__("row_scan", csrc("row_scan.cu"),
-                         "row-scan kernel (K4)")
+
+class RowScan(CudaLib):
+    """K4: ``run(kind, arrays)`` and ``fill(values, mask)``, for the row
+    dtypes ``dtypes``; :meth:`fill` sends f64 value arrays to the f64
+    build."""
+
+    def __init__(self, name: str, what: str, dtypes: tuple):
+        super().__init__(name, csrc("row_scan.cu"), what)
+        self.dtypes = dtypes
 
     @staticmethod
     def _rows(x: torch.Tensor):
@@ -47,14 +60,16 @@ class RowScan(CudaLib):
         rows, n = self._rows(x)
         outs = tuple(torch.empty_like(a) for a in arrs)
         if kind in ("sum", "max"):
-            dt = {torch.float32: "f32", torch.int32: "i32"}.get(x.dtype)
+            dt = _SUFFIX.get(x.dtype) if x.dtype in self.dtypes else None
             if dt is None:
-                raise TypeError(f"{kind} scan of {x.dtype}: f32 or int32")
+                raise TypeError(f"{kind} scan of {x.dtype} by {self.name}: "
+                                f"{', '.join(map(str, self.dtypes))}")
             entry = f"srk_scan_{kind}_{dt}"
             argtypes = [P, P, I, I]
             args = (arrs[0].data_ptr(), outs[0].data_ptr(), rows, n)
         elif kind == "affine":
-            if any(a.dtype != torch.float32 for a in arrs):
+            if any(a.dtype != torch.float32 for a in arrs) or \
+                    torch.float32 not in self.dtypes:
                 raise TypeError("affine scan of f32 arrays only")
             entry, argtypes = "srk_scan_affine_f32", [P, P, P, P, I, I]
             args = (arrs[0].data_ptr(), arrs[1].data_ptr(),
@@ -68,7 +83,8 @@ class RowScan(CudaLib):
         """Forward fill: each value array's most recent entry where
         ``mask`` held.  Returns ``(filled_tuple, any_valid bool)``; where
         nothing held yet the filled value is 0.  Arrays of one dtype go in
-        one launch of up to four; others take further launches."""
+        one launch of up to four; others take further launches, f64 arrays
+        on :data:`ROW_SCAN_F64`."""
         m = mask.to(torch.int32).contiguous()
         require_cuda(m)
         rows, n = self._rows(m)
@@ -80,18 +96,19 @@ class RowScan(CudaLib):
                                  f"{mask.shape}")
             groups.setdefault(v.dtype, []).append(i)
         for dtype, idx in groups.items():
-            dt = {torch.float32: "f32", torch.int32: "i32"}.get(dtype)
+            dt = _SUFFIX.get(dtype)
             if dt is None:
-                raise TypeError(f"fill of {dtype}: f32 or int32")
+                raise TypeError(f"fill of {dtype}: f32, f64 or int32")
+            lib = ROW_SCAN_F64 if dtype == torch.float64 else ROW_SCAN
             for start in range(0, len(idx), 4):
                 part = idx[start:start + 4]
                 vals = torch.stack([values[i] for i in part]).contiguous()
                 device = require_cuda(vals, m)
                 out = torch.empty_like(vals)
                 out_ok = torch.empty_like(m)
-                self.launch(f"srk_scan_fill_{dt}", [P, P, P, P, I, I, I],
-                            (vals.data_ptr(), m.data_ptr(), out.data_ptr(),
-                             out_ok.data_ptr(), len(part), rows, n), device)
+                lib.launch(f"srk_scan_fill_{dt}", [P, P, P, P, I, I, I],
+                           (vals.data_ptr(), m.data_ptr(), out.data_ptr(),
+                            out_ok.data_ptr(), len(part), rows, n), device)
                 for j, i in enumerate(part):
                     filled[i] = out[j]
                 ok = out_ok
@@ -100,4 +117,7 @@ class RowScan(CudaLib):
         return tuple(filled), ok != 0
 
 
-ROW_SCAN = RowScan()
+ROW_SCAN = RowScan("row_scan", "row-scan kernel (K4)",
+                   (torch.float32, torch.int32))
+ROW_SCAN_F64 = RowScan("row_scan_f64", "row-scan kernel, f64 build (K4)",
+                       (torch.float64,))

@@ -249,8 +249,9 @@ def test_generated_source_is_deterministic_and_in_plan_order():
 def test_unported_module_type_names_the_roadmap():
     """Every module type is ported since slice 3b (the Sample player) and
     the block engine takes buffer mode: an unknown type raises KeyError
-    naming the catalog, buffer mode renders, and exact precision still
-    raises naming slice 4."""
+    naming the catalog, and buffer mode renders.  Exact precision, which
+    once raised naming slice 4, is ported since slice 10: every preset
+    builds in it, with the f64 phase."""
     p = stt.Patch(stt.AudioConfig(channels=1))
     assert not stt.modules.NOT_PORTED
     assert set(st.modules.CATALOG) == set(stt.CATALOG)
@@ -264,14 +265,11 @@ def test_unported_module_type_names_the_roadmap():
     assert torch.equal(audio_b, audio_s)
     assert all(torch.equal(state_b["fb"][k], f)
                for k, f in state_s["fb"].items())
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        stt.Patch(stt.AudioConfig(channels=1, precision="exact")).add(
-            "Oscillator")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        stt.presets.sine_patch(stt.AudioConfig(channels=1,
-                                               precision="exact"))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        stt.presets.subtractive_voice(
-            stt.AudioConfig(channels=1, precision="exact"))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        stt.presets.feedback_patch(stt.AudioConfig(precision="exact"))
+    exact = stt.AudioConfig(channels=1, precision="exact")
+    osc = stt.Patch(exact).add("Oscillator")
+    assert osc.id
+    for build in (stt.presets.sine_patch, stt.presets.subtractive_voice,
+                  stt.presets.feedback_patch):
+        state = stt.compile_patch(build(exact)).init_state()
+        assert {s["pos"].dtype for s in state["states"].values()
+                if "pos" in s} == {torch.float64}

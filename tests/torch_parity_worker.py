@@ -66,6 +66,28 @@ Slice 5's cases (gradients and training), inputs from numpy seeds:
 * ``losses``: ``utils/losses.py`` and its gradients in float64;
 * ``train``: three ``batched_train_step`` steps with ``optax.adam(1e-3)``.
 
+Exact precision's cases (``precision="exact"``, 4,800 Hz, x64), inputs
+from numpy seeds:
+
+* ``<name>@exact`` for ``subtractive_voice``, ``feedback_patch``,
+  ``feedback_buffer`` (feedback_patch in buffer-feedback mode, block 64),
+  ``reverb_patch`` and ``drum_machine``: the scan engine and the block
+  engine at n=384 from one state, every Oscillator at a random f64 phase,
+  every Freeverb line, index and filter state random, the sequencers at
+  random steps and the Samples at random frames (drum_machine's Noise fed
+  one numpy lane);
+* ``osc_exact``: the Oscillator's exact ``_osc_block`` free-running, with
+  a CV, a Sync, both, and an automated ``val``;
+* ``freeverb_exact``: the Freeverb's exact ``_step`` over 256 samples and
+  its exact ``_block`` at n=512 and n=300 (automated ``room_size`` and
+  ``wet``), from random f64 rings with non-zero write indices;
+* ``drift``: subtractive_voice at 4,800 Hz, 2 voices of farm_params, 1 s,
+  the scan engine in fast and in exact precision;
+* ``drift48``: the same voice at 48 kHz, 4 voices of farm_params, 1 s
+  (48,000 samples), the scan engine in fast and in exact precision, in
+  three renders cut at ``DRIFT48_WINDOW``; each precision's audio and its
+  state at the window's start.
+
 It runs in its own process because XLA's CPU backend contracts ``a*b+c``
 into one fused multiply-add when the host has FMA, which rounds the
 polynomials once where the port (and the TPU) round twice, and the XLA flag
@@ -901,6 +923,210 @@ SPECIAL = {"freeverb": freeverb_case, "osc_block": osc_block_case,
            "losses": losses_case, "train": train_case,
            **{f"grad:{name}": (lambda out, name=name: grad_case(name, out))
               for name in GRAD_NAMES}}
+
+
+EXACT_N = 384
+EXACT_CASES = ("subtractive_voice", "feedback_patch", "feedback_buffer",
+               "reverb_patch", "drum_machine")
+
+
+def exact_build(name: str):
+    """An exact-precision case at 4,800 Hz, block 64, built with the JAX
+    ``Patch`` (``feedback_buffer``: feedback_patch in buffer mode)."""
+    base = "feedback_patch" if name == "feedback_buffer" else name
+    cfg = st.AudioConfig(sample_rate=4800, block_size=64,
+                         channels=2 if base == "reverb_patch" else 1,
+                         precision="exact",
+                         buffer_feedback=name == "feedback_buffer")
+    return getattr(presets, base)(cfg)
+
+
+def exact_state(compiled, v, rng, params):
+    """An exact state for V voices: random f64 Oscillator phases in [0,
+    1), random Freeverb lines (f64), write indices and filter states, and
+    the sequencers' and Samples' seeding of :func:`_seeded_state`."""
+    state = jax.tree.map(np.asarray, _seeded_state(compiled, v, rng, params))
+    for mid, (mdef, _, _) in compiled.instances.items():
+        sd = state["states"][mid]
+        if mdef.type_name == "Oscillator":
+            sd["pos"] = rng.uniform(0.0, 1.0, v)
+        elif mdef.type_name == "Freeverb":
+            for k, a in list(sd.items()):
+                if k.endswith("_idx"):
+                    length = sd[k[:-4]].shape[-1]
+                    sd[k] = rng.integers(0, length, v).astype(np.int32)
+                else:
+                    sd[k] = rng.standard_normal(a.shape) * 0.05
+    return state
+
+
+def exact_case(name: str, out: dict) -> None:
+    """The JAX scan engine and block engine in exact precision."""
+    tag = f"{name}@exact"
+    patch = exact_build(name)
+    compiled = st.compile_patch(patch)
+    rng = np.random.default_rng(47)
+    params = presets.farm_params(patch, VOICES)
+    state = exact_state(compiled, VOICES, rng, params)
+    drivers = noise_drivers(patch, EXACT_N, rng)
+    keys = jax.random.split(jax.random.PRNGKey(0), VOICES)
+    flat(f"{tag}/params", params, out)
+    flat(f"{tag}/state", state, out)
+    flat(f"{tag}/drivers", drivers, out)
+    jstate = jax.tree.map(jnp.asarray, state)
+    jdrv = {k: jnp.asarray(a) for k, a in drivers.items()}
+    for engine in ("scan", "block"):
+        audio, _, final = compiled._get_fn(EXACT_N, True, engine)(
+            params, jstate, keys, jdrv)
+        flat(f"{tag}/{engine}/audio", audio, out)
+        flat(f"{tag}/{engine}/final", final, out)
+
+
+def osc_exact_case(out: dict) -> None:
+    """The exact ``_osc_block`` over [V, n] rows for each input
+    combination."""
+    from srack_tpu.modules import oscillator as josc
+    cfg = st.AudioConfig(sample_rate=4800, precision="exact")
+    rng = np.random.default_rng(23)
+    v, n = 3, 300
+    statics = ("antialias", True)
+    for case in ("free", "cv", "sync", "cv_sync", "auto_val"):
+        state = {"pos": rng.uniform(0.0, 1.0, v),
+                 "sync_last": rng.uniform(size=v) < 0.5}
+        params = {"val": rng.uniform(-3, 1, v).astype(np.float32)}
+        cv = (rng.uniform(-1, 1, (v, n)).astype(np.float32)
+              if "cv" in case else None)
+        sync = None
+        if "sync" in case:
+            sync = np.where(rng.uniform(size=(v, n)) < 0.05, 1.0,
+                            -0.5).astype(np.float32)
+        if case == "auto_val":
+            params["val"] = rng.uniform(-3, 1, (v, n)).astype(np.float32)
+        flat(f"osc_exact/{case}/state", state, out)
+        flat(f"osc_exact/{case}/params", params, out)
+        if cv is not None:
+            out[f"osc_exact/{case}/cv"] = cv
+        if sync is not None:
+            out[f"osc_exact/{case}/sync"] = sync
+
+        def one(p, s, c, y, case=case):
+            if case == "free":
+                p = {**p, **josc._osc_derive(cfg, statics, p, (False, False))}
+            return josc._osc_block(cfg, statics, p, s, (c, y), None, n)
+
+        final, waves = jax.jit(jax.vmap(one, in_axes=(
+            0, 0, None if cv is None else 0, None if sync is None else 0)))(
+            params, state, None if cv is None else jnp.asarray(cv),
+            None if sync is None else jnp.asarray(sync))
+        flat(f"osc_exact/{case}/waves", jnp.stack(waves, axis=1), out)
+        flat(f"osc_exact/{case}/final", final, out)
+
+
+def freeverb_exact_case(out: dict) -> None:
+    """The Freeverb's exact step and block form (the f64 core)."""
+    from srack_tpu.modules import freeverb as jfv
+    cfg = st.AudioConfig(sample_rate=4800, channels=2, precision="exact")
+    statics, p0 = jfv.FREEVERB.make(cfg, room_size=0.7, dampening=0.4,
+                                    wet=0.3, dry=0.2)
+    rng = np.random.default_rng(29)
+    v = 3
+    state = {}
+    for k, a in jfv._init_state(cfg, statics).items():
+        if k.endswith("_idx"):
+            continue
+        state[k] = rng.standard_normal((v,) + a.shape) * 0.1
+        if a.ndim:
+            state[f"{k}_idx"] = rng.integers(0, a.shape[0], v).astype(
+                np.int32)
+    params = {k: np.broadcast_to(np.asarray(a), (v,)).copy()
+              for k, a in p0.items()}
+    params["room_size"] = rng.uniform(0.3, 0.9, v).astype(np.float32)
+    params["dampening"] = rng.uniform(0.0, 1.0, v).astype(np.float32)
+    flat("freeverb_exact/state", state, out)
+    flat("freeverb_exact/params", params, out)
+    n = 256
+    lanes = (rng.standard_normal((2, v, n)) * 0.3).astype(np.float32)
+    out["freeverb_exact/step/lanes"] = lanes
+
+    def run_steps(p, s, lr):
+        def body(carry, x):
+            carry, outs = jfv.FREEVERB.step(cfg, statics, p, carry,
+                                            [x[0], x[1]])
+            return carry, jnp.stack(outs)
+        final, ys = jax.lax.scan(body, s, lr.T)
+        return ys.T, final
+
+    audio, final = jax.jit(jax.vmap(run_steps, in_axes=(0, 0, 1)))(
+        params, state, jnp.asarray(lanes))
+    flat("freeverb_exact/step/audio", audio, out)
+    flat("freeverb_exact/step/final", final, out)
+    for n in (512, 300):
+        lanes = (rng.standard_normal((2, v, n)) * 0.3).astype(np.float32)
+        autos = {"room_size": rng.uniform(0.3, 0.9, (v, n)).astype(
+                     np.float32),
+                 "wet": rng.uniform(0.1, 0.5, (v, n)).astype(np.float32)}
+        out[f"freeverb_exact/block{n}/lanes"] = lanes
+        flat(f"freeverb_exact/block{n}/autos", autos, out)
+
+        def run_block(p, a, s, lr, n=n):
+            return jfv._block(cfg, statics, {**p, **a}, s, [lr[0], lr[1]],
+                              None, n)
+
+        final, audio = jax.jit(jax.vmap(run_block, in_axes=(0, 0, 0, 1)))(
+            params, autos, state, jnp.asarray(lanes))
+        flat(f"freeverb_exact/block{n}/audio", jnp.stack(audio, axis=1),
+             out)
+        flat(f"freeverb_exact/block{n}/final", final, out)
+
+
+def drift_case(out: dict) -> None:
+    """The reference's own fast-against-exact difference over 1 s."""
+    for precision in ("fast", "exact"):
+        cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
+                             precision=precision)
+        patch = presets.subtractive_voice(cfg)
+        compiled = st.compile_patch(patch)
+        params = presets.farm_params(patch, 2)
+        state = jax.tree.map(lambda a: jnp.broadcast_to(a, (2,) + a.shape),
+                             compiled.init_state())
+        keys = jax.random.split(jax.random.PRNGKey(0), 2)
+        audio, _, _ = compiled._get_fn(4800, True, "scan")(params, state,
+                                                           keys, {})
+        out[f"drift/{precision}"] = np.asarray(audio)
+
+
+DRIFT48_WINDOW = (12288, 13312)  # where the first voice drifts past 1e-3
+
+
+def drift48_case(out: dict) -> None:
+    """The reference's own fast-against-exact difference over 1 s at 48
+    kHz, rendered on from the state at each cut of ``DRIFT48_WINDOW``."""
+    v, sr = 4, 48000
+    for precision in ("fast", "exact"):
+        cfg = st.AudioConfig(sample_rate=sr, channels=1, precision=precision)
+        patch = presets.subtractive_voice(cfg)
+        compiled = st.compile_patch(patch)
+        params = presets.farm_params(patch, v)
+        state = jax.tree.map(lambda a: jnp.broadcast_to(a, (v,) + a.shape),
+                             compiled.init_state())
+        keys = jax.random.split(jax.random.PRNGKey(0), v)
+        pieces, t = [], 0
+        for cut in DRIFT48_WINDOW + (sr,):
+            if t == DRIFT48_WINDOW[0]:
+                flat(f"drift48/{precision}/state", state, out)
+            audio, _, state = compiled._get_fn(cut - t, True, "scan")(
+                params, state, keys, {})
+            pieces.append(np.asarray(audio))
+            t = cut
+        out[f"drift48/{precision}/audio"] = np.concatenate(pieces, axis=-1)
+
+
+SPECIAL.update({"osc_exact": osc_exact_case, "drift": drift_case,
+                "drift48": drift48_case,
+                "freeverb_exact": freeverb_exact_case,
+                **{f"{name}@exact": (lambda out, name=name:
+                                     exact_case(name, out))
+                   for name in EXACT_CASES}})
 
 
 def main(path: str, names) -> None:
