@@ -223,7 +223,44 @@ feedback_patch, reverb_patch and the three kits, the Sample on K7; within
    through ``render`` (1 s) and ``render_stream`` (4 blocks), and
    ``tests/test_precision.py``'s sine fast against exact within 1e-3.
 
-Each main path (phases 4, 5, 7-14, 16, 17) runs with the launch counts
+For slice 11 (the farm on torch.distributed, io, the CLI, play and
+profiling) phase 2 also builds K3 of the .srk fixture's stage and K1 of
+the midi command's gate/CV voice;
+
+18. farm: ``parallel.render_farm`` of the farm cell (subtractive_voice,
+   16,384 voices x 192,000 samples, farm_params seed 0) on a one-rank NCCL
+   mesh (``init_distributed`` with a world of 1: NCCL takes one rank per
+   card) and on a mesh of four slots on cuda:0, per voice and with
+   ``mixdown=True``: the audio equal to ``compile_patch(...).render(
+   batched=True)`` bit for bit, the mix within V 2^-24 max|audio| of the
+   voices summed in float64, K1 once per slot and the scan engine never;
+   drum_machine (1,024 x 48,000, key 5) on the four slots equal to one
+   local render bit for bit (the Noise lanes keyed by the global voice),
+   K3 and K7 once per slot; ``batched_train_step(mesh=, fast=True)`` at
+   phase 14's config on both meshes against the unsharded step: the loss
+   and every param leaf within 1e-6 relative, the gradients within 1e-4
+   of their largest, one K10 forward and one backward per slot; and
+   ``render_many(mesh=)`` of six patches in three topologies equal to
+   ``render_many`` without a mesh bit for bit; each render and the
+   ``all_reduce`` of the mix bus timed;
+19. io: the ``.srk`` fixture (``tests/data/reference_all_modules.srk``)
+   read with ``io.read_srk`` and rendered 1 s at 1,024 voices (its engine
+   and kernels logged), its first 1,024 samples within 5e-6 of the scan
+   engine on the card; an exact reverb_patch through ``save_patch`` /
+   ``load_patch`` and ``save_state`` / ``load_state`` (the f64 leaves back
+   as f64 on cuda; the resumed render equal to the one from the state it
+   saved bit for bit and to the unbroken render within 5e-6); the CLI in
+   this process (``render subtractive``, ``render reverb``, ``render
+   subtractive --precision exact``, 10 s each; ``render`` of the fixture;
+   ``midi`` of a chord file the phase builds from bytes), each WAV's PCM
+   equal to its render's at 16 bits, launches counted; ``play`` of
+   subtractive_voice for 5 s into the null sink, one voice and 1,024
+   voices (blocks, underruns and worst headroom reported); ``timed_render``
+   of the headline and a ``torch.profiler`` trace of the reverb render
+   (``utils.profiling.trace``, written to chiprun_out/trace/), summed into
+   its top 10 device ops and its device idle gaps.
+
+Each main path (phases 4, 5, 7-14, 16-19) runs with the launch counts
 set to 0 just before it and read just after.  Any failure raises and exits
 non-zero.  The line before the last is a JSON record of the kernels; the
 last line is
@@ -426,6 +463,7 @@ def phase_build(stt):
     jobs.update(vjp_kernels(stt))
     jobs.update(ab_kernels(kernels))
     jobs.update(exact_kernels(stt))
+    jobs.update(slice11_kernels(stt))
 
     def build(name):
         t0 = time.perf_counter()
@@ -612,6 +650,15 @@ def _counters(kernels):
     # the one-thread twins of phase 15, named apart: a main path that
     # launched one would count as another kernel
     out += [one for _, one in AB.values()]
+    # every kernel of a compiled plan still in the compile cache (phases
+    # 18-19 compile patches of their own, e.g. the .srk fixture's)
+    from srack_tpu_torch.compiler import _COMPILE_CACHE
+    for compiled in _COMPILE_CACHE.values():
+        out += list(compiled._fused.values())
+        out += [lib for k in compiled._fused_vjp.values()
+                for lib in (k.fwd, k.bwd)]
+        if compiled._block_prog is not None:
+            out += list(compiled._block_prog._stage_kernels.values())
     # cases of one compiled plan share its wrappers: count each once
     return list({id(k): k for k in out}.values())
 
@@ -3918,6 +3965,586 @@ def phase_exact(stt, kernels, card) -> dict:
     return rec
 
 
+# -- slice 11: the farm on a mesh, io, the CLI, play and profiling -----------
+
+MESH_SLOTS = 4       # phase 18's mesh of slots on one card
+DRUM_MESH_N = 48000  # drum_machine on the four-slot mesh: 1,024 x 1 s
+MANY_N = 48000       # render_many's six patches, 1 s each
+SRK_VOICES, SRK_N, SRK_PREFIX = 1024, 48000, 1024
+RT_VOICES, RT_N = 128, 96000  # the exact round trip: two halves of 1 s
+CLI_SECONDS = 10
+PLAY_SECONDS = 5
+TRACE_DIR = "chiprun_out/trace"
+PHASE_LAUNCHES = {}  # "18 ..." / "19 ..." -> {kernel name: launches}
+SRK_FIXTURE = "tests/data/reference_all_modules.srk"
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _record(label, counts):
+    PHASE_LAUNCHES[label] = dict(counts)
+    return counts
+
+
+def _fixture_patch(stt):
+    return stt.io.read_srk(SRK_FIXTURE, stt.AudioConfig(sample_rate=SR,
+                                                        channels=2))
+
+
+def _midi_bytes() -> bytes:
+    """A Standard MIDI File of a held C major chord on 8 voices' worth of
+    notes (tests/test_midi.py's hand-assembled form): C4 E4 G4 C5 for one
+    second, then E4 G4 B4 D5 for one second at 120 bpm."""
+    import struct
+
+    def track(events):
+        body = b""
+        for delta, raw in events:
+            out = [delta & 0x7F]
+            delta >>= 7
+            while delta:
+                out.append(0x80 | (delta & 0x7F))
+                delta >>= 7
+            body += bytes(reversed(out)) + raw
+        body += b"\x00\xff\x2f\x00"
+        return b"MTrk" + struct.pack(">I", len(body)) + body
+
+    first, second = (60, 64, 67, 72), (64, 67, 71, 74)
+    events = [(0, bytes([0x90, k, 0x64])) for k in first]
+    events += [(960 if i == 0 else 0, bytes([0x80, k, 0x40]))
+               for i, k in enumerate(first)]
+    events += [(0, bytes([0x90, k, 0x64])) for k in second]
+    events += [(960 if i == 0 else 0, bytes([0x80, k, 0x40]))
+               for i, k in enumerate(second)]
+    return (b"MThd" + struct.pack(">IHHH", 6, 0, 1, 480)
+            + track(events))
+
+
+def slice11_kernels(stt) -> dict:
+    """The kernels phase 19's paths build that no earlier phase does: K3
+    of the .srk fixture's stage and K1 of the midi command's gate/CV voice
+    with its two driver lanes."""
+    fixture = stt.compile_patch(_fixture_patch(stt))
+    prog = fixture.block_program()
+    voice, gate, cv = stt.presets.gate_cv_voice(stt.AudioConfig(
+        sample_rate=SR, channels=1, precision="fast"))
+    midi = stt.compile_patch(voice)
+    return {"srk fixture stage": prog.stage_kernel(stage_lane_keys(prog)),
+            "midi voice": midi.fused((gate.id, cv.id))}
+
+
+def _mix64(audio) -> torch.Tensor:
+    """The voices of ``[V, C, n]`` summed in float64, 1,024 at a time."""
+    acc = None
+    for part in torch.split(audio, 1024):
+        s = part.double().sum(dim=0)
+        acc = s if acc is None else acc + s
+    return acc
+
+
+def _farm_on(stt, kernels, card, tag, mesh, patch, params, local, n):
+    """``render_farm`` per voice and mixed down on ``mesh``: the audio
+    equal to ``local`` bit for bit, the mix within ``V 2^-24 max|audio|``
+    of the per-voice audio summed in float64, K1 once per slot and the
+    scan engine never."""
+    from srack_tpu_torch.parallel import render_farm
+    slots = mesh.size
+    with no_scan_engine():
+        farm, counts = _counted(kernels, lambda: render_farm(
+            patch, n, params=params, mesh=mesh))
+    check(counts == {"fused_voice": slots}, f"[18 {tag}] the farm launched "
+          f"{counts}, not fused_voice once per slot")
+    audio = farm[0]
+    check(torch.equal(audio, local), f"[18 {tag}] the farm's audio is not "
+          f"the local render's, off by {(audio - local).abs().max().item()}")
+    want = _mix64(audio)
+    peak = audio.abs().max().item()
+    del farm, audio
+    torch.cuda.empty_cache()
+    # each timed after an untimed render, whose memory the caching
+    # allocator then holds (as phase 5's warm-up does)
+    with no_scan_engine():
+        ms = cuda_ms(lambda: render_farm(patch, n, params=params, mesh=mesh),
+                     warmup=1)
+        torch.cuda.empty_cache()
+        mixed, mcounts = _counted(kernels, lambda: render_farm(
+            patch, n, params=params, mesh=mesh, mixdown=True))
+        mix_ms = cuda_ms(lambda: render_farm(patch, n, params=params,
+                                             mesh=mesh, mixdown=True),
+                         warmup=1)
+    check(mcounts == {"fused_voice": slots}, f"[18 {tag}] the mixdown "
+          f"launched {mcounts}")
+    v = stt.compiler.tree_leaves(params)[0].shape[0]
+    tol = v * 2.0 ** -24 * peak
+    err = (mixed[0].double() - want).abs().max().item()
+    check(err <= tol, f"[18 {tag}] the mix bus is off the float64 sum of "
+          f"the voices by {err} (tolerance {tol})")
+    rate = v * n / (ms / 1e3)
+    log(f"[18 {tag}] render_farm subtractive_voice V={v} n={n} on "
+        f"{mesh!r}: {ms:.3f} ms per voice render ({rate / 1e9:.4f} G "
+        f"samples/s), mixdown {mix_ms:.3f} ms; fused_voice {slots} "
+        f"launches a render; audio equal to the local render bit for bit; "
+        f"mix within {err:.3e} of the float64 sum (tolerance {tol:.3e}) "
+        f"[{card}]")
+    return {"ms": ms, "mixdown_ms": mix_ms, "g_samples_per_s": rate / 1e9,
+            "launches": counts, "mix_err": err, "mix_tol": tol}
+
+
+def _train_on(stt, kernels, card, tag, mesh, want):
+    """One ``batched_train_step(mesh=, fast=True)`` at phase 14's config
+    against the unsharded step ``want``: the loss and every param leaf
+    within 1e-6 relative, the gradients within 1e-4 of their largest, one
+    K10 forward and one backward per slot."""
+    import functools
+    from srack_tpu_torch.utils import train as T
+    patch, compiled, _ = VJP["train"]
+    adam = functools.partial(torch.optim.Adam, lr=1e-3)
+    ts = T.SoundMatcher(patch, TRAIN_N).init()
+    step = T.batched_train_step(compiled, adam, TRAIN_N, fast=True,
+                                mesh=mesh)
+    targets = torch.zeros((VOICES, 1, TRAIN_N), device="cuda")
+    with no_scan_engine():
+        (train, _, loss), counts = _counted(kernels, lambda: step(
+            ts["train"], ts["frozen"], None, targets, 0))
+    slots = mesh.size
+    check(counts == {"fused_vjp_fwd": slots, "fused_vjp_bwd": slots},
+          f"[18 {tag}] the sharded step launched {counts}")
+    loss = float(loss)
+    rel = abs(loss - want["loss"]) / abs(want["loss"])
+    check(rel <= 1e-6, f"[18 {tag}] loss {loss} vs {want['loss']}")
+    worst_p = worst_g = 0.0
+    leaves = stt.compiler.tree_items(train)
+    for (path, t), (_, w), (_, g) in zip(leaves, want["params"],
+                                         want["grads"]):
+        d = (t.detach() - w).abs().max().item()
+        scale = w.abs().max().item()
+        check(d <= 1e-6 * max(scale, 1e-30), f"[18 {tag}] param {path} "
+              f"off by {d} (scale {scale})")
+        worst_p = max(worst_p, d / max(scale, 1e-30))
+        gd = (t.grad - g).abs().max().item()
+        gs = g.abs().max().item()
+        check(gd <= 1e-8 + 1e-4 * gs, f"[18 {tag}] gradient {path} off by "
+              f"{gd} (largest {gs})")
+        worst_g = max(worst_g, gd / max(gs, 1e-30))
+    same = loss == want["loss"] and all(
+        torch.equal(t.detach(), w) for (_, t), (_, w)
+        in zip(leaves, want["params"]))
+    with no_scan_engine():
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            train, _, l2 = step(train, ts["frozen"], None, targets, i + 1)
+        float(l2)
+        step_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+    log(f"[18 {tag}] batched_train_step(mesh, fast=True) V={VOICES} "
+        f"n={TRAIN_N}: launches {counts}; loss {loss:.9g} vs unsharded "
+        f"{want['loss']:.9g} (rel {rel:.2e}); params within {worst_p:.2e} "
+        f"relative, gradients within {worst_g:.2e} of their largest; bit "
+        f"for bit: {same}; {step_ms:.2f} ms/step [{card}]")
+    return {"launches": counts, "loss_rel": rel, "param_rel": worst_p,
+            "grad_rel": worst_g, "bit_for_bit": same, "step_ms": step_ms}
+
+
+def phase_farm_mesh(stt, kernels, card) -> dict:
+    """Phase 18: the farm, sharded training and ``render_many`` placement
+    on meshes of the one card: a one-rank NCCL process group (world of 1:
+    NCCL takes one rank per card) and a mesh of four slots on cuda:0."""
+    import functools
+    from srack_tpu_torch import parallel
+    from srack_tpu_torch.parallel import Mesh
+    from srack_tpu_torch.utils import train as T
+    info = parallel.init_distributed(
+        coordinator_address=f"localhost:{_free_port()}", num_processes=1,
+        process_id=0, backend="nccl")
+    rec = {"init": info}
+    try:
+        one = parallel.make_mesh()
+        check(one.size == 1 and one.ranks is not None,
+              f"make_mesh over the process group: {one!r}")
+        four = Mesh(np.array(["cuda:0"] * MESH_SLOTS).reshape(2, 2),
+                    ("dp", "vp"))
+        log(f"[18 farm] init_distributed: {info}; meshes {one!r} (NCCL "
+            f"rank 0) and {four!r}")
+        patch = kernels["subtractive_voice"][0]
+        params = stt.presets.farm_params(patch, FARM_VOICES)
+        with no_scan_engine():
+            local, _, _ = stt.compile_patch(patch).render(
+                FARM_N, params=params, batched=True, device="cuda")
+        for tag, mesh in (("nccl mesh", one), ("four slots", four)):
+            rec[tag] = _farm_on(stt, kernels, card, tag, mesh, patch,
+                                params, local, FARM_N)
+            _record(f"18 farm {tag}", rec[tag]["launches"])
+        del local
+        torch.cuda.empty_cache()
+        x = torch.ones((1, FARM_N), device="cuda")
+        rec["all_reduce_ms"] = cuda_ms(
+            lambda: parallel.distributed.all_reduce_sum(x), repeats=20,
+            warmup=2)
+        log(f"[18 farm] all_reduce of the [1, {FARM_N}] mix bus on the "
+            f"one-rank NCCL group: {rec['all_reduce_ms']:.4f} ms [{card}]")
+
+        drums = stt.presets.drum_machine(stt.AudioConfig(sample_rate=SR,
+                                                         channels=1))
+        dparams = stt.presets.farm_params(drums, VOICES)
+        with no_scan_engine():
+            want, _, _ = stt.render_batch(drums, DRUM_MESH_N, params=dparams,
+                                          key=5)
+            farm, counts = _counted(kernels, lambda: parallel.render_farm(
+                drums, DRUM_MESH_N, params=dparams, key=5, mesh=four))
+            dms = cuda_ms(lambda: parallel.render_farm(
+                drums, DRUM_MESH_N, params=dparams, key=5, mesh=four),
+                warmup=1)
+        check(counts.get("serial_stage") == MESH_SLOTS
+              and counts.get("sample_play") == MESH_SLOTS,
+              f"[18 farm noise] drum_machine on four slots launched {counts}")
+        check(torch.equal(farm[0], want), "[18 farm noise] drum_machine on "
+              "four slots is not the local render, off by "
+              f"{(farm[0] - want).abs().max().item()}")
+        rec["noise"] = {"launches": counts, "ms": dms}
+        _record("18 farm noise", counts)
+        log(f"[18 farm noise] drum_machine V={VOICES} n={DRUM_MESH_N} key 5 "
+            f"on four slots: equal to the local render bit for bit "
+            f"(its Noise lanes keyed by the global voice); launches "
+            f"{counts}; {dms:.3f} ms [{card}]")
+        del farm, want
+        torch.cuda.empty_cache()
+
+        # the unsharded step, then the same step on each mesh
+        pt, compiled, _ = VJP["train"]
+        adam = functools.partial(torch.optim.Adam, lr=1e-3)
+        ts = T.SoundMatcher(pt, TRAIN_N).init()
+        step = T.batched_train_step(compiled, adam, TRAIN_N, fast=True)
+        with no_scan_engine():
+            tr, _, loss = step(ts["train"], ts["frozen"], None, torch.zeros(
+                (VOICES, 1, TRAIN_N), device="cuda"), 0)
+        items = stt.compiler.tree_items(tr)
+        want = {"loss": float(loss),
+                "params": [(p, t.detach().clone()) for p, t in items],
+                "grads": [(p, t.grad.clone()) for p, t in items]}
+        for tag, mesh in (("nccl mesh", one), ("four slots", four)):
+            rec[f"train {tag}"] = _train_on(stt, kernels, card,
+                                            f"train {tag}", mesh, want)
+            _record(f"18 train {tag}", rec[f"train {tag}"]["launches"])
+
+        cfg = stt.AudioConfig(sample_rate=SR, channels=1)
+        rng = np.random.default_rng(18)
+        patches = []
+        for build in (stt.presets.subtractive_voice,
+                      stt.presets.sequencer_patch, stt.presets.sine_patch):
+            for _ in range(2):
+                p = build(cfg)
+                osc = next(i.id for i in p
+                           if i.mdef.type_name == "Oscillator")
+                p.set_params(osc, val=float(rng.uniform(-2.0, 0.0)))
+                patches.append(p)
+        from srack_tpu_torch.engine import place_groups
+        placed = place_groups(patches, four.size)
+        with no_scan_engine():
+            got, counts = _counted(kernels, lambda: stt.render_many(
+                patches, MANY_N, key=3, mesh=four))
+            want_many = stt.render_many(patches, MANY_N, key=3)
+        for i, (a, b) in enumerate(zip(got, want_many)):
+            check(torch.equal(a, b), f"[18 placement] patch {i} on the "
+                  f"mesh is not render_many's")
+        check(counts == {"fused_voice": 3}, f"[18 placement] launched "
+              f"{counts}")
+        rec["placement"] = {"groups": [(list(i), s) for i, s in placed],
+                            "launches": counts}
+        _record("18 placement", counts)
+        log(f"[18 placement] render_many of 6 patches in 3 topologies, "
+            f"{MANY_N} samples, on four slots: groups and slots {placed}; "
+            f"equal to render_many without a mesh bit for bit; launches "
+            f"{counts} [{card}]")
+    finally:
+        torch.distributed.destroy_process_group()
+    return rec
+
+
+def _pcm16(audio: np.ndarray) -> np.ndarray:
+    """``[C, n]`` f32 as the interleaved 16-bit PCM ``write_wav`` writes."""
+    pcm = np.clip(np.round(audio * 32767.0), -32768, 32767)
+    return pcm.T.reshape(-1).astype("<i2")
+
+
+def _held_wav(stt, path, audio: np.ndarray, what) -> None:
+    """The WAV at ``path`` holds ``audio`` ``[C, n]`` at 16 bits: its PCM
+    equal to the audio's, and ``read_wav`` (channel 0) equal to that PCM
+    over 32,768."""
+    raw = open(path, "rb").read()
+    check(np.array_equal(np.frombuffer(raw[44:], "<i2"), _pcm16(audio)),
+          f"[19 cli] {what}: the WAV's PCM is not the rendered audio's")
+    got, _ = stt.io.read_wav(path)
+    want = (_pcm16(audio[:1])).astype(np.float32) / np.float32(32768.0)
+    check(np.array_equal(got, want), f"[19 cli] {what}: read_wav differs")
+
+
+@contextlib.contextmanager
+def _kept(owner, attr: str, keep: list):
+    """While open, every call of ``owner.attr`` appends its result to
+    ``keep``."""
+    saved = getattr(owner, attr)
+
+    def hook(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        keep.append(out)
+        return out
+    setattr(owner, attr, hook)
+    try:
+        yield keep
+    finally:
+        setattr(owner, attr, saved)
+
+
+def _cli(stt, kernels, card, label, argv, api, rec):
+    """``main(argv)`` in this process with the launches counted; the
+    audio of the entry point ``api`` it calls kept and held to the WAV."""
+    from srack_tpu_torch import __main__ as cli
+    from srack_tpu_torch import engine
+    keep = []
+    out = f"chiprun_out/cli_{label.replace(' ', '_')}.wav"
+    with no_scan_engine(), _kept(engine, api, keep):
+        t0 = time.perf_counter()
+        rc, counts = _counted(kernels, lambda: cli.main(argv + ["-o", out]))
+        secs = time.perf_counter() - t0
+    check(rc == 0, f"[19 cli] {label}: exit code {rc}")
+    check(counts, f"[19 cli] {label}: launched no kernel")
+    rec[label] = {"launches": counts, "s": secs}
+    _record(f"19 cli {label}", counts)
+    return keep, out, counts, secs
+
+
+def phase_io(stt, kernels, card) -> dict:
+    """Phase 19: the .srk fixture on the card, the exact round trips, the
+    CLI in-process, play and profiling."""
+    import os
+    from srack_tpu_torch import native
+    from srack_tpu_torch.utils.profiling import timed_render, trace
+    os.makedirs("chiprun_out", exist_ok=True)
+    rec = {"native_library": native.lib() is not None}
+    log(f"[19 io] native planner and WAV codec (g++): "
+        f"{'built' if rec['native_library'] else 'not built'}")
+
+    # the .srk fixture at 1,024 voices, 1 s, against the scan engine
+    t0 = time.perf_counter()
+    patch = _fixture_patch(stt)
+    compiled = stt.compile_patch(patch)
+    params = stt.presets.farm_params(patch, SRK_VOICES)
+    with no_scan_engine():
+        stt.render_batch(patch, SRK_N, params=params)
+        (audio, _, _), counts = _counted(kernels, lambda: stt.render_batch(
+            patch, SRK_N, params=params))
+        ms = cuda_ms(lambda: stt.render_batch(patch, SRK_N, params=params),
+                     warmup=1)
+    engine_name = compiled.auto_engine(True, "cuda")
+    _check_audio(audio, (SRK_VOICES, 2, SRK_N), "srk fixture")
+    with torch.no_grad():
+        ref, _ = compiled.render_scan(
+            _cuda(stt, params), _cuda(stt, stt.replicate_params(
+                compiled.init_state(), SRK_VOICES)), SRK_PREFIX, batched=True,
+            nograd=True, xs=compiled._make_xs(_cuda(stt, params), 0,
+                                              SRK_PREFIX, {}))
+    err = (audio[..., :SRK_PREFIX] - ref).abs().max().item()
+    check(err <= BLOCK_ATOL, f"[19 srk] the fixture's first {SRK_PREFIX} "
+          f"samples off the scan engine by {err}")
+    rec["srk"] = {"engine": engine_name, "launches": counts, "ms": ms,
+                  "prefix_err": err}
+    _record("19 srk fixture", counts)
+    log(f"[19 srk] {SRK_FIXTURE} ({len(compiled.plan)} modules) V="
+        f"{SRK_VOICES} n={SRK_N} stereo -> {engine_name} engine, launches "
+        f"{counts}; {ms:.3f} ms; first {SRK_PREFIX} samples within "
+        f"{err:.3e} of the scan engine on the card; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del audio, ref
+    torch.cuda.empty_cache()
+
+    # round trips of an exact patch: JSON patch, npz state (f64 on cuda)
+    t0 = time.perf_counter()
+    reverb = stt.presets.reverb_patch(stt.AudioConfig(
+        sample_rate=SR, channels=2, precision="exact"))
+    text = stt.io.save_patch(reverb)
+    loaded = stt.io.load_patch(text)
+    check(sorted(loaded.connections()) == sorted(reverb.connections()),
+          "[19 round trip] the JSON patch lost wiring")
+    ex = stt.compile_patch(loaded)
+    check(ex is stt.compile_patch(reverb), "[19 round trip] the loaded "
+          "patch compiles to another plan")
+    rparams = stt.presets.farm_params(loaded, RT_VOICES)
+    half = RT_N // 2
+    with no_scan_engine():
+        whole, _, _ = ex.render(RT_N, params=rparams, batched=True,
+                                device="cuda")
+        first, _, mid = ex.render(half, params=rparams, batched=True,
+                                  device="cuda")
+        path = "chiprun_out/exact_state.npz"
+        stt.io.save_state(path, mid)
+        like = stt.compiler.tree_map(lambda a: torch.zeros_like(a), mid)
+        back = stt.io.load_state(path, like)
+        f64 = 0
+        for (p, a), (_, b) in zip(stt.compiler.tree_items(back),
+                                  stt.compiler.tree_items(mid)):
+            check(a.dtype == b.dtype and a.device == b.device
+                  and torch.equal(a, b), f"[19 round trip] state leaf {p} "
+                  f"{a.dtype} {a.device} vs {b.dtype} {b.device}")
+            f64 += a.dtype == torch.float64
+        check(f64 > 0, "[19 round trip] the exact state has no f64 leaf")
+        second, _, _ = ex.render(half, params=rparams, state=back,
+                                 batched=True, device="cuda")
+        again, _, _ = ex.render(half, params=rparams, state=mid,
+                                batched=True, device="cuda")
+    check(torch.equal(second, again), "[19 round trip] the loaded state "
+          "renders otherwise than the state it saved")
+    rt_err = (torch.cat([first, second], -1) - whole).abs().max().item()
+    check(rt_err <= BLOCK_ATOL, f"[19 round trip] resumed render off the "
+          f"unbroken one by {rt_err}")
+    rec["round trip"] = {"f64_leaves": f64, "resume_err": rt_err,
+                         "bytes": os.path.getsize(path)}
+    log(f"[19 round trip] exact reverb_patch: JSON patch and npz state "
+        f"({os.path.getsize(path)} bytes, {f64} f64 leaves back as float64 "
+        f"on cuda) round-trip; the resumed render equals the one from the "
+        f"saved state bit for bit and the unbroken {RT_N}-sample render "
+        f"within {rt_err:.3e} (V={RT_VOICES}); "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del whole, first, second, again, mid, back
+    os.remove(path)
+    torch.cuda.empty_cache()
+
+    # the CLI in this process
+    cli = {}
+    for label, argv in (
+            ("subtractive", ["render", "subtractive"]),
+            ("reverb", ["render", "reverb"]),
+            ("exact", ["render", "subtractive", "--precision", "exact"])):
+        keep, out, counts, secs = _cli(
+            stt, kernels, card, label,
+            argv + ["--seconds", str(CLI_SECONDS)], "render", cli)
+        check(len(keep) == 1, f"[19 cli] {label}: {len(keep)} renders")
+        a = keep[0][0].cpu().numpy()
+        _held_wav(stt, out, a, label)
+        log(f"[19 cli] {' '.join(argv)} --seconds {CLI_SECONDS}: "
+            f"{secs:.3f} s in main(), launches {counts}; the WAV holds the "
+            f"render at 16 bits [{card}]")
+    keep, out, counts, secs = _cli(
+        stt, kernels, card, "srk",
+        ["render", SRK_FIXTURE, "--seconds", "1"], "render", cli)
+    _held_wav(stt, out, keep[0][0].cpu().numpy(), "srk")
+    log(f"[19 cli] render {SRK_FIXTURE} --seconds 1: {secs:.3f} s, "
+        f"launches {counts} [{card}]")
+    mid_path = "chiprun_out/chord.mid"
+    with open(mid_path, "wb") as f:
+        f.write(_midi_bytes())
+    keep, out, counts, secs = _cli(
+        stt, kernels, card, "midi", ["midi", mid_path, "--voices", "8"],
+        "render_batch", cli)
+    mixed = np.concatenate([a.cpu().numpy().sum(axis=0) for a, _, _ in keep],
+                           axis=-1)
+    peak = float(np.abs(mixed).max())
+    if peak > 1.0:
+        mixed = mixed / (peak * 1.02)
+    _held_wav(stt, out, mixed, "midi")
+    log(f"[19 cli] midi chord.mid --voices 8: {secs:.3f} s, launches "
+        f"{counts}; mix peak {peak:.3f} [{card}]")
+    rec["cli"] = cli
+
+    # play: one voice, then 1,024
+    t0 = time.perf_counter()
+    voice = kernels["subtractive_voice"][0]
+    plays = {}
+    for label, voices in (("one voice", None), ("1024 voices", VOICES)):
+        with no_scan_engine():
+            stats, counts = _counted(kernels, lambda: stt.play(
+                voice, seconds=PLAY_SECONDS, sink="null", voices=voices))
+        block_ms = 1e3 * voice.config.block_size / voice.config.sample_rate
+        plays[label] = {"blocks": stats.blocks, "underruns": stats.underruns,
+                        "worst_headroom_ms": 1e3 * stats.worst_headroom_s,
+                        "block_ms": block_ms, "launches": counts}
+        _record(f"19 play {label}", counts)
+        log(f"[19 play] play(subtractive_voice, seconds={PLAY_SECONDS}, "
+            f"sink='null', voices={voices}): {stats.blocks} blocks timed of "
+            f"{voice.config.block_size} samples ({block_ms:.1f} ms), "
+            f"{stats.underruns} underruns, worst headroom "
+            f"{1e3 * stats.worst_headroom_s:.3f} ms, launches {counts} "
+            f"[{card}]")
+    rec["play"] = plays
+    log(f"[19 play] {time.perf_counter() - t0:.1f} s")
+
+    # profiling: timed_render of the headline, a trace of the reverb render
+    head = stt.compile_patch(voice)
+    hparams = stt.presets.farm_params(voice, VOICES)
+    with no_scan_engine():
+        _, _, _, stats = timed_render(head, HEADLINE_N, params=hparams,
+                                      batched=True)
+    rec["timed_render"] = stats.as_dict()
+    log(f"[19 profile] timed_render(headline): {1e3 * stats.wall_s:.3f} ms "
+        f"(CUDA events), {stats.samples_per_sec / 1e9:.4f} G samples/s, "
+        f"peak {stats.peak_amplitude:.5f}, {stats.nan_lanes} NaN lanes "
+        f"[{card}]")
+    rpatch = stt.presets.reverb_patch(stt.AudioConfig(sample_rate=SR,
+                                                      channels=2))
+    rp = stt.presets.farm_params(rpatch, VOICES)
+    with no_scan_engine():
+        stt.render_batch(rpatch, HEADLINE_N, params=rp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with trace("reverb_render", trace_dir=TRACE_DIR):
+            stt.render_batch(rpatch, HEADLINE_N, params=rp)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rec["trace"] = _trace_summary(os.path.join(
+        TRACE_DIR, "reverb_render.json"), wall_ms, card)
+    return rec
+
+
+def _trace_summary(path, wall_ms, card) -> dict:
+    """The reverb trace's top 10 device ops by time and its device idle
+    gaps, from the Chrome trace's kernel, memcpy and memset events."""
+    import json as _json
+    import os
+    with open(path) as f:
+        events = _json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(dev, "[19 profile] the trace holds no device event (the "
+          "profiler did not see the card)")
+    by_name = {}
+    for e in dev:
+        name = e["name"][:80]
+        t, k = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e["dur"], k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    busy, gaps, end = 0.0, [], spans[0][0]
+    for s, t in spans:
+        if s > end:
+            gaps.append(s - end)
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    span = spans[-1][1] - spans[0][0]
+    gaps.sort(reverse=True)
+    summary = {
+        "wall_ms": wall_ms, "device_span_ms": span / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "idle_share": 1.0 - busy / span if span else None,
+        "gaps": len(gaps), "gaps_ms": sum(gaps) / 1e3,
+        "largest_gaps_ms": [g / 1e3 for g in gaps[:5]],
+        "device_events": len(dev),
+        "top10": [{"name": n, "ms": t / 1e3, "calls": k}
+                  for n, (t, k) in top],
+        "trace_bytes": os.path.getsize(path)}
+    log(f"[19 profile] trace of the reverb render (V={VOICES}, "
+        f"n={HEADLINE_N}): wall {wall_ms:.3f} ms (profiler on), device span "
+        f"{span / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
+        f"{100 * summary['idle_share']:.1f} % in {len(gaps)} gaps "
+        f"({sum(gaps) / 1e3:.3f} ms; largest "
+        f"{', '.join(f'{g / 1e3:.3f}' for g in gaps[:5])} ms), "
+        f"{len(dev)} device events [{card}]")
+    for i, (n, (t, k)) in enumerate(top):
+        log(f"[19 profile]   {i + 1}. {t / 1e3:.3f} ms in {k} calls: {n}")
+    return summary
+
+
 def main() -> int:
     card = phase_device()
     import srack_tpu_torch as stt
@@ -4022,6 +4649,12 @@ def main() -> int:
     for cell in ("headline", "reverb", "feedback"):  # full-width comparisons
         for name, err in exact[cell]["held"].items():
             errs[name] = max(errs[name], err)
+    t0 = time.perf_counter()
+    farm_mesh = phase_farm_mesh(stt, kernels, card)
+    log(f"[18 farm] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    io = phase_io(stt, kernels, card)
+    log(f"[19 io] {time.perf_counter() - t0:.1f} s")
 
     entries = []
     meta = {
@@ -4162,6 +4795,11 @@ def main() -> int:
             "ms_at_plain_shape": vjp_check_ms[i],
         })
         entries[-1]["twin"] = ab[f"k10 {'train' if which == 'bwd' else which}"]
+    for entry in entries:   # slice 11's phases, every kernel's count
+        for label, counts in PHASE_LAUNCHES.items():
+            entry["launches_by_phase"][label] = counts.get(entry["name"], 0)
+    log(json.dumps({"slice11": {"farm": farm_mesh, "io": io}},
+                   default=str))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,12 @@ Every
 render is differentiable: ``CompiledPatch.grad_render_fn`` runs the fused
 VJP kernel (a CUDA forward and a CUDA backward) on the card for the patches
 the fused kernel takes, and ``utils.train`` fits params to target audio.
+``parallel`` splits a farm's voices, or a training step's, over a mesh of
+cards (or of processes, on ``torch.distributed``), with a mix bus; ``io``
+reads and writes WAV, MIDI, the reference's ``.srk`` patch files, JSON
+patches and state snapshots; ``play`` streams a patch in real time with
+underrun accounting; ``python -m srack_tpu_torch`` is the command line
+(``render``, ``midi``, ``info``, ``modules``, ``presets``).
 Entry points render on the card unless given ``device="cpu"``.  ``srack_tpu``
 (JAX) is the reference this package is tested against; this package
 imports neither it nor jax.
@@ -36,7 +42,8 @@ from .engine import (render, render_batch, render_long, render_many,
 from .modules import CATALOG, ModuleDef
 from .modules import register as register_module
 from .modules import unregister as unregister_module
-from . import block_engine, interop, presets, utils
+from .rt import PlayStats, paced_consume, play
+from . import block_engine, interop, io, parallel, presets, utils
 
 __version__ = "0.5.0"
 
@@ -59,8 +66,13 @@ __all__ = [
     "ModuleDef",
     "register_module",
     "unregister_module",
+    "PlayStats",
+    "paced_consume",
+    "play",
     "block_engine",
     "interop",
+    "io",
+    "parallel",
     "presets",
     "utils",
 ]

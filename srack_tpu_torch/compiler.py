@@ -73,6 +73,7 @@ class _LRU(OrderedDict):
     def __init__(self, cap: int):
         super().__init__()
         self.cap = cap
+        self.misses = 0   # entries made (what recompile_guard watches)
 
     def get(self, key, default=None):
         v = super().get(key, default)
@@ -237,12 +238,14 @@ class CompiledPatch:
     # -- hoisted lanes ------------------------------------------------------
 
     def _make_xs(self, params: dict, key: int, n: int,
-                 drivers: dict) -> dict:
+                 drivers: dict, voice0: int = 0) -> dict:
         """This render's lanes, ``{lane key: [..., n] f32}``: a bound
         driver (keyed by module id) replaces a module's own lane; Noise
         draws from ``fold_in(key, i)`` with ``i`` its index among the lane
-        modules; an Input without a driver and an automated param without
-        an array get no lane (the step reads the param)."""
+        modules, voice ``j`` of the call drawing the row of voice
+        ``voice0 + j`` of the whole batch; an Input without a driver and an
+        automated param without an array get no lane (the step reads the
+        param)."""
         xs = {}
         for i, mid in enumerate(self.xs_modules):
             mdef, statics, _ = self.instances[mid]
@@ -250,7 +253,7 @@ class CompiledPatch:
                 xs[mid] = _lane(drivers[mid], n, f"driver for {mid}")
             elif mdef.make_xs is not None:
                 xs[mid] = mdef.make_xs(self.cfg, statics, params[mid],
-                                       fold_in(key, i), n)
+                                       fold_in(key, i), n, voice0)
         for mid, pname in self.automation:
             k = self._auto_key(mid, pname)
             if k in drivers:
@@ -423,16 +426,18 @@ class CompiledPatch:
         raises if K10 fails; otherwise (buffer mode, a patch the fused
         kernel cannot take, CPU tensors) autograd through the scan engine.
         ``key``: the int that seeds the Noise lanes; ``drivers``: ``{module
-        id or "mid~param": [V, n] (batched) or [n] lane}``."""
+        id or "mid~param": [V, n] (batched) or [n] lane}``; ``voice0``: the
+        index of the first voice in the whole batch (a shard's offset)."""
         n = int(n)
 
-        def render(params, state, key=None, drivers=None):
+        def render(params, state, key=None, drivers=None, voice0=0):
             leaves = tree_leaves(params) + tree_leaves(state)
             device = leaves[0].device
             v = leaves[0].shape[0] if batched else None
             drv = {_mid(m): _to_lane(a, device, v)
                    for m, a in (drivers or {}).items()}
-            xs = self._make_xs(params, 0 if key is None else int(key), n, drv)
+            xs = self._make_xs(params, 0 if key is None else int(key), n, drv,
+                               voice0)
             if batched and device.type == "cuda" and self.vjp_eligible():
                 audio, final = self.fused_vjp(xs).apply(params, state, n, xs)
                 return audio, {}, final
@@ -472,10 +477,10 @@ class CompiledPatch:
         return audio, {}, final
 
     def _render_once(self, n: int, params, state, key: int, drivers: dict,
-                     batched: bool, engine: str):
+                     batched: bool, engine: str, voice0: int = 0):
         # unbatched, the lanes are made in their unbatched form ([n]), so
         # the noise a render draws does not depend on the engine
-        xs = self._make_xs(params, key, n, drivers)
+        xs = self._make_xs(params, key, n, drivers, voice0)
         if engine == "scan":
             return self._run(params, state, xs, n, batched)
         if engine == "fused":
@@ -493,7 +498,7 @@ class CompiledPatch:
                drivers: Optional[dict] = None,
                automation: Optional[dict] = None, batched: bool = False,
                engine: str = "auto", device=None,
-               segment: Optional[int] = None):
+               segment: Optional[int] = None, voice0: int = 0):
         """Render ``n_samples``.
 
         Returns ``(audio, probes, final_state)`` where audio is
@@ -515,7 +520,10 @@ class CompiledPatch:
         pairs declared at compile time.  ``segment``:
         render in ``segment``-sample pieces with the state carried, one
         kernel launch each (must divide ``n_samples``); segment ``i`` draws
-        its noise from ``fold_in(key, i)``.
+        its noise from ``fold_in(key, i)``.  ``voice0``: the index of the
+        first voice in the whole batch, for a shard of one
+        (``parallel.render_farm``): voice ``j`` draws the Noise row of voice
+        ``voice0 + j``.
         """
         device = resolve_device(device)
         if params is None:
@@ -545,7 +553,7 @@ class CompiledPatch:
         n = int(n_samples)
         if segment is None:
             return self._render_once(n, params, state, key, drv, batched,
-                                     engine)
+                                     engine, voice0)
         segment = int(segment)
         if segment <= 0:
             raise ValueError(f"segment must be positive, got {segment}")
@@ -557,7 +565,8 @@ class CompiledPatch:
             cut = slice(i * segment, (i + 1) * segment)
             a, p, state = self._render_once(
                 segment, params, state, fold_in(key, i),
-                {k: x[..., cut] for k, x in drv.items()}, batched, engine)
+                {k: x[..., cut] for k, x in drv.items()}, batched, engine,
+                voice0)
             if audio is None:
                 audio = a.new_empty(a.shape[:-1] + (n,))
                 probes = {k: x.new_empty(x.shape[:-1] + (n,))
@@ -682,6 +691,7 @@ def compile_patch(patch: Patch, probes: Sequence = (),
     if cached is None:
         cached = CompiledPatch(patch, probes=probes, automation=autos_key)
         _COMPILE_CACHE.put(key, cached)
+        _COMPILE_CACHE.misses += 1
     else:
         # refresh default params (they may have changed without recompiling)
         cached.default_params = patch.params()

@@ -9,7 +9,8 @@
 * :func:`render_stream` -- a generator of ``block_size`` blocks with the
   state carried, following live edits of the patch.
 * :func:`render_many` -- many patches of possibly different topologies,
-  grouped by topology into batched renders.
+  grouped by topology into batched renders, on one device or placed over
+  the slots of a mesh.
 
 Every entry point renders on the CUDA card unless it is given
 ``device="cpu"`` (or another device); without a card and without a device
@@ -198,33 +199,54 @@ def render_stream(patch: Patch, *, params: Optional[dict] = None,
         i += 1
 
 
+def place_groups(patches: Sequence[Patch], n_slots: Optional[int] = None):
+    """Group ``patches`` by topology, in order of first appearance, and
+    place the groups on ``n_slots`` slots by the longest-processing-time
+    rule: groups taken by decreasing cost (voices x module count, the
+    per-sample engines' dominant term), each to the least-loaded slot.
+    Returns ``[(indices, slot)]``, the slot None without slots."""
+    groups: dict = {}
+    for i, p in enumerate(patches):
+        groups.setdefault(p.topology_key(), []).append(i)
+    idxs_of = list(groups.values())
+    slots = [None] * len(idxs_of)
+    if n_slots:
+        load = [0] * n_slots
+        cost = [len(idxs) * len(patches[idxs[0]]) for idxs in idxs_of]
+        for g in sorted(range(len(idxs_of)), key=lambda g: -cost[g]):
+            slots[g] = min(range(n_slots), key=load.__getitem__)
+            load[slots[g]] += cost[g]
+    return list(zip(idxs_of, slots))
+
+
 def render_many(patches: Sequence[Patch], n_samples: int, *,
-                key: Optional[int] = None, device=None) -> list:
+                key: Optional[int] = None, device=None, mesh=None) -> list:
     """Render many patches of possibly different topologies.
 
     Patches are grouped by topology; each group renders in one batched
     call (one patch alone renders unbatched), group ``g`` drawing its noise
     from ``fold_in(key, g)``.  Returns a list of ``[channels, n]`` tensors
-    in input order.  Placing groups over several cards (the JAX package's
-    ``mesh=``) is slice 6 of the port.
+    in input order.  With ``mesh`` (``parallel.Mesh``), the groups are
+    placed on its slots by :func:`place_groups` and each renders on its
+    slot's device; every group is launched before any result is read, so
+    groups on different cards run at the same time.
     """
-    groups: dict = {}
-    for i, p in enumerate(patches):
-        groups.setdefault(p.topology_key(), []).append(i)
     results: list = [None] * len(patches)
     key = 0 if key is None else int(key)
-    for gi, idxs in enumerate(groups.values()):
+    slots = list(mesh.devices.flat) if mesh is not None else None
+    for gi, (idxs, slot) in enumerate(
+            place_groups(patches, len(slots) if slots else None)):
         sub = fold_in(key, gi)
+        dev = device if slot is None else slots[slot]
         if len(idxs) == 1:
             i = idxs[0]
             audio, _, _ = render(patches[i], n_samples, key=sub,
-                                 params=patches[i].params(), device=device)
+                                 params=patches[i].params(), device=dev)
             results[i] = audio
         else:
             stacked = stack_params([patches[i].params() for i in idxs])
             audio, _, _ = render_batch(patches[idxs[0]], n_samples,
-                                       params=stacked, key=sub,
-                                       device=device)
+                                       params=stacked, key=sub, device=dev)
             for j, i in enumerate(idxs):
                 results[i] = audio[j]
     return results

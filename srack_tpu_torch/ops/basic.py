@@ -15,6 +15,7 @@ for CUDA tensors and runs one ``torch.gather`` for CPU tensors.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _TWO32 = 4294967296.0  # 2**32
@@ -33,6 +34,18 @@ def fold_in(key: int, data: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return z ^ (z >> 31)
+
+
+def fold_in_rows(keys, data):
+    """:func:`fold_in` of each ``keys[i]`` with ``data[i]``, over numpy
+    arrays (uint64 arithmetic, which wraps mod 2**64 as the masks above
+    do): row for row the same seeds as the scalar form."""
+    z = (np.asarray(keys, dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+         + np.asarray(data, dtype=np.uint64)
+         + np.uint64(0x632BE59BD9B4E019))
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
 
 
 def transition(last_above: torch.Tensor, val: torch.Tensor):

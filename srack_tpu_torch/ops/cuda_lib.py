@@ -32,6 +32,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "srack_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# nvcc builds run and libraries loaded by this process (what
+# ``utils.debug.recompile_guard`` watches)
+EVENTS = {"nvcc": 0, "load": 0}
 
 
 def _nvcc() -> str:
@@ -70,6 +73,7 @@ def build(source: str, compiler=None, flags=NVCC_FLAGS,
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     cmd = [compiler, *flags, "-I", str(CSRC), "-o", tmp, str(src)]
+    EVENTS["nvcc"] += 1
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -109,6 +113,7 @@ class CudaLib:
             if self._lib is None:
                 path, self.build_log = build(self.source, what=self.what)
                 self._lib = ctypes.CDLL(str(path))
+                EVENTS["load"] += 1
         return self._lib
 
     def launch(self, entry: str, argtypes: list, args: tuple,

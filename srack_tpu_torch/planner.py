@@ -13,8 +13,9 @@ The reference planner's observable semantics:
    dependencies have all been emitted.
 
 Deleted ("broken") edges are the feedback reads; the compiler reconstructs
-them from plan positions.  The native C++ planner stays with the JAX
-package for now.
+them from plan positions.  The C++ planner (``native/planner.cpp``, bound
+by ``native.py``) implements the same steps and runs first when its
+library builds.
 """
 
 from __future__ import annotations
@@ -48,12 +49,16 @@ def _is_loop(module: str, edges: dict[str, list[str]]):
         to_search.extend(to_add)
 
 
-def plan_execution(patch: Patch):
+def plan_execution(patch: Patch, use_native: bool = True):
     """Returns ``(plan, broken)``.
 
     ``plan`` is the execution order (module ids, every module included);
     ``broken`` is the set of deleted feedback edges as (sink_id, src_id)
     pairs (the sink's dependency on src is ignored for ordering).
+
+    ``use_native``: take the C++ planner when its library is available
+    (the same semantics; the tests hold the two equal), else the
+    pure-Python one below.
     """
     if patch.output is None:
         raise ValueError("patch has no Output module")
@@ -61,6 +66,12 @@ def plan_execution(patch: Patch):
     output = patch.output.id
 
     edges = _build_edges(patch)
+
+    if use_native:
+        from . import native
+        result = native.plan_execution_native(all_modules, edges, output)
+        if result is not None:
+            return result
     broken: set[tuple[str, str]] = set()
 
     # Phase 2: DFS from output-first, breaking cycles (synth.rs:168-192).

@@ -318,6 +318,17 @@ def farm_params(patch: Patch, n_voices: int, seed: int = 0) -> dict:
             for mid, pd in cols.items()}
 
 
+PRESETS = {
+    "sine": sine_patch,
+    "subtractive": subtractive_voice,
+    "sequencer": sequencer_patch,
+    "feedback": feedback_patch,
+    "reverb": reverb_patch,
+    "drums": drum_machine,
+    "sampler": sampler_kit,
+}
+
+
 def kernel_check_patch(cfg: AudioConfig | None = None, *,
                        patch_cls=Patch) -> Patch:
     """A 3-channel patch that drives every device function of the fused

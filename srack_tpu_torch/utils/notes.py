@@ -59,6 +59,32 @@ def note_track(events: Iterable[tuple], n_samples: int, sample_rate: int,
     return gate, cv[idx]
 
 
+def allocate_voices(events: Iterable[tuple], n_voices: int):
+    """Greedy polyphonic voice allocation: overlapping (pitch, start, dur)
+    events -> ``n_voices`` monophonic event lists for :func:`note_tracks`.
+
+    Each note goes to a lane that is free at its start (preferring the
+    least-recently-freed, so releases get maximum ring-out); if none is
+    free, the lane whose note started earliest is stolen -- its note is
+    truncated at the new note's start (the classic oldest-note-steal
+    policy of hardware polysynths).
+    """
+    lanes = [[] for _ in range(n_voices)]
+    ends = [float("-inf")] * n_voices     # current note end per lane
+    starts = [float("-inf")] * n_voices   # current note start per lane
+    for pitch, start, dur in sorted(events, key=lambda e: e[1]):
+        free = [i for i in range(n_voices) if ends[i] <= start]
+        if free:
+            i = min(free, key=lambda j: ends[j])  # longest-idle lane
+        else:
+            i = min(range(n_voices), key=lambda j: starts[j])  # steal oldest
+            p0, s0, _ = lanes[i][-1]
+            lanes[i][-1] = (p0, s0, start - s0)   # truncate stolen note
+        lanes[i].append((pitch, start, dur))
+        starts[i], ends[i] = start, start + dur
+    return lanes
+
+
 def note_tracks(event_lists: Sequence[Iterable[tuple]], n_samples: int,
                 sample_rate: int, **kw):
     """Batch form: one event list per voice -> ``(gates[V, n], cvs[V, n])``

@@ -1,0 +1,114 @@
+"""Profiling and render statistics (counterpart:
+``srack_tpu/utils/profiling.py``).
+
+Wall time and throughput per render (:func:`timed_render`: CUDA events on
+the card, the host clock on the CPU) and a ``torch.profiler`` trace around
+a region (:func:`trace`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+from typing import Optional
+
+import torch
+
+from ..compiler import resolve_device
+
+
+@dataclasses.dataclass
+class RenderStats:
+    """Per-render statistics."""
+    n_samples: int
+    n_voices: int
+    channels: int
+    sample_rate: int
+    wall_s: float
+    compile_s: float = 0.0
+    peak_amplitude: float = 0.0
+    rms: float = 0.0
+    nan_lanes: int = 0
+
+    @property
+    def samples_per_sec(self) -> float:
+        return self.n_samples * self.n_voices / self.wall_s
+
+    @property
+    def realtime_factor(self) -> float:
+        """Aggregate real-time factor across all voices."""
+        return self.samples_per_sec / self.sample_rate
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["samples_per_sec"] = self.samples_per_sec
+        d["realtime_factor"] = self.realtime_factor
+        return d
+
+
+def timed_render(compiled, n_samples: int, *, warmup: bool = True,
+                 **kwargs):
+    """Render with timing and signal statistics.  Returns ``(audio,
+    probes, state, RenderStats)``.  ``kwargs`` go to
+    ``CompiledPatch.render``.  On a CUDA device ``wall_s`` is the device
+    time between CUDA events around the render; on the CPU the host clock.
+    ``compile_s`` is the warm-up render's time (kernel builds included)."""
+    device = resolve_device(kwargs.pop("device", None))
+    t0 = time.perf_counter()
+    if warmup:
+        compiled.render(n_samples, device=device, **kwargs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    compile_s = time.perf_counter() - t0
+
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        audio, probes, state = compiled.render(n_samples, device=device,
+                                               **kwargs)
+        end.record()
+        end.synchronize()
+        wall = start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        audio, probes, state = compiled.render(n_samples, device=device,
+                                               **kwargs)
+        wall = time.perf_counter() - t0
+
+    a = audio.detach()
+    batched = a.dim() == 3
+    stats = RenderStats(
+        n_samples=n_samples,
+        n_voices=a.shape[0] if batched else 1,
+        channels=a.shape[-2],
+        sample_rate=compiled.cfg.sample_rate,
+        wall_s=wall,
+        compile_s=compile_s,
+        peak_amplitude=float(a.abs().max()) if a.numel() else 0.0,
+        rms=(float(a.square().mean(dtype=torch.float64).sqrt())
+             if a.numel() else 0.0),
+        nan_lanes=int((~torch.isfinite(a)).any(dim=-1).sum()),
+    )
+    return audio, probes, state, stats
+
+
+@contextlib.contextmanager
+def trace(name: str, trace_dir: Optional[str] = None):
+    """A ``torch.profiler`` trace of the block (CPU and, with a card, CUDA
+    activity) inside a ``record_function(name)`` span; yields the
+    profiler, whose ``key_averages()`` sums the ops by name.  With
+    ``trace_dir`` the Chrome trace is written to ``trace_dir/name.json``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        with torch.profiler.record_function(name):
+            yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.json"))

@@ -10,8 +10,9 @@ forward and a CUDA backward) for the patches it takes.
 Optimizers are ``torch.optim`` ones, given as a factory of the trainable
 leaves (``functools.partial(torch.optim.Adam, lr=1e-3)``); Adam there is
 ``optax.adam``'s rule (bias-corrected moments, ``eps`` = 1e-8 outside the
-square root).  The entry points run on the CUDA card unless given
-``device="cpu"``.
+square root).  With ``mesh=`` the step splits the voices over a mesh's
+slots and sums the gradients (``parallel``).  The entry points run on the
+CUDA card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import torch
 from ..compiler import (CompiledPatch, compile_patch, resolve_device,
                         tree_leaves, tree_map)
 from ..ops.basic import fold_in
+from ..parallel.distributed import all_reduce_sum
+from ..parallel.mesh import shard_bounds
 from ..patch import Patch
 from .losses import multiscale_spectral_loss, waveform_l2
 
@@ -118,17 +121,20 @@ def batched_train_step(compiled: CompiledPatch, optimizer: Callable,
     the optimizer ``optimizer(leaves of train)`` makes, or None to make it
     now.  ``key`` (an int) seeds the Noise lanes.
     The per-voice losses ``loss_fn(audio[v], targets[v])`` are
-    mean-reduced.  ``fast=True`` renders through
+    mean-reduced (summed, then divided by V).  ``fast=True`` renders through
     ``compiled.grad_render_fn`` (kernel K10 on the card for the patches it
     takes); ``fast=False`` through the scan engine under autograd.
 
-    ``mesh=`` (data parallelism over several cards) is a later slice of the
-    port, and ``packed=True`` is the TPU kernels' tiled layout, which the
-    port has not: both raise ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: training over several cards is a "
-            "later slice of the port (ROADMAP.md)")
+    ``mesh`` (``parallel.Mesh``): data parallelism over its slots.  Each
+    slot of this process renders its contiguous block of voices on its
+    device (voice ``j`` of a block drawing the Noise row of its index in
+    the whole batch) and takes the sum of its voices' losses over the
+    whole V; one backward sums the shared params' gradients from every
+    slot into the params' device, and on a mesh built over the process
+    group one ``all_reduce`` of the flattened gradients sums them across
+    ranks before the one optimizer step.  ``packed=True`` is the TPU
+    kernels' tiled layout, which the port has not: it raises
+    ``NotImplementedError``."""
     if packed:
         raise NotImplementedError(
             "packed=True is the TPU kernels' [n, C, tiles, 8, 128] layout; "
@@ -137,14 +143,15 @@ def batched_train_step(compiled: CompiledPatch, optimizer: Callable,
     n = int(n_samples)
     grad_render = compiled.grad_render_fn(n, batched=True) if fast else None
 
-    def render(params: dict, v: int, key: int):
-        params_b = tree_map(lambda a: a.expand((v,) + a.shape), params)
-        state = tree_map(lambda a: a.to(device).expand((v,) + a.shape)
+    def render(params: dict, v: int, key: int, dev, voice0: int):
+        params_b = tree_map(lambda a: a.to(dev).expand((v,) + a.shape),
+                            params)
+        state = tree_map(lambda a: a.to(dev).expand((v,) + a.shape)
                          .contiguous(), compiled.init_state())
         if fast:
-            audio, _, _ = grad_render(params_b, state, key, {})
+            audio, _, _ = grad_render(params_b, state, key, {}, voice0)
         else:
-            xs = compiled._make_xs(params_b, key, n, {})
+            xs = compiled._make_xs(params_b, key, n, {}, voice0)
             audio, _, _ = compiled._run(params_b, state, xs, n, True)
         return audio
 
@@ -154,13 +161,45 @@ def batched_train_step(compiled: CompiledPatch, optimizer: Callable,
             opt = optimizer(tree_leaves(train))
         opt.zero_grad(set_to_none=True)
         frozen = tree_map(lambda a: torch.as_tensor(a).to(device), frozen)
-        audio = render(_merge(train, frozen), targets.shape[0], int(key))
-        loss = torch.func.vmap(loss_fn)(audio, targets).mean()
+        params = _merge(train, frozen)
+        v = targets.shape[0]
+        # (device, first voice, end) of each block this process renders
+        if mesh is None:
+            blocks = [(device, 0, v)]
+        else:
+            bounds = shard_bounds(v, mesh)
+            blocks = [(mesh.devices.flat[s],) + bounds[s]
+                      for s in mesh.local_slots()]
+        loss = None
+        for dev, start, stop in blocks:
+            audio = render(params, stop - start, int(key), dev, start)
+            part = torch.func.vmap(loss_fn)(
+                audio, targets[start:stop].to(dev)).sum().to(device)
+            loss = part if loss is None else loss + part
+        loss = loss / v
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None and mesh.ranks is not None:
+            _all_reduce_grads(tree_leaves(train))
+            loss = all_reduce_sum(loss.clone())
         opt.step()
-        return train, opt, loss.detach()
+        return train, opt, loss
 
     return step
+
+
+def _all_reduce_grads(leaves: list) -> None:
+    """Sum the leaves' gradients over the process group: one
+    ``all_reduce`` of them flattened into one vector."""
+    with_grad = [t for t in leaves if t.grad is not None]
+    if not with_grad:
+        return
+    flat = torch.cat([t.grad.reshape(-1) for t in with_grad])
+    all_reduce_sum(flat)
+    at = 0
+    for t in with_grad:
+        t.grad.copy_(flat[at:at + t.numel()].view_as(t.grad))
+        at += t.numel()
 
 
 def multi_train_step(compiled: CompiledPatch, optimizer: Callable,

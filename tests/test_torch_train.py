@@ -24,6 +24,7 @@ import srack_tpu_torch as stt
 from srack_tpu_torch import interop
 from srack_tpu_torch.compiler import tree_items, tree_map
 from srack_tpu_torch.ops.basic import fold_in
+from srack_tpu_torch.parallel import make_mesh
 from srack_tpu_torch.utils import train as T
 
 from test_torch_grad import assert_rule_b
@@ -142,9 +143,24 @@ def test_multi_train_step_folds_the_key_per_step():
     assert len(set(float(x) for x in losses)) == 3
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"packed": True}])
+@pytest.mark.parametrize("kwargs", [{"mesh": 3}, {"packed": True}])
 def test_mesh_and_packed_raise(kwargs):
+    """``packed=True`` (the TPU kernels' layout) raises
+    ``NotImplementedError``.  ``mesh=`` is ported
+    (``tests/test_torch_parallel.py``): a step raises where the mesh's
+    slots do not split the voices evenly (3 slots, 4 voices)."""
     compiled = stt.compile_patch(_voice())
+    if "mesh" in kwargs:
+        mesh = make_mesh(devices=["cpu"] * kwargs["mesh"])
+        ts = T.SoundMatcher(_voice(), 64, device="cpu").init()
+        targets = torch.zeros(4, 1, 64)
+        for step in (T.batched_train_step(compiled, ADAM, 64, fast=True,
+                                          mesh=mesh, device="cpu"),
+                     T.multi_train_step(compiled, ADAM, 64, 2, fast=True,
+                                        mesh=mesh, device="cpu")):
+            with pytest.raises(ValueError, match="do not split evenly"):
+                step(ts["train"], ts["frozen"], None, targets, 0)
+        return
     with pytest.raises(NotImplementedError):
         T.batched_train_step(compiled, ADAM, 64, fast=True, device="cpu",
                              **kwargs)

@@ -88,6 +88,18 @@ from numpy seeds:
   three renders cut at ``DRIFT48_WINDOW``; each precision's audio and its
   state at the window's start.
 
+The port's farm, io and CLI twins (slice 11):
+
+* ``farm``: ``srack_tpu.parallel.render_farm`` on the 8-device CPU mesh
+  of ``make_mesh()`` (the worker asks XLA for 8 host devices when this
+  case is named): exact subtractive_voice at 4,800 Hz, 16 voices of
+  farm_params, 256 samples, per voice and mixed down;
+* ``srk_fixture``: ``tests/data/reference_all_modules.srk`` read at 48
+  kHz, stereo, block 16, and rendered by the scan engine over 256
+  samples, its Noise fed one numpy lane (saved beside the audio);
+* ``cli_sine``: the bytes of the WAV that ``python -m srack_tpu render
+  sine --samples 4096`` writes.
+
 It runs in its own process because XLA's CPU backend contracts ``a*b+c``
 into one fused multiply-add when the host has FMA, which rounds the
 polynomials once where the port (and the TPU) round twice, and the XLA flag
@@ -100,6 +112,8 @@ import sys
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_cpu_max_isa=AVX").strip()
+if "farm" in sys.argv[2:]:
+    os.environ["XLA_FLAGS"] += " --xla_force_host_platform_device_count=8"
 
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
@@ -1127,6 +1141,56 @@ SPECIAL.update({"osc_exact": osc_exact_case, "drift": drift_case,
                 **{f"{name}@exact": (lambda out, name=name:
                                      exact_case(name, out))
                    for name in EXACT_CASES}})
+
+
+FARM_VOICES, FARM_N = 16, 256
+SRK_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "data", "reference_all_modules.srk")
+SRK_N = 256
+
+
+def farm_case(out: dict) -> None:
+    """The JAX farm on its 8-device mesh, per voice and mixed down."""
+    from srack_tpu.parallel import make_mesh, render_farm
+    cfg = st.AudioConfig(sample_rate=4800, block_size=64, channels=1,
+                         precision="exact")
+    patch = presets.subtractive_voice(cfg)
+    params = presets.farm_params(patch, FARM_VOICES)
+    mesh = make_mesh()
+    audio, _, _ = render_farm(patch, FARM_N, params=params, mesh=mesh)
+    mixed, _, _ = render_farm(patch, FARM_N, params=params, mesh=mesh,
+                              mixdown=True)
+    out["farm/audio"] = np.asarray(audio)
+    out["farm/mixed"] = np.asarray(mixed)
+    out["farm/slots"] = np.asarray(mesh.devices.shape)
+
+
+def srk_fixture_case(out: dict) -> None:
+    """The .srk fixture through the JAX scan engine, Noise fed a lane."""
+    from srack_tpu.io import read_srk
+    cfg = st.AudioConfig(sample_rate=48000, block_size=16, channels=2)
+    patch = read_srk(SRK_FIXTURE, cfg)
+    rng = np.random.default_rng(77)
+    drivers = {inst.id: rng.uniform(-1.0, 1.0, SRK_N).astype(np.float32)
+               for inst in patch if inst.mdef.type_name == "Noise"}
+    audio, _, _ = st.render(patch, SRK_N, engine="scan", drivers=drivers)
+    out["srk_fixture/audio"] = np.asarray(audio)
+    flat("srk_fixture/drivers", drivers, out)
+
+
+def cli_sine_case(out: dict) -> None:
+    """The WAV bytes of the JAX CLI's render of the sine preset."""
+    import tempfile
+    from srack_tpu.__main__ import main as cli
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sine.wav")
+        cli(["render", "sine", "--samples", "4096", "-o", path])
+        with open(path, "rb") as f:
+            out["cli_sine/wav"] = np.frombuffer(f.read(), np.uint8)
+
+
+SPECIAL.update({"farm": farm_case, "srk_fixture": srk_fixture_case,
+                "cli_sine": cli_sine_case})
 
 
 def main(path: str, names) -> None:
