@@ -52,8 +52,9 @@ Phases, each reported on its own lines with its seconds:
    versions.
 11. drums: stt.render_batch(drum_machine(cfg), 480000,
    params=farm_params(patch, 1024)), mono, on the default device --
-   requires K3 and the Sample-player kernel K7 to launch, finite audio,
-   peak <= 1.002; timed, each kernel timed alone at its shapes there;
+   requires K3 and the Sample-player kernel K7 to launch (and, from
+   slice 11, the Noise-lane kernel), finite audio, peak <= 1.002; timed,
+   each kernel timed alone at its shapes there;
 12. sampler: sampler_kit the same way (three 48,000-frame Samples: K3
    once, K7 three times); prints the device memory peak;
 13. kit check: kit_check_patch the same way, which also requires K4 and
@@ -224,8 +225,13 @@ feedback_patch, reverb_patch and the three kits, the Sample on K7; within
    ``tests/test_precision.py``'s sine fast against exact within 1e-3.
 
 For slice 11 (the farm on torch.distributed, io, the CLI, play and
-profiling) phase 2 also builds K3 of the .srk fixture's stage and K1 of
-the midi command's gate/CV voice;
+profiling) phase 2 also builds K3 of the .srk fixture's stage, K1 of the
+midi command's gate/CV voice and the Noise-lane kernel
+(``srack_tpu_torch/csrc/noise_lanes.cu``, the Noise module's
+counter-based draw; it ports no Pallas kernel, the JAX package drawing
+with jax.random in XLA).  Phase 11 must launch it, its warm-up holds it
+bit for bit to its plain version at the render's shape, and the split
+times it alone;
 
 18. farm: ``parallel.render_farm`` of the farm cell (subtractive_voice,
    16,384 voices x 192,000 samples, farm_params seed 0) on a one-rank NCCL
@@ -236,7 +242,7 @@ the midi command's gate/CV voice;
    voices summed in float64, K1 once per slot and the scan engine never;
    drum_machine (1,024 x 48,000, key 5) on the four slots equal to one
    local render bit for bit (the Noise lanes keyed by the global voice),
-   K3 and K7 once per slot; ``batched_train_step(mesh=, fast=True)`` at
+   K3, K7 and the Noise-lane kernel once per slot; ``batched_train_step(mesh=, fast=True)`` at
    phase 14's config on both meshes against the unsharded step: the loss
    and every param leaf within 1e-6 relative, the gradients within 1e-4
    of their largest, one K10 forward and one backward per slot; and
@@ -634,6 +640,7 @@ def _counters(kernels):
     2's cases, the serial-stage kernels and the fixed sources."""
     from srack_tpu_torch.ops.freeverb_kernel import FREEVERB, FREEVERB_TWIN
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER, ROW_GATHER_LONG
+    from srack_tpu_torch.ops.noise_kernel import NOISE_LANES
     from srack_tpu_torch.ops.ring_roll import RING_ALIGN, RING_ALIGN_TWIN
     from srack_tpu_torch.ops.sample_kernel import (SAMPLE_PLAY,
                                                    SAMPLE_PLAY_TWIN)
@@ -644,7 +651,8 @@ def _counters(kernels):
     out += [lib for k in VJP_AB.values() for lib in (k.fwd, k.bwd)]
     out += list(STAGES.values()) + list(CHECK_STAGES.values()) + [
         ROW_SCAN, FREEVERB, FREEVERB_TWIN, RING_ALIGN, RING_ALIGN_TWIN,
-        ROW_GATHER, ROW_GATHER_LONG, SAMPLE_PLAY, SAMPLE_PLAY_TWIN]
+        ROW_GATHER, ROW_GATHER_LONG, SAMPLE_PLAY, SAMPLE_PLAY_TWIN,
+        NOISE_LANES]
     # slice 10: exact precision's stages and the f64 builds
     out += list(EXACT_STAGES.values()) + f64_libs()
     # the one-thread twins of phase 15, named apart: a main path that
@@ -1538,6 +1546,7 @@ def _held(pairs, tol, what) -> float:
 
 HELD_ROWS = 256     # rows per slice of the unfused Sample form's check
 HELD_CALLS = {}     # kernel -> the inputs of its calls in the last warm-up
+NOISE_REC = {}      # the Noise-lane kernel at the drums render's shape
 
 
 def sample_words(args) -> int:
@@ -1572,6 +1581,15 @@ def sample_bound(args, words):
                   + 4 * words + 4 * 6 * gate.shape[0], 0)
 
 
+def noise_bound(rows, n):
+    """The Noise-lane kernel's bound: the keys in and the f32 lanes out
+    once; its integer operations (``INT_OPS`` an element) at the f32 rate,
+    the table's only 32-bit rate outside the tensor cores (Hopper's INT32
+    units issue at half of it, so the true bound is no lower)."""
+    from srack_tpu_torch.ops.noise_kernel import INT_OPS
+    return _bound(8 * rows + 4 * rows * n, INT_OPS * rows * n)
+
+
 def gather_bound(table, idx):
     """K5's or K6's bound: the indices in and the outputs out once, and the
     distinct table words these indices read, once; bytes."""
@@ -1598,14 +1616,17 @@ def held_against_plain(found: dict):
     within 2e-4 and affine within 3e-4 abs + rel, f64 sum within 1e-12 abs
     + rel, f64 max and fill exact; K7 bit-exact against its unfused form
     (K4's scans and the row gather K6), in slices of HELD_ROWS rows; K5
-    exact against torch.gather.  ``found[kernel]`` gathers ``(what, shape,
-    max abs err, plain s)``, under the name of the build that launched;
-    ``HELD_CALLS`` keeps the K7 and K5 calls' inputs for timing them
-    alone."""
+    exact against torch.gather; the Noise-lane kernel bit-exact against
+    its plain version (int64 words).  ``found[kernel]`` gathers ``(what,
+    shape, max abs err, plain s)``, under the name of the build that
+    launched; ``HELD_CALLS`` keeps the K7, K5 and Noise-lane calls' inputs
+    for timing them alone."""
     from srack_tpu_torch.modules import freeverb as fv
     from srack_tpu_torch.modules.sample import play_unfused
     from srack_tpu_torch.ops import basic, freeverb_kernel as fvk
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER
+    from srack_tpu_torch.ops.noise_kernel import (NOISE_LANES,
+                                                  noise_lanes_plain)
     from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN, ROW_SCAN_F64
     HELD_CALLS.clear()
@@ -1708,19 +1729,34 @@ def held_against_plain(found: dict):
         HELD_CALLS.setdefault("row_gather", []).append((table, idx))
         return got
 
+    def noise(keys, n):
+        got = noise_run(keys, n)
+        t0 = time.perf_counter()
+        want = noise_lanes_plain(keys, n)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        _held([(got, want, None)], 0, f"Noise lanes at {list(got.shape)}")
+        del want
+        found.setdefault("noise_lanes", []).append(
+            ("against its plain version (int64 words)", tuple(got.shape),
+             0.0, secs))
+        HELD_CALLS.setdefault("noise_lanes", []).append((keys.clone(), n))
+        return got
+
     k8_render = fvk.render
     scan_fill = ROW_SCAN.fill
     play_run, gather_run = SAMPLE_PLAY.run, ROW_GATHER.run
+    noise_run = NOISE_LANES.run
     fvk.render, ROW_SCAN.fill = render, fill
     for lib in (ROW_SCAN, ROW_SCAN_F64):
         lib.run = held_run(lib, lib.run)
-    SAMPLE_PLAY.run, ROW_GATHER.run = play, gather
+    SAMPLE_PLAY.run, ROW_GATHER.run, NOISE_LANES.run = play, gather, noise
     try:
         yield found
     finally:
         fvk.render = k8_render
         del ROW_SCAN.run, ROW_SCAN.fill, ROW_SCAN_F64.run
-        del SAMPLE_PLAY.run, ROW_GATHER.run
+        del SAMPLE_PLAY.run, ROW_GATHER.run, NOISE_LANES.run
 
 
 def _log_held(phase, found, card) -> dict:
@@ -2192,11 +2228,14 @@ def kit_times(gather_keep, play_args):
 
 def _kit_split(stt, name, total_ms, card):
     """Each kernel of one full-width kit render timed alone at its shapes
-    there: K3 on the stage (zero lanes), every K7 and K5 call of the
-    warm-up render on its very inputs, and K4 as an int32 sum over [1,024,
-    n] per launch; the rest (block phases, wrappers, the lanes' layout)
-    as the difference."""
+    there: K3 on the stage (zero lanes), every K7, K5 and Noise-lane call
+    of the warm-up render on its very inputs (the Noise lanes' plain
+    version too, once, into ``NOISE_REC``), and K4 as an int32 sum over
+    [1,024, n] per launch; the rest (block phases, wrappers, the lanes'
+    layout) as the difference."""
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER
+    from srack_tpu_torch.ops.noise_kernel import (NOISE_LANES,
+                                                  noise_lanes_plain)
     from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
     compiled = block_cases(stt)[name][1]
@@ -2250,6 +2289,25 @@ def _kit_split(stt, name, total_ms, card):
     if k5:
         parts.append("K5 " + " + ".join(f"{t:.3f}" for t in k5) + " ms")
         rest -= sum(k5)
+    noise = []
+    for keys, nn in HELD_CALLS.get("noise_lanes", []):
+        ms = cuda_ms(lambda: NOISE_LANES.run(keys, nn), repeats=5, warmup=1)
+        b_ms, b_by, nbytes, ops = noise_bound(keys.numel(), nn)
+        log(f"[bound] noise_lanes in {name} [{keys.numel()}, {nn}]: {nbytes} "
+            f"bytes, {ops} operations -> {b_ms:.4f} ms ({b_by}); alone it "
+            f"takes {ms:.3f} ms, {ms / b_ms:.1f}x its bound")
+        noise.append(ms)
+        if not NOISE_REC:
+            torch.cuda.empty_cache()
+            NOISE_REC.update(
+                ms=ms, plain_ms=cuda_ms(lambda: noise_lanes_plain(keys, nn)),
+                bound=(b_ms, b_by), shape=f"{name} [{keys.numel()}, {nn}]")
+            log(f"[6 plain] noise_lanes {NOISE_REC['shape']}: plain version "
+                f"{NOISE_REC['plain_ms']:.3f} ms, kernel {ms:.3f} ms [{card}]")
+    if noise:
+        parts.append("Noise lanes " + " + ".join(f"{t:.3f}" for t in noise)
+                     + " ms")
+        rest -= sum(noise)
     HELD_CALLS.clear()
     if name == "kit_check_patch":
         x = torch.ones((VOICES, n), dtype=torch.int32, device="cuda")
@@ -2278,6 +2336,8 @@ def phase_kit(stt, kernels, card, name, phase, names):
         kernels, lambda: stt.render_batch(patch, HEADLINE_N, params=params),
         names, held_against_plain(found))
     check("sample_play" in found, f"{name}: the render did not call K7")
+    check(("noise_lanes" in found) == ("noise_lanes" in names),
+          f"{name}: the Noise-lane kernel's calls {found.get('noise_lanes')}")
     held = _log_held(phase, found, card)
     check(audio.device.type == "cuda", "render_batch did not default to "
           "the card")
@@ -4026,16 +4086,19 @@ def _midi_bytes() -> bytes:
 
 
 def slice11_kernels(stt) -> dict:
-    """The kernels phase 19's paths build that no earlier phase does: K3
-    of the .srk fixture's stage and K1 of the midi command's gate/CV voice
-    with its two driver lanes."""
+    """The kernels phases 18-19's paths build that no earlier phase does:
+    K3 of the .srk fixture's stage, K1 of the midi command's gate/CV voice
+    with its two driver lanes, and the Noise-lane kernel (every Noise
+    render on the card draws its lanes with it)."""
+    from srack_tpu_torch.ops.noise_kernel import NOISE_LANES
     fixture = stt.compile_patch(_fixture_patch(stt))
     prog = fixture.block_program()
     voice, gate, cv = stt.presets.gate_cv_voice(stt.AudioConfig(
         sample_rate=SR, channels=1, precision="fast"))
     midi = stt.compile_patch(voice)
     return {"srk fixture stage": prog.stage_kernel(stage_lane_keys(prog)),
-            "midi voice": midi.fused((gate.id, cv.id))}
+            "midi voice": midi.fused((gate.id, cv.id)),
+            "noise lanes": NOISE_LANES}
 
 
 def _mix64(audio) -> torch.Tensor:
@@ -4199,7 +4262,8 @@ def phase_farm_mesh(stt, kernels, card) -> dict:
                 drums, DRUM_MESH_N, params=dparams, key=5, mesh=four),
                 warmup=1)
         check(counts.get("serial_stage") == MESH_SLOTS
-              and counts.get("sample_play") == MESH_SLOTS,
+              and counts.get("sample_play") == MESH_SLOTS
+              and counts.get("noise_lanes") == MESH_SLOTS,
               f"[18 farm noise] drum_machine on four slots launched {counts}")
         check(torch.equal(farm[0], want), "[18 farm noise] drum_machine on "
               "four slots is not the local render, off by "
@@ -4620,7 +4684,8 @@ def main() -> int:
     log(f"[10 block check] {time.perf_counter() - t0:.1f} s")
     kit_launches, kit_held = {}, []
     for phase, name, names in (
-            ("11 drums", "drum_machine", ("serial_stage", "sample_play")),
+            ("11 drums", "drum_machine", ("serial_stage", "sample_play",
+                                          "noise_lanes")),
             ("12 sampler", "sampler_kit", ("serial_stage", "sample_play")),
             ("13 kit check", "kit_check_patch",
              ("row_scan", "row_gather", "serial_stage", "sample_play"))):
@@ -4629,6 +4694,7 @@ def main() -> int:
                                               phase, names)
         kit_held.append(held)
         log(f"[{phase}] {time.perf_counter() - t0:.1f} s")
+    errs["noise_lanes"] = 0.0   # held at phase 11's full width only
     for held in (rev_held, chk_held, *kit_held):  # full-width comparisons
         for name, err in held.items():
             errs[name] = max(errs[name], err)
@@ -4770,6 +4836,25 @@ def main() -> int:
                                                             "block check")}
         if name in F64_BUILDS:
             entries.append(f64_entry(name, source, replaces, errs, exact))
+    # the Noise lanes' kernel ports no Pallas kernel: the JAX package draws
+    # them with jax.random.uniform in XLA
+    entries.append({
+        "name": "noise_lanes",
+        "route": "cuda",
+        "source": "srack_tpu_torch/csrc/noise_lanes.cu",
+        "replaces": "srack_tpu/modules/oscillator.py:331",
+        "ports_pallas_call": False,
+        "launches": kit_launches["11 drums"]["noise_lanes"],
+        "launches_by_phase": {"11 drums":
+                              kit_launches["11 drums"]["noise_lanes"]},
+        "max_abs_err": errs["noise_lanes"],
+        "ms": NOISE_REC["ms"],
+        "plain_ms": NOISE_REC["plain_ms"],
+        "bound_ms": NOISE_REC["bound"][0],
+        "bound_by": NOISE_REC["bound"][1],
+        "library_ms": None,
+        "shape": NOISE_REC["shape"],
+    })
     plain_ms = dict(zip(("fwd", "bwd"), vjp_plain))
     for i, (which, line) in enumerate((("fwd", 92), ("bwd", 212))):
         name = f"fused_vjp_{which}"

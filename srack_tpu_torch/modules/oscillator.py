@@ -31,6 +31,7 @@ from ..ops.basic import (block_transitions, delta_to_fixed, fast_cumsum,
                          forward_fill, phase_fixed_init, poly_blep,
                          poly_blep_signed, signed_turns, t_index, transition,
                          transition_init, wrap_i32)
+from ..ops.noise_kernel import noise_lanes
 from .base import CV_DTYPE, ModuleDef, const_ports, cv
 
 F64 = torch.float64
@@ -305,8 +306,8 @@ OSCILLATOR = ModuleDef(
 # ---------------------------------------------------------------------------
 
 def _noise_make(cfg: AudioConfig, seed: int = 0):
-    # int64 holds the JAX package's uint32 seeds; the seed only seeds a
-    # generator on the host and never reaches a kernel
+    # int64 holds the JAX package's uint32 seeds; the seed is folded into
+    # the rows' keys on the host and never reaches a kernel
     return ("noise",), {"seed": torch.tensor(int(seed), dtype=torch.int64)}
 
 
@@ -314,56 +315,33 @@ def _noise_init_state(cfg: AudioConfig, statics):
     return {}
 
 
-# The Noise lanes' counter-based draw: 32-bit words mixed in int64 tensors.
-# A product of a word (< 2**32) and a constant taken into [-2**31, 2**31)
-# stays inside int64 and keeps the low 32 bits of the unsigned product.
-_M32 = 0xFFFFFFFF
-_GOLDEN32 = 0x9E3779B9 - (1 << 32)
-_MIX32 = (0x7FEB352D, 0x846CA68B - (1 << 32))  # lowbias32's multipliers
-NOISE_CHUNK = 1 << 22  # elements a pass works on: bounds the int64 temps
-
-
-def noise_lanes(row_keys: torch.Tensor, n: int) -> torch.Tensor:
-    """``[R, n]`` f32 uniform in [-1, 1): element ``(r, t)`` is the top 24
-    bits of lowbias32's hash of ``row_keys[r] + t * 0x9E3779B9 (mod
-    2**32)``, as ``m * 2**-23 - 1``.  Integer ops only, so the CPU and the
-    card give the same bits.  ``row_keys``: int64 words in [0, 2**32)."""
-    r = row_keys.reshape(-1, 1)
-    out = torch.empty((r.shape[0], n), dtype=CV_DTYPE, device=r.device)
-    col = (torch.arange(n, dtype=torch.int64, device=r.device)
-           * _GOLDEN32).bitwise_and_(_M32)
-    step = max(1, NOISE_CHUNK // max(n, 1))
-    for i in range(0, r.shape[0], step):
-        x = (r[i:i + step] + col).bitwise_and_(_M32)
-        x.bitwise_xor_(x >> 16)
-        x.mul_(_MIX32[0]).bitwise_and_(_M32)
-        x.bitwise_xor_(x >> 15)
-        x.mul_(_MIX32[1]).bitwise_and_(_M32)
-        x.bitwise_xor_(x >> 16)
-        out[i:i + step] = (x >> 8).to(CV_DTYPE).mul_(2.0 ** -23).sub_(1.0)
-    return out
+def noise_row_keys(key: int, seeds, voice0: int = 0) -> np.ndarray:
+    """The 64-bit keys (as int64) of the rows of a Noise module's ``[V]``
+    ``seeds``: the voice with index ``g`` in the whole batch (``voice0``
+    plus its index here) is keyed by ``fold_in(fold_in(key, seed), g)``."""
+    seeds = np.asarray(seeds).reshape(-1)
+    by_seed = {int(s): fold_in(key, int(s)) for s in np.unique(seeds)}
+    base = np.array([by_seed[int(s)] for s in seeds], dtype=np.uint64)
+    return fold_in_rows(base, voice0 + np.arange(len(seeds))).view(np.int64)
 
 
 def _noise_make_xs(cfg: AudioConfig, statics, params, key: int, n: int,
                    voice0: int = 0):
-    """White noise in [-1, 1), a counter-based draw (:func:`noise_lanes`).
+    """White noise in [-1, 1), a counter-based draw
+    (:mod:`..ops.noise_kernel`: a kernel on the card).
 
     ``key`` is the render's key already folded with this module's index.
-    The row of the voice with index ``g`` in the whole batch (``voice0``
-    plus its index in this call: a farm's shard passes its first voice)
-    is keyed by ``fold_in(fold_in(key, seed), g)``.  So a voice's lane
-    depends only on the key, the module, its seed and ``g``, never on the
+    Each voice's row has a key of its own (:func:`noise_row_keys`), from
+    its index in the whole batch (``voice0`` plus its index in this call:
+    a farm's shard passes its first voice).  So a voice's lane depends
+    only on the key, the module, its seed and that index, never on the
     other voices of the call, and a shard draws the rows the whole batch
     would.  The draws are not JAX's threefry bits: parity tests feed both
     packages one numpy lane as a driver instead."""
     seed = params["seed"]
-    seeds = seed.reshape(-1).cpu().numpy()
-    by_seed = {int(s): fold_in(key, int(s)) for s in np.unique(seeds)}
-    base = np.array([by_seed[int(s)] for s in seeds], dtype=np.uint64)
-    rows = fold_in_rows(base, voice0 + np.arange(len(seeds)))
-    row_keys = torch.from_numpy(
-        (rows & np.uint64(_M32)).astype(np.int64)).to(seed.device)
-    return noise_lanes(row_keys, n).reshape(tuple(seed.shape) + (n,))
+    keys = torch.from_numpy(noise_row_keys(
+        key, seed.reshape(-1).cpu().numpy(), voice0)).to(seed.device)
+    return noise_lanes(keys, n).reshape(tuple(seed.shape) + (n,))
 
 
 def _noise_step(cfg: AudioConfig, statics, params, state, ins, x=None):

@@ -26,7 +26,7 @@ _MASK64 = (1 << 64) - 1
 
 def fold_in(key: int, data: int) -> int:
     """A new 64-bit seed from ``key`` and ``data`` (the port's counterpart
-    of ``jax.random.fold_in`` for the ints that seed ``torch.Generator``):
+    of ``jax.random.fold_in`` for the ints that key the Noise lanes):
     the splitmix64 finaliser of ``key`` mixed with ``data``.  Distinct
     ``data`` give unrelated seeds; it does not reproduce JAX's bits."""
     z = (int(key) * 0x9E3779B97F4A7C15 + int(data) + 0x632BE59BD9B4E019)

@@ -6,8 +6,9 @@ source with a plain C interface, loaded with ``ctypes``, launched on the
 caller's stream, and counted.  Every kernel wrapper of the port launches
 through :meth:`CudaLib.launch`.
 
-The row-scan (K4), ring-alignment (K9) and Freeverb (K8) kernels are
-sources of ``csrc/``; the fused kernels (K1, K2) and the serial-stage
+The row-scan (K4), row-gather (K5, K6), Sample-player (K7), Freeverb
+(K8), ring-alignment (K9) and Noise-lane kernels are sources of
+``csrc/``; the fused kernels (K1, K2) and the serial-stage
 kernel (K3) are generated per plan (``ops/fused.py``).  Every entry point
 returns ``cudaGetLastError()`` after its launches; in the host build (g++,
 for the CPU tests) the same entry takes no stream and runs the per-row or
