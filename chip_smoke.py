@@ -266,6 +266,29 @@ times it alone;
    (``utils.profiling.trace``, written to chiprun_out/trace/), summed into
    its top 10 device ops and its device idle gaps.
 
+For slice 12, K4 (``csrc/row_scan.cu``) is a pipelined kernel: each
+thread's elements are prefetched with cp.async into a ring of 2-4 chunk
+stages in shared memory, the CTA scan takes two barriers a chunk, and
+an entry's 16-byte variant (``*_vec``) or its one-element variant (no
+suffix) is picked by the wrapper; the old kernel stays as its twin
+(``row_scan_twin``, ``row_scan_twin_f64``, entries ``*_twin``).  A
+render's initial state is made on its device (``init_state(device)``).
+Phase 2 logs each pipelined build's registers, spills, stack frame, ring
+bytes and CTAs per SM (the occupancy query); phase 3 holds every kind and
+dtype (sum and max of f32, int32 and f64, fills of 1-4 arrays of each,
+affine) to its plain version at [1,024, 48,000] (the 16-byte variant) and
+[1,024, 47,999] (the one-element one), each launch's entry checked, and
+times each dtype's sum through both variants, the twin and torch.cumsum;
+phases 10, 13 and 17 time K4's twin beside it in their splits; phase 15
+holds K4 to its twin bit for bit on the very operands of every K4 launch
+of the block-check, kit-check, exact headline and exact reverb renders
+(caught at the wrappers), both timed in turns; phase 19 traces the reverb
+render twice, its state built on the host as before and made by the
+render on the card (host-to-device copies, pageable ones, idle share),
+and holds ``init_state("cuda")`` of every patch the phases render (fast
+and exact, both feedback modes, the .srk fixture) to the host build bit
+for bit, broadcast over 1,024 voices.
+
 Each main path (phases 4, 5, 7-14, 16-19) runs with the launch counts
 set to 0 just before it and read just after.  Any failure raises and exits
 non-zero.  The line before the last is a JSON record of the kernels; the
@@ -277,6 +300,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import gc
 import json
 import subprocess
@@ -490,6 +514,7 @@ def phase_build(stt):
     k8_shape(stt)
     k9_shape(stt)
     exact_shapes(stt)
+    k4_shape(stt)
     return kernels
 
 
@@ -644,7 +669,8 @@ def _counters(kernels):
     from srack_tpu_torch.ops.ring_roll import RING_ALIGN, RING_ALIGN_TWIN
     from srack_tpu_torch.ops.sample_kernel import (SAMPLE_PLAY,
                                                    SAMPLE_PLAY_TWIN)
-    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+    from srack_tpu_torch.ops.scan_kernel import (ROW_SCAN, ROW_SCAN_TWIN,
+                                                 ROW_SCAN_TWIN_F64)
     out = [kernel for _, _, kernel in kernels.values()]
     out += [lib for _, _, k in VJP.values() for lib in (k.fwd, k.bwd)]
     # phase 15's K10 builds, the twins named apart
@@ -652,7 +678,7 @@ def _counters(kernels):
     out += list(STAGES.values()) + list(CHECK_STAGES.values()) + [
         ROW_SCAN, FREEVERB, FREEVERB_TWIN, RING_ALIGN, RING_ALIGN_TWIN,
         ROW_GATHER, ROW_GATHER_LONG, SAMPLE_PLAY, SAMPLE_PLAY_TWIN,
-        NOISE_LANES]
+        NOISE_LANES, ROW_SCAN_TWIN, ROW_SCAN_TWIN_F64]
     # slice 10: exact precision's stages and the f64 builds
     out += list(EXACT_STAGES.values()) + f64_libs()
     # the one-thread twins of phase 15, named apart: a main path that
@@ -1345,7 +1371,7 @@ def block_times(stt, scan_x):
                            f"{name} stage V={VOICES} n={n}")
     xf = scan_x["xf"]
     out["row_scan"] = (
-        cuda_ms(lambda: ROW_SCAN.run("sum", (xf,)), repeats=20),
+        cuda_ms(lambda: ROW_SCAN.run("sum", (xf,)), repeats=20, warmup=1),
         cuda_ms(lambda: basic.cumsum_plain(xf), repeats=3),
         cuda_ms(lambda: torch.cumsum(xf, dim=-1), repeats=20),
         _bound(8 * xf.numel(), xf.numel()),
@@ -1440,10 +1466,11 @@ def _split(stt, name, patch, params, n, automation, total_ms, card):
                                    0),
               "freeverb": freeverb_bound(lens, VOICES, n, 1, right)}
     if name == "block_check_patch":
-        from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+        from srack_tpu_torch.ops.scan_kernel import ROW_SCAN, ROW_SCAN_TWIN
         x = torch.ones((VOICES, n), dtype=torch.int32, device="cuda")
         out["row_scan"] = cuda_ms(lambda: ROW_SCAN.run("sum", (x,)),
                                   warmup=1)
+        k4_twin = cuda_ms(lambda: ROW_SCAN_TWIN.run("sum", (x,)), warmup=1)
         bounds["row_scan"] = _bound(8 * x.numel(), x.numel())
         del x
         torch.cuda.empty_cache()
@@ -1456,7 +1483,8 @@ def _split(stt, name, patch, params, n, automation, total_ms, card):
         f"{k9_ms:.3f} ms x 2, K8 {k8_ms:.3f} ms, the rest (block phases, "
         f"K4, transposes, wrappers) {rest:.3f} ms of {total_ms:.3f} "
         + (f"(K4 alone: {out['row_scan']:.3f} ms per i32 sum over [{VOICES}, "
-           f"{n}]) " if "row_scan" in out else "") + f"[{card}]")
+           f"{n}], its twin {k4_twin:.3f}) " if "row_scan" in out else "")
+        + f"[{card}]")
 
 
 def k8_wrapper_split(render, name, card) -> dict:
@@ -2237,7 +2265,7 @@ def _kit_split(stt, name, total_ms, card):
     from srack_tpu_torch.ops.noise_kernel import (NOISE_LANES,
                                                   noise_lanes_plain)
     from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
-    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN, ROW_SCAN_TWIN
     compiled = block_cases(stt)[name][1]
     prog = compiled.block_program()
     kernel = STAGES[name]
@@ -2312,8 +2340,10 @@ def _kit_split(stt, name, total_ms, card):
     if name == "kit_check_patch":
         x = torch.ones((VOICES, n), dtype=torch.int32, device="cuda")
         k4 = cuda_ms(lambda: ROW_SCAN.run("sum", (x,)), warmup=1)
+        k4_twin = cuda_ms(lambda: ROW_SCAN_TWIN.run("sum", (x,)), warmup=1)
         del x
-        parts.append(f"K4 {k4:.3f} ms per launch (int32 sum alone)")
+        parts.append(f"K4 {k4:.3f} ms per launch (int32 sum alone; its "
+                     f"twin {k4_twin:.3f})")
     torch.cuda.empty_cache()
     log(f"[split] {name} V={VOICES} n={n}: " + ", ".join(parts)
         + f"; the rest (block phases, wrappers, layout"
@@ -2930,14 +2960,16 @@ def phase_ab(stt, kernels, card) -> dict:
             SWEEP.get(name))
         del lanes, params, state, stage_state
         torch.cuda.empty_cache()
-    for cell, (patch, automation) in k8_cells(stt).items():
+    cells = k8_cells(stt)   # the block check's automation made once
+    for cell, (patch, automation) in cells.items():
         out[f"k8 {cell}"] = k8_ab(stt, cell, patch, automation, card)
     out["k10 train"] = k10_ab(stt, card)
     out["k10 fwd"] = k10_fwd_ab(stt, card)
     for name in KIT_NAMES:
         out[f"k7 {name}"] = k7_ab(stt, name, card)
-    for cell, (patch, automation) in k8_cells(stt).items():
+    for cell, (patch, automation) in cells.items():
         out[f"k9 {cell}"] = k9_ab(stt, cell, patch, automation, card)
+    out["k4"] = k4_ab(stt, card, cells["block check"])
     return out
 
 
@@ -3741,14 +3773,15 @@ def _exact_split(stt, name, compiled, n, launches, total_ms, card) -> dict:
     from srack_tpu_torch.modules import freeverb as fv
     from srack_tpu_torch.ops import freeverb_kernel as fvk
     from srack_tpu_torch.ops.ring_roll import RING_ALIGN_F64
-    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN_F64
+    from srack_tpu_torch.ops.scan_kernel import (ROW_SCAN_F64,
+                                                 ROW_SCAN_TWIN_F64)
     prog = compiled.block_program()
     patch = exact_cases(stt)[(name, SR)][0]
     params = _cuda(stt, stt.presets.farm_params(patch, VOICES))
     state = _cuda(stt, stt.compiler.tree_map(
         lambda a: a.expand((VOICES,) + a.shape).contiguous(),
         compiled.init_state()))
-    alone, bounds = {}, {}
+    alone, bounds, twin = {}, {}, {}
     kernel = EXACT_STAGES[(name, SR)]
     stage_state = {"states": {m: state["states"][m]
                               for m in prog.stage_plan}, "fb": state["fb"]}
@@ -3763,6 +3796,8 @@ def _exact_split(stt, name, compiled, n, launches, total_ms, card) -> dict:
         x = torch.full((VOICES, n), 1e-3, dtype=F64, device="cuda")
         alone["row_scan_f64"] = cuda_ms(
             lambda: ROW_SCAN_F64.run("sum", (x,)), warmup=1, repeats=3)
+        twin["row_scan_f64"] = cuda_ms(
+            lambda: ROW_SCAN_TWIN_F64.run("sum", (x,)), warmup=1, repeats=3)
         bounds["row_scan_f64"] = _bound2(16 * x.numel(), 0, x.numel())
         del x
     if "freeverb_f64" in launches:
@@ -3799,10 +3834,12 @@ def _exact_split(stt, name, compiled, n, launches, total_ms, card) -> dict:
             f"bound")
     log(f"[17 exact] split of exact {name} V={VOICES} n={EXACT_N} in "
         f"launches of n={n}: " + ", ".join(
-            f"{k} {alone[k]:.3f} ms x {launches[k]}" for k in alone)
+            f"{k} {alone[k]:.3f} ms x {launches[k]}"
+            + (f" (its twin {twin[k]:.3f})" if k in twin else "")
+            for k in alone)
         + f", the rest (block phases, the f64 Oscillator forms, transposes, "
         f"wrappers) {rest:.3f} ms of {total_ms:.3f} [{card}]")
-    return {"alone_ms": alone, "rest_ms": rest, "n": n,
+    return {"alone_ms": alone, "rest_ms": rest, "n": n, "twin_ms": twin,
             "bounds": {k: b[:2] for k, b in bounds.items()}}
 
 
@@ -4386,7 +4423,7 @@ def phase_io(stt, kernels, card) -> dict:
     CLI in-process, play and profiling."""
     import os
     from srack_tpu_torch import native
-    from srack_tpu_torch.utils.profiling import timed_render, trace
+    from srack_tpu_torch.utils.profiling import timed_render
     os.makedirs("chiprun_out", exist_ok=True)
     rec = {"native_library": native.lib() is not None}
     log(f"[19 io] native planner and WAV codec (g++): "
@@ -4546,24 +4583,62 @@ def phase_io(stt, kernels, card) -> dict:
         f"(CUDA events), {stats.samples_per_sec / 1e9:.4f} G samples/s, "
         f"peak {stats.peak_amplitude:.5f}, {stats.nan_lanes} NaN lanes "
         f"[{card}]")
-    rpatch = stt.presets.reverb_patch(stt.AudioConfig(sample_rate=SR,
-                                                      channels=2))
-    rp = stt.presets.farm_params(rpatch, VOICES)
-    with no_scan_engine():
-        stt.render_batch(rpatch, HEADLINE_N, params=rp)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with trace("reverb_render", trace_dir=TRACE_DIR):
-            stt.render_batch(rpatch, HEADLINE_N, params=rp)
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rec["trace"] = _trace_summary(os.path.join(
-        TRACE_DIR, "reverb_render.json"), wall_ms, card)
+    rec.update(reverb_traces(stt, card))
+    rec["state"] = state_on_card(stt, card)
     return rec
 
 
-def _trace_summary(path, wall_ms, card) -> dict:
-    """The reverb trace's top 10 device ops by time and its device idle
-    gaps, from the Chrome trace's kernel, memcpy and memset events."""
+def reverb_traces(stt, card) -> dict:
+    """Two ``torch.profiler`` traces of the reverb render (1,024 x 480,000,
+    stereo), after an untimed one: its initial state built as before slice
+    12 (on the host, broadcast and made contiguous there, then copied by
+    the render) and made by the render on the card.  The second must make
+    no host-to-device copy beyond the caller's CPU param leaves."""
+    import os
+    from srack_tpu_torch.compiler import tree_leaves
+    from srack_tpu_torch.utils.profiling import trace
+    rec = {}
+    rpatch = stt.presets.reverb_patch(stt.AudioConfig(sample_rate=SR,
+                                                      channels=2))
+    rp = stt.presets.farm_params(rpatch, VOICES)
+    rcompiled = stt.compile_patch(rpatch)
+
+    def host_state():
+        # the initial state as a render made it before slice 12: on the
+        # host, broadcast and made contiguous there, then copied
+        return stt.compiler.tree_map(
+            lambda a: a.expand((VOICES,) + a.shape).contiguous(),
+            rcompiled.init_state())
+    walls = {}
+    with no_scan_engine():
+        stt.render_batch(rpatch, HEADLINE_N, params=rp)
+        for label, state in (("reverb_render_host_state", host_state),
+                             ("reverb_render", lambda: None)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with trace(label, trace_dir=TRACE_DIR):
+                stt.render_batch(rpatch, HEADLINE_N, params=rp,
+                                 state=state())
+            walls[label] = 1e3 * (time.perf_counter() - t0)
+    rec["trace_host_state"] = _trace_summary(os.path.join(
+        TRACE_DIR, "reverb_render_host_state.json"),
+        walls["reverb_render_host_state"], card,
+        "the initial state built on the host, as before slice 12")
+    rec["trace"] = _trace_summary(os.path.join(
+        TRACE_DIR, "reverb_render.json"), walls["reverb_render"], card,
+        "the render's own initial state, made on the card")
+    os.remove(os.path.join(TRACE_DIR, "reverb_render_host_state.json"))
+    params = len(tree_leaves(rp))
+    check(rec["trace"]["h2d_copies"] <= params,
+          f"the reverb render made {rec['trace']['h2d_copies']} "
+          f"host-to-device copies for {params} CPU param leaves")
+    return rec
+
+
+def _trace_summary(path, wall_ms, card, what) -> dict:
+    """The reverb trace's top 10 device ops by time, its device idle gaps
+    and its host-to-device copies, from the Chrome trace's kernel, memcpy
+    and memset events."""
     import json as _json
     import os
     with open(path) as f:
@@ -4587,18 +4662,28 @@ def _trace_summary(path, wall_ms, card) -> dict:
         end = max(end, t)
     span = spans[-1][1] - spans[0][0]
     gaps.sort(reverse=True)
+    h2d = [e for e in dev if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e["name"]]
+    pageable = [e for e in h2d if "Pageable" in e["name"]]
     summary = {
         "wall_ms": wall_ms, "device_span_ms": span / 1e3,
         "device_busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / span if span else None,
         "gaps": len(gaps), "gaps_ms": sum(gaps) / 1e3,
         "largest_gaps_ms": [g / 1e3 for g in gaps[:5]],
-        "device_events": len(dev),
+        "device_events": len(dev), "h2d_copies": len(h2d),
+        "h2d_pageable": len(pageable),
+        "h2d_ms": sum(e["dur"] for e in h2d) / 1e3,
+        "h2d_bytes": sum(int(e.get("args", {}).get("bytes", 0))
+                         for e in h2d),
         "top10": [{"name": n, "ms": t / 1e3, "calls": k}
                   for n, (t, k) in top],
         "trace_bytes": os.path.getsize(path)}
     log(f"[19 profile] trace of the reverb render (V={VOICES}, "
-        f"n={HEADLINE_N}): wall {wall_ms:.3f} ms (profiler on), device span "
+        f"n={HEADLINE_N}; {what}): {len(h2d)} host-to-device copies "
+        f"({len(pageable)} pageable, {summary['h2d_ms']:.3f} ms, "
+        f"{summary['h2d_bytes']} bytes); wall {wall_ms:.3f} ms (profiler "
+        f"on), device span "
         f"{span / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
         f"{100 * summary['idle_share']:.1f} % in {len(gaps)} gaps "
         f"({sum(gaps) / 1e3:.3f} ms; largest "
@@ -4607,6 +4692,319 @@ def _trace_summary(path, wall_ms, card) -> dict:
     for i, (n, (t, k)) in enumerate(top):
         log(f"[19 profile]   {i + 1}. {t / 1e3:.3f} ms in {k} calls: {n}")
     return summary
+
+
+# -- slice 12: K4 redesigned, the initial state made on the card -------------
+
+K4_CHECK_NS = (SCAN_N, SCAN_N - 1)  # the 16-byte variant, the one-element one
+K4_KINDS = ([(kind, dt, 0) for kind in ("sum", "max")
+             for dt in (torch.float32, torch.int32, F64)]
+            + [("fill", dt, k) for dt in (torch.float32, torch.int32, F64)
+               for k in (1, 2, 3, 4)]
+            + [("affine", torch.float32, 0)])
+K4_DT = {torch.float32: "f32", torch.int32: "i32", F64: "f64"}
+K4_SHAPE = {}   # "<kind> <dtype> [xK] vec|scalar" -> the pipelined build
+K4_REC = {}     # phase 3's K4 times at the check shapes
+
+
+def _k4_label(kind, dt, k, vec) -> str:
+    return (f"{kind} {K4_DT[dt]}" + (f" x{k}" if kind == "fill" else "")
+            + (" vec" if vec else " scalar"))
+
+
+def _k4_ptxas(log_text) -> dict:
+    """ptxas's lines for K4's pipelined kernels, by label: registers,
+    spill bytes (stores + loads) and stack frame, read off the mangled
+    names (``srk_scan_pipe_kernel<S, VEC>``)."""
+    import re
+    dts = {"f": torch.float32, "i": torch.int32, "d": F64}
+    out, name, frame = {}, None, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if not (m and name and "srk_scan_pipe_kernel" in name):
+            continue
+        vec = "Lb1E" in name
+        s1 = re.search(r"srk_scan1I([fid])\d+srk_(add|max)", name)
+        fill = re.search(r"srk_scan_fillI([fid])Li(\d)E", name)
+        if s1:
+            label = _k4_label("sum" if s1.group(2) == "add" else "max",
+                              dts[s1.group(1)], 0, vec)
+        elif fill:
+            label = _k4_label("fill", dts[fill.group(1)],
+                              int(fill.group(2)), vec)
+        else:
+            label = _k4_label("affine", torch.float32, 0, vec)
+        stack, st, ld = frame or (-1, -1, -1)
+        out[label] = {"registers": int(m.group(1)), "spill_bytes": st + ld,
+                      "stack_bytes": stack}
+    return out
+
+
+def k4_shape(stt) -> dict:
+    """Build K4's twins (entries of K4's library, found by hash) and record
+    each pipelined build's registers, spills and stack frame (``-Xptxas
+    -v``), ring bytes (its dynamic shared memory) and the CTAs of 256
+    threads an SM holds (the card's occupancy query) in ``K4_SHAPE``."""
+    from srack_tpu_torch.ops import scan_kernel as sk
+    sk.ROW_SCAN_TWIN.build()
+    sk.ROW_SCAN_TWIN_F64.build()
+    regs = _k4_ptxas(sk.ROW_SCAN.build_log)
+    fn = sk.ROW_SCAN.build().srk_scan_shape
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    kinds = {"sum": 0, "max": 1, "fill": 2, "affine": 3}
+    dts = {torch.float32: 0, torch.int32: 1, F64: 2}
+    for kind, dt, k in K4_KINDS:
+        for vec in (True, False):
+            label = _k4_label(kind, dt, k, vec)
+            ctas, smem = ctypes.c_int(-1), ctypes.c_int(-1)
+            check(fn(kinds[kind], dts[dt], k, int(vec), ctypes.byref(ctas),
+                     ctypes.byref(smem)) == 0,
+                  f"K4's occupancy query failed for {label}")
+            ctas, smem = ctas.value, smem.value
+            check(label in regs, f"no ptxas line for K4's {label} build")
+            K4_SHAPE[label] = dict(regs[label], ring_bytes=smem,
+                                   ctas_per_sm=ctas)
+            log(f"[2 build] row_scan {label}: {regs[label]['registers']} "
+                f"registers, {regs[label]['spill_bytes']} bytes spilled, "
+                f"{regs[label]['stack_bytes']} bytes stack frame, a ring of "
+                f"{smem} B, {ctas} CTAs of 256 threads per SM")
+    log("[2 build] row_scan_twin, row_scan_twin_f64: the library of row_scan "
+        "(csrc/row_scan.cu, entries srk_scan_*_twin)")
+    return K4_SHAPE
+
+
+def _k4_inputs(n, seed):
+    rng = np.random.default_rng(seed)
+    shape = (SCAN_ROWS, n)
+
+    def dev(a):
+        return torch.from_numpy(a).cuda()
+    return {
+        torch.float32: dev(rng.standard_normal(shape).astype(np.float32)),
+        torch.int32: dev(rng.integers(-2 ** 31, 2 ** 31 - 1, shape,
+                                      dtype=np.int64).astype(np.int32)),
+        F64: dev(rng.uniform(0.0, 0.1, shape)),
+        "mask": dev(rng.uniform(size=shape) < 1e-3),
+        "a": dev(rng.uniform(0.99, 1.0, shape).astype(np.float32))}
+
+
+def _k4_call(kind, dt, k, x, twin=False):
+    """``(run, plain)`` of one K4 kind on phase 3's inputs ``x``: the
+    wrapper's call (or the twin's) and the plain version's."""
+    from srack_tpu_torch.ops import basic, scan_kernel as sk
+    lib = ({torch.float32: sk.ROW_SCAN_TWIN, torch.int32: sk.ROW_SCAN_TWIN,
+            F64: sk.ROW_SCAN_TWIN_F64} if twin else
+           {torch.float32: sk.ROW_SCAN, torch.int32: sk.ROW_SCAN,
+            F64: sk.ROW_SCAN_F64})[dt]
+    if kind == "fill":
+        vals = tuple(torch.roll(x[dt], 37 * j, -1) for j in range(k))
+        return (lambda: lib.fill(vals, x["mask"]),
+                lambda: basic.forward_fill_multi_plain(vals, x["mask"]))
+    if kind == "affine":
+        return (lambda: lib.run("affine", (x["a"], x[dt])),
+                lambda: basic.affine_scan_plain(x["a"], x[dt]))
+    plain = basic.cumsum_plain if kind == "sum" else basic.cummax_plain
+    return (lambda: lib.run(kind, (x[dt],)), lambda: (plain(x[dt]),))
+
+
+def compare_k4_forms(card) -> dict:
+    """Phase 3 for K4's redesign: every kind and dtype (sum and max of f32,
+    int32 and f64; fills of 1-4 arrays of each; affine) on [1,024, 48,000]
+    rows (the 16-byte variant) and [1,024, 47,999] (the one-element
+    variant), against the plain version: int32 kinds, maxes and fills
+    exact (fills where a value is defined), f32 sum within 2e-4, affine
+    3e-4, f64 sum 1e-12 (abs + rel); each launch's entry read off the
+    build's per-entry count; then each dtype's sum timed through both
+    variants, the twin and torch.cumsum.  Returns the largest error of
+    each build."""
+    from srack_tpu_torch.ops import scan_kernel as sk
+    t0 = time.perf_counter()
+    errs = {"row_scan": 0.0, "row_scan_f64": 0.0}
+    for n in K4_CHECK_NS:
+        vec = n % 4 == 0
+        x = _k4_inputs(n, n)
+        for kind, dt, k in K4_KINDS:
+            lib = sk.ROW_SCAN_F64 if dt == F64 else sk.ROW_SCAN
+            entry = (f"srk_scan_{kind}_{K4_DT[dt]}" + ("_vec" if vec else ""))
+            before = lib.by_entry.get(entry, 0)
+            run, plain = _k4_call(kind, dt, k, x)
+            got, want = run(), plain()
+            check(lib.by_entry.get(entry, 0) == before + 1,
+                  f"K4 {kind} {K4_DT[dt]} at n={n} did not launch {entry}")
+            what = f"K4 {_k4_label(kind, dt, k, vec)} at [{SCAN_ROWS}, {n}]"
+            if kind == "fill":
+                (filled, ok), (want_f, want_ok) = got, want
+                err = _held([(ok, want_ok, None)] + [
+                    (g, w, ok) for g, w in zip(filled, want_f)], 0, what)
+            else:
+                tol = (0 if kind == "max" or dt == torch.int32
+                       else F64_SUM_TOL if dt == F64 else SCAN_TOL[kind])
+                err = _held([(g, w, None) for g, w in zip(got, want)], tol,
+                            what)
+            errs[lib.name] = max(errs[lib.name], err)
+            log(f"[3 compare] row_scan {_k4_label(kind, dt, k, vec)} "
+                f"[{SCAN_ROWS}, {n}] ({entry}): max abs err {err:.3e} "
+                f"against the log-doubling form")
+            del got, want
+        for dt in (torch.float32, torch.int32, F64):
+            run, _ = _k4_call("sum", dt, 0, x)
+            twin, _ = _k4_call("sum", dt, 0, x, twin=True)
+            y = x[dt]
+            rec = {"ms": cuda_ms(run, repeats=20, warmup=1),
+                   "twin_ms": cuda_ms(twin, repeats=20, warmup=1),
+                   "library_ms": (cuda_ms(lambda: torch.cumsum(y, dim=-1),
+                                          repeats=20, warmup=1)
+                                  if dt != torch.int32 else None),
+                   "bound_ms": _bound(2 * y.numel() * y.element_size(),
+                                      0)[0]}
+            K4_REC[f"sum {K4_DT[dt]} {n}"] = rec
+            lib = ("" if rec["library_ms"] is None
+                   else f", torch.cumsum {rec['library_ms']:.4f} ms")
+            log(f"[3 compare] row_scan sum {K4_DT[dt]} [{SCAN_ROWS}, {n}] "
+                f"({'16-byte' if vec else 'one-element'} variant): "
+                f"{rec['ms']:.4f} ms, twin {rec['twin_ms']:.4f} ms{lib}; "
+                f"bound {rec['bound_ms']:.4f} ms (bytes), share "
+                f"{100 * rec['bound_ms'] / rec['ms']:.1f} % [{card}]")
+        del x
+        torch.cuda.empty_cache()
+    log(f"[3 compare] row_scan forms: {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def k4_ab(stt, card, block_check) -> dict:
+    """Phase 15 for K4: the pipelined kernel against its twin on the very
+    operands of every K4 launch of the block-check, kit-check, exact
+    headline and exact reverb renders (1,024 voices x 480,000 samples;
+    the exact ones in segments of 96,000), caught at the wrappers
+    (``run``, ``fill``): every output equal bit for bit, both timed in
+    turns (twin, new, new, twin).  ``block_check``: the block-check
+    cell's ``(patch, automation)``.  Returns a record per cell."""
+    from srack_tpu_torch.ops import scan_kernel as sk
+    twins = {sk.ROW_SCAN: sk.ROW_SCAN_TWIN, sk.ROW_SCAN_F64:
+             sk.ROW_SCAN_TWIN_F64}
+    check_patch, automation = block_check
+    kit = stt.presets.kit_check_patch(stt.AudioConfig(sample_rate=SR,
+                                                      channels=1))
+    cells = {
+        "block check": lambda: stt.render_batch(
+            check_patch, HEADLINE_N,
+            params=stt.presets.farm_params(check_patch, VOICES),
+            automation=automation),
+        "kit check": lambda: stt.render_batch(
+            kit, HEADLINE_N, params=stt.presets.farm_params(kit, VOICES))}
+    for cell, name in (("exact headline", "subtractive_voice"),
+                       ("exact reverb", "reverb_patch")):
+        patch = exact_cases(stt)[(name, SR)][0]
+        cells[cell] = functools.partial(
+            stt.render_batch, patch, EXACT_N, segment=EXACT_SEGMENT,
+            params=stt.presets.farm_params(patch, VOICES))
+    out = {}
+    for cell, render in cells.items():
+        t0 = time.perf_counter()
+        recs = []
+
+        def hook(lib, method):
+            new = getattr(lib, method)
+            old = getattr(twins[lib], method)
+
+            def call(*args):
+                entries = {e: c for t in twins for e, c in t.by_entry.items()}
+                times, outs = _turns("new", "twin", lambda k: (
+                    new if k == "new" else old)(*args))
+                check(_same(outs["split"], outs["one"]), f"K4 {cell}: the "
+                      f"pipelined kernel differs from its twin ({method})")
+                entry = sorted({e for t in twins
+                                for e, c in t.by_entry.items()
+                                if c != entries.get(e, 0)})
+                x = args[1] if method == "fill" else args[1][0]
+                one_ms, new_ms = min(times["one"]), min(times["split"])
+                what = (f"{method} {args[0]}" if method == "run"
+                        else f"fill x{len(args[0])}")
+                recs.append({"call": what,
+                             "entry": entry, "shape": list(x.shape),
+                             "dtype": str(x.dtype)[6:], "ms": new_ms,
+                             "twin_ms": one_ms, "ratio": new_ms / one_ms})
+                return outs["split"]
+            return call
+        for lib in twins:
+            lib.run, lib.fill = hook(lib, "run"), hook(lib, "fill")
+        try:
+            with no_scan_engine():
+                render()
+        finally:
+            for lib in twins:
+                del lib.run, lib.fill
+        check(recs, f"K4 {cell}: the render launched no K4")
+        torch.cuda.empty_cache()
+        for i, r in enumerate(recs):
+            log(f"[15 a/b] K4 {cell} launch {i + 1} ({r['call']}, "
+                f"{r['dtype']} {r['shape']}, {'/'.join(r['entry'])}): "
+                f"twin {r['twin_ms']:.4f} ms, pipelined {r['ms']:.4f} ms: "
+                f"new / twin = {r['ratio']:.3f}; equal bit for bit "
+                f"[{card}]")
+        log(f"[15 a/b] K4 {cell}: {len(recs)} launches held, "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[cell] = recs
+    return out
+
+
+def state_on_card(stt, card) -> dict:
+    """Every patch the phases render (fast and exact, both feedback
+    modes): ``init_state("cuda")`` equal to the host build leaf for leaf
+    (value, dtype, shape), and broadcast over 1,024 voices on the card
+    equal to the host build expanded and made contiguous, bit for bit."""
+    from srack_tpu_torch.compiler import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    patches = []
+    channels = {"reverb_patch": 2, "lane_check_patch": 2,
+                "kernel_check_patch": 3}
+    for prec in ("fast", "exact"):
+        for name in ("subtractive_voice", "sine_patch", "sequencer_patch",
+                     "feedback_patch", "reverb_patch", "drum_machine",
+                     "sampler_kit", "kit_check_patch", "gradient_patch",
+                     "block_check_patch", "lane_check_patch",
+                     "kernel_check_patch"):
+            p = getattr(stt.presets, name)(stt.AudioConfig(
+                sample_rate=SR, channels=channels.get(name, 1),
+                precision=prec))
+            patches.append((f"{name} {prec}",
+                            p[0] if isinstance(p, tuple) else p))
+        patches.append((f"feedback_patch buffer {prec}",
+                        stt.presets.feedback_patch(stt.AudioConfig(
+                            sample_rate=SR, block_size=BUFFER_BLOCK,
+                            channels=1, buffer_feedback=True,
+                            precision=prec))))
+    patches.append(("the .srk fixture", _fixture_patch(stt)))
+    leaves = 0
+    for what, patch in patches:
+        compiled = stt.compile_patch(patch)
+        host, card_state = compiled.init_state(), compiled.init_state("cuda")
+        wide = tree_map(lambda a: a.expand((VOICES,) + a.shape), card_state)
+        want = tree_map(lambda a: a.expand((VOICES,) + a.shape).contiguous(),
+                        host)
+        for got, ref, g1 in zip(tree_leaves(wide), tree_leaves(want),
+                                tree_leaves(card_state)):
+            check(g1.device.type == "cuda", f"{what}: a leaf on {g1.device}")
+            check(got.dtype == ref.dtype and got.shape == ref.shape
+                  and torch.equal(got.cpu(), ref),
+                  f"{what}: the state made on the card differs from the "
+                  f"host build")
+            leaves += 1
+    log(f"[19 state] {len(patches)} patches, {leaves} leaves: the initial "
+        f"state made on the card equal to the host build bit for bit, "
+        f"broadcast over {VOICES} voices; {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    return {"patches": len(patches), "leaves": leaves}
 
 
 def main() -> int:
@@ -4632,6 +5030,8 @@ def main() -> int:
     errs.update(phase_compare_exact(stt))
     log(f"[3 compare] slice 10 (exact precision): "
         f"{time.perf_counter() - t1:.1f} s")
+    for name, err in compare_k4_forms(card).items():   # slice 12
+        errs[name] = max(errs[name], err)
     log(f"[3 compare] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     main_launches, _ = phase_main(stt, kernels, card,
@@ -4834,8 +5234,16 @@ def main() -> int:
         if name == "ring_align":
             entries[-1]["twin"] = {c: ab[f"k9 {c}"] for c in ("reverb",
                                                             "block check")}
+        if name == "row_scan":   # slice 12: the pipelined kernel
+            entries[-1]["twin"] = {c: r for c, r in ab["k4"].items()
+                                   if not c.startswith("exact")}
+            entries[-1]["forms"] = K4_REC
+            entries[-1]["builds"] = K4_SHAPE
         if name in F64_BUILDS:
             entries.append(f64_entry(name, source, replaces, errs, exact))
+            if name == "row_scan":
+                entries[-1]["twin"] = {c: r for c, r in ab["k4"].items()
+                                       if c.startswith("exact")}
     # the Noise lanes' kernel ports no Pallas kernel: the JAX package draws
     # them with jax.random.uniform in XLA
     entries.append({

@@ -165,7 +165,8 @@ class BlockProgram:
         for mid, (mdef, statics, _) in insts.items():
             if mid in serial:
                 continue
-            if mdef.block is None and mdef.init_state(self.cfg, statics):
+            if mdef.block is None and mdef.init_state(self.cfg, statics,
+                                                      "meta"):
                 serial.add(mid)
 
         def reach(seed, adj):
@@ -181,8 +182,8 @@ class BlockProgram:
             return kernel_safe(insts[mid][0])
 
         def has_carry(mids):
-            return any(tree_leaves(insts[m][0].init_state(self.cfg,
-                                                          insts[m][1]))
+            return any(tree_leaves(insts[m][0].init_state(
+                self.cfg, insts[m][1], "meta"))
                        for m in mids)
 
         # a patch with no serial core: seed a stage from the kernel-safe

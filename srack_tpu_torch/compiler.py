@@ -211,14 +211,17 @@ class CompiledPatch:
 
     # -- state --------------------------------------------------------------
 
-    def init_state(self) -> dict:
+    def init_state(self, device=None) -> dict:
+        """One voice's initial state, every leaf made on ``device`` (the
+        CPU by default; ``"meta"`` gives the layout alone)."""
         cfg = self.cfg
         states = {
-            mid: mdef.init_state(cfg, statics)
+            mid: mdef.init_state(cfg, statics, device)
             for mid, (mdef, statics, _) in self.instances.items()
         }
         shape = (cfg.block_size,) if cfg.buffer_feedback else ()
-        fb = {k: torch.zeros(shape, dtype=CV_DTYPE) for k in self.fb_keys}
+        fb = {k: torch.zeros(shape, dtype=CV_DTYPE, device=device)
+              for k in self.fb_keys}
         return {"states": states, "fb": fb}
 
     def derived_params(self, params: dict) -> dict:
@@ -531,10 +534,11 @@ class CompiledPatch:
         params = tree_map(lambda a: torch.as_tensor(a).to(device), params)
         v = tree_leaves(params)[0].shape[0] if batched else None
         if state is None:
-            state = self.init_state()
+            # made on the render's device and broadcast there; the kernel
+            # wrappers make contiguous what they read as rows
+            state = self.init_state(device)
             if batched:
-                state = tree_map(
-                    lambda a: a.expand((v,) + a.shape).contiguous(), state)
+                state = tree_map(lambda a: a.expand((v,) + a.shape), state)
         state = tree_map(lambda a: torch.as_tensor(a).to(device), state)
         key = 0 if key is None else int(key)
         drv = {}
@@ -614,11 +618,11 @@ def migrate_state(old: CompiledPatch, new: CompiledPatch,
     prefix is read off a carried leaf).  A changed ``AudioConfig``
     re-initialises everything.
     """
-    fresh = new.init_state()
-    old_init = old.init_state()
+    # both layouts (shapes and dtypes), nothing made
+    old_init, new_init = old.init_state("meta"), new.init_state("meta")
 
     def _same_struct(mid: str) -> bool:
-        a, b = old_init["states"].get(mid), fresh["states"].get(mid)
+        a, b = old_init["states"].get(mid), new_init["states"].get(mid)
         if a is None or b is None or set(a) != set(b):
             return False
         return all(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
@@ -650,9 +654,11 @@ def migrate_state(old: CompiledPatch, new: CompiledPatch,
             device = live0.device
             break
 
+    # the new leaves made on the live state's device, broadcast there
+    fresh = new.init_state(device)
+
     def bcast(tree):
-        return tree_map(lambda a: a.to(device).expand(prefix + a.shape)
-                        .contiguous(), tree)
+        return tree_map(lambda a: a.expand(prefix + a.shape), tree)
 
     states = {
         mid: (state["states"][mid] if mid in carried_ids

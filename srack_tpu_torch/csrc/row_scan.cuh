@@ -23,6 +23,11 @@
 // Phase A is the caller's (it loads its own elements); srk_cta_scan runs B
 // to D on the CTA, srk_cta_scan_host the same phases over arrays for the
 // host build (g++), which the CPU tests check against the plain versions.
+// srk_cta_scan2 (K4's pipelined kernel) runs the same phases with two
+// barriers a chunk instead of three: the warp totals and the carry sit in
+// double-buffered shared slots indexed by the chunk's parity, so chunk c's
+// carry is read in phase D of chunk c + 1, after that chunk's barriers,
+// and nothing is broadcast at the end of a chunk.
 
 #ifndef SRK_ROW_SCAN_CUH
 #define SRK_ROW_SCAN_CUH
@@ -132,6 +137,38 @@ __device__ __forceinline__ void srk_cta_scan(T* loc, T& carry, T* warp_tot,
   carry = *carry_s;
 }
 
+// Phases B-D for chunk ``c`` with two barriers: ``warp_tot`` is
+// [2][SRK_SCAN_WARPS] and ``carry_s`` [2] in shared memory; the carry is
+// carry_s[(c + 1) & 1], chunk c - 1's last value (thread 255 stores
+// carry_s[1] = identity before chunk 0), and chunk c's goes to
+// carry_s[c & 1].  A slot of parity c & 1 is written again only in chunk
+// c + 2, after every thread has passed chunk c + 1's barriers and so left
+// chunk c's phase D.  The combines are srk_cta_scan's, in its order.
+template <class T, class C>
+__device__ __forceinline__ void srk_cta_scan2(T* loc, int c,
+                                              T (*warp_tot)[SRK_SCAN_WARPS],
+                                              T* carry_s) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  T* wt = warp_tot[c & 1];
+  const T tot = srk_warp_scan<T, C>(loc[SRK_SCAN_ITEMS - 1], lane);  // B
+  T ex = srk_shfl_up(tot, 1);
+  if (lane == 0) ex = C::id();
+  if (lane == 31) wt[warp] = tot;
+  __syncthreads();
+  if (warp == 0) {                                                  // C
+    T w = lane < SRK_SCAN_WARPS ? wt[lane] : C::id();
+    w = srk_warp_scan<T, C>(w, lane);
+    if (lane < SRK_SCAN_WARPS) wt[lane] = w;
+  }
+  __syncthreads();
+  const T pw = warp == 0 ? C::id() : wt[warp - 1];
+  const T carry = carry_s[(c + 1) & 1];
+#pragma unroll
+  for (int k = 0; k < SRK_SCAN_ITEMS; ++k)                          // D
+    loc[k] = C::op(carry, C::op(pw, C::op(ex, loc[k])));
+  if (tid == SRK_SCAN_THREADS - 1) carry_s[c & 1] = loc[SRK_SCAN_ITEMS - 1];
+}
+
 #else  // the host build: the same phases over arrays
 
 // Phases B-D for one chunk: ``loc[tid]`` holds thread tid's phase-A values
@@ -161,6 +198,15 @@ static void srk_cta_scan_host(T (*loc)[SRK_SCAN_ITEMS], T& carry) {
     }
   }
   carry = last;
+}
+
+// srk_cta_scan2's slots over srk_cta_scan_host's phases: the carry from
+// carry_s[(c + 1) & 1], chunk c's last value into carry_s[c & 1].
+template <class T, class C>
+static void srk_cta_scan2_host(T (*loc)[SRK_SCAN_ITEMS], int c, T* carry_s) {
+  T carry = carry_s[(c + 1) & 1];
+  srk_cta_scan_host<T, C>(loc, carry);
+  carry_s[c & 1] = carry;
 }
 
 #endif

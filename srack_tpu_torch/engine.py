@@ -149,9 +149,9 @@ def render_stream(patch: Patch, *, params: Optional[dict] = None,
     elif params is None:
         params = compiled.default_params
     if state is None:
-        state = compiled.init_state()
+        state = compiled.init_state(device)
         if batched:
-            state = replicate_params(state, voices)
+            state = tree_map(lambda a: a.expand((voices,) + a.shape), state)
     state = tree_map(lambda a: a.to(device), state)
     key = 0 if key is None else int(key)
 

@@ -40,14 +40,14 @@ def _make(cfg: AudioConfig, a_sec: float = 0.0, d_sec: float = 0.5,
     return ("adsr",), params
 
 
-def _init_state(cfg: AudioConfig, statics):
+def _init_state(cfg: AudioConfig, statics, device=None):
     return {
-        "mode": torch.tensor(0, dtype=torch.int32),
-        "k": torch.tensor(0, dtype=torch.int32),
-        "p0": torch.tensor(0.0, dtype=CV_DTYPE),
-        "r_val": torch.tensor(0.0, dtype=CV_DTYPE),
-        "from_a_val": torch.tensor(0.0, dtype=CV_DTYPE),
-        "gate_last": transition_init(),
+        "mode": torch.zeros((), dtype=torch.int32, device=device),
+        "k": torch.zeros((), dtype=torch.int32, device=device),
+        "p0": torch.zeros((), dtype=CV_DTYPE, device=device),
+        "r_val": torch.zeros((), dtype=CV_DTYPE, device=device),
+        "from_a_val": torch.zeros((), dtype=CV_DTYPE, device=device),
+        "gate_last": transition_init(device),
     }
 
 

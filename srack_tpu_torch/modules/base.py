@@ -3,7 +3,7 @@
 A module *type* is pure data plus pure functions on tensors:
 
 * ``make``        -- construction: kwargs -> (statics, params)
-* ``init_state``  -- the per-voice state dict
+* ``init_state``  -- the per-voice state dict, made on a given device
 * ``step``        -- per-sample transition:
                      (cfg, statics, params, state, ins, x) -> (state, outs)
                      where ``x`` is this sample of the module's hoisted lane
@@ -58,8 +58,8 @@ class ModuleDef:
     # (cfg, statics) -> tuple of Optional[str]
     input_labels: Callable[[AudioConfig, Statics], tuple]
     output_labels: Callable[[AudioConfig, Statics], tuple]
-    # (cfg, statics) -> State
-    init_state: Callable[[AudioConfig, Statics], State]
+    # (cfg, statics, device=None) -> State, every leaf made on ``device``
+    init_state: Callable[..., State]
     # (cfg, statics, params, state, ins, x) -> (state, outs)
     step: Callable[..., tuple]
     # Per-render derived params, computed once outside the sample loop and

@@ -20,8 +20,8 @@ def _make(cfg: AudioConfig, freq: float = 0.2, res: float = 0.5, exp_amt: float 
     return ("moog",), {"freq": cv(freq), "res": cv(res), "exp_amt": cv(exp_amt)}
 
 
-def _init_state(cfg: AudioConfig, statics):
-    return {"b": torch.zeros((5,), dtype=CV_DTYPE)}
+def _init_state(cfg: AudioConfig, statics, device=None):
+    return {"b": torch.zeros((5,), dtype=CV_DTYPE, device=device)}
 
 
 def moog_coefs(frequency, res):

@@ -88,16 +88,17 @@ def _make(cfg: AudioConfig, dampening: float = 0.5, freeze: bool = False,
     return ("freeverb",), params
 
 
-def _init_state(cfg: AudioConfig, statics):
+def _init_state(cfg: AudioConfig, statics, device=None):
     dt = _core_dtype(cfg)
     cl, cr, al, ar = line_lengths(cfg.sample_rate)
     state = {}
     for name, lens in (("cl", cl), ("cr", cr), ("al", al), ("ar", ar)):
         for i, n in enumerate(lens):
-            state[f"{name}{i}"] = torch.zeros((n,), dtype=dt)
-            state[f"{name}{i}_idx"] = torch.tensor(0, dtype=torch.int32)
+            state[f"{name}{i}"] = torch.zeros((n,), dtype=dt, device=device)
+            state[f"{name}{i}_idx"] = torch.zeros((), dtype=torch.int32,
+                                                  device=device)
     for key in FS_KEYS:
-        state[key] = torch.tensor(0.0, dtype=dt)
+        state[key] = torch.zeros((), dtype=dt, device=device)
     return state
 
 

@@ -17,7 +17,7 @@ def _make(cfg: AudioConfig, value: float = 0.0):
     return ("input",), {"value": cv(value)}
 
 
-def _init_state(cfg: AudioConfig, statics):
+def _init_state(cfg: AudioConfig, statics, device=None):
     return {}
 
 

@@ -21,7 +21,7 @@ def _math_make_for(op: str):
     return make
 
 
-def _math_init_state(cfg: AudioConfig, statics):
+def _math_init_state(cfg: AudioConfig, statics, device=None):
     return {}
 
 

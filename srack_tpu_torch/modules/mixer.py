@@ -25,7 +25,7 @@ def _in_labels(cfg: AudioConfig, statics):
     return (None,) * statics[1]
 
 
-def _init_state(cfg: AudioConfig, statics):
+def _init_state(cfg: AudioConfig, statics, device=None):
     return {}
 
 

@@ -41,13 +41,13 @@ def _osc_make(cfg: AudioConfig, val: float = 0.0, antialiasing: bool = True):
     return ("antialias", bool(antialiasing)), {"val": cv(val)}
 
 
-def _osc_init_state(cfg: AudioConfig, statics):
+def _osc_init_state(cfg: AudioConfig, statics, device=None):
     if cfg.exact:
-        return {"pos": torch.tensor(0.0, dtype=F64),
-                "sync_last": transition_init()}
-    return {"pos": phase_fixed_init(),
-            "pos_g": torch.tensor(0.0, dtype=CV_DTYPE),
-            "sync_last": transition_init()}
+        return {"pos": torch.zeros((), dtype=F64, device=device),
+                "sync_last": transition_init(device)}
+    return {"pos": phase_fixed_init(device),
+            "pos_g": torch.zeros((), dtype=CV_DTYPE, device=device),
+            "sync_last": transition_init(device)}
 
 
 def _pitch(cfg: AudioConfig, octs: torch.Tensor):
@@ -311,7 +311,7 @@ def _noise_make(cfg: AudioConfig, seed: int = 0):
     return ("noise",), {"seed": torch.tensor(int(seed), dtype=torch.int64)}
 
 
-def _noise_init_state(cfg: AudioConfig, statics):
+def _noise_init_state(cfg: AudioConfig, statics, device=None):
     return {}
 
 

@@ -19,7 +19,7 @@ def _n_in(cfg: AudioConfig, statics) -> int:
     return statics[1]
 
 
-def _init_state(cfg: AudioConfig, statics):
+def _init_state(cfg: AudioConfig, statics, device=None):
     return {}
 
 

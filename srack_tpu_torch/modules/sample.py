@@ -56,11 +56,11 @@ def _make(cfg: AudioConfig, samples=None, wav_sample_rate=None,
     return ("sample", int(max_len)), params
 
 
-def _init_state(cfg: AudioConfig, statics):
+def _init_state(cfg: AudioConfig, statics, device=None):
     return {
-        "pos": torch.tensor(0.0, dtype=CV_DTYPE),
-        "playing": torch.tensor(False),
-        "gate_last": transition_init(),
+        "pos": torch.zeros((), dtype=CV_DTYPE, device=device),
+        "playing": torch.zeros((), dtype=torch.bool, device=device),
+        "gate_last": transition_init(device),
     }
 
 

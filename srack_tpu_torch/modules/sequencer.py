@@ -140,12 +140,12 @@ def _grid_packed(params):
     return params["packed_tbl"], params["inv_spo"]
 
 
-def _grid_init_state(cfg: AudioConfig, statics):
+def _grid_init_state(cfg: AudioConfig, statics, device=None):
     return {
-        "current_step": _i32(0),
-        "step_last": transition_init(),
-        "sync_last": transition_init(),
-        "last_cv": torch.tensor(0.0, dtype=CV_DTYPE),
+        "current_step": torch.zeros((), dtype=torch.int32, device=device),
+        "step_last": transition_init(device),
+        "sync_last": transition_init(device),
+        "last_cv": torch.zeros((), dtype=CV_DTYPE, device=device),
     }
 
 
@@ -265,11 +265,11 @@ def _pat_derive(cfg: AudioConfig, statics, params, connected):
     return {"packed_tbl": _pat_packed(params)}
 
 
-def _pat_init_state(cfg: AudioConfig, statics):
+def _pat_init_state(cfg: AudioConfig, statics, device=None):
     return {
-        "current_step": _i32(0),
-        "step_last": transition_init(),
-        "sync_last": transition_init(),
+        "current_step": torch.zeros((), dtype=torch.int32, device=device),
+        "step_last": transition_init(device),
+        "sync_last": transition_init(device),
     }
 
 

@@ -16,7 +16,7 @@ def _make(cfg: AudioConfig, negative: bool = False):
     return ("vca", bool(negative)), {}
 
 
-def _init_state(cfg: AudioConfig, statics):
+def _init_state(cfg: AudioConfig, statics, device=None):
     return {}
 
 

@@ -59,15 +59,15 @@ def transition(last_above: torch.Tensor, val: torch.Tensor):
     return above, fired
 
 
-def transition_init() -> torch.Tensor:
-    return torch.tensor(True)
+def transition_init(device=None) -> torch.Tensor:
+    return torch.full((), True, dtype=torch.bool, device=device)
 
 
-def phase_fixed_init() -> torch.Tensor:
+def phase_fixed_init(device=None) -> torch.Tensor:
     """Fixed-point phase: an int32 whose bit pattern is a uint32 fraction of
     a cycle (1 ulp = 2^-32).  Two's-complement adds wrap mod 2^32, in torch
     as in the CUDA kernel (which adds as ``uint32_t``)."""
-    return torch.tensor(0, dtype=torch.int32)
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 def f32_mod1(x: torch.Tensor) -> torch.Tensor:

@@ -104,6 +104,7 @@ class CudaLib:
         self.source = source
         self.what = what
         self.launches = 0           # launch() adds one per call
+        self.by_entry = {}          # ... and one to its entry's count
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
@@ -131,6 +132,7 @@ class CudaLib:
             raise RuntimeError(f"{self.what} launch failed ({entry}): CUDA "
                                f"error {err}")
         self.launches += 1
+        self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
 
 
 def require_cuda(*tensors) -> torch.device:

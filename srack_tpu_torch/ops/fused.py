@@ -239,7 +239,7 @@ class Layout:
         p, n_pf, n_pi, n_pd = _layout(_param_entries(compiled, derived,
                                                      mids))
         st, n_sf, n_si, n_sd = _layout(_state_entries(
-            compiled, compiled.init_state(), mids))
+            compiled, compiled.init_state("meta"), mids))
         return cls(p, n_pf, n_pi, st, n_sf, n_si, n_pd, n_sd)
 
     @property

@@ -12,11 +12,21 @@ the same source and templates), takes exact precision's ``[V, n]`` f64
 rows: the exact Oscillator block form's prefix sum of its increments and
 the fill of its Sync.  The JAX package computes these in XLA (its K4
 takes only f32 and int32), so this build ports no Pallas kernel; its
-plain versions are the same log-doubling forms in f64.  The kernel is ``csrc/row_scan.cu``: one CTA
-per row, a warp-shuffle scan within each 1,024-element chunk of the row and
-the prefix of the chunks before carried in order.  Its source note states
-the order of combination (the Sample player's kernel, a later slice, must
-reuse it), what bounds it (bytes) and its launch shape.
+plain versions are the same log-doubling forms in f64.
+
+The kernel is ``csrc/row_scan.cu``'s ``srk_scan_pipe_kernel``: one CTA per
+row walking the row's 1,024-element chunks in order, the next chunks
+prefetched into a ring in shared memory with ``cp.async``, the CTA scan of
+``csrc/row_scan.cuh`` with two barriers a chunk.  Its source note states
+the order of combination (which the Sample player's kernel K7 shares),
+what bounds it (bytes) and the design.  Each entry has two variants,
+picked here by :func:`vector_fits`: ``<entry>_vec`` moves a thread's
+elements as 16-byte pieces and needs every array's rows 16-byte aligned
+(``n`` times the element size a multiple of 16, base pointers aligned);
+``<entry>`` moves one element at a time and takes any row.  The kernel
+it replaced is the twin, :data:`ROW_SCAN_TWIN` and
+:data:`ROW_SCAN_TWIN_F64` (entries ``<entry>_twin``): nothing but
+``chip_smoke.py``'s comparison launches it.
 
 The plain versions are the log-doubling forms in ``ops/basic.py``
 (``cumsum_plain`` and its siblings), which the wrappers there run for CPU
@@ -33,14 +43,32 @@ from .cuda_lib import CudaLib, I, P, csrc, require_cuda
 _SUFFIX = {torch.float32: "f32", torch.int32: "i32", torch.float64: "f64"}
 
 
+def vector_fits(n: int, arrays) -> bool:
+    """Whether the 16-byte variant takes rows of ``n`` elements of every
+    tensor in ``arrays`` (inputs and outputs): each row starts on 16
+    bytes."""
+    return all((n * a.element_size()) % 16 == 0 and a.data_ptr() % 16 == 0
+               for a in arrays)
+
+
 class RowScan(CudaLib):
     """K4: ``run(kind, arrays)`` and ``fill(values, mask)``, for the row
     dtypes ``dtypes``; :meth:`fill` sends f64 value arrays to the f64
-    build."""
+    build.  ``twin``: the kernel K4 replaced (entries ``*_twin``)."""
 
-    def __init__(self, name: str, what: str, dtypes: tuple):
+    def __init__(self, name: str, what: str, dtypes: tuple,
+                 twin: bool = False):
         super().__init__(name, csrc("row_scan.cu"), what)
         self.dtypes = dtypes
+        self.twin = twin
+
+    def entry(self, base: str, n: int, arrays) -> str:
+        """The entry of this build for ``base`` over rows of ``n``: the
+        twin's, else the 16-byte variant where :func:`vector_fits`, else
+        the one-element variant."""
+        if self.twin:
+            return f"{base}_twin"
+        return f"{base}_vec" if vector_fits(n, arrays) else base
 
     @staticmethod
     def _rows(x: torch.Tensor):
@@ -64,14 +92,15 @@ class RowScan(CudaLib):
             if dt is None:
                 raise TypeError(f"{kind} scan of {x.dtype} by {self.name}: "
                                 f"{', '.join(map(str, self.dtypes))}")
-            entry = f"srk_scan_{kind}_{dt}"
+            entry = self.entry(f"srk_scan_{kind}_{dt}", n, arrs + outs)
             argtypes = [P, P, I, I]
             args = (arrs[0].data_ptr(), outs[0].data_ptr(), rows, n)
         elif kind == "affine":
             if any(a.dtype != torch.float32 for a in arrs) or \
                     torch.float32 not in self.dtypes:
                 raise TypeError("affine scan of f32 arrays only")
-            entry, argtypes = "srk_scan_affine_f32", [P, P, P, P, I, I]
+            entry = self.entry("srk_scan_affine_f32", n, arrs + outs)
+            argtypes = [P, P, P, P, I, I]
             args = (arrs[0].data_ptr(), arrs[1].data_ptr(),
                     outs[0].data_ptr(), outs[1].data_ptr(), rows, n)
         else:
@@ -84,7 +113,7 @@ class RowScan(CudaLib):
         ``mask`` held.  Returns ``(filled_tuple, any_valid bool)``; where
         nothing held yet the filled value is 0.  Arrays of one dtype go in
         one launch of up to four; others take further launches, f64 arrays
-        on :data:`ROW_SCAN_F64`."""
+        on the f64 build (:data:`ROW_SCAN_F64`, or the twin's)."""
         m = mask.to(torch.int32).contiguous()
         require_cuda(m)
         rows, n = self._rows(m)
@@ -99,14 +128,16 @@ class RowScan(CudaLib):
             dt = _SUFFIX.get(dtype)
             if dt is None:
                 raise TypeError(f"fill of {dtype}: f32, f64 or int32")
-            lib = ROW_SCAN_F64 if dtype == torch.float64 else ROW_SCAN
+            lib = _BUILDS[self.twin, dtype == torch.float64]
             for start in range(0, len(idx), 4):
                 part = idx[start:start + 4]
                 vals = torch.stack([values[i] for i in part]).contiguous()
                 device = require_cuda(vals, m)
                 out = torch.empty_like(vals)
                 out_ok = torch.empty_like(m)
-                lib.launch(f"srk_scan_fill_{dt}", [P, P, P, P, I, I, I],
+                entry = lib.entry(f"srk_scan_fill_{dt}", n,
+                                  (vals, m, out, out_ok))
+                lib.launch(entry, [P, P, P, P, I, I, I],
                            (vals.data_ptr(), m.data_ptr(), out.data_ptr(),
                             out_ok.data_ptr(), len(part), rows, n), device)
                 for j, i in enumerate(part):
@@ -121,3 +152,11 @@ ROW_SCAN = RowScan("row_scan", "row-scan kernel (K4)",
                    (torch.float32, torch.int32))
 ROW_SCAN_F64 = RowScan("row_scan_f64", "row-scan kernel, f64 build (K4)",
                        (torch.float64,))
+ROW_SCAN_TWIN = RowScan("row_scan_twin", "row-scan kernel, twin (K4)",
+                        (torch.float32, torch.int32), twin=True)
+ROW_SCAN_TWIN_F64 = RowScan("row_scan_twin_f64",
+                            "row-scan kernel, f64 build, twin (K4)",
+                            (torch.float64,), twin=True)
+# (twin, f64) -> the build a fill of that dtype launches
+_BUILDS = {(False, False): ROW_SCAN, (False, True): ROW_SCAN_F64,
+           (True, False): ROW_SCAN_TWIN, (True, True): ROW_SCAN_TWIN_F64}

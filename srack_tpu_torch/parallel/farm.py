@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..compiler import compile_patch, tree_leaves, tree_map
+from ..compiler import compile_patch
 from ..patch import ModuleHandle, Patch
 from . import distributed
 from .mesh import make_mesh, shard_batch
@@ -67,23 +67,24 @@ def render_farm(patch: Patch, n_samples: int, *, params: dict, mesh=None,
     if mesh is None:
         mesh = make_mesh()
     compiled = compile_patch(patch, probes=probes)
-    if state is None:
-        v = tree_leaves(params)[0].shape[0]
-        state = tree_map(lambda a: a.expand((v,) + a.shape),
-                         compiled.init_state())
     key = 0 if key is None else int(key)
     drv = {(m.id if isinstance(m, ModuleHandle) else m): torch.as_tensor(a)
            for m, a in (drivers or {}).items()}
     shared = {k: a for k, a in drv.items() if a.dim() == 1}
-    shards = shard_batch({"params": params, "state": state, "drivers": {
-        k: a for k, a in drv.items() if k not in shared}}, mesh)
+    # with state=None each shard's render makes its initial state on the
+    # shard's device
+    tree = {"params": params, "drivers": {
+        k: a for k, a in drv.items() if k not in shared}}
+    if state is not None:
+        tree["state"] = state
+    shards = shard_batch(tree, mesh)
     if not shards:
         raise ValueError("this process owns no slot of the mesh")
     if any(a.stop != b.start for a, b in zip(shards, shards[1:])):
         raise ValueError("this process's slots hold voices that are not "
                          "contiguous in the batch")
     outs = [compiled.render(
-        int(n_samples), params=sh.data["params"], state=sh.data["state"],
+        int(n_samples), params=sh.data["params"], state=sh.data.get("state"),
         key=key, drivers={**shared, **sh.data["drivers"]}, batched=True,
         device=sh.device, voice0=sh.start) for sh in shards]
     voices = range(shards[0].start, shards[-1].stop)

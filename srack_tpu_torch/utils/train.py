@@ -146,8 +146,8 @@ def batched_train_step(compiled: CompiledPatch, optimizer: Callable,
     def render(params: dict, v: int, key: int, dev, voice0: int):
         params_b = tree_map(lambda a: a.to(dev).expand((v,) + a.shape),
                             params)
-        state = tree_map(lambda a: a.to(dev).expand((v,) + a.shape)
-                         .contiguous(), compiled.init_state())
+        state = tree_map(lambda a: a.expand((v,) + a.shape),
+                         compiled.init_state(dev))
         if fast:
             audio, _, _ = grad_render(params_b, state, key, {}, voice0)
         else:

@@ -10,10 +10,13 @@ held against its plain version on the same inputs:
   buffer mode (the feedback read from the previous block's lanes) and
   ``kit_check_patch`` (two input wires): bit-exact against
   ``BlockProgram.stage_plain`` (output lanes and state);
-* K4, the row scans (``csrc/row_scan.cu``): int32 sum, max and fill exact
-  against the log-doubling plain versions, f32 sum within ``2e-4`` and
-  affine within ``3e-4`` (``tests/test_scan_kernel.py``'s tolerances: both
-  reassociate), rows longer than one chunk so the carried prefix is used;
+* K4, the row scans (``csrc/row_scan.cu``), each entry in its three
+  forms (the pipelined kernel's one-element and 16-byte variants and the
+  twin): int32 sum, max and fill exact against the log-doubling plain
+  versions, f32 sum within ``2e-4`` and affine within ``3e-4``
+  (``tests/test_scan_kernel.py``'s tolerances: both reassociate), rows
+  longer than one chunk so the carried prefix is used; the 16-byte variant
+  refuses rows it does not fit;
 * K9, the ring alignment (``csrc/ring_align.cu``), rings to rings and
   to and from the Freeverb kernel's ``[L, V]`` lines: exact;
 * K8, the Freeverb (``csrc/freeverb.cu``) with the wrapper's layout around
@@ -74,6 +77,22 @@ def gxx():
 def _host(lib, gxx, root):
     path, _ = build(lib.source, compiler=gxx, flags=HOST_FLAGS, root=root)
     return ctypes.CDLL(str(path))
+
+
+@pytest.fixture(scope="module")
+def k4_lib(gxx, tmp_path_factory):
+    """K4's host build, once for the module."""
+    return _host(ROW_SCAN, gxx, tmp_path_factory.mktemp("k4"))
+
+
+# K4's entry forms: the one-element variant, the 16-byte one, the twin
+FORMS = ("", "_vec", "_twin")
+
+
+def _fits(form, n, *sizes):
+    """Whether entry form ``form`` takes rows of ``n`` elements of these
+    sizes (the 16-byte variant: each row a multiple of 16 bytes)."""
+    return form != "_vec" or all(n * s % 16 == 0 for s in sizes)
 
 
 def _fn(lib, name, argtypes):
@@ -163,17 +182,21 @@ def _rows(dtype, shape, rng):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("n", [1, 1000, 2500])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
 @pytest.mark.parametrize("kind", ["sum", "max"])
-def test_row_scan_on_host_matches_plain(gxx, tmp_path, kind, dtype, n):
+def test_row_scan_on_host_matches_plain(k4_lib, kind, dtype, n, form):
     rng = np.random.default_rng(n)
     x = _rows(dtype, (3, n), rng)
-    lib = _host(ROW_SCAN, gxx, tmp_path)
     dt = "f32" if dtype == torch.float32 else "i32"
     y = torch.empty_like(x)
-    assert _fn(lib, f"srk_scan_{kind}_{dt}", [P, P, I, I])(
-        x.data_ptr(), y.data_ptr(), 3, n) == 0
+    rc = _fn(k4_lib, f"srk_scan_{kind}_{dt}{form}", [P, P, I, I])(
+        x.data_ptr(), y.data_ptr(), 3, n)
+    if not _fits(form, n, 4):
+        assert rc == -2
+        return
+    assert rc == 0
     want = (basic.cumsum_plain if kind == "sum" else basic.cummax_plain)(x)
     if dtype == torch.int32 or kind == "max":
         assert torch.equal(y, want)
@@ -181,20 +204,20 @@ def test_row_scan_on_host_matches_plain(gxx, tmp_path, kind, dtype, n):
         torch.testing.assert_close(y, want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("k", [1, 2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-def test_row_fill_on_host_matches_plain(gxx, tmp_path, dtype, k):
+def test_row_fill_on_host_matches_plain(k4_lib, dtype, k, form):
     rng = np.random.default_rng(k)
     n = 2300
     vals = _rows(dtype, (k, 3, n), rng)
     mask = torch.from_numpy(rng.uniform(size=(3, n)) < 0.01)
     mask[1] = False          # a row that never fills
     mask[2, 1500:] = False   # a fill held across chunks
-    lib = _host(ROW_SCAN, gxx, tmp_path)
     dt = "f32" if dtype == torch.float32 else "i32"
     out, ok = torch.empty_like(vals), torch.empty((3, n), dtype=torch.int32)
     m = mask.to(torch.int32)
-    assert _fn(lib, f"srk_scan_fill_{dt}", [P, P, P, P, I, I, I])(
+    assert _fn(k4_lib, f"srk_scan_fill_{dt}{form}", [P, P, P, P, I, I, I])(
         vals.data_ptr(), m.data_ptr(), out.data_ptr(), ok.data_ptr(), k, 3,
         n) == 0
     want, want_ok = basic.forward_fill_multi_plain(tuple(vals), mask)
@@ -204,16 +227,20 @@ def test_row_fill_on_host_matches_plain(gxx, tmp_path, dtype, k):
         assert torch.equal(out[j][want_ok], want[j][want_ok])
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("n", [7, 2500])
-def test_row_affine_on_host_matches_plain(gxx, tmp_path, n):
+def test_row_affine_on_host_matches_plain(k4_lib, n, form):
     rng = np.random.default_rng(n)
     a = torch.from_numpy(rng.uniform(0.9, 1.0, (3, n)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal((3, n)).astype(np.float32))
-    lib = _host(ROW_SCAN, gxx, tmp_path)
     out_a, out_b = torch.empty_like(a), torch.empty_like(b)
-    assert _fn(lib, "srk_scan_affine_f32", [P, P, P, P, I, I])(
+    rc = _fn(k4_lib, f"srk_scan_affine_f32{form}", [P, P, P, P, I, I])(
         a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), 3,
-        n) == 0
+        n)
+    if not _fits(form, n, 4):
+        assert rc == -2
+        return
+    assert rc == 0
     want_a, want_b = basic.affine_scan_plain(a, b)
     torch.testing.assert_close(out_a, want_a, rtol=3e-4, atol=3e-4)
     torch.testing.assert_close(out_b, want_b, rtol=3e-4, atol=3e-4)
@@ -489,11 +516,12 @@ def _play_host(lib, args):
 @pytest.mark.parametrize("n", [2500, 1024, 7])
 @pytest.mark.parametrize("cv", [False, True])
 def test_sample_play_on_host_matches_unfused_on_host_k4(gxx, tmp_path,
-                                                         monkeypatch, cv, n):
+                                                         k4_lib, monkeypatch,
+                                                         cv, n):
     """Bit for bit against the unfused form whose prefix sum and running
     max are the host build of K4: at base 0.937 the f32 sums round, so this
     holds only if K7 combines in K4's order."""
-    scan_lib = _host(ROW_SCAN, gxx, tmp_path / "k4")
+    scan_lib = k4_lib
     play_lib = _host(SAMPLE_PLAY, gxx, tmp_path / "k7")
 
     def k4(kind):

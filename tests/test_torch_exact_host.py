@@ -152,15 +152,28 @@ def test_exact_oscillator_device_function_is_picked_by_its_leaves():
 
 # -- K4 ----------------------------------------------------------------------
 
+@pytest.fixture(scope="module")
+def k4_f64(gxx, tmp_path_factory):
+    """K4's host build (its f64 entries), once for the module."""
+    return _lib(ROW_SCAN_F64.source, gxx, tmp_path_factory.mktemp("k4"))
+
+
+# K4's entry forms: the one-element variant, the 16-byte one (rows of an
+# even number of doubles; a fill's int32 mask asks a multiple of 4), the
+# twin
+@pytest.mark.parametrize("form", ["", "_vec", "_twin"])
 @pytest.mark.parametrize("n", [1, 1000, 2500])
 @pytest.mark.parametrize("kind", ["sum", "max"])
-def test_row_scan_f64_on_host_matches_plain(gxx, tmp_path, kind, n):
+def test_row_scan_f64_on_host_matches_plain(k4_f64, kind, n, form):
     rng = np.random.default_rng(n)
     x = torch.from_numpy(rng.uniform(0.0, 0.1, (3, n)))
-    lib = _lib(ROW_SCAN_F64.source, gxx, tmp_path)
     y = torch.empty_like(x)
-    assert _fn(lib, f"srk_scan_{kind}_f64", [P, P, I, I])(
-        x.data_ptr(), y.data_ptr(), 3, n) == 0
+    rc = _fn(k4_f64, f"srk_scan_{kind}_f64{form}", [P, P, I, I])(
+        x.data_ptr(), y.data_ptr(), 3, n)
+    if form == "_vec" and n % 2:
+        assert rc == -2
+        return
+    assert rc == 0
     want = (basic.cumsum_plain if kind == "sum" else basic.cummax_plain)(x)
     if kind == "max":
         assert torch.equal(y, want)
@@ -169,17 +182,17 @@ def test_row_scan_f64_on_host_matches_plain(gxx, tmp_path, kind, n):
     assert ROW_SCAN_F64.launches == 0
 
 
+@pytest.mark.parametrize("form", ["", "_vec", "_twin"])
 @pytest.mark.parametrize("k", [1, 3])
-def test_row_fill_f64_on_host_matches_plain(gxx, tmp_path, k):
+def test_row_fill_f64_on_host_matches_plain(k4_f64, k, form):
     rng = np.random.default_rng(k)
     n = 2300
     vals = torch.from_numpy(rng.standard_normal((k, 3, n)))
     mask = torch.from_numpy(rng.uniform(size=(3, n)) < 0.01)
     mask[1] = False
     mask[2, 1500:] = False
-    lib = _lib(ROW_SCAN_F64.source, gxx, tmp_path)
     out, ok = torch.empty_like(vals), torch.empty((3, n), dtype=torch.int32)
-    assert _fn(lib, "srk_scan_fill_f64", [P, P, P, P, I, I, I])(
+    assert _fn(k4_f64, f"srk_scan_fill_f64{form}", [P, P, P, P, I, I, I])(
         vals.data_ptr(), mask.to(torch.int32).data_ptr(), out.data_ptr(),
         ok.data_ptr(), k, 3, n) == 0
     want, want_ok = basic.forward_fill_multi_plain(tuple(vals), mask)
@@ -190,8 +203,9 @@ def test_row_fill_f64_on_host_matches_plain(gxx, tmp_path, k):
 
 def test_f64_rows_route_to_the_f64_build(monkeypatch):
     """On CUDA tensors an f64 cumsum or fill goes to K4's f64 build (the
-    wrapper is asked; no card needed), f32 and int32 to the other; on CPU
-    tensors the plain versions run."""
+    wrapper is asked; no card needed), f32 and int32 to the other, each to
+    its 16-byte variant (rows of 8 elements); on CPU tensors the plain
+    versions run."""
     calls = []
     for lib in (ROW_SCAN_F64, basic._k4()):
         monkeypatch.setattr(lib, "launch",
@@ -202,9 +216,9 @@ def test_f64_rows_route_to_the_f64_build(monkeypatch):
     x = torch.zeros((2, 8), dtype=F64)
     basic._k4(F64).run("sum", (x,))
     basic._k4().fill((x, x.float()), x > 0)
-    assert calls == [("row_scan_f64", "srk_scan_sum_f64"),
-                     ("row_scan_f64", "srk_scan_fill_f64"),
-                     ("row_scan", "srk_scan_fill_f32")]
+    assert calls == [("row_scan_f64", "srk_scan_sum_f64_vec"),
+                     ("row_scan_f64", "srk_scan_fill_f64_vec"),
+                     ("row_scan", "srk_scan_fill_f32_vec")]
     with pytest.raises(TypeError, match="row_scan_f64"):
         ROW_SCAN_F64.run("sum", (x.float(),))
     assert basic.fast_cumsum(x).dtype == F64
