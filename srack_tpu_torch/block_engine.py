@@ -48,6 +48,7 @@ import torch
 from .compiler import _like, _probe_key, tree_leaves
 from .config import AudioConfig
 from .modules.base import CV_DTYPE
+from .utils.profiling import span
 
 # module types the block engine runs per sample in the serial stage
 SERIAL_TYPES = frozenset({"Moog Filter", "ADSR"})
@@ -302,20 +303,23 @@ class BlockProgram:
                      for p in self._block_autos.get(mid, ())
                      if compiled._auto_key(mid, p) in xs}
             pd = {**params[mid], **lanes}
-            if mdef.block is not None:
-                kw = ({"outs_used": self._outs_used[mid]}
-                      if mid in self._outs_used else {})
-                new_state, outs = mdef.block(cfg, statics, pd, states[mid],
-                                             ins, xs.get(mid), n, **kw)
-            else:
-                # stateless: the step over whole rows, params as columns
-                cols = {k: a if k in lanes else a.unsqueeze(1)
-                        for k, a in pd.items()}
-                _, outs = mdef.step(cfg, statics, cols, {}, ins, xs.get(mid))
-                new_state = states[mid]
-            outs = tuple(torch.as_tensor(o).to(device=device,
-                                               dtype=CV_DTYPE).expand(v, n)
-                         for o in outs)
+            with span(f"srk.block.{mdef.type_name}"):
+                if mdef.block is not None:
+                    kw = ({"outs_used": self._outs_used[mid]}
+                          if mid in self._outs_used else {})
+                    new_state, outs = mdef.block(cfg, statics, pd,
+                                                 states[mid], ins,
+                                                 xs.get(mid), n, **kw)
+                else:
+                    # stateless: the step over whole rows, params as columns
+                    cols = {k: a if k in lanes else a.unsqueeze(1)
+                            for k, a in pd.items()}
+                    _, outs = mdef.step(cfg, statics, cols, {}, ins,
+                                        xs.get(mid))
+                    new_state = states[mid]
+                outs = tuple(torch.as_tensor(o).to(
+                    device=device, dtype=CV_DTYPE).expand(v, n)
+                    for o in outs)
             new_states[mid] = new_state
             for p, o in enumerate(outs):
                 values[(mid, p)] = o
@@ -447,14 +451,17 @@ class BlockProgram:
         Returns ``(channels, values, new_states, stage_fb)``."""
         values: dict = {}
         phase_fb = fb if self.buffer_mode else None
-        pre_states, pre_channels = self._run_block_phase(
-            self.pre_plan, derived, states, values, xs, n, v, device,
-            phase_fb)
-        stage_final = self._run_stage(params, derived, states, values, xs,
-                                      fb, n, device)
-        post_states, channels = self._run_block_phase(
-            self.post_plan, derived, states, values, xs, n, v, device,
-            phase_fb)
+        with span("srk.block.pre"):
+            pre_states, pre_channels = self._run_block_phase(
+                self.pre_plan, derived, states, values, xs, n, v, device,
+                phase_fb)
+        with span("srk.block.stage"):
+            stage_final = self._run_stage(params, derived, states, values,
+                                          xs, fb, n, device)
+        with span("srk.block.post"):
+            post_states, channels = self._run_block_phase(
+                self.post_plan, derived, states, values, xs, n, v, device,
+                phase_fb)
         channels = channels if channels is not None else pre_channels
         new_states = {**states, **pre_states, **stage_final["states"],
                       **post_states}
@@ -466,45 +473,48 @@ class BlockProgram:
         Returns ``(audio [V, C, n], probes {"mid:port": [V, n]},
         final_state)``.  In buffer mode ``n`` is a whole number of blocks,
         rendered one after another."""
-        compiled = self.compiled
-        if compiled.output_id in self.stage_set:
-            raise NotImplementedError(
-                "Output module inside a feedback cycle is not supported by "
-                "the block engine")
-        leaves = tree_leaves(params) + tree_leaves(state)
-        v, device = leaves[0].shape[0], leaves[0].device
-        derived = compiled.derived_params(params)
-        if not self.buffer_mode:
-            channels, values, states, fb = self._run_once(
-                params, derived, state["states"], state["fb"], xs, n, v,
-                device)
-            audio = torch.stack(channels, dim=1)
-            probes = {_probe_key(mid, p): values[(mid, p)]
+        with span("srk.block.run"):
+            compiled = self.compiled
+            if compiled.output_id in self.stage_set:
+                raise NotImplementedError(
+                    "Output module inside a feedback cycle is not supported "
+                    "by the block engine")
+            leaves = tree_leaves(params) + tree_leaves(state)
+            v, device = leaves[0].shape[0], leaves[0].device
+            derived = compiled.derived_params(params)
+            if not self.buffer_mode:
+                channels, values, states, fb = self._run_once(
+                    params, derived, state["states"], state["fb"], xs, n, v,
+                    device)
+                audio = torch.stack(channels, dim=1)
+                probes = {_probe_key(mid, p): values[(mid, p)]
+                          for mid, p in self.probe_wires}
+                return audio, probes, _like({"states": states, "fb": fb},
+                                            state)
+            block = self.cfg.block_size
+            if n % block:
+                raise ValueError(
+                    f"buffer_feedback mode renders whole blocks: n={n} is not "
+                    f"a multiple of block_size={block}")
+            states, fb = state["states"], state["fb"]
+            audio = torch.empty((v, self.cfg.channels, n), dtype=CV_DTYPE,
+                                device=device)
+            probes = {_probe_key(mid, p): torch.empty((v, n), dtype=CV_DTYPE,
+                                                      device=device)
                       for mid, p in self.probe_wires}
+            for b in range(0, n, block):
+                cut = slice(b, b + block)
+                channels, values, states, _ = self._run_once(
+                    params, derived, states, fb,
+                    {k: a[..., cut] for k, a in xs.items()}, block, v, device)
+                for c, ch in enumerate(channels):
+                    audio[:, c, cut] = ch
+                for mid, p in self.probe_wires:
+                    probes[_probe_key(mid, p)][:, cut] = values[(mid, p)]
+                # this block's feedback wires are the next block's delayed
+                # lanes
+                fb = {k: values[k] for k in compiled.fb_keys}
             return audio, probes, _like({"states": states, "fb": fb}, state)
-        block = self.cfg.block_size
-        if n % block:
-            raise ValueError(
-                f"buffer_feedback mode renders whole blocks: n={n} is not a "
-                f"multiple of block_size={block}")
-        states, fb = state["states"], state["fb"]
-        audio = torch.empty((v, self.cfg.channels, n), dtype=CV_DTYPE,
-                            device=device)
-        probes = {_probe_key(mid, p): torch.empty((v, n), dtype=CV_DTYPE,
-                                                  device=device)
-                  for mid, p in self.probe_wires}
-        for b in range(0, n, block):
-            cut = slice(b, b + block)
-            channels, values, states, _ = self._run_once(
-                params, derived, states, fb,
-                {k: a[..., cut] for k, a in xs.items()}, block, v, device)
-            for c, ch in enumerate(channels):
-                audio[:, c, cut] = ch
-            for mid, p in self.probe_wires:
-                probes[_probe_key(mid, p)][:, cut] = values[(mid, p)]
-            # this block's feedback wires are the next block's delayed lanes
-            fb = {k: values[k] for k in compiled.fb_keys}
-        return audio, probes, _like({"states": states, "fb": fb}, state)
 
 
 def eligible(compiled) -> bool:

@@ -57,6 +57,7 @@ from .modules.base import CV_DTYPE
 from .ops.basic import fold_in
 from .patch import ModuleHandle, Patch
 from .planner import plan_execution
+from .utils.profiling import span
 
 
 def _probe_key(mid: str, port: int) -> str:
@@ -250,18 +251,19 @@ class CompiledPatch:
         automated param without an array get no lane (the step reads the
         param)."""
         xs = {}
-        for i, mid in enumerate(self.xs_modules):
-            mdef, statics, _ = self.instances[mid]
-            if mid in drivers:
-                xs[mid] = _lane(drivers[mid], n, f"driver for {mid}")
-            elif mdef.make_xs is not None:
-                xs[mid] = mdef.make_xs(self.cfg, statics, params[mid],
-                                       fold_in(key, i), n, voice0)
-        for mid, pname in self.automation:
-            k = self._auto_key(mid, pname)
-            if k in drivers:
-                xs[k] = _lane(drivers[k], n,
-                              f"automation lane {mid}.{pname}")
+        with span("srk.lanes"):
+            for i, mid in enumerate(self.xs_modules):
+                mdef, statics, _ = self.instances[mid]
+                if mid in drivers:
+                    xs[mid] = _lane(drivers[mid], n, f"driver for {mid}")
+                elif mdef.make_xs is not None:
+                    xs[mid] = mdef.make_xs(self.cfg, statics, params[mid],
+                                           fold_in(key, i), n, voice0)
+            for mid, pname in self.automation:
+                k = self._auto_key(mid, pname)
+                if k in drivers:
+                    xs[k] = _lane(drivers[k], n,
+                                  f"automation lane {mid}.{pname}")
         return xs
 
     # -- the per-sample body -------------------------------------------------
@@ -528,60 +530,65 @@ class CompiledPatch:
         (``parallel.render_farm``): voice ``j`` draws the Noise row of voice
         ``voice0 + j``.
         """
-        device = resolve_device(device)
-        if params is None:
-            params = self.default_params
-        params = tree_map(lambda a: torch.as_tensor(a).to(device), params)
-        v = tree_leaves(params)[0].shape[0] if batched else None
-        if state is None:
-            # made on the render's device and broadcast there; the kernel
-            # wrappers make contiguous what they read as rows
-            state = self.init_state(device)
-            if batched:
-                state = tree_map(lambda a: a.expand((v,) + a.shape), state)
-        state = tree_map(lambda a: torch.as_tensor(a).to(device), state)
-        key = 0 if key is None else int(key)
-        drv = {}
-        for module, arr in (drivers or {}).items():
-            drv[_mid(module)] = arr
-        for (module, pname), arr in (automation or {}).items():
-            mid = _mid(module)
-            if (mid, pname) not in self.automation:
-                raise KeyError(
-                    f"({mid!r}, {pname!r}) was not declared at compile "
-                    f"time; pass it in compile_patch(automation=...)")
-            drv[self._auto_key(mid, pname)] = arr
-        drv = {k: _to_lane(a, device, v) for k, a in drv.items()}
-        if engine == "auto":
-            engine = self.auto_engine(batched, device)
-        n = int(n_samples)
-        if segment is None:
-            return self._render_once(n, params, state, key, drv, batched,
-                                     engine, voice0)
-        segment = int(segment)
-        if segment <= 0:
-            raise ValueError(f"segment must be positive, got {segment}")
-        if n % segment:
-            raise ValueError(
-                f"segment={segment} must divide the render length n={n}")
-        audio = probes = None
-        for i in range(n // segment):
-            cut = slice(i * segment, (i + 1) * segment)
-            a, p, state = self._render_once(
-                segment, params, state, fold_in(key, i),
-                {k: x[..., cut] for k, x in drv.items()}, batched, engine,
-                voice0)
-            if audio is None:
-                audio = a.new_empty(a.shape[:-1] + (n,))
-                probes = {k: x.new_empty(x.shape[:-1] + (n,))
-                          for k, x in p.items()}
-            audio[..., cut] = a
-            for k, x in p.items():
-                probes[k][..., cut] = x
-        if audio is None:  # n == 0
-            return self._render_once(0, params, state, key, drv, batched,
-                                     engine)
-        return audio, probes, state
+        with span("srk.render"):
+            device = resolve_device(device)
+            with span("srk.state"):
+                if params is None:
+                    params = self.default_params
+                params = tree_map(lambda a: torch.as_tensor(a).to(device),
+                                  params)
+                v = tree_leaves(params)[0].shape[0] if batched else None
+                if state is None:
+                    # made on the render's device and broadcast there; the
+                    # kernel wrappers make contiguous what they read as rows
+                    state = self.init_state(device)
+                    if batched:
+                        state = tree_map(
+                            lambda a: a.expand((v,) + a.shape), state)
+                state = tree_map(lambda a: torch.as_tensor(a).to(device),
+                                 state)
+            key = 0 if key is None else int(key)
+            drv = {}
+            for module, arr in (drivers or {}).items():
+                drv[_mid(module)] = arr
+            for (module, pname), arr in (automation or {}).items():
+                mid = _mid(module)
+                if (mid, pname) not in self.automation:
+                    raise KeyError(
+                        f"({mid!r}, {pname!r}) was not declared at compile "
+                        f"time; pass it in compile_patch(automation=...)")
+                drv[self._auto_key(mid, pname)] = arr
+            drv = {k: _to_lane(a, device, v) for k, a in drv.items()}
+            if engine == "auto":
+                engine = self.auto_engine(batched, device)
+            n = int(n_samples)
+            if segment is None:
+                return self._render_once(n, params, state, key, drv, batched,
+                                         engine, voice0)
+            segment = int(segment)
+            if segment <= 0:
+                raise ValueError(f"segment must be positive, got {segment}")
+            if n % segment:
+                raise ValueError(
+                    f"segment={segment} must divide the render length n={n}")
+            audio = probes = None
+            for i in range(n // segment):
+                cut = slice(i * segment, (i + 1) * segment)
+                a, p, state = self._render_once(
+                    segment, params, state, fold_in(key, i),
+                    {k: x[..., cut] for k, x in drv.items()}, batched, engine,
+                    voice0)
+                if audio is None:
+                    audio = a.new_empty(a.shape[:-1] + (n,))
+                    probes = {k: x.new_empty(x.shape[:-1] + (n,))
+                              for k, x in p.items()}
+                audio[..., cut] = a
+                for k, x in p.items():
+                    probes[k][..., cut] = x
+            if audio is None:  # n == 0
+                return self._render_once(0, params, state, key, drv, batched,
+                                         engine)
+            return audio, probes, state
 
 
 def _to_lane(arr, device, v: Optional[int]) -> torch.Tensor:
@@ -690,15 +697,19 @@ def compile_patch(patch: Patch, probes: Sequence = (),
     engines).
     ``automation``: (module, param) pairs whose values stream per sample;
     the arrays go to ``render``."""
-    probes_key = tuple((_mid(m), p) for m, p in probes)
-    autos_key = tuple(sorted((_mid(m), p) for m, p in automation))
-    key = (patch.topology_key(), probes_key, autos_key)
-    cached = _COMPILE_CACHE.get(key)
-    if cached is None:
-        cached = CompiledPatch(patch, probes=probes, automation=autos_key)
-        _COMPILE_CACHE.put(key, cached)
-        _COMPILE_CACHE.misses += 1
-    else:
-        # refresh default params (they may have changed without recompiling)
-        cached.default_params = patch.params()
-    return cached
+    with span("srk.plan"):
+        probes_key = tuple((_mid(m), p) for m, p in probes)
+        autos_key = tuple(sorted((_mid(m), p) for m, p in automation))
+        key = (patch.topology_key(), probes_key, autos_key)
+        cached = _COMPILE_CACHE.get(key)
+        if cached is None:
+            with span("srk.plan.build"):
+                cached = CompiledPatch(patch, probes=probes,
+                                       automation=autos_key)
+                _COMPILE_CACHE.put(key, cached)
+                _COMPILE_CACHE.misses += 1
+        else:
+            # refresh default params (they may have changed without
+            # recompiling)
+            cached.default_params = patch.params()
+        return cached

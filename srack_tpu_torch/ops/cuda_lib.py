@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "srack_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -74,8 +76,9 @@ def build(source: str, compiler=None, flags=NVCC_FLAGS,
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
     cmd = [compiler, *flags, "-I", str(CSRC), "-o", tmp, str(src)]
-    EVENTS["nvcc"] += 1
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with span("srk.build.nvcc"):
+        EVENTS["nvcc"] += 1
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
@@ -114,20 +117,23 @@ class CudaLib:
         with self._lock:
             if self._lib is None:
                 path, self.build_log = build(self.source, what=self.what)
-                self._lib = ctypes.CDLL(str(path))
-                EVENTS["load"] += 1
+                with span("srk.build.load"):
+                    self._lib = ctypes.CDLL(str(path))
+                    EVENTS["load"] += 1
         return self._lib
 
     def launch(self, entry: str, argtypes: list, args: tuple,
                device: torch.device) -> None:
         """Call ``entry(*args, stream)`` on ``device``'s current stream;
         raise if the launch failed; count it."""
-        fn = getattr(self.build(), entry)
-        fn.argtypes = list(argtypes) + [P]
-        fn.restype = I
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = fn(*args, stream)
+        lib = self.build()
+        with span("srk.launch"):
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes) + [P]
+            fn.restype = I
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.what} launch failed ({entry}): CUDA "
                                f"error {err}")

@@ -136,6 +136,7 @@ import torch
 
 from ..compiler import tree_leaves
 from ..modules.base import CV_DTYPE
+from ..utils.profiling import span
 from .cuda_lib import (BUILD_ROOT, CSRC, NVCC_FLAGS, CudaLib, I,  # noqa: F401
                        P, build, require_cuda)
 from .partition import (MAX_STAGES, module_ops, one_stage, partition,
@@ -2198,12 +2199,13 @@ class FusedKernel(CudaLib):
     def finish(self, sf_out, si_out, ring, v: int, sd_out=None) -> dict:
         """The final state tree from the kernel's outputs (``sd_out``: the
         double rows of a layout with f64 leaves)."""
-        final = state_tree(self.compiled,
-                           unpack(self.layout.state, sf_out, si_out, v,
-                                  sd_out))
-        if self.buffer:
-            final["fb"] = unpack_ring(self.compiled, ring)
-        return final
+        with span("srk.finish"):
+            final = state_tree(self.compiled,
+                               unpack(self.layout.state, sf_out, si_out, v,
+                                      sd_out))
+            if self.buffer:
+                final["fb"] = unpack_ring(self.compiled, ring)
+            return final
 
     def _launch(self, params: dict, state: dict, n: int, xs: dict,
                 out_shape):
@@ -2216,16 +2218,17 @@ class FusedKernel(CudaLib):
             raise ValueError(
                 f"the {self.what} runs CUDA tensors; these lie on {device} "
                 f"(the CPU runs {self.plain})")
-        pf, pi, sf, si, lanes, ring, v, pd, sd = self.operands(params, state,
-                                                               n, xs)
-        out = torch.empty(out_shape(v), dtype=CV_DTYPE, device=device)
-        sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
-        operands = (pf, pi, sf, si, lanes, ring, out, sf_out, si_out)
-        sd_out, argtypes = None, ARGTYPES
-        if self.layout.doubles:
-            sd_out = torch.empty_like(sd)
-            operands += (pd, sd, sd_out)
-            argtypes = ARGTYPES_F64
+        with span("srk.pack"):
+            pf, pi, sf, si, lanes, ring, v, pd, sd = self.operands(
+                params, state, n, xs)
+            out = torch.empty(out_shape(v), dtype=CV_DTYPE, device=device)
+            sf_out, si_out = torch.empty_like(sf), torch.empty_like(si)
+            operands = (pf, pi, sf, si, lanes, ring, out, sf_out, si_out)
+            sd_out, argtypes = None, ARGTYPES
+            if self.layout.doubles:
+                sd_out = torch.empty_like(sd)
+                operands += (pd, sd, sd_out)
+                argtypes = ARGTYPES_F64
         require_cuda(*operands)
         self.launch("srk_fused_launch", argtypes,
                     tuple(t.data_ptr() for t in operands) + (v, n), device)

@@ -2,8 +2,22 @@
 ``srack_tpu/utils/profiling.py``).
 
 Wall time and throughput per render (:func:`timed_render`: CUDA events on
-the card, the host clock on the CPU) and a ``torch.profiler`` trace around
-a region (:func:`trace`).
+the card, the host clock on the CPU), a ``torch.profiler`` trace around
+a region (:func:`trace`), and the port's own spans (:func:`span`).
+
+The render path opens a span at each layer boundary, named ``srk.<what>``:
+``srk.plan`` (``compile_patch``; ``srk.plan.build`` on a cache miss),
+``srk.render`` (``CompiledPatch.render``) holding ``srk.state`` (params
+and initial state on the device) and ``srk.lanes`` (``_make_xs``), the
+kernel wrappers' ``srk.pack`` (operands and outputs), ``srk.launch`` (one
+a ``CudaLib.launch``) and ``srk.finish`` (the final state), the block
+engine's ``srk.block.run`` holding ``srk.block.pre``, ``.stage`` and
+``.post`` and in the block phases one ``srk.block.<module type>`` a module,
+and the builds' ``srk.build.nvcc`` and ``srk.build.load``.  A span nests in
+the one open around it on its thread.  Spans cost one flag test when no
+profiler records; under one they are host ops on the clock of the
+device's events, so a trace charges each idle gap of the card to the layer
+whose Python the host was running.
 """
 
 from __future__ import annotations
@@ -15,8 +29,24 @@ import time
 from typing import Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
-from ..compiler import resolve_device
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A range named ``name`` while a ``torch.profiler`` records, else a
+    context that does nothing (one flag test).
+
+    The range is a plain host op (``_RecordFunctionFast``), not a
+    ``record_function`` user annotation: the profiler mirrors each user
+    annotation onto the device's timeline as an event spanning the kernels
+    launched inside it, and a reader of device events would count those
+    spans as device work."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF
 
 
 @dataclasses.dataclass
@@ -55,6 +85,8 @@ def timed_render(compiled, n_samples: int, *, warmup: bool = True,
     ``CompiledPatch.render``.  On a CUDA device ``wall_s`` is the device
     time between CUDA events around the render; on the CPU the host clock.
     ``compile_s`` is the warm-up render's time (kernel builds included)."""
+    # imported here: the compiler imports this module for its spans
+    from ..compiler import resolve_device
     device = resolve_device(kwargs.pop("device", None))
     t0 = time.perf_counter()
     if warmup:
