@@ -394,7 +394,8 @@ def pipeline(kernel) -> str:
     if part.n_stages == 1:
         return ", G=1: one thread per voice"
     return (f", G={part.n_stages} stages of {list(part.costs)} ops, "
-            f"T={kernel.chunk}, {kernel.smem_bytes} B shared memory, "
+            f"T={kernel.chunk} in groups of U={kernel.group}, "
+            f"{kernel.smem_bytes} B shared memory, "
             f"{len(part.wires)} cross-stage wires")
 
 
@@ -2475,7 +2476,8 @@ def fwd_form(kernel) -> str:
         return "forward: one thread per voice (the twin)"
     part = kernel.fwd_partition
     return (f"forward: G={part.n_stages} stages of {list(part.costs)} ops, "
-            f"T={kernel.fwd_chunk} of t_chunk {kernel.t_chunk}, "
+            f"T={kernel.fwd_chunk} of t_chunk {kernel.t_chunk} in groups of "
+            f"U={kernel.fwd_group}, "
             f"{kernel.fwd_smem_bytes} B shared memory, {len(part.wires)} "
             f"cross-stage wires, checkpoint rows stored by their stages")
 
@@ -2808,6 +2810,8 @@ def phase_train(stt, kernels, card):
 AB = {}   # A/B case -> (the split kernel, its one-thread (G = 1) twin)
 SWEEP = {}  # case -> {chunk: the split kernel built with that chunk}
 SWEEP_CHUNKS = (16, 64, 128)
+GROUPS = {}  # case -> {group: the split kernel built with that sample group}
+SWEEP_GROUPS = (1, 2, 4, 8)
 AB_CELLS = (("headline", "subtractive_voice", VOICES, HEADLINE_N),
             ("farm", "subtractive_voice", FARM_VOICES, FARM_N),
             ("sequencer", "sequencer_patch", VOICES, HEADLINE_N),
@@ -2842,6 +2846,19 @@ def ab_kernels(kernels) -> dict:
         kernel.program, kernel.lanes, chunk=t) for t in SWEEP_CHUNKS}
     for name, by_chunk in SWEEP.items():
         jobs.update({f"{name} T={t}": k for t, k in by_chunk.items()})
+    # the split headline voice, buffer cell and reverb stage at the other
+    # sample groups of SWEEP_GROUPS
+    for name in ("subtractive_voice", "feedback_buffer"):
+        kernel = AB[name][0]
+        GROUPS[name] = {u: FusedKernel(kernel.compiled, kernel.lanes,
+                                       group=u)
+                        for u in SWEEP_GROUPS if u != kernel.group}
+    kernel = STAGES["reverb_patch"]
+    GROUPS["reverb_patch"] = {u: StageKernel(kernel.program, kernel.lanes,
+                                             group=u)
+                              for u in SWEEP_GROUPS if u != kernel.group}
+    for name, by_group in GROUPS.items():
+        jobs.update({f"{name} U={u}": k for u, k in by_group.items()})
     return jobs
 
 
@@ -2860,22 +2877,27 @@ def _turns(split, one, run):
     return times, outs
 
 
-def _ab_pair(split, one, run, same, what, card, sweep=None) -> dict:
+def _ab_pair(split, one, run, same, what, card, sweep=None,
+             groups=None) -> dict:
     """``run(kernel)`` through the split kernel and its G = 1 twin, timed
     in turns (G = 1, split, split, G = 1; one warm-up call each): both
     results must be equal bit for bit (``same``).  ``sweep``: the split
-    kernel at other chunk lengths, ``{chunk: kernel}``, each timed once
-    (after a warm-up) and held to the split's result.  Returns the
-    record."""
+    kernel at other chunk lengths, ``{chunk: kernel}``, and ``groups`` at
+    other sample groups, ``{group: kernel}``, each timed once (after a
+    warm-up) and held to the split's result.  Returns the record."""
     times, outs = _turns(split, one, run)
     check(same(outs["split"], outs["one"]), f"{what}: the split kernel "
           f"differs from its one-thread twin")
     del outs["one"]
-    chunks = {}
+    chunks, by_group = {}, {}
     for t, kernel in (sweep or {}).items():
         chunks[t] = cuda_ms(lambda: run(kernel), warmup=1)
         check(same(run(kernel), outs["split"]), f"{what}: the split kernel "
               f"at T={t} differs")
+    for u, kernel in (groups or {}).items():
+        by_group[u] = cuda_ms(lambda: run(kernel), warmup=1)
+        check(same(run(kernel), outs["split"]), f"{what}: the split kernel "
+              f"at U={u} differs")
     del outs
     torch.cuda.empty_cache()
     if chunks:
@@ -2884,22 +2906,31 @@ def _ab_pair(split, one, run, same, what, card, sweep=None) -> dict:
             f"T={t} {ms:.3f} ms" for t, ms in sorted(chunks.items()))
             + f" (T={split.chunk} is the build's; each equal to it bit for "
             f"bit) [{card}]")
+    if by_group:
+        by_group[split.group] = min(times["split"])
+        log(f"[15 a/b] {what}, sample groups: " + ", ".join(
+            f"U={u} {ms:.3f} ms" for u, ms in sorted(by_group.items()))
+            + f" (U={split.group} is the build's; each equal to it bit for "
+            f"bit) [{card}]")
     one_ms, split_ms = min(times["one"]), min(times["split"])
     rec = {"g1_ms": one_ms, "split_ms": split_ms,
            "ratio": split_ms / one_ms, "stages": split.partition.n_stages,
-           "chunk": split.chunk, "smem_bytes": split.smem_bytes,
+           "chunk": split.chunk, "group": split.group,
+           "smem_bytes": split.smem_bytes,
            "registers": registers(split), "g1_registers": registers(one),
            "stage_ops": list(split.partition.costs),
            "g1_ops": sum(split.partition.costs)}
     if chunks:
         rec["ms_by_chunk"] = {str(t): ms for t, ms in sorted(chunks.items())}
+    if by_group:
+        rec["ms_by_group"] = {str(u): ms for u, ms in sorted(by_group.items())}
     log(f"[15 a/b] {what}: G=1 {one_ms:.3f} ms ({times['one'][0]:.3f}, "
         f"{times['one'][1]:.3f}; {rec['g1_registers']} registers, "
         f"{rec['g1_ops']} ops per sample), split {split_ms:.3f} ms "
         f"({times['split'][0]:.3f}, {times['split'][1]:.3f}; G="
         f"{rec['stages']}, stages of {rec['stage_ops']} ops, T="
-        f"{rec['chunk']}, {rec['smem_bytes']} B shared memory, "
-        f"{rec['registers']} registers): split / G=1 = "
+        f"{rec['chunk']}, U={rec['group']}, {rec['smem_bytes']} B shared "
+        f"memory, {rec['registers']} registers): split / G=1 = "
         f"{rec['ratio']:.3f}; equal bit for bit over the whole render "
         f"[{card}]")
     return rec
@@ -2923,7 +2954,9 @@ def phase_ab(stt, kernels, card) -> dict:
     480,000 samples, random input lanes in [-1, 1)), and the shared-memory
     K8 against its twin on the reverb and block-check renders' operands:
     audio (or stage outputs) and final state equal bit for bit, both timed
-    in one call."""
+    in one call; the headline, the farm, the buffer cell and the reverb
+    stage also at each sample group of ``SWEEP_GROUPS``, each equal to the
+    build bit for bit."""
     out = {}
     for cell, name, v, n in AB_CELLS:
         split, one = AB[name]
@@ -2936,7 +2969,8 @@ def phase_ab(stt, kernels, card) -> dict:
         out[cell] = _ab_pair(
             split, one, lambda k: k.render(params, state, n), _same,
             f"{kid} {cell} ({name}) V={v} n={n}", card, SWEEP.get(
-                name if cell in ("headline", "farm") else None))
+                name if cell in ("headline", "farm") else None),
+            GROUPS.get(name if cell != "sequencer" else None))
         del params, state
     for name in STAGES:
         split, one = AB[name]
@@ -2957,7 +2991,7 @@ def phase_ab(stt, kernels, card) -> dict:
             lambda k: k.run(params, stage_state, lanes, HEADLINE_N), _same,
             f"K3 {name} stage ({len(prog.stage_plan)} modules, "
             f"{len(lanes)} input lanes) V={VOICES} n={HEADLINE_N}", card,
-            SWEEP.get(name))
+            SWEEP.get(name), GROUPS.get(name))
         del lanes, params, state, stage_state
         torch.cuda.empty_cache()
     cells = k8_cells(stt)   # the block check's automation made once

@@ -206,13 +206,26 @@ SRK_HD void srk_oscillator(float delta, int dfix, float val, int& pos,
   srk_osc_core<CONN, ANTIALIAS>(delta, dfix, pos, pos_g, sync_last, in, out);
 }
 
+// The pitch of a sample from its CV (params: val): the increment and its
+// fixed-point form.  No state enters it, so a stage warp's sample group
+// (ops/fused.py) runs it for every sample of the group before the group's
+// steps: the IEEE division of srk_osc_core, whose slow-path branch ends
+// a block of code the scheduler cannot leave, then parts no pitch chain
+// from another.
+template <int CONN>
+SRK_HD void srk_osc_pitch(float val, float cv, float& delta, int& dfix) {
+  const float octs = (CONN & 1) != 0 ? cv + val : val;
+  delta = srk_fast_exp2(octs) * SRK_K440_SR;
+  dfix = srk_delta_to_fixed(delta);
+}
+
 // pitch computed per sample (params: val)
 template <int CONN, int ANTIALIAS>
 SRK_HD void srk_oscillator(float val, int& pos, float& pos_g, int& sync_last,
                            const float* in, float* out) {
-  const float octs = (CONN & 1) != 0 ? in[0] + val : val;
-  const float delta = srk_fast_exp2(octs) * SRK_K440_SR;
-  const int dfix = srk_delta_to_fixed(delta);
+  float delta;
+  int dfix;
+  srk_osc_pitch<CONN>(val, in[0], delta, dfix);
   srk_osc_core<CONN, ANTIALIAS>(delta, dfix, pos, pos_g, sync_last, in, out);
 }
 
@@ -396,16 +409,43 @@ SRK_HD void srk_moog_filter(float exp_amt, float freq, float res, float* b,
 // params (derived): a_sec, d_sec, inc_a, inc_d, inc_r, r_sec, s_val.
 // state (sorted): from_a_val, gate_last (bool as int), k, mode, p0, r_val.
 // Every mode's update is computed and the current mode's selected, as in
-// the torch step.
+// the torch step: selects, not branches, so the 32 voices of a warp, each
+// in its own mode, take one path, and a stage warp's sample groups
+// (ops/fused.py) stay one block of straight-line code.
 // ---------------------------------------------------------------------------
+
+// c ? a : b as one select instruction.  nvcc turns a chain of ?: on one
+// value (the ADSR's mode) back into a switch of branches; an inline selp
+// stays a select.
+SRK_HD float srk_sel(bool c, float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("{ .reg .pred p; setp.ne.u32 p, %3, 0; selp.f32 %0, %1, %2, p; }"
+      : "=f"(r) : "f"(a), "f"(b), "r"((unsigned)c));
+  return r;
+#else
+  return c ? a : b;
+#endif
+}
+
+SRK_HD int srk_sel(bool c, int a, int b) {
+#ifdef __CUDA_ARCH__
+  int r;
+  asm("{ .reg .pred p; setp.ne.u32 p, %3, 0; selp.s32 %0, %1, %2, p; }"
+      : "=r"(r) : "r"(a), "r"(b), "r"((unsigned)c));
+  return r;
+#else
+  return c ? a : b;
+#endif
+}
 
 SRK_HD float srk_adsr_out_law(int mode, float phase, float r_mid,
                               float s_val) {
-  if (mode == 0) return 0.0f;
-  if (mode == 1) return r_mid + (1.0f - r_mid) * phase;
-  if (mode == 2) return s_val + (1.0f - s_val) * (1.0f - phase);
-  if (mode == 3) return s_val;
-  return s_val * (1.0f - phase);
+  const float up = r_mid + (1.0f - r_mid) * phase;
+  const float down = s_val + (1.0f - s_val) * (1.0f - phase);
+  const float rel = s_val * (1.0f - phase);
+  return srk_sel(mode == 0, 0.0f, srk_sel(mode == 1, up, srk_sel(
+      mode == 2, down, srk_sel(mode == 3, s_val, rel))));
 }
 
 template <int CONN>
@@ -424,49 +464,56 @@ SRK_HD void srk_adsr(float a_sec, float d_sec, float inc_a, float inc_d,
   const float pd = p0 + kf * inc_d;
   const float pr = gate_hi ? inc_r : p0 + kf * inc_r;
 
-  int new_mode, new_k;
-  float new_p0, phase, r_mid = r_val;
-  if (mode == 0) {  // idle
-    new_mode = gate_hi ? 1 : 0;
-    new_k = gate_hi ? 0 : k;
-    new_p0 = gate_hi ? 0.0f : p0;
-    phase = 0.0f;
-  } else if (mode == 1) {  // attack
-    const bool a_done = pa >= 1.0f;
-    const bool retrig = !a_done && fired;
-    const bool leave = a_done || retrig;
-    new_mode = a_done ? 2 : 1;
-    new_k = leave ? 0 : k1;
-    new_p0 = leave ? 0.0f : p0;
-    phase = leave ? 0.0f : pa;
-    r_mid = retrig ? from_a_val : r_val;
-  } else if (mode == 2) {  // decay
-    const bool d_done = pd >= 1.0f;
-    const bool leave = fired || d_done;
-    new_mode = fired ? 1 : (d_done ? 3 : 2);
-    new_k = leave ? 0 : k1;
-    new_p0 = leave ? 0.0f : p0;
-    phase = leave ? 0.0f : pd;
-  } else if (mode == 3) {  // sustain
-    const bool leave = !gate_hi || fired;
-    new_mode = fired ? 1 : (!gate_hi ? 4 : 3);
-    new_k = leave ? 0 : k;
-    new_p0 = leave ? 0.0f : p0;
-    phase = 0.0f;
-  } else {  // release
-    const bool r_done = pr >= 1.0f;
-    new_mode = r_done ? 0 : (gate_hi ? 1 : 4);
-    // a gate-high retrigger keeps the release increment as the attack
-    // entry offset: phase' = inc_r, counted from k' = 0
-    new_k = (r_done || gate_hi) ? 0 : k1;
-    new_p0 = r_done ? 0.0f : (gate_hi ? pr : p0);
-    phase = r_done ? 0.0f : pr;
-    r_mid = r_done ? 0.0f : r_val;
-  }
+  // idle (0): a high gate starts the attack
+  const int mode_n = gate_hi ? 1 : 0;
+  const int k_n = gate_hi ? 0 : k;
+  const float p0_n = gate_hi ? 0.0f : p0;
+  // attack (1)
+  const bool a_done = pa >= 1.0f;
+  const bool retrig = !a_done && fired;
+  const bool a_leave = a_done || retrig;
+  const int mode_a = a_done ? 2 : 1;
+  const int k_a = a_leave ? 0 : k1;
+  const float p0_a = a_leave ? 0.0f : p0;
+  const float ph_a = a_leave ? 0.0f : pa;
+  const float rmid_a = retrig ? from_a_val : r_val;
+  // decay (2)
+  const bool d_done = pd >= 1.0f;
+  const bool d_leave = fired || d_done;
+  const int mode_d = fired ? 1 : (d_done ? 3 : 2);
+  const int k_d = d_leave ? 0 : k1;
+  const float p0_d = d_leave ? 0.0f : p0;
+  const float ph_d = d_leave ? 0.0f : pd;
+  // sustain (3)
+  const bool s_leave = !gate_hi || fired;
+  const int mode_s = fired ? 1 : (!gate_hi ? 4 : 3);
+  const int k_s = s_leave ? 0 : k;
+  const float p0_s = s_leave ? 0.0f : p0;
+  // release (any other mode); a gate-high retrigger keeps the release
+  // increment as the attack entry offset: phase' = inc_r, counted from
+  // k' = 0
+  const bool r_done = pr >= 1.0f;
+  const int mode_r = r_done ? 0 : (gate_hi ? 1 : 4);
+  const int k_r = (r_done || gate_hi) ? 0 : k1;
+  const float p0_r = r_done ? 0.0f : (gate_hi ? pr : p0);
+  const float ph_r = r_done ? 0.0f : pr;
+  const float rmid_r = r_done ? 0.0f : r_val;
+
+  const bool m0 = mode == 0, m1 = mode == 1, m2 = mode == 2, m3 = mode == 3;
+  const int new_mode = srk_sel(m0, mode_n, srk_sel(m1, mode_a, srk_sel(
+      m2, mode_d, srk_sel(m3, mode_s, mode_r))));
+  const int new_k = srk_sel(m0, k_n, srk_sel(m1, k_a, srk_sel(
+      m2, k_d, srk_sel(m3, k_s, k_r))));
+  const float new_p0 = srk_sel(m0, p0_n, srk_sel(m1, p0_a, srk_sel(
+      m2, p0_d, srk_sel(m3, p0_s, p0_r))));
+  const float phase = srk_sel(m0, 0.0f, srk_sel(m1, ph_a, srk_sel(
+      m2, ph_d, srk_sel(m3, 0.0f, ph_r))));
+  const float r_mid = srk_sel(m0, r_val, srk_sel(m1, rmid_a, srk_sel(
+      m2, r_val, srk_sel(m3, r_val, rmid_r))));
 
   const float o = srk_adsr_out_law(new_mode, phase, r_mid, s_val);
-  r_val = new_mode != 1 ? o : r_mid;
-  from_a_val = new_mode == 1 ? o : from_a_val;
+  r_val = srk_sel(new_mode != 1, o, r_mid);
+  from_a_val = srk_sel(new_mode == 1, o, from_a_val);
   mode = new_mode;
   k = new_k;
   p0 = new_p0;

@@ -41,14 +41,32 @@ Design:
   from stage ``a`` to stage ``b`` is a shared-memory ring of ``b - a + 1``
   chunks ``[T][32]``; each warp keeps its own modules' params, state and
   carries in registers (the sequencer: 80 registers where one thread per
-  voice took 254) and stores its part of the final state.  A sample then
-  costs the costliest stage's chain, not the whole plan's: on an H100
-  80GB HBM3 at 700 W the headline voice (stages of 38/67/35/38
-  operations against 178) renders 1,024 x 480,000 in 129.4 ms where one
-  thread per voice takes 186.0, the 32-module sequencer in 338.2 against
-  952.0 (chip_smoke.py phase 15).  The one-thread form stays: ``stages=1``
-  builds it, and so does K10 where its twin rule sends a plan
-  (:func:`pick_fwd_chunk`).
+  voice took 254) and stores its part of the final state.  The one-thread
+  form stays: ``stages=1`` builds it, and so does K10 where its twin rule
+  sends a plan (:func:`pick_fwd_chunk`).
+* **Sample groups.**  At 1,024 voices each SM scheduler holds one warp, so
+  a stage's time is the latency of its dependent chain, not its issue: a
+  sample loop that reads and writes the same shared array cannot start
+  sample t+1 before sample t's stores.  Each stage warp runs its chunk in
+  groups of ``U`` samples (``SRK_U``, :func:`pick_group`) of straight-line
+  code: every read of the group (lane values, ring wires, K2's copied
+  feedback slots) into locals, then the module calls, then every write
+  (ring wires, the audio tile, K3's outputs, K2's ring, the carries), so
+  the chains of neighbouring samples overlap; the render's last chunk
+  ends in the one-sample loop.  The calls go module by module (a module's
+  ``U`` calls adjacent) unless a carry runs from one module of the stage to
+  another; a CV-driven Oscillator's pitch (``srk_osc_pitch``, no state in
+  it) comes for all ``U`` samples before its first step, so the IEEE
+  division's slow-path branch, which ends a block the scheduler cannot
+  leave, parts no pitch chain from another.  The ADSR selects its mode's
+  update with ``selp`` rather than branches.  Every module is called with
+  the same arguments in the same order per sample, so the audio is the
+  same bit for bit.  A sample then costs the stages' group chains over
+  ``U``: on an H100 80GB HBM3 at 700 W the headline voice (stages of
+  38/67/35/38 operations, U = 8) renders 1,024 x 480,000 in 52.5 ms
+  where the same stages one sample at a time, with the ADSR's branches,
+  took 128.3, and the 16,384-voice farm 192,000 samples in 34.4 ms
+  against 60.4 (chip_smoke.py phase 15).
 * **Occupancy.**  1,024 voices give 32 CTAs of 4 warps on 132 SMs, one
   CTA per SM; 16,384 voices give 512 CTAs, all resident at once at
   ``T = 32`` (28.8 KB of shared memory for the headline), about 16 warps
@@ -270,10 +288,13 @@ def _statics_args(statics) -> list:
     return [str(int(s)) for s in statics if isinstance(s, (bool, int))]
 
 
-def _inputs_of(compiled, mid, stage, fb_lanes):
+def _inputs_of(compiled, mid, stage, fb_lanes, sfx="", fb=None):
     """The C expressions of ``mid``'s input ports and its ``CONN`` bits: a
     wire local, a feedback carry (or, in a buffer-mode stage, its lane), a
-    stage input lane, or ``0.0f`` unconnected."""
+    stage input lane, or ``0.0f`` unconnected.  ``sfx`` ends the name of
+    each per-sample local (a wire or a lane; a sample group's ``_u<u>``);
+    ``fb`` maps a feedback key to the C expression of its read, in place of
+    the carry (or the lane)."""
     ins, conn = [], 0
     for i, c in enumerate(compiled.instances[mid][2]):
         if c is None:
@@ -281,66 +302,111 @@ def _inputs_of(compiled, mid, stage, fb_lanes):
             continue
         conn |= 1 << i
         src, sport = c
-        if compiled.plan_pos[src] >= compiled.plan_pos[mid]:
-            ins.append(_lane_var(f"fb:{src}#{sport}") if fb_lanes
+        if compiled.plan_pos[src] >= compiled.plan_pos[mid] and fb:
+            ins.append(fb((src, sport)))
+        elif compiled.plan_pos[src] >= compiled.plan_pos[mid]:
+            ins.append(_lane_var(f"fb:{src}#{sport}") + sfx if fb_lanes
                        else _var(("fb", (src, sport))))
         elif stage is not None and src not in stage.stage_set:
             # a stage input wire, streamed in as a lane
-            ins.append(_lane_var(f"{src}#{sport}"))
+            ins.append(_lane_var(f"{src}#{sport}") + sfx)
         else:
-            ins.append(f"w_{_ident(src)}[{sport}]")
+            ins.append(f"w_{_ident(src)}{sfx}[{sport}]")
     return ins, conn
 
 
-def _param_args(compiled, mid, keys, lane_idx) -> list:
+def _param_args(compiled, mid, keys, lane_idx, sfx="") -> list:
     """The step's param arguments: an automated param with an array reads
     this sample's lane value."""
     out = []
     for key in keys:
         auto = compiled._auto_key(mid, key)
-        out.append(_lane_var(auto) if auto in lane_idx else _var((mid, key)))
+        out.append(_lane_var(auto) + sfx if auto in lane_idx
+                   else _var((mid, key)))
     return out
 
 
 def _emit_calls(compiled, plan, lane_idx, params_of, state_of, stage,
-                fb_lanes, scoped=True, audio=True, t_expr="t") -> list:
+                fb_lanes, scoped=True, audio=True, t_expr="t", sfx="",
+                fb=None, pitched=()) -> list:
     """One sample's module calls in plan order, wires as locals ``w_<mid>``.
     ``scoped``: each call's input array lives in a block of its own; else it
     is ``in_<mid>``, kept in the sample's scope for the adjoints.
     ``audio``: the Output module writes the audio rows (else it is
-    skipped), at index ``t_expr``."""
+    skipped), at index ``t_expr``.  ``sfx`` and ``fb``: the sample's names,
+    as :func:`_inputs_of` takes them.  ``pitched``: Oscillators whose pitch
+    :func:`_pitch_call` has already computed; their step is the core's."""
     cfg = compiled.cfg
     L = []
     for mid in plan:
         mdef, statics, _ = compiled.instances[mid]
-        ins, conn = _inputs_of(compiled, mid, stage, fb_lanes)
+        ins, conn = _inputs_of(compiled, mid, stage, fb_lanes, sfx, fb)
         if mid == compiled.output_id:
             if audio:
                 L += [f"    {mdef.cuda_fn}(a{c}, {t_expr}, {val});"
                       for c, val in enumerate(ins)]
             continue
-        w = f"w_{_ident(mid)}"
+        w = f"w_{_ident(mid)}{sfx}"
         n_out = mdef.num_outputs(cfg, statics)
         tmpl = ", ".join([str(conn)] + _statics_args(statics))
-        args = _param_args(compiled, mid, params_of.get(mid, []), lane_idx)
+        fn = mdef.cuda_fn
+        if mid in pitched:
+            fn = "srk_osc_core"
+            args = [f"{x}_{_ident(mid)}{sfx}" for x in ("d", "f")]
+        else:
+            args = _param_args(compiled, mid, params_of.get(mid, []),
+                               lane_idx, sfx)
         args += state_of.get(mid, [])
         if mid in lane_idx:
-            args.append(_lane_var(mid))
+            args.append(_lane_var(mid) + sfx)
         L.append(f"    float {w}[{max(n_out, 1)}];")
         if ins and scoped:
             L.append(f"    {{ const float in[{len(ins)}] = "
                      f"{{{', '.join(ins)}}};")
-            L.append(f"      {mdef.cuda_fn}<{tmpl}>("
+            L.append(f"      {fn}<{tmpl}>("
                      + ", ".join(args + ["in", w]) + "); }")
         elif ins:
             L.append(f"    const float in_{_ident(mid)}[{len(ins)}] = "
                      f"{{{', '.join(ins)}}};")
-            L.append(f"    {mdef.cuda_fn}<{tmpl}>("
+            L.append(f"    {fn}<{tmpl}>("
                      + ", ".join(args + [f"in_{_ident(mid)}", w]) + ");")
         else:
-            L.append(f"    {mdef.cuda_fn}<{tmpl}>("
+            L.append(f"    {fn}<{tmpl}>("
                      + ", ".join(args + ["nullptr", w]) + ");")
     return L
+
+
+def _pitch_first(compiled, mid, mods, params_of, by_module,
+                 carried) -> bool:
+    """Can a sample group compute Oscillator ``mid``'s pitch
+    (``srk_osc_pitch``) for all its samples before the first of its steps?
+    A fast Oscillator whose pitch is not hoisted (its only param is
+    ``val``), whose CV is unconnected, a delayed wire that is not a carry
+    (``carried``: the stage's feedback is carried), or a wire of this
+    sample from outside the stage's modules ``mods`` (a ring or a lane) or,
+    emitted module by module (``by_module``), from any earlier module."""
+    mdef, _, conns = compiled.instances[mid]
+    if (mdef.cuda_fn != "srk_oscillator" or compiled.cfg.exact
+            or params_of.get(mid) != ["val"]):
+        return False
+    if conns[0] is None:
+        return True
+    src = conns[0][0]
+    if compiled.plan_pos[src] >= compiled.plan_pos[mid]:
+        return not carried
+    return by_module or src not in mods
+
+
+def _pitch_call(compiled, mid, lane_idx, params_of, stage, fb_lanes, sfx,
+                fb) -> list:
+    """Oscillator ``mid``'s pitch for one sample into ``d_<mid><sfx>`` and
+    ``f_<mid><sfx>`` (its increment and fixed-point increment)."""
+    ins, conn = _inputs_of(compiled, mid, stage, fb_lanes, sfx, fb)
+    val, = _param_args(compiled, mid, params_of[mid], lane_idx, sfx)
+    d, f = (f"{x}_{_ident(mid)}{sfx}" for x in ("d", "f"))
+    return [f"    float {d};",
+            f"    int {f};",
+            f"    srk_osc_pitch<{conn & 1}>({val}, {ins[0]}, {d}, {f});"]
 
 
 def _state_row_stores(layout, ptr: str, leaves=None) -> list:
@@ -386,7 +452,7 @@ def _state_row_loads(layout, ptr: str, prefix: str = "", decl=False) -> list:
 
 def generate_source(compiled, layout: Layout = None, lanes=(),
                     stage=None, mode=None, t_chunk: int = 128,
-                    split=None, chunk: int = None) -> str:
+                    split=None, chunk: int = None, group: int = None) -> str:
     """The ``.cu`` source of the fused kernel for ``compiled``'s plan and
     the lane set ``lanes`` (sorted lane keys: module ids of Noise and of
     driven Inputs, ``mid~param`` of automation arrays).
@@ -448,7 +514,7 @@ def generate_source(compiled, layout: Layout = None, lanes=(),
             compiled, layout or Layout.of(
                 compiled, None if stage is None else plan),
             tuple(lanes), stage, split, chunk,
-            t_chunk=int(t_chunk) if mode == "ckpt" else None)
+            t_chunk=int(t_chunk) if mode == "ckpt" else None, group=group)
     if mode == "bwd":
         return _generate_bwd(compiled, layout or Layout.of(compiled),
                              tuple(lanes), t_chunk)
@@ -650,6 +716,14 @@ SMEM_BUDGET = 200 * 1024  # bytes of dynamic shared memory a split CTA takes
 # 16,384 voices, ran slower at 64 and 128 than at 32; chip_smoke.py phase
 # 15 times each)
 CHUNK_MIN, CHUNK_MAX = 8, 32
+# samples a stage warp runs as one group of straight-line code, at most;
+# halved while a group of the costliest stage would hold more operations
+# than GROUP_OPS (chip_smoke.py phase 15: the sequencer's stages of 142-167
+# operations ran 425 ms a render at 4 samples a group and 199 at 2); at
+# most TABLE_GROUP where a stage steps through a sequencer's table (an int
+# table param read at the step each sample: on an H100 the drum machine's
+# stage ran 55.8 ms at 4 and 67.7 at 8, the sampler kit's 28.1 and 30.7)
+GROUP, GROUP_OPS, TABLE_GROUP = 8, 600, 4
 
 
 def _leaf_mid(leaf):
@@ -762,6 +836,22 @@ def pick_chunk(part, lanes_of, channels: int, limit: int = CHUNK_MAX,
     return None
 
 
+def pick_group(chunk: int, part, layout) -> int:
+    """The samples of a stage warp's group: the largest power of two up to
+    ``GROUP`` and the chunk (``TABLE_GROUP`` where a module of the
+    partition ``part`` reads an int table of ``layout``'s params) whose
+    group of the costliest stage holds at most ``GROUP_OPS`` operations
+    (at least one)."""
+    group = min(GROUP, chunk)
+    tables = {leaf.path[0] for leaf in layout.params
+              if leaf.rest and leaf.kind == "i"}
+    if tables & {mid for mods in part.stages for mid in mods}:
+        group = min(group, TABLE_GROUP)
+    while group > 1 and group * max(part.costs) > GROUP_OPS:
+        group //= 2
+    return group
+
+
 def pick_fwd_chunk(compiled, part, lanes, layout, t_chunk: int):
     """The twin rule of K10's forward, in one place: the chunk of its
     stage-warp pipeline (:func:`pick_chunk` with ``t_chunk``), or None where
@@ -841,7 +931,7 @@ def _struct_leaf(leaf, arr) -> tuple:
 
 
 def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
-                       chunk, t_chunk: int = None) -> str:
+                       chunk, t_chunk: int = None, group: int = None) -> str:
     """K1, K2 or K3 for a plan cut into ``part.n_stages`` pipeline stages;
     with ``t_chunk``, K10's forward (K1 plus the checkpoints).
 
@@ -863,8 +953,14 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     source stores each sample's value at the end of the sample
     (:func:`ring_chunk_limit` keeps the two a block apart).
 
-    Every module is called as in the one-thread kernel, with the same
-    arguments in the same order, so the result is the same bit for bit.
+    A warp runs its chunk in groups of ``group`` samples
+    (:func:`pick_group` by default) of straight-line code: the group's
+    reads, its calls (module by module where no carry runs between two of
+    the stage's modules; a CV-driven Oscillator's pitch for every sample
+    first), then its writes; the render's last samples, fewer than a
+    group, take the one-sample loop.  Every module is called as in the
+    one-thread kernel, with the same arguments in the same order per
+    sample, so the result is the same bit for bit.
 
     K10's forward (``t_chunk``; ``chunk`` must divide it, so every
     checkpoint falls on a chunk's first sample): at the top of a chunk
@@ -910,6 +1006,10 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
         raise ValueError(f"a chunk of {chunk} samples is longer than K2's "
                          f"feedback ring allows (block {cfg.block_size}: "
                          f"at most {limit})")
+    group = pick_group(chunk, part, layout) if group is None else group
+    if group < 1 or group & (group - 1) or chunk % group:
+        raise ValueError(f"a group of {group} samples is not a power of two "
+                         f"that divides the chunk of {chunk}")
     sm = smem_layout(part, lanes_of, n_tile, chunk, rings)
     if ckpt and t_chunk % chunk:
         raise ValueError(f"a chunk of {chunk} samples does not divide "
@@ -933,6 +1033,8 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     L = _header(compiled, plan, lanes, kind + f", {G} pipeline stages")
     L += [f"// Stage {g}: " + ", ".join(mods) + f" ({part.costs[g]} ops)."
           for g, mods in enumerate(part.stages)]
+    L.append(f"// Each stage runs its chunk in groups of SRK_U = {group} "
+             "samples.")
     L += [f"// Feedback {k[0]}#{k[1]}: read in stage {g}, written in stage "
           f"{h}." for k, g, h in rings]
     if buffer:
@@ -943,6 +1045,7 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     L += [f"#define SRK_STAGES {G}",
           f"#define SRK_THREADS {WARP * G}",
           f"#define SRK_T {chunk}",
+          f"#define SRK_U {group}",
           f"#define SRK_SMEM_FLOATS {sm.floats}",
           '#include "modules_adj.cuh"' if ckpt else '#include "modules.cuh"',
           '#include "pipeline.cuh"']
@@ -950,9 +1053,9 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
             "float* __restrict__ audio, float* __restrict__ sm"
             + (", int* __restrict__ ck" if ckpt else ""))
 
-    def fb_slot(k):
+    def fb_slot(k, slot="slot"):
         return (f"ring[((size_t){compiled.fb_keys.index(k)} * SRK_FB_BLOCK "
-                "+ slot) * V + v]")
+                f"+ {slot}) * V + v]")
     for g, mods in enumerate(part.stages):
         mods = list(mods)
         leaves = [leaf for leaf in layout.params + layout.state
@@ -1052,36 +1155,107 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
             L += [f"    sm[{fb_at[(g, k)]} + tc * 32 + lane] = {fb_slot(k)};"
                   for k in read_keys]
             L.append("  }")
-        L += ["  for (int tc = 0; tc < cnt; ++tc) {",
-              "    const int t = t0 + tc;",
+        carries = [k for k in compiled.fb_keys if not buffer and not fb_lanes
+                   and stage_of.get(k[0]) == g]
+
+        def sample(u):
+            """Sample ``u`` of a group (None: the one-sample loop's body):
+            its reads of shared memory, its module calls and its writes."""
+            sfx = "" if u is None else f"_u{u}"
+            i = "tc" if not u else f"(tc + {u})"
+            t = "t" if not u else f"(t + {u})"
+            if buffer:      # this sample's copy of K2's ring slots
+                fb = (lambda k: _var(("fb", k)) + sfx)
+            elif u and not fb_lanes:   # the group's previous sample's wire
+                fb = (lambda k: f"w_{_ident(k[0])}_u{u - 1}[{k[1]}]")
+            else:           # the carry, or the delayed wire's lane
+                fb = None
+            reads = [f"    const float {_lane_var(k)}{sfx} = "
+                     f"sm[{lane_at[(g, k)]} + lb + {i} * 32];"
+                     for k in lanes_of[g]]
+            reads += [f"    const float {_var(('fb', k))}{sfx} = "
+                      f"sm[{fb_at[(g, k)]} + {i} * 32 + lane];"
+                      for k in read_keys]
+            for src, ports in ins.items():
+                mdef, statics, _ = compiled.instances[src]
+                n_out = max(mdef.num_outputs(cfg, statics), 1)
+                reads.append(f"    float w_{_ident(src)}{sfx}[{n_out}];")
+                reads += [f"    w_{_ident(src)}{sfx}[{p}] = "
+                          f"sm[{ring[(src, p)]} + {i} * 32];"
+                          for p in sorted(ports)]
+            # per module: its pitch (a group's Oscillator) and its call
+            pitches = {mid: _pitch_call(compiled, mid, lane_idx, params_of,
+                                        stage, fb_lanes, sfx, fb)
+                       for mid in (pitched if u is not None else ())}
+            calls = {mid: _emit_calls(
+                compiled, [mid], lane_idx, params_of, state_of, stage,
+                fb_lanes, t_expr=i, sfx=sfx, fb=fb, audio=u is None,
+                pitched=pitched if u is not None else ()) for mid in mods}
+            writes = [f"    sm[{ring[w]} + {i} * 32] = "
+                      f"w_{_ident(w[0])}{sfx}[{w[1]}];"
+                      for w in ring if wire_from[w] == g]
+            if u is not None and g == out_stage:
+                vals, _ = _inputs_of(compiled, compiled.output_id, stage,
+                                     fb_lanes, sfx, fb)
+                writes += [f"    srk_output(a{c}, {i}, {val});"
+                           for c, val in enumerate(vals)]
+            slot = "slot" if u is None else f"{t} % SRK_FB_BLOCK"
+            writes += [f"    {fb_slot(k, slot)} = w_{_ident(k[0])}{sfx}"
+                       f"[{k[1]}];" for k in write_keys]
+            if u is None:
+                writes += [f"    {_var(('fb', k))} = "
+                           f"w_{_ident(k[0])}[{k[1]}];" for k in carries]
+            if stage is not None:
+                writes += [f"    audio[((size_t){j} * n + {t}) * V + v] = "
+                           f"w_{_ident(src)}{sfx}[{port}];"
+                           for j, (src, port) in enumerate(stage.stage_out)
+                           if stage_of[src] == g]
+            return reads, pitches, calls, writes
+
+        # module by module (each module's calls for the group's samples
+        # adjacent) unless a carry goes from one module of the stage to
+        # another, whose next sample needs the other's sample before
+        by_module = not any(
+            c in carries and c[0] != mid
+            and compiled.plan_pos[c[0]] >= compiled.plan_pos[mid]
+            for mid in mods for c in compiled.instances[mid][2])
+        pitched = {mid for mid in mods if _pitch_first(
+            compiled, mid, mods, params_of, by_module,
+            not buffer and not fb_lanes)}
+        reads, _, calls, writes = sample(None)
+        if group > 1:
+            # groups of SRK_U samples in straight-line code: every read of
+            # the group, then its calls, then every write, so the chains of
+            # neighbouring samples share no load or store in between
+            groups = [sample(u) for u in range(group)]
+            L += ["  int tc = 0;",
+                  "  for (; tc + SRK_U <= cnt; tc += SRK_U) {",
+                  "    const int t = t0 + tc;",
+                  "    (void)t;",
+                  "    // group: reads"]
+            L += [x for reads, _, _, _ in groups for x in reads]
+            L.append("    // group: calls")
+            if by_module:
+                for mid in mods:
+                    L += [x for _, p, _, _ in groups for x in p.get(mid, ())]
+                    L += [x for _, _, c, _ in groups for x in c[mid]]
+            else:
+                L += [x for _, p, _, _ in groups for mid in p for x in p[mid]]
+                L += [x for _, _, c, _ in groups for mid in mods
+                      for x in c[mid]]
+            L.append("    // group: writes")
+            L += [x for _, _, _, writes in groups for x in writes]
+            L += [f"    {_var(('fb', k))} = "
+                  f"w_{_ident(k[0])}_u{group - 1}[{k[1]}];" for k in carries]
+            L += ["  }",
+                  "  for (; tc < cnt; ++tc) {  // the render's last samples"]
+        else:
+            L.append("  for (int tc = 0; tc < cnt; ++tc) {")
+        L += ["    const int t = t0 + tc;",
               "    (void)t;"]
         if write_keys:
             L.append("    const int slot = t % SRK_FB_BLOCK;")
-        L += [f"    const float {_lane_var(k)} = sm[{lane_at[(g, k)]} + lb + "
-              "tc * 32];" for k in lanes_of[g]]
-        L += [f"    const float {_var(('fb', k))} = sm[{fb_at[(g, k)]} + "
-              "tc * 32 + lane];" for k in read_keys]
-        for src, ports in ins.items():
-            mdef, statics, _ = compiled.instances[src]
-            n_out = max(mdef.num_outputs(cfg, statics), 1)
-            L.append(f"    float w_{_ident(src)}[{n_out}];")
-            L += [f"    w_{_ident(src)}[{p}] = sm[{ring[(src, p)]} + tc * "
-                  "32];" for p in sorted(ports)]
-        L += _emit_calls(compiled, mods, lane_idx, params_of, state_of, stage,
-                         fb_lanes, t_expr="tc")
-        L += [f"    sm[{ring[w]} + tc * 32] = w_{_ident(w[0])}[{w[1]}];"
-              for w in ring if wire_from[w] == g]
-        if buffer:
-            L += [f"    {fb_slot(k)} = w_{_ident(k[0])}[{k[1]}];"
-                  for k in write_keys]
-        elif not fb_lanes:
-            L += [f"    {_var(('fb', k))} = w_{_ident(k[0])}[{k[1]}];"
-                  for k in compiled.fb_keys if stage_of.get(k[0]) == g]
-        if stage is not None:
-            L += [f"    audio[((size_t){j} * n + t) * V + v] = "
-                  f"w_{_ident(src)}[{port}];"
-                  for j, (src, port) in enumerate(stage.stage_out)
-                  if stage_of[src] == g]
+        L += reads + [x for mid in mods for x in calls[mid]] + writes
         L += ["  }", "}"]
     if out_stage is not None:
         L += ["",
@@ -2113,7 +2287,7 @@ class FusedKernel(CudaLib):
     plain = "engine='scan'"  # what the CPU runs instead
 
     def __init__(self, compiled, lanes=(), stages: int = MAX_STAGES,
-                 chunk: int = None):
+                 chunk: int = None, group: int = None):
         if not eligible(compiled):
             raise ValueError(
                 "patch not eligible for the fused kernel (needs fast "
@@ -2125,20 +2299,22 @@ class FusedKernel(CudaLib):
         self.layout = Layout.of(compiled)
         self.partition = partition(compiled, carried=not self.buffer,
                                    max_stages=stages)
-        self._pipeline(None, chunk)
+        self._pipeline(None, chunk, group)
         super().__init__(
             "fused_voice_buffer" if self.buffer else "fused_voice",
             generate_source(compiled, self.layout, self.lanes,
-                            split=self.partition, chunk=self.chunk),
+                            split=self.partition, chunk=self.chunk,
+                            group=self.group),
             "fused kernel")
 
-    def _pipeline(self, stage, chunk) -> None:
-        """The chunk length and the shared-memory bytes of a split
-        kernel (None and 0 for the one-thread form, which a plan takes
-        when no chunk of its stages fits the shared-memory budget or, for
-        K2, the feedback ring's block)."""
+    def _pipeline(self, stage, chunk, group) -> None:
+        """The chunk length, the samples of a stage warp's group and the
+        shared-memory bytes of a split kernel (None, None and 0 for the
+        one-thread form, which a plan takes when no chunk of its stages
+        fits the shared-memory budget or, for K2, the feedback ring's
+        block)."""
         part = self.partition
-        self.chunk, self.smem_bytes = None, 0
+        self.chunk, self.group, self.smem_bytes = None, None, 0
         if part.n_stages > 1:
             lanes_of, n_tile, rings, limit = split_needs(
                 self.compiled, part, self.lanes, stage, self.layout)
@@ -2148,6 +2324,8 @@ class FusedKernel(CudaLib):
                 self.partition = one_stage(
                     self.compiled, [m for mods in part.stages for m in mods])
                 return
+            self.group = group or pick_group(self.chunk, part,
+                                                self.layout)
             self.smem_bytes = smem_layout(part, lanes_of, n_tile,
                                           self.chunk, rings).nbytes
 
@@ -2277,7 +2455,7 @@ class StageKernel(FusedKernel):
     plain = "BlockProgram.stage_plain"
 
     def __init__(self, program, lanes=(), stages: int = MAX_STAGES,
-                 chunk: int = None):
+                 chunk: int = None, group: int = None):
         if not program.kernel_ok:
             raise ValueError(
                 "the serial stage holds a module type without a CUDA device "
@@ -2298,13 +2476,13 @@ class StageKernel(FusedKernel):
         self.partition = partition(
             compiled, program.stage_plan,
             carried=not compiled.cfg.buffer_feedback, max_stages=stages)
-        self._pipeline(program, chunk)
+        self._pipeline(program, chunk, group)
         # a stage with f64 leaves (the exact Oscillator's phase) is K3's f64
         # build, counted apart
         CudaLib.__init__(self, "serial_stage_f64" if self.layout.doubles
                          else "serial_stage", generate_source(
             compiled, self.layout, self.lanes, stage=program,
-            split=self.partition, chunk=self.chunk),
+            split=self.partition, chunk=self.chunk, group=self.group),
             "serial-stage kernel")
 
     def run(self, params: dict, state: dict, lanes: dict, n: int):

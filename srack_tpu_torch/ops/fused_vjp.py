@@ -111,8 +111,8 @@ from ..compiler import tree_leaves
 from ..modules.base import CV_DTYPE
 from .cuda_lib import CudaLib, I, P, require_cuda
 from .fused import (Layout, _get, bwd_shape, eligible, generate_source, pack,
-                    pack_lanes, pick_bwd_chunk, pick_fwd_chunk, smem_layout,
-                    split_needs, state_tree, unpack)
+                    pack_lanes, pick_bwd_chunk, pick_fwd_chunk, pick_group,
+                    smem_layout, split_needs, state_tree, unpack)
 from .partition import MAX_STAGES, partition, sweep_ops
 
 # the entries' argument types, without the stream: the operand pointers of
@@ -147,7 +147,7 @@ class FusedVJPKernel:
 
     def __init__(self, compiled, lanes=(), t_chunk: int = 128,
                  stages: int = MAX_STAGES, chunk: int = None,
-                 fwd_chunk: int = None):
+                 fwd_chunk: int = None, fwd_group: int = None):
         if not vjp_eligible(compiled):
             raise ValueError(
                 "patch not eligible for the fused VJP (needs a patch the "
@@ -169,16 +169,18 @@ class FusedVJPKernel:
             raise ValueError("a forward chunk for a plan of one stage")
         self.fwd_chunk = fwd_chunk or pick_fwd_chunk(
             compiled, self.fwd_partition, self.lanes, lay, self.t_chunk)
-        self.fwd_smem_bytes = 0
+        self.fwd_smem_bytes, self.fwd_group = 0, None
         if self.fwd_chunk is None:
             self.fwd = CudaLib("fused_vjp_fwd_twin", generate_source(
                 compiled, lay, self.lanes, mode="ckpt",
                 t_chunk=self.t_chunk), "fused-VJP forward kernel (twin)")
         else:
+            self.fwd_group = fwd_group or pick_group(
+                self.fwd_chunk, self.fwd_partition, lay)
             self.fwd = CudaLib("fused_vjp_fwd", generate_source(
                 compiled, lay, self.lanes, mode="ckpt", t_chunk=self.t_chunk,
-                split=self.fwd_partition, chunk=self.fwd_chunk),
-                "fused-VJP forward kernel")
+                split=self.fwd_partition, chunk=self.fwd_chunk,
+                group=self.fwd_group), "fused-VJP forward kernel")
             lanes_of, channels, _, _ = split_needs(
                 compiled, self.fwd_partition, self.lanes, None, lay)
             self.fwd_smem_bytes = smem_layout(

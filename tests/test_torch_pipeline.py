@@ -6,11 +6,14 @@ kernels, checked on the CPU.
   into four stages of under 35 % of its operations each, a patch of one
   module gives one stage.
 * The split source's host build (g++, ``-ffp-contract=off``): the same
-  lock step, chunks, shared-memory wire rings and lane buffers the card
-  runs, in a loop over stages and lanes.  It is held bit for bit to the
-  scan engine (K1) or the stage's torch loop (K3), and to the one-thread
-  build, at 37 voices (a partial last CTA) and n not a multiple of the
-  chunk.
+  lock step, chunks, sample groups, shared-memory wire rings and lane
+  buffers the card runs, in a loop over stages and lanes.  It is held bit
+  for bit to the scan engine (K1) or the stage's torch loop (K3), and to
+  the one-thread build, at 37 voices (a partial last CTA), groups of 1, 2,
+  4 and 8 samples and n not a multiple of the chunk or of the group.
+* Sample groups: in each stage's group every load comes before the first
+  module call and every store after the last; a launch counts under its
+  group.
 * K2 (buffer-feedback mode) on the same pipeline: its stages, the
   feedback ring's condition on the chunk (``block >= (h - g + 1) * T``
   for a key read in stage g and written in stage h), and the split host
@@ -21,8 +24,11 @@ kernels, checked on the CPU.
   the one-voice path (a batch of one) equals the unbatched scan engine.
 """
 
+import contextlib
 import ctypes
+import re
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -40,6 +46,8 @@ HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
               "-shared", "-fPIC")
 SR = 4800
 V, N = 37, 300
+NG = 301    # odd: the last chunk is no multiple of the chunk or of a group
+GROUPS = (1, 2, 4, 8)
 PRESETS = ("subtractive_voice", "sequencer_patch", "feedback_patch",
            "sine_patch", "gradient_patch", "kernel_check_patch",
            "lane_check_patch")
@@ -53,6 +61,13 @@ def gxx():
     if path is None:
         pytest.skip("g++ unavailable")
     return path
+
+
+@pytest.fixture(scope="module")
+def host_root(tmp_path_factory):
+    """One build directory for the module's g++ builds: a source built
+    once (the one-thread twins) is found by its hash."""
+    return tmp_path_factory.mktemp("host_builds")
 
 
 def _patch(name, channels=1, **cfg):
@@ -267,26 +282,29 @@ def _voice_lanes(name, patch, compiled, params, n, seed):
             rng.uniform(-1.5, 0.5, (V, n)).astype(np.float32))})
 
 
+@pytest.mark.parametrize("group", GROUPS)
 @pytest.mark.parametrize("chunk", [None, 16, 64])
 @pytest.mark.parametrize("name", ["subtractive_voice", "sequencer_patch",
                                   "feedback_patch", "lane_check_patch"])
-def test_split_kernel_on_host_is_bit_identical(gxx, tmp_path, name, chunk):
+def test_split_kernel_on_host_is_bit_identical(gxx, host_root, name, chunk,
+                                               group):
     patch, compiled = _compiled(name)
     params = stt.presets.farm_params(patch, V, seed=5)
     state = tree_map(lambda a: a.expand((V,) + a.shape).contiguous(),
                      compiled.init_state())
-    xs = _voice_lanes(name, patch, compiled, params, N, 5)
-    kernel = fused.FusedKernel(compiled, xs, chunk=chunk)
-    assert kernel.partition.n_stages > 1
-    assert N % kernel.chunk
+    xs = _voice_lanes(name, patch, compiled, params, NG, 5)
+    kernel = fused.FusedKernel(compiled, xs, chunk=chunk, group=group)
+    assert kernel.partition.n_stages > 1 and kernel.group == group
+    assert f"#define SRK_U {group}\n" in kernel.source
+    assert NG % kernel.chunk % 2
     single = fused.FusedKernel(compiled, xs, stages=1)
     channels = compiled.cfg.channels
-    shape = (lambda v: (v, channels, N))
-    audio, final = _host_run(kernel, _host(kernel, gxx, tmp_path), params,
-                             state, N, xs, shape)
-    audio1, final1 = _host_run(single, _host(single, gxx, tmp_path), params,
-                               state, N, xs, shape)
-    want, want_final = compiled.render_scan(params, state, N, batched=True,
+    shape = (lambda v: (v, channels, NG))
+    audio, final = _host_run(kernel, _host(kernel, gxx, host_root), params,
+                             state, NG, xs, shape)
+    audio1, final1 = _host_run(single, _host(single, gxx, host_root), params,
+                               state, NG, xs, shape)
+    want, want_final = compiled.render_scan(params, state, NG, batched=True,
                                             nograd=True, xs=xs)
     assert torch.equal(audio, want)
     assert torch.equal(audio, audio1)
@@ -294,11 +312,12 @@ def test_split_kernel_on_host_is_bit_identical(gxx, tmp_path, name, chunk):
     _assert_state_equal(final, final1)
 
 
+@pytest.mark.parametrize("group", GROUPS)
 @pytest.mark.parametrize("chunk", [None, 8])
 @pytest.mark.parametrize("name", ["block_check_patch", "kit_check_patch",
                                   "drum_machine", "feedback_buffer"])
-def test_split_stage_kernel_on_host_is_bit_identical(gxx, tmp_path, name,
-                                                     chunk):
+def test_split_stage_kernel_on_host_is_bit_identical(gxx, host_root, name,
+                                                     chunk, group):
     if name == "feedback_buffer":
         patch, compiled = _compiled("feedback_patch", block_size=64,
                                     buffer_feedback=True)
@@ -316,23 +335,26 @@ def test_split_stage_kernel_on_host_is_bit_identical(gxx, tmp_path, name,
             + [m for m in prog.stage_plan
                if compiled.instances[m][0].make_xs is not None])
     assert keys
-    lanes = {k: torch.from_numpy(rng.uniform(-1, 1, (V, N)).astype(
+    lanes = {k: torch.from_numpy(rng.uniform(-1, 1, (V, NG)).astype(
         np.float32)) for k in keys}
-    kernel = prog.stage_kernel(lanes) if chunk is None else \
-        fused.StageKernel(prog, lanes, chunk=chunk)
-    assert kernel.partition.n_stages > 1 and N % kernel.chunk
+    kernel = fused.StageKernel(prog, lanes, chunk=chunk, group=group)
+    assert kernel.partition.n_stages > 1 and NG % kernel.chunk % 2
+    assert kernel.group == group
+    if chunk is None and group == fused.pick_group(
+            kernel.chunk, kernel.partition, kernel.layout):
+        assert kernel.source == prog.stage_kernel(lanes).source
     single = fused.StageKernel(prog, lanes, stages=1)
     stage_state = {"states": {m: state["states"][m]
                               for m in prog.stage_plan},
                    "fb": {} if prog.buffer_mode else state["fb"]}
-    shape = (lambda v: (len(prog.stage_out), N, v))
-    outs, final = _host_run(kernel, _host(kernel, gxx, tmp_path), params,
-                            stage_state, N, lanes, shape)
-    outs1, final1 = _host_run(single, _host(single, gxx, tmp_path), params,
-                              stage_state, N, lanes, shape)
+    shape = (lambda v: (len(prog.stage_out), NG, v))
+    outs, final = _host_run(kernel, _host(kernel, gxx, host_root), params,
+                            stage_state, NG, lanes, shape)
+    outs1, final1 = _host_run(single, _host(single, gxx, host_root), params,
+                              stage_state, NG, lanes, shape)
     derived = compiled.derived_params(params)
     want, want_final = prog.stage_plain(
-        {m: derived[m] for m in prog.stage_plan}, stage_state, lanes, N)
+        {m: derived[m] for m in prog.stage_plan}, stage_state, lanes, NG)
     assert torch.equal(outs, outs1)
     for j, w in enumerate(prog.stage_out):
         assert torch.equal(outs[j].T, want[w]), w
@@ -390,26 +412,28 @@ def test_k2_chunk_never_outruns_its_feedback_ring(block):
             compiled, carried=False)) == 32
 
 
+@pytest.mark.parametrize("group", GROUPS)
 @pytest.mark.parametrize("chunk", [None, 16, 32])
 @pytest.mark.parametrize("block", [64, 1024])
-def test_split_buffer_kernel_on_host_is_bit_identical(gxx, tmp_path, block,
-                                                      chunk):
+def test_split_buffer_kernel_on_host_is_bit_identical(gxx, host_root, block,
+                                                      chunk, group):
     """K2 split into stages, on the host: audio, state and the final fb
     ring bit for bit equal to the one-thread K2 and to the scan engine; two
-    halves cut at a block boundary equal the whole."""
+    halves cut at a block boundary equal the whole.  (Buffer mode renders
+    whole blocks, so every chunk is whole and a group never ends one.)"""
     compiled, params, state = _buffer_case(block)
     n = 6 * block if block < 512 else 2 * block
-    kernel = fused.FusedKernel(compiled, chunk=chunk)
+    kernel = fused.FusedKernel(compiled, chunk=chunk, group=group)
     assert kernel.name == "fused_voice_buffer"
-    assert kernel.partition.n_stages == 3
+    assert kernel.partition.n_stages == 3 and kernel.group == group
     assert kernel.chunk == (chunk or 32)
     assert "#define SRK_FB_BLOCK" in kernel.source
     single = fused.FusedKernel(compiled, stages=1)
     assert single.partition.n_stages == 1
     shape = (lambda v: (v, 1, n))
-    fn = _host(kernel, gxx, tmp_path)
+    fn = _host(kernel, gxx, host_root)
     audio, final = _host_run(kernel, fn, params, state, n, {}, shape)
-    audio1, final1 = _host_run(single, _host(single, gxx, tmp_path), params,
+    audio1, final1 = _host_run(single, _host(single, gxx, host_root), params,
                                state, n, {}, shape)
     want, want_final = compiled.render_scan(params, state, n, batched=True,
                                             nograd=True)
@@ -481,6 +505,140 @@ def test_a_ring_one_chunk_too_short_shows_on_the_host(gxx, tmp_path,
                                    nograd=True)
     assert torch.equal(audio[..., :64], want[..., :64])
     assert not torch.equal(audio, want)
+
+
+# -- sample groups -----------------------------------------------------------
+
+_STORE = re.compile(r"(\bsm|\baudio|\bring)\[[^\]]*\] = |srk_output\(")
+_LOAD = re.compile(r"= (sm|lanes|ring)\[")
+_CALL = re.compile(r"\bsrk_\w+<")
+
+
+def _group_body(source, g):
+    """The reads, calls and writes of stage ``g``'s group loop."""
+    fn = source.split(f"SRK_HD void srk_st{g}_chunk(")[1].split("\n}\n")[0]
+    body = fn.split("  for (; tc + SRK_U <= cnt; tc += SRK_U) {\n")[1]
+    body = body.split("\n  }\n")[0]
+    head, rest = body.split("    // group: reads\n")
+    reads, rest = rest.split("    // group: calls\n")
+    calls, writes = rest.split("    // group: writes\n")
+    return head, reads.splitlines(), calls.splitlines(), writes.splitlines()
+
+
+@pytest.mark.parametrize("name", ["subtractive_voice", "reverb_patch"])
+def test_a_group_reads_before_its_first_call_and_writes_after_its_last(
+        name):
+    """In every stage's group of the headline voice (K1) and the reverb's
+    serial stage (K3), each load of shared memory, a lane or a ring comes
+    before the group's first module call and each store after its last;
+    each module has one call a sample, each in the calls."""
+    patch, compiled = _compiled(name)
+    if name == "reverb_patch":
+        prog = compiled.block_program()
+        kernel = fused.StageKernel(prog, ())
+        plan = prog.stage_plan
+    else:
+        kernel = fused.FusedKernel(compiled)
+        plan = compiled.plan
+    u = kernel.group
+    assert u > 1 and f"#define SRK_U {u}\n" in kernel.source
+    assert f"groups of SRK_U = {u} samples" in kernel.source
+    for g, mods in enumerate(kernel.partition.stages):
+        head, reads, calls, writes = _group_body(kernel.source, g)
+        assert not _STORE.search(head) and not _LOAD.search(head)
+        assert calls and writes
+        assert not any(_STORE.search(x) or _CALL.search(x) for x in reads)
+        assert not any(_STORE.search(x) or _LOAD.search(x) or "sm[" in x
+                       or "lanes[" in x or "audio[" in x for x in calls)
+        assert not any(_LOAD.search(x) or _CALL.search(x) for x in writes)
+        assert all(_STORE.search(x) or re.match(r"    fb_\w+ = w_", x)
+                   for x in writes)
+        steps = [m for m in mods if m in plan and m != compiled.output_id]
+        for mid in steps:
+            made = [x for x in calls if re.search(
+                rf"\bw_{mid}_u\d+\);", x)]
+            assert len(made) == u, (g, mid)
+    # the headline's VCO: every sample's pitch before the first step
+    if name == "subtractive_voice":
+        _, _, calls, _ = _group_body(kernel.source, 1)
+        first = min(i for i, x in enumerate(calls) if "srk_osc_core<" in x)
+        pitches = [i for i, x in enumerate(calls) if "srk_osc_pitch<" in x]
+        assert len(pitches) == u and max(pitches) < first
+
+
+def _host_launches(monkeypatch, gxx, root, *kernels):
+    """Send each kernel's launches to the host entry of its g++ build, as
+    if the card had run them: the launch and its counts are the real
+    ones."""
+    for k in kernels:
+        lib = ctypes.CDLL(str(build(k.source, compiler=gxx,
+                                    flags=HOST_FLAGS, root=root)[0]))
+
+        class Entry:
+            def __init__(self, fn):
+                self.fn = fn
+
+            def __call__(self, *args):
+                self.fn.argtypes = self.argtypes[:-1]
+                self.fn.restype = self.restype
+                return self.fn(*args[:-1])
+        shim = types.SimpleNamespace(
+            srk_fused_launch=Entry(lib.srk_fused_host))
+        monkeypatch.setattr(k, "build", lambda shim=shim: shim)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=None))
+
+
+@pytest.mark.parametrize("name, group", [
+    ("subtractive_voice", 8), ("sequencer_patch", 2), ("reverb_patch", 8),
+    ("drum_machine", 4), ("sampler_kit", 4), ("kit_check_patch", 8)])
+def test_a_stage_that_steps_a_table_takes_smaller_groups(name, group):
+    """``pick_group``'s default: 8 samples, 4 where a stage reads a
+    sequencer's table (the drum machine's and the sampler kit's stages),
+    2 where a group of the costliest stage would pass ``GROUP_OPS`` (the
+    sequencer patch's K1); the kit check's sequencers run before its
+    stage."""
+    _, compiled = _compiled(name)
+    if name in PRESETS:
+        kernel = fused.FusedKernel(compiled)
+    else:
+        prog = compiled.block_program()
+        kernel = prog.stage_kernel(
+            [wire_key(w) for w in prog.stage_in]
+            + [m for m in prog.stage_plan
+               if compiled.instances[m][0].make_xs is not None])
+    assert kernel.partition.n_stages > 1 and kernel.group == group
+    assert f"#define SRK_U {group}" in kernel.source
+
+
+def test_a_launch_counts_under_its_group(gxx, host_root, monkeypatch):
+    """The headline voice's launch counts once under its group, beside its
+    entry; the one-thread form has no group and counts none."""
+    patch, compiled = _compiled("subtractive_voice")
+    kernel = fused.FusedKernel(compiled)
+    single = fused.FusedKernel(compiled, stages=1)
+    assert kernel.group == fused.pick_group(kernel.chunk, kernel.partition,
+                                            kernel.layout)
+    assert single.group is None and single.chunk is None
+    _host_launches(monkeypatch, gxx, host_root, kernel, single)
+    params = stt.presets.farm_params(patch, V, seed=9)
+    state = tree_map(lambda a: a.expand((V,) + a.shape).contiguous(),
+                     compiled.init_state())
+    audio = {}
+    for k in (kernel, single):
+        pf, pi, sf, si, lanes, ring, v = k.pack(params, state, NG, {})
+        out = torch.empty((v, 1, NG))
+        ops = (pf, pi, sf, si, lanes, ring, out, torch.empty_like(sf),
+               torch.empty_like(si))
+        k.launch("srk_fused_launch", fused.ARGTYPES,
+                 tuple(t.data_ptr() for t in ops) + (v, NG),
+                 torch.device("cpu"))
+        audio[k] = out
+    assert kernel.launches == 1 and kernel.by_entry == {"srk_fused_launch": 1}
+    assert single.launches == 1 and single.by_entry == kernel.by_entry
+    assert torch.equal(audio[kernel], audio[single])
 
 
 # -- one voice on the kernels ------------------------------------------------

@@ -58,6 +58,7 @@ from test_torch_slice import _complete, _tree
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 T_CHUNK = 128
 N = 300          # two whole chunks of 128 and a ragged one
+NG = 301         # the same, odd: a group never ends the last chunk
 
 
 @pytest.fixture(scope="module")
@@ -237,22 +238,26 @@ def test_the_twin_runs_only_where_its_rule_sends_a_plan():
 
 # -- the split forward against its twin -----------------------------------------
 
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("t_chunk", [64, 128])
 @pytest.mark.parametrize("chunk", [8, 16, 32])
 @pytest.mark.parametrize("name", HOST_PATCHES)
 def test_split_fwd_on_host_is_bit_identical_to_its_twin(host_libs, name,
-                                                        chunk, t_chunk):
-    patch, compiled, params, state, xs = _host_case(name, N)
-    split = FusedVJPKernel(compiled, xs, t_chunk, fwd_chunk=chunk)
+                                                        chunk, t_chunk,
+                                                        group):
+    patch, compiled, params, state, xs = _host_case(name, NG)
+    split = FusedVJPKernel(compiled, xs, t_chunk, fwd_chunk=chunk,
+                           fwd_group=group)
     twin = FusedVJPKernel(compiled, xs, t_chunk, stages=1)
     assert not split.fwd_twin and twin.fwd_twin
-    assert split.fwd_chunk == chunk
+    assert split.fwd_chunk == chunk and split.fwd_group == group
+    assert twin.fwd_group is None
     assert split.fwd.name == "fused_vjp_fwd"
     assert twin.fwd.name == "fused_vjp_fwd_twin"
     assert split.fwd_partition == partition(compiled, carried=True)
-    ops = _fwd_operands(split, params, state, xs, N)
-    got = _fwd(host_libs, split, ops, HOST_V, N)
-    want = _fwd(host_libs, twin, ops, HOST_V, N)
+    ops = _fwd_operands(split, params, state, xs, NG)
+    got = _fwd(host_libs, split, ops, HOST_V, NG)
+    want = _fwd(host_libs, twin, ops, HOST_V, NG)
     for g, w in zip(got, want):
         assert _same(g, w)
     assert got[0].abs().nan_to_num().max() > 0
