@@ -33,8 +33,8 @@ def control_gaps(bench: dict, workload: str, seed: int, traffic=None,
     desc = PatchDesc.load(cell["config"])
     traffic = traffic or load_json("traffic", cell["traffic"])
     driver = harness.load_file("drivers", traffic["driver"])
-    items = [check.Item(p, n, None) for p, n in driver.checked(
-        desc, traffic, seed, float(bench["run_seconds"]))]
+    items = driver.checked_items(desc, traffic, seed,
+                                 float(bench["run_seconds"]))
     return check.reference_gaps(cell["config"], items, prec="bf16",
                                 workers=workers)
 

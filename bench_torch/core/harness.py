@@ -6,7 +6,9 @@ mix's driver ``drivers/<driver>.py``, the cell's limits
 ``limits/<workload>.json`` and one reader ``metrics/<metric>.py`` per
 per-layer metric, each by its name.  A driver returns a :class:`Run`; the
 harness reads the device's memory peak, has the reference check what the
-window produced, and prints the result line.
+window produced, and prints the result line.  A run whose process, or
+a worker of its reference, holds JAX or the JAX package once the window
+has closed prints no result (:func:`check.refuse_foreign`).
 """
 
 from __future__ import annotations
@@ -134,6 +136,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     if device.startswith("cuda"):
         torch.cuda.reset_peak_memory_stats()
     run = driver.run(ctx)
+    check.refuse_foreign("the window has closed")
     print("set-up: " + ", ".join(f"{w} {s:.3f} s" for w, s in ctx.marks),
           file=sys.stderr)
     peak = (torch.cuda.max_memory_allocated() if device.startswith("cuda")
@@ -178,6 +181,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     line["checks"] = {k: {"value": _finite(v["value"]),
                           "limit": _finite(v["limit"])}
                       for k, v in checks.items()}
+    check.refuse_foreign("the result is made")
     return line
 
 
@@ -201,8 +205,12 @@ def main(args, t0: float) -> int:
               f"{torch.cuda.device_count()} card(s): no result",
               file=sys.stderr)
         return 2
-    line = run_cell(bench, args.workload, args.seed, args.seconds,
-                    bool(args.trace), t0)
+    try:
+        line = run_cell(bench, args.workload, args.seed, args.seconds,
+                        bool(args.trace), t0)
+    except check.ForeignModules as err:
+        print(f"{err}: no result", file=sys.stderr)
+        return 3
     print(f"card: {card_line()}; peaks 67 TFLOP/s f32, 3.35 TB/s "
           "(H100 SXM data sheet, at 700 W)", file=sys.stderr)
     for name, c in line["checks"].items():

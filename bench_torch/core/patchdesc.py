@@ -7,16 +7,32 @@ benchmark's patch does not change when the program's presets do.  The
 params drawn for the voices are plain numpy arrays keyed by module name;
 the program gets them as torch leaves keyed by module id, the reference
 as they are.
+
+Its keys: ``name``; ``audio`` (the program's ``AudioConfig``); ``modules``
+(each ``{"name", "type", "params", "statics"}``); ``connections`` (each
+``[source, source port, sink, sink port]``, the Output's sink named
+``"output"``); and ``reference``, the plain reference that checks it: the
+name of a file ``reference/<reference>.py`` that exports ``render(desc,
+params, n, prec, voices)``.  That returns the ``[v, channels, n]`` float32
+numpy audio of ``v`` voices for ``n`` samples from the initial state, with
+``params`` ``{module: {param: [v] array}}``, ``prec`` a name in
+``reference.precision.PRECISIONS`` and ``voices`` the voices' rows in
+their render (``check.Item.voices``) or None.  A configuration whose patch
+the walk of ``reference/graph.py`` renders names ``"graph"``; one that
+needs module types, a walk or a precision it lacks names a file of its
+own.  Further keys (``source``, ``assumed``, ...) document the file.
 """
 
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
+_NAME = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
 
 
 def load_json(kind: str, name: str) -> dict:
@@ -39,6 +55,14 @@ class PatchDesc:
         self.channels = int(self.audio["channels"])
         self.sample_rate = int(self.audio["sample_rate"])
         self.block_size = int(self.audio["block_size"])
+        self.reference = spec.get("reference")
+        if not (isinstance(self.reference, str)
+                and _NAME.fullmatch(self.reference)
+                and (ROOT / "reference" / f"{self.reference}.py").is_file()):
+            raise ValueError(
+                f"configuration {self.name!r}: its reference "
+                f"{self.reference!r} names no file reference/<name>.py "
+                f"under {ROOT.name}/")
 
     @classmethod
     def load(cls, name: str) -> "PatchDesc":

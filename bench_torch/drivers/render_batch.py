@@ -13,12 +13,12 @@ the seed orders it and picks the voices the check compares.
 completed, over the host seconds from the window's start to the end of
 the last render.  The check: ``check_voices_per_batch`` voices of each
 batch, drawn from the seed, of the window's first render of that batch go
-to the reference.  Every later render of a batch is held to its first:
-the checked voices sample for sample, and every voice by the sums of its
-samples' bit patterns over 64 stretches of its audio
-(``renders_differing`` counts the renders that differ in either).  That
-check runs on the device after each render has finished, in a
-``check`` span, so a trace tells its kernels from the program's; the
+to the reference, each with its row in the render.  Every later render of
+a batch is held to its first: the checked voices sample for sample, and
+every voice by the sums of its samples' bit patterns over 64 stretches of
+its audio (``renders_differing`` counts the renders that differ in
+either).  That check runs on the device after each render has finished,
+in a ``check`` span, so a trace tells its kernels from the program's; the
 window's time includes it.
 """
 
@@ -29,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from bench_torch.core.check import Item
+from bench_torch.core.check import Item, rows_in
 from bench_torch.core.harness import Run
 from bench_torch.core.patchdesc import (PARAM_RULES, program_params,
                                         sub_seed, voices_of)
@@ -52,10 +52,19 @@ def draw(desc, tr, seed: int):
     return batches, picks
 
 
+def checked_items(desc, tr, seed: int, seconds: float) -> list:
+    """The voices that the check compares, a :class:`Item` with no audio
+    for each batch: their params, length and rows in the render."""
+    batches, picks = draw(desc, tr, seed)
+    return [Item(voices_of(p, js), int(tr["n"]), None,
+                 rows_in(js, int(tr["voices"])))
+            for p, js in zip(batches, picks)]
+
+
 def checked(desc, tr, seed: int, seconds: float) -> list:
     """``(params, n)`` of each batch's voices that the check compares."""
-    batches, picks = draw(desc, tr, seed)
-    return [(voices_of(p, js), int(tr["n"])) for p, js in zip(batches, picks)]
+    return [(it.params, it.n)
+            for it in checked_items(desc, tr, seed, seconds)]
 
 
 def stretch_sums(audio: torch.Tensor) -> torch.Tensor:
@@ -110,7 +119,7 @@ def run(ctx) -> Run:
             if end - start >= ctx.seconds:
                 break
     items = [Item(voices_of(batches[b], picks[b].tolist()), n,
-                  first[b][0].cpu().numpy())
+                  first[b][0].cpu().numpy(), rows_in(picks[b].tolist(), v))
              for b in range(n_b) if first[b] is not None]
     return Run(metrics={"samples_per_s": v * n * renders / (end - start)
                         / 1e9},

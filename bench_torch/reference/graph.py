@@ -4,10 +4,27 @@ follows its inputs.
 
 The configurations hold no feedback cycle, so each module's whole signal
 can be made before the modules it feeds.  ``render(desc, params, n,
-prec)`` returns the voices' ``[v, channels, n]`` float32 numpy array.
+prec, voices)`` returns the voices' ``[v, channels, n]`` float32 numpy
+array.  A configuration that names ``"graph"`` as its reference is
+checked by this walk over ``modules.MODULES``.
+
+A reference file of its own (``reference/<name>.py``, named by a
+configuration) extends the walk without a copy: a table of its module
+types' functions and input labels, and a ``render`` that calls this one
+with ``modules=`` and ``inputs=``, e.g. ``{**MODULES, "Noise": noise}``
+and ``{**INPUTS, "Noise": ()}``.  A module function takes ``(prec,
+params, ins, v, n, sr, **statics)`` as ``modules.py`` describes, and one
+that declares a ``voices`` keyword is also given the voices' rows in
+their render (``check.Item.voices``: ``{"row": [v], "render_voices":
+[v]}`` int64 arrays), e.g. to draw the noise that the voice at row ``g``
+of the program's render heard; it is None where the caller has none.
+A walk of another shape (a cycle, one sample at a time) or another
+precision is a file of its own, not an edit here.
 """
 
 from __future__ import annotations
+
+import inspect
 
 import numpy as np
 import torch
@@ -38,10 +55,13 @@ def order(desc) -> list:
     return out
 
 
-def render(desc, params: dict, n: int, prec="f32") -> np.ndarray:
+def render(desc, params: dict, n: int, prec="f32", voices=None, *,
+           modules=MODULES, inputs=INPUTS) -> np.ndarray:
     """``v`` voices of ``desc`` for ``n`` samples from the initial state,
     with ``params`` ``{module: {param: [v] array}}``: a ``[v, channels,
-    n]`` float32 numpy array."""
+    n]`` float32 numpy array.  ``modules`` and ``inputs`` map each module
+    type to its function and its input labels by port index; ``voices``
+    reaches only the functions that declare it."""
     prec = PRECISIONS[prec] if isinstance(prec, str) else prec
     sr = desc.sample_rate
     v = len(next(a for pd in params.values() for a in pd.values()))
@@ -50,10 +70,13 @@ def render(desc, params: dict, n: int, prec="f32") -> np.ndarray:
         name, t = m["name"], m["type"]
         ins = {}
         for port, (src, sp) in desc.inputs_of(name).items():
-            label = INPUTS[t][port] if isinstance(port, int) else port
+            label = inputs[t][port] if isinstance(port, int) else port
             ins[label] = sig[(src, sp)]
-        outs = MODULES[t](prec, params.get(name, {}), ins, v, n, sr,
-                          **m.get("statics", {}))
+        fn = modules[t]
+        kw = dict(m.get("statics", {}))
+        if "voices" in inspect.signature(fn).parameters:
+            kw["voices"] = voices
+        outs = fn(prec, params.get(name, {}), ins, v, n, sr, **kw)
         for port, x in outs.items():
             sig[(name, port)] = x
     chans = []
