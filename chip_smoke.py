@@ -35,7 +35,7 @@ Phases, each reported on its own lines with its seconds:
 8. buffer feedback at full width: stt.render_batch(feedback_patch(cfg with
    buffer_feedback=True, block 1,024), 491520, params=farm_params(patch,
    1024)) -- requires K2's launch count to move, finite audio, peak <=
-   1.002; timed;
+   1.002, and a ring of a block a feedback key (``ring_words``); timed;
 9. the block engine's main path: stt.render_batch(reverb_patch(cfg),
    480000, params=farm_params(patch, 1024)), stereo, on the default
    device -- requires the serial-stage kernel K3, the Freeverb kernel K8
@@ -825,13 +825,16 @@ def phase_buffer(stt, kernels, card):
     _log_bound("8 buffer", "feedback_buffer", kernels["feedback_buffer"],
                VOICES, BUFFER_N, ms)
     check(kernel.partition.n_stages > 1, "K2 runs one thread per voice")
+    check(kernel.ring_words == len(compiled.fb_keys) * BUFFER_BLOCK,
+          f"K2's ring holds {kernel.ring_words} words a voice")
     log(f"[8 buffer] feedback_patch buffer_feedback=True block="
         f"{BUFFER_BLOCK} V={VOICES} n={BUFFER_N} via render_batch -> "
         f"fused_voice_buffer{pipeline(kernel)}, {launches} launches (the "
         f"one-thread twin none); {ms:.3f} ms/render, "
         f"{rate / 1e9:.4f} G samples/s, aggregate real-time "
         f"{rate / SR:.0f}x, {ms * 1e6 / BUFFER_N:.1f} ns per sample per "
-        f"thread, peak {peak:.5f}; ptxas: {ptxas(kernel)} [{card}]")
+        f"thread, peak {peak:.5f}, ring_words {kernel.ring_words}; ptxas: "
+        f"{ptxas(kernel)} [{card}]")
     del audio
     torch.cuda.empty_cache()
     return launches, ms

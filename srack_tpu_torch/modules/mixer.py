@@ -12,8 +12,10 @@ from ..config import AudioConfig
 from .base import CV_DTYPE, ModuleDef
 
 
-def _make(cfg: AudioConfig, gains=(1.0, 1.0, 1.0, 1.0)):
-    gains = tuple(float(g) for g in gains)
+def _make(cfg: AudioConfig, gains=(1.0, 1.0, 1.0, 1.0), gain=None):
+    """``gain``, the param's own name, may stand for ``gains``: a patch can
+    be built from its modules' param names, as for every other type."""
+    gains = tuple(float(g) for g in (gains if gain is None else gain))
     return ("mixer", len(gains)), {"gain": torch.tensor(gains, dtype=CV_DTYPE)}
 
 

@@ -2335,6 +2335,14 @@ class FusedKernel(CudaLib):
         warp of voices)."""
         return WARP * self.partition.n_stages
 
+    @property
+    def ring_words(self) -> int:
+        """K2's feedback ring, in words a voice: a block of each feedback
+        key; 0 outside buffer mode."""
+        if not self.buffer:
+            return 0
+        return len(self.compiled.fb_keys) * self.compiled.cfg.block_size
+
     def pack(self, params: dict, state: dict, n: int, xs: dict):
         """The kernel's f32 and i32 operands for one render on ``params``'
         device: ``(pf, pi, sf, si, lanes, ring, v)``."""
@@ -2370,8 +2378,11 @@ class FusedKernel(CudaLib):
             sd = pack_doubles(lay.state, lay.n_sd,
                               lambda p: _get(state, p), v, device)
         lanes = pack_lanes(self.lanes, xs, v, n, device)
-        ring = (pack_ring(compiled, state, v, device) if self.buffer
-                else torch.zeros((1,), dtype=CV_DTYPE, device=device))
+        if self.buffer:
+            with span("srk.ring"):
+                ring = pack_ring(compiled, state, v, device)
+        else:
+            ring = torch.zeros((1,), dtype=CV_DTYPE, device=device)
         return pf, pi, sf, si, lanes, ring, v, pd, sd
 
     def finish(self, sf_out, si_out, ring, v: int, sd_out=None) -> dict:
@@ -2382,7 +2393,8 @@ class FusedKernel(CudaLib):
                                unpack(self.layout.state, sf_out, si_out, v,
                                       sd_out))
             if self.buffer:
-                final["fb"] = unpack_ring(self.compiled, ring)
+                with span("srk.ring"):
+                    final["fb"] = unpack_ring(self.compiled, ring)
             return final
 
     def _launch(self, params: dict, state: dict, n: int, xs: dict,

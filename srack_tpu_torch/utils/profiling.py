@@ -10,7 +10,9 @@ The render path opens a span at each layer boundary, named ``srk.<what>``:
 ``srk.render`` (``CompiledPatch.render``) holding ``srk.state`` (params
 and initial state on the device) and ``srk.lanes`` (``_make_xs``), the
 kernel wrappers' ``srk.pack`` (operands and outputs), ``srk.launch`` (one
-a ``CudaLib.launch``) and ``srk.finish`` (the final state), the block
+a ``CudaLib.launch``) and ``srk.finish`` (the final state), in buffer mode
+``srk.ring`` inside the first and the last (K2's feedback ring packed
+from the state and unpacked into the final state), the block
 engine's ``srk.block.run`` holding ``srk.block.pre``, ``.stage`` and
 ``.post`` and in the block phases one ``srk.block.<module type>`` a module,
 and the builds' ``srk.build.nvcc`` and ``srk.build.load``.  A span nests in
