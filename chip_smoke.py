@@ -148,7 +148,7 @@ memory and CTAs per SM; phase 3 holds the new K8 against block_plain at
 n = 2048 and 2047 with and without automated room_size and wet, and the
 split K2 against the scan engine; phases 8, 9, 10 and 16 must launch the
 new kernels and not the twins (each twin counts as another kernel);
-phases 9 and 10 time K8's wrapper apart (lane copies, allocations, K9 in,
+phases 9 and 10 time K8's wrapper apart (lanes, allocations, K9 in,
 K8, K9 out, the rest) on the arguments the render gives it; phase 15 holds
 the split K2 against its twin on the buffer cell and the new K8 against
 its twin on the very operands the reverb and block-check renders give it
@@ -1494,7 +1494,8 @@ def _split(stt, name, patch, params, n, automation, total_ms, card):
 def k8_wrapper_split(render, name, card) -> dict:
     """K8's wrapper on the very arguments a full-width render gives it
     (caught at the wrapper, the render ended there), timed apart: the
-    lanes' ``expand().contiguous()`` copies, the allocations and stacks of
+    lanes as K8 takes them (``FreeverbKernel.lanes``: views read in place,
+    a copy only of a lane not in f32), the allocations and stacks of
     the lines, rings, write indices and filter states, K9 into the lines,
     K8's launch, K9 back into rings, and the rest of the wrapper as the
     difference from the whole wrapper's time.  The mix pass is inside K8's
@@ -1511,14 +1512,10 @@ def k8_wrapper_split(render, name, card) -> dict:
     skip_r = kwargs.get("skip_r", False)
     lens = fvk.all_lengths(cfg)
     v = state["cl0"].shape[0]
-    f32 = torch.float32
-
-    def lane(x):
-        return None if x is None else x.to(f32).expand(v, n).contiguous()
+    kernel = fvk.kernel_for(lens, state["cl0"].dtype)
 
     def lanes():
-        left = lane(l_in)
-        return left, left if mono else lane(r_in)
+        return kernel.lanes(l_in, l_in if mono else r_in, v, n)
 
     def allocs():
         return (torch.empty((sum(lens), v), device="cuda"),

@@ -19,6 +19,15 @@
 // into time order on entry (kernel K9), so every line starts at write
 // index 0; on exit every line's write index is n % lens[j], and the
 // wrapper's second K9 launch moves the lines back into [V, L] rings.
+// The two input lanes are read in place through their own strides: each
+// comes with a voice and a time stride in elements (arguments l_vs, l_ts,
+// r_vs, r_ts after its pointer), sample t of voice v at lane[v * vs + t *
+// ts].  The block engine's stage kernel K3 stores its output wires
+// time-major, so the reverb's input lane is a [V, n] view with strides
+// (1, V); a copy of it into rows took ~16 ms a render at 1,024 x 480,000,
+// more than half K8's own time.  A contiguous lane reads at (n, 1), a
+// broadcast at stride 0.  The gain lanes and the outputs stay contiguous
+// [V, n] rows.
 //
 // srk_freeverb, the main path's kernel: one CTA per voice, its lines in
 // shared memory.
@@ -143,18 +152,40 @@ struct srk_fv_in {
   C w1, w2, d;
 };
 
+// An input lane is read where it lies: sample t of voice v at
+// lane[v * vs + t * ts], each lane with its own strides in elements (K3's
+// time-major stage output gives (1, V), a contiguous lane (n, 1), a
+// broadcast 0); offsets in 64 bits, past 2^31 at 16,384 x 480,000.
+#define SRK_FV_LANES                                                        \
+  const float *l_in, long long l_vs, long long l_ts, const float *r_in,    \
+      long long r_vs, long long r_ts
+#define SRK_FV_LANES_CALL l_in, l_vs, l_ts, r_in, r_vs, r_ts
 #define SRK_FV_IN_PARAMS                                                    \
-  const float *l_in, const float *r_in, const C *wet1, int wet1_lane,      \
-      const C *wet2, int wet2_lane, const C *dry, int dry_lane
+  SRK_FV_LANES, const C *wet1, int wet1_lane, const C *wet2, int wet2_lane, \
+      const C *dry, int dry_lane
 #define SRK_FV_IN_ARGS \
-  l_in, r_in, wet1, wet1_lane, wet2, wet2_lane, dry, dry_lane
+  SRK_FV_LANES_CALL, wet1, wet1_lane, wet2, wet2_lane, dry, dry_lane
 
-// element i of [V, n], voice v
+SRK_HD float srk_fv_lane_at(const float* x, long long vs, long long ts,
+                            long long v, long long t) {
+  return x ? x[v * vs + t * ts] : 0.0f;
+}
+
+// sample t of voice v; i = v * n + t, its element of the [V, n] gain lanes
+// and outputs.  A mono voice's one lane (r the same pointer and strides as
+// l) is loaded once: from a time-major lane each load of a reader warp
+// touches 32 sectors, and the second load of the same words cost K8 ~1 ms
+// a reverb render (K8 alone on the operands a 1,024 x 480,000 reverb render
+// gives it, NVIDIA H100 80GB HBM3 at 700.00 W: 29.61 ms with two loads,
+// 28.65 with one, 27.49 from a contiguous copy).
 template <typename C>
-SRK_HD srk_fv_in<C> srk_fv_in_at(size_t i, size_t v, SRK_FV_IN_PARAMS) {
+SRK_HD srk_fv_in<C> srk_fv_in_at(size_t i, size_t v, size_t t,
+                                 SRK_FV_IN_PARAMS) {
   srk_fv_in<C> x;
-  x.l = l_in ? l_in[i] : 0.0f;
-  x.r = r_in ? r_in[i] : 0.0f;
+  x.l = srk_fv_lane_at(l_in, l_vs, l_ts, (long long)v, (long long)t);
+  x.r = r_in == l_in && r_vs == l_vs && r_ts == l_ts
+            ? x.l
+            : srk_fv_lane_at(r_in, r_vs, r_ts, (long long)v, (long long)t);
   x.w1 = wet1[wet1_lane ? i : v];
   x.w2 = wet2[wet2_lane ? i : v];
   x.d = dry[dry_lane ? i : v];
@@ -173,16 +204,16 @@ SRK_HD void srk_fv_mix_out(size_t i, const srk_fv_in<C>& x, C rl, C rr,
 
 // the entries' arguments for the core type C (float or double)
 #define SRK_FV_ARGS_T(C)                                                    \
-  const float *l_in, const float *r_in, const C *damp, int damp_lane,       \
-      const C *feed, int feed_lane, const C *in_gain, const C *wet1,        \
-      int wet1_lane, const C *wet2, int wet2_lane, const C *dry,            \
-      int dry_lane, C *fs, C *lines, const int *lens, const int *offs,      \
-      C *raw, float *out_l, float *out_r, int V, int n, int chunk
+  SRK_FV_LANES, const C *damp, int damp_lane, const C *feed, int feed_lane, \
+      const C *in_gain, const C *wet1, int wet1_lane, const C *wet2,        \
+      int wet2_lane, const C *dry, int dry_lane, C *fs, C *lines,           \
+      const int *lens, const int *offs, C *raw, float *out_l, float *out_r, \
+      int V, int n, int chunk
 #define SRK_FV_ARGS SRK_FV_ARGS_T(C)
 #define SRK_FV_CALL                                                         \
-  l_in, r_in, damp, damp_lane, feed, feed_lane, in_gain, wet1, wet1_lane,   \
-      wet2, wet2_lane, dry, dry_lane, fs, lines, lens, offs, raw, out_l,    \
-      out_r, V, n, chunk
+  SRK_FV_LANES_CALL, damp, damp_lane, feed, feed_lane, in_gain, wet1,       \
+      wet1_lane, wet2, wet2_lane, dry, dry_lane, fs, lines, lens, offs, raw, \
+      out_l, out_r, V, n, chunk
 
 // -- srk_freeverb: one CTA per voice, lines in shared memory -----------------
 
@@ -329,10 +360,10 @@ SRK_HD void srk_fv_tile_comb(srk_fv_comb<C>& K, C* line, int len,
 // are lines ch*8 + j, allpasses a<ch>0..3 are lines 16 + ch*4 + a.
 template <typename C>
 SRK_HD void srk_fv_voice(int v, int ch, int V, int n, int chunk,
-                         const float* l_in, const float* r_in, const C* damp,
-                         int damp_lane, const C* feed, int feed_lane,
-                         const C* in_gain, C* fs, C* lines, const int* lens,
-                         const int* offs, C* raw) {
+                         SRK_FV_LANES, const C* damp, int damp_lane,
+                         const C* feed, int feed_lane, const C* in_gain,
+                         C* fs, C* lines, const int* lens, const int* offs,
+                         C* raw) {
   C* line[SRK_FV_LINES];
   int len[SRK_FV_LINES], idx[SRK_FV_LINES];
   for (int j = 0; j < SRK_FV_LINES; ++j) {
@@ -356,8 +387,8 @@ SRK_HD void srk_fv_voice(int v, int ch, int V, int n, int chunk,
       if (damp_lane) dmp = damp[row + t];
       if (feed_lane) fd = feed[row + t];
     }
-    const C l = l_in ? (C)l_in[row + t] : (C)0;
-    const C r = r_in ? (C)r_in[row + t] : (C)0;
+    const C l = (C)srk_fv_lane_at(l_in, l_vs, l_ts, v, t);
+    const C r = (C)srk_fv_lane_at(r_in, r_vs, r_ts, v, t);
     const C mixed = (l + r) * g;
     C y[SRK_FV_LINES];
 #pragma unroll
@@ -390,11 +421,9 @@ SRK_HD void srk_fv_voice(int v, int ch, int V, int n, int chunk,
 // The twin's second pass, element i of [V, n].
 template <typename C>
 SRK_HD void srk_fv_mix(size_t i, int V, int n, const C* raw,
-                       const float* l_in, const float* r_in, const C* wet1,
-                       int wet1_lane, const C* wet2, int wet2_lane,
-                       const C* dry, int dry_lane, float* out_l,
-                       float* out_r) {
-  srk_fv_mix_out<C>(i, srk_fv_in_at<C>(i, i / (size_t)n, SRK_FV_IN_ARGS),
+                       SRK_FV_IN_PARAMS, float* out_l, float* out_r) {
+  const size_t v = i / (size_t)n;
+  srk_fv_mix_out<C>(i, srk_fv_in_at<C>(i, v, i - v * n, SRK_FV_IN_ARGS),
                     raw[i], raw[(size_t)V * n + i], out_l, out_r);
 }
 
@@ -416,19 +445,23 @@ __global__ void __launch_bounds__(SRK_FV_THREADS, 2)
   if (tid < SRK_FV_TILE_MAX) {
     // a reader: sample t0 + tid of each chunk, its inputs loaded during
     // the chunk before (a device-memory wait per chunk would otherwise
-    // set the step's length)
+    // set the step's length).  From a time-major lane (time stride V) the
+    // 128 readers touch 128 sectors a chunk where rows take 16; the
+    // co-resident CTAs hold neighbouring voices, which share them in L2.
+    // Staging the next chunk in shared memory with cp.async instead was
+    // no faster on the same operands (29.73 ms against 28.65).
     srk_fv_taps L;
     srk_fv_taps_init(L, lens, offs);
     const C g = in_gain[v];
     srk_fv_in<C> x = {};
     if (tid < T && tid < n)
-      x = srk_fv_in_at<C>(row + tid, v, SRK_FV_IN_ARGS);
+      x = srk_fv_in_at<C>(row + tid, v, tid, SRK_FV_IN_ARGS);
     for (int k = 0; k <= n_chunks; ++k) {
       const int t = k * T + tid;
       const bool mine = k < n_chunks && tid < T && t < n;
       const srk_fv_in<C> cur = x;
       if (tid < T && t + T < n)
-        x = srk_fv_in_at<C>(row + t + T, v, SRK_FV_IN_ARGS);
+        x = srk_fv_in_at<C>(row + t + T, v, t + T, SRK_FV_IN_ARGS);
       if (mine)
         srk_fv_tile_read<C>(L, tid, row + t, cur, g, sm, mix + (k & 1) * T,
                             out_l, out_r);
@@ -468,27 +501,24 @@ __global__ void __launch_bounds__(SRK_FV_THREADS, 2)
 
 template <typename C>
 __global__ void __launch_bounds__(SRK_FV_BLOCK)
-    srk_fv_kernel(const float* l_in, const float* r_in, const C* damp,
-                  int damp_lane, const C* feed, int feed_lane,
-                  const C* in_gain, C* fs, C* lines, const int* lens,
-                  const int* offs, C* raw, int V, int n, int chunk) {
+    srk_fv_kernel(SRK_FV_LANES, const C* damp, int damp_lane, const C* feed,
+                  int feed_lane, const C* in_gain, C* fs, C* lines,
+                  const int* lens, const int* offs, C* raw, int V, int n,
+                  int chunk) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= 2 * V) return;
   const int ch = g / V, v = g - ch * V;
-  srk_fv_voice<C>(v, ch, V, n, chunk, l_in, r_in, damp, damp_lane, feed,
-                  feed_lane, in_gain, fs, lines, lens, offs, raw);
+  srk_fv_voice<C>(v, ch, V, n, chunk, SRK_FV_LANES_CALL, damp, damp_lane,
+                  feed, feed_lane, in_gain, fs, lines, lens, offs, raw);
 }
 
 template <typename C>
 __global__ void __launch_bounds__(SRK_FV_MIX_BLOCK)
-    srk_fv_mix_kernel(int V, int n, const C* raw, const float* l_in,
-                      const float* r_in, const C* wet1, int wet1_lane,
-                      const C* wet2, int wet2_lane, const C* dry,
-                      int dry_lane, float* out_l, float* out_r) {
+    srk_fv_mix_kernel(int V, int n, const C* raw, SRK_FV_IN_PARAMS,
+                      float* out_l, float* out_r) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)V * n) return;
-  srk_fv_mix<C>(i, V, n, raw, l_in, r_in, wet1, wet1_lane, wet2, wet2_lane,
-                dry, dry_lane, out_l, out_r);
+  srk_fv_mix<C>(i, V, n, raw, SRK_FV_IN_ARGS, out_l, out_r);
 }
 
 template <typename C>
@@ -539,15 +569,15 @@ static int srk_freeverb_twin_run(SRK_FV_ARGS, void* stream) {
   if (V <= 0 || n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   srk_fv_kernel<C><<<(2 * V + SRK_FV_BLOCK - 1) / SRK_FV_BLOCK,
-                     SRK_FV_BLOCK, 0, s>>>(l_in, r_in, damp, damp_lane, feed,
-                                           feed_lane, in_gain, fs, lines,
-                                           lens, offs, raw, V, n, chunk);
+                     SRK_FV_BLOCK, 0, s>>>(SRK_FV_LANES_CALL, damp,
+                                           damp_lane, feed, feed_lane,
+                                           in_gain, fs, lines, lens, offs,
+                                           raw, V, n, chunk);
   const size_t total = (size_t)V * n;
   srk_fv_mix_kernel<C><<<(unsigned)((total + SRK_FV_MIX_BLOCK - 1) /
                                     SRK_FV_MIX_BLOCK),
                          SRK_FV_MIX_BLOCK, 0, s>>>(
-      V, n, raw, l_in, r_in, wet1, wet1_lane, wet2, wet2_lane, dry, dry_lane,
-      out_l, out_r);
+      V, n, raw, SRK_FV_IN_ARGS, out_l, out_r);
   return (int)cudaGetLastError();
 }
 
@@ -579,7 +609,8 @@ static int srk_freeverb_run(SRK_FV_ARGS, int rows, int T) {
       const int t0 = k * T;
       for (int tc = 0; k < n_chunks && tc < T && t0 + tc < n; ++tc)
         srk_fv_tile_read<C>(L, tc, row + t0 + tc,
-                            srk_fv_in_at<C>(row + t0 + tc, v, SRK_FV_IN_ARGS),
+                            srk_fv_in_at<C>(row + t0 + tc, v, t0 + tc,
+                                            SRK_FV_IN_ARGS),
                             in_gain[v], sm, mix + (k & 1) * T, out_l, out_r);
       srk_fv_taps_next(L, T);
       if (k == 0) continue;
@@ -601,11 +632,11 @@ template <typename C>
 static int srk_freeverb_twin_run(SRK_FV_ARGS) {
   for (int ch = 0; ch < 2; ++ch)
     for (int v = 0; v < V; ++v)
-      srk_fv_voice<C>(v, ch, V, n, chunk, l_in, r_in, damp, damp_lane, feed,
-                      feed_lane, in_gain, fs, lines, lens, offs, raw);
+      srk_fv_voice<C>(v, ch, V, n, chunk, SRK_FV_LANES_CALL, damp,
+                      damp_lane, feed, feed_lane, in_gain, fs, lines, lens,
+                      offs, raw);
   for (size_t i = 0; i < (size_t)V * n; ++i)
-    srk_fv_mix<C>(i, V, n, raw, l_in, r_in, wet1, wet1_lane, wet2,
-                  wet2_lane, dry, dry_lane, out_l, out_r);
+    srk_fv_mix<C>(i, V, n, raw, SRK_FV_IN_ARGS, out_l, out_r);
   return 0;
 }
 

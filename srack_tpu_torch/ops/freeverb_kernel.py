@@ -44,7 +44,14 @@ tensors):
    (``ops/ring_roll.py``), which writes them straight into the kernels'
    ``[rows, V]`` layout, line j at rows ``offs[j]``;
 2. launches K8, which updates the lines and the comb filter states in
-   place and writes the two output lanes;
+   place and writes the two output lanes.  K8 reads its input lanes where
+   they lie, each through its own voice and time strides (four arguments
+   after the two lane pointers, ``SRK_FV_LANES``): the block engine's
+   stage kernel K3 stores its output wires time-major, so the reverb's
+   input is a ``[V, n]`` view with strides ``(1, V)``, which the wrapper
+   once copied into rows (~16 ms a render at 1,024 x 480,000).  Only a
+   lane not in f32 is still copied; :class:`FreeverbKernel` counts both
+   (``strided_lanes``, ``lane_copies``);
 3. moves the lines back into rings with K9, rotated by ``n % L``, so they
    return as the module's block form returns them: time order, write
    index 0, the 24 rings views of one new buffer.
@@ -55,6 +62,8 @@ form.  The wrapper launches a kernel for CUDA tensors or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..modules.base import CV_DTYPE
@@ -62,10 +71,12 @@ from ..modules.freeverb import FS_KEYS, LINE_KEYS, line_lengths
 from .cuda_lib import CudaLib, I, P, csrc, require_cuda
 from .ring_roll import ring_align_for
 
-# the entries' shared arguments (SRK_FV_ARGS), without the stream; the
-# shared-memory entry adds the rows and T
-ARGTYPES = [P, P, P, I, P, I, P, P, I, P, I, P, I, P, P, P, P, P, P, P, I, I,
-            I]
+LL = ctypes.c_longlong
+# the entries' shared arguments (SRK_FV_ARGS), without the stream: each
+# input lane a pointer and its voice and time strides; the shared-memory
+# entry adds the rows and T
+ARGTYPES = [P, LL, LL, P, LL, LL, P, I, P, I, P, P, I, P, I, P, I, P, P, P, P,
+            P, P, P, I, I, I]
 TILE_ARGTYPES = ARGTYPES + [I, I]
 TILE_MIN, TILE_MAX = 8, 128  # csrc/freeverb.cu SRK_FV_TILE_MIN, _MAX
 SMEM_MAX = 232448       # dynamic shared memory one block may take (227 KB)
@@ -110,11 +121,13 @@ def operands(cfg, l_in, r_in, gains, fs, lines, n: int, skip_r: bool,
              tables, raw: bool = True):
     """The entries' shared arguments (stream excluded) for one render, and
     the outputs: ``(args, keep, out_l, out_r)``; ``keep`` holds the tensors
-    the pointers point into.  ``l_in``, ``r_in``: ``[V, n]`` f32 or None
-    (silence); ``fs``: ``[V, 16]`` and ``lines``: ``[sum L, V]``, both
-    updated in place; ``tables``: the int32 ``(lens, offsets)`` of the
-    lines; ``raw``: allocate the twin's raw outputs ``[2, V, n]`` (the
-    shared-memory entry mixes in place and takes none)."""
+    the pointers point into.  ``l_in``, ``r_in``: ``[V, n]`` f32 views of
+    any strides (the kernels read a lane in place through its voice and
+    time strides: a transposed or broadcast view does), or None (silence);
+    ``fs``: ``[V, 16]`` and ``lines``: ``[sum L, V]``, both updated in
+    place; ``tables``: the int32 ``(lens, offsets)`` of the lines; ``raw``:
+    allocate the twin's raw outputs ``[2, V, n]`` (the shared-memory entry
+    mixes in place and takes none)."""
     cl, cr, _, _ = line_lengths(cfg.sample_rate)
     lens = all_lengths(cfg)
     v = fs.shape[0]
@@ -131,10 +144,9 @@ def operands(cfg, l_in, r_in, gains, fs, lines, n: int, skip_r: bool,
     out_r = None if skip_r else torch.empty_like(out_l)
     for x in (l_in, r_in):
         if x is not None and (tuple(x.shape) != (v, n)
-                              or x.dtype != CV_DTYPE
-                              or not x.is_contiguous()):
+                              or x.dtype != CV_DTYPE):
             raise ValueError(f"Freeverb input lane {tuple(x.shape)} "
-                             f"{x.dtype}, expected contiguous [{v}, {n}] f32")
+                             f"{x.dtype}, expected a [{v}, {n}] f32 view")
     if tuple(fs.shape) != (v, 16) or tuple(lines.shape) != (sum(lens), v):
         raise ValueError("Freeverb state in the wrong layout")
     if lines.dtype != core or any(x.dtype != core for x, _ in g + mix) \
@@ -145,7 +157,10 @@ def operands(cfg, l_in, r_in, gains, fs, lines, n: int, skip_r: bool,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    args = (ptr(l_in), ptr(r_in), g[0][0].data_ptr(), g[0][1],
+    def lane(x):
+        return (None, 0, 0) if x is None else (x.data_ptr(), *x.stride())
+
+    args = (*lane(l_in), *lane(r_in), g[0][0].data_ptr(), g[0][1],
             g[1][0].data_ptr(), g[1][1], ing.data_ptr(),
             mix[0][0].data_ptr(), mix[0][1], mix[1][0].data_ptr(),
             mix[1][1], mix[2][0].data_ptr(), mix[2][1], fs.data_ptr(),
@@ -168,7 +183,13 @@ def line_tables(lens, device) -> tuple:
 
 class FreeverbKernel(CudaLib):
     """One entry of ``csrc/freeverb.cu``: the shared-memory kernel
-    (``tiled``) or its one-thread twin, for the core dtype ``core``."""
+    (``tiled``) or its one-thread twin, for the core dtype ``core``.
+
+    Beside ``launches``, two counts of the input lanes its operands took
+    (:meth:`lanes`; a mono voice's one lane counted once):
+    ``strided_lanes``, read in place with a time stride other than 1 (K3's
+    time-major output, a broadcast), and ``lane_copies``, copied first (a
+    lane not in f32)."""
 
     def __init__(self, name: str, entry: str, what: str, tiled: bool,
                  core: torch.dtype = CV_DTYPE):
@@ -178,16 +199,37 @@ class FreeverbKernel(CudaLib):
         self.core = core
         self.itemsize = torch.empty((), dtype=core).element_size()
         self._tables: dict = {}  # (lens, device) -> line_tables
+        self.strided_lanes = 0
+        self.lane_copies = 0
+
+    def lanes(self, l_in, r_in, v: int, n: int):
+        """The input lanes as the entries read them: each broadcast to a
+        ``[V, n]`` view of its own strides, copied only where it is not f32
+        (then only the lane as given, before the broadcast), and counted.
+        ``r_in is l_in`` (a mono voice) stays one lane."""
+        def lane(x):
+            if x is None:
+                return None
+            if x.dtype != CV_DTYPE:
+                self.lane_copies += 1
+                return x.to(CV_DTYPE).expand(v, n)
+            x = x.expand(v, n)
+            if x.stride(1) != 1:
+                self.strided_lanes += 1
+            return x
+        left = lane(l_in)
+        return left, left if r_in is l_in else lane(r_in)
 
     def entry_args(self, cfg, l_in, r_in, gains, fs, lines, n: int,
                    skip_r: bool, tables):
         """This entry's arguments (stream excluded): ``(args, argtypes,
-        keep, out_l, out_r)``, as :func:`operands`, the shared-memory entry
-        with its rows and chunk."""
+        keep, out_l, out_r)``, as :func:`operands` on the lanes of
+        :meth:`lanes`, the shared-memory entry with its rows and chunk."""
         lens = all_lengths(cfg)
         if fs.dtype != self.core:
             raise TypeError(f"the {self.what} takes a {self.core} core, "
                             f"not {fs.dtype}")
+        l_in, r_in = self.lanes(l_in, r_in, fs.shape[0], n)
         args, keep, out_l, out_r = operands(cfg, l_in, r_in, gains, fs,
                                             lines, n, skip_r, tables,
                                             raw=not self.tiled)
@@ -204,16 +246,26 @@ class FreeverbKernel(CudaLib):
         """One launch on operands in the kernel's layout (see
         :func:`operands`).  Returns ``(out_l, out_r or None)``."""
         lens = all_lengths(cfg)
-        device = require_cuda(fs, lines,
-                              *[x for x in (l_in, r_in) if x is not None])
+        device = require_cuda(fs, lines)
+        _on_device(device, (l_in, r_in))
         key = (lens, str(device))
         if key not in self._tables:
             self._tables[key] = line_tables(lens, device)
         args, argtypes, keep, out_l, out_r = self.entry_args(
             cfg, l_in, r_in, gains, fs, lines, n, skip_r, self._tables[key])
-        require_cuda(*keep)
+        _on_device(device, keep)
         self.launch(self.entry, argtypes, args, device)
         return out_l, out_r
+
+
+def _on_device(device, tensors) -> None:
+    """Raise unless every tensor (None aside) lies on ``device``.  The
+    input lanes are views of any strides; :func:`operands` makes every
+    other operand it points into contiguous."""
+    for x in tensors:
+        if x is not None and x.device != device:
+            raise ValueError(f"the kernel takes CUDA tensors on one device; "
+                             f"got {x.device} beside {device}")
 
 
 FREEVERB = FreeverbKernel("freeverb", "srk_freeverb",
@@ -251,13 +303,8 @@ def render(cfg, l_in, r_in, mono: bool, gains, state: dict, n: int,
     device = state["cl0"].device
     core = state["cl0"].dtype        # f64 in exact precision
     k9 = ring_align_for(core)
-
-    def lane(x):
-        return None if x is None else x.to(CV_DTYPE).expand(v, n) \
-            .contiguous()
-
-    l_in = lane(l_in)
-    r_in = l_in if mono else lane(r_in)
+    if mono:
+        r_in = l_in
     lines = torch.empty((sum(lens), v), dtype=core, device=device)
     line_rows = torch.split(lines, list(lens))
     idx = torch.stack([state[f"{k}_idx"] for k in LINE_KEYS]).to(

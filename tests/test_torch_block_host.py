@@ -25,8 +25,11 @@ held against its plain version on the same inputs:
   of the chunked block form, from rings with non-zero write indices, with
   and without automated ``room_size`` and ``wet`` lanes, at 48 kHz and
   4,800 Hz (shortest line 24), n a multiple of the chunk, not one, and
-  shorter than one; the rule that picks the twin (lines too long for
-  shared memory) and that an error never does;
+  shorter than one; input lanes read in place through their strides (K3's
+  time-major layout, broadcasts, mono), f32 and f64, bit for bit those of
+  contiguous copies, and the wrapper's operands and lane counters; the
+  rule that picks the twin (lines too long for shared memory) and that an
+  error never does;
 * K5/K6, the row gather (``csrc/row_gather.cu``), both entries, f32 and
   int32 tables, indices in and out of range: exact against the plain
   gather;
@@ -402,6 +405,136 @@ def test_freeverb_smem_kernel_on_host_is_bit_identical_to_its_twin(
         assert torch.equal(g, w)
     _assert_k8_close(cfg, got, want_state, want_l, want_r, n, v)
     assert (got[0] != 0).any()
+
+
+@pytest.fixture(scope="module")
+def k8_lib(gxx, tmp_path_factory):
+    """K8's host build (both cores, both entries), once for the module."""
+    return _host(FREEVERB, gxx, tmp_path_factory.mktemp("k8"))
+
+
+def _time_major(x):
+    """``x [V, n]`` as the stage kernel K3 leaves a wire: a ``[V, n]`` view
+    of a time-major buffer (strides ``(1, V)``), at an offset into it."""
+    v, n = x.shape
+    buf = torch.full((n + 5, v), float("nan"))
+    buf[3:3 + n] = x.T
+    return buf[3:3 + n].T
+
+
+# input layouts: (l, r) from the seed's lanes, and the lanes K8 reads in
+# place with a time stride other than 1
+K8_LAYOUTS = {
+    "time_major": (lambda l, r: (_time_major(l), _time_major(r)), 2),
+    "broadcast": (lambda l, r: (l[:, :1].clone(), r[:, :1].clone()), 2),
+    "mixed": (lambda l, r: (_time_major(l), r[:1].clone()), 1),
+    "mono": (lambda l, r: (_time_major(l),) * 2, 1),
+    "contiguous": (lambda l, r: (l, r), 0),
+}
+
+
+@pytest.mark.parametrize("core", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layout", list(K8_LAYOUTS))
+def test_freeverb_kernel_on_host_reads_lanes_in_place(k8_lib, layout, core):
+    """Both K8 entries read their input lanes through the lanes' own
+    strides: from K3's time-major layout, a stride-0 broadcast, two lanes
+    in different layouts and one mono lane, audio, filter states and lines
+    are bit for bit those of the same call on contiguous copies, the
+    shared-memory entry's those of its twin, in f32 and in f64; all within
+    2e-5 of ``block_plain``.  Each lane of a time stride other than 1 is
+    counted in ``strided_lanes``, none copied."""
+    v, n = 3, 300
+    cfg, params, state, l_in, r_in = _freeverb_inputs(v, n, 7, True)
+    if core == torch.float64:
+        state = {k: x.to(core) if x.is_floating_point() else x
+                 for k, x in state.items()}
+    make, strided = K8_LAYOUTS[layout]
+    lanes = make(l_in, r_in)
+    rows = [x.expand(v, n).contiguous() for x in lanes]
+    if lanes[0] is lanes[1]:
+        rows[1] = rows[0]
+    gains = fv.block_gains(params, v, core)
+    want_state, (want_l, want_r) = fv.block_plain(*rows, gains, state, n)
+    tiled, twin = ((fvk.FREEVERB, fvk.FREEVERB_TWIN) if core == torch.float32
+                   else (fvk.FREEVERB_F64, fvk.FREEVERB_TWIN_F64))
+    runs = []
+    for kernel in (tiled, twin):
+        before = (kernel.strided_lanes, kernel.lane_copies)
+        runs.append(_k8_host(k8_lib, kernel, cfg, *lanes, gains, state, n))
+        assert (kernel.strided_lanes - before[0],
+                kernel.lane_copies - before[1]) == (strided, 0)
+        runs.append(_k8_host(k8_lib, kernel, cfg, *rows, gains, state, n))
+        assert (kernel.strided_lanes - before[0],
+                kernel.lane_copies - before[1]) == (strided, 0)
+    for got in runs[1:]:
+        for g, w in zip(got, runs[0]):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    _assert_k8_close(cfg, runs[0], want_state, want_l, want_r, n, v)
+    assert (runs[0][0] != 0).any()
+
+
+def test_freeverb_wrapper_passes_lanes_without_a_copy(k8_lib, monkeypatch):
+    """The wrapper's operands: a lane in K3's layout goes to the entry as
+    its own pointer and strides, no new tensor (a mono voice's one lane
+    for both channels, counted once in ``strided_lanes``); a missing lane
+    is a null pointer with strides 0; a lane not in f32 is copied and
+    counted in ``lane_copies``.  ``launch_lines`` takes such a lane under
+    ``require_cuda``'s rule that the operands it checks are contiguous
+    (the device rule replaced by the CPU's, the launch by the host
+    build's)."""
+    v, n = 3, 200
+    cfg, params, state, l_in, _ = _freeverb_inputs(v, n, 11, False)
+    gains = fv.block_gains(params, v)
+    lens = fvk.all_lengths(cfg)
+    lane = _time_major(l_in)
+    fs = torch.stack([state[k] for k in fv.FS_KEYS], dim=1).contiguous()
+    lines = torch.zeros((sum(lens), v))
+    tables = fvk.line_tables(lens, "cpu")
+
+    def args_of(l, r):
+        before = (FREEVERB.strided_lanes, FREEVERB.lane_copies)
+        args, argtypes, _keep, _, _ = FREEVERB.entry_args(
+            cfg, l, r, gains, fs.clone(), lines.clone(), n, False, tables)
+        assert len(args) == len(argtypes) == len(fvk.TILE_ARGTYPES)
+        assert argtypes[:6] == [fvk.P, fvk.LL, fvk.LL, fvk.P, fvk.LL, fvk.LL]
+        return args, (FREEVERB.strided_lanes - before[0],
+                      FREEVERB.lane_copies - before[1])
+
+    args, counts = args_of(lane, lane)
+    assert args[:6] == (lane.data_ptr(), 1, v, lane.data_ptr(), 1, v)
+    assert counts == (1, 0)
+    args, counts = args_of(lane, None)
+    assert args[:6] == (lane.data_ptr(), 1, v, None, 0, 0)
+    assert counts == (1, 0)
+    args, counts = args_of(l_in, None)
+    assert args[:3] == (l_in.data_ptr(), n, 1) and counts == (0, 0)
+    wide = lane.double()
+    args, counts = args_of(wide, wide)
+    assert args[0] not in (wide.data_ptr(), lane.data_ptr())
+    assert args[0] == args[3] and counts == (0, 1)
+    # the mono lane read in place gives the audio of its contiguous copy
+    rows = lane.contiguous()
+    got = _k8_host(k8_lib, FREEVERB, cfg, lane, lane, gains, state, n)
+    want = _k8_host(k8_lib, FREEVERB, cfg, rows, rows, gains, state, n)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+    def require_on_cpu(*tensors):
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("kernel operands must be contiguous")
+        return torch.device("cpu")
+
+    def host_launch(entry, argtypes, args, device):
+        assert _fn(k8_lib, entry, argtypes)(*args) == 0
+    monkeypatch.setattr(fvk, "require_cuda", require_on_cpu)
+    monkeypatch.setattr(FREEVERB, "launch", host_launch)
+    lines = torch.cat([ring_align_plain(state[k], state[f"{k}_idx"]).T
+                       for k in fv.LINE_KEYS]).contiguous()
+    before = FREEVERB.strided_lanes
+    out_l, out_r = FREEVERB.launch_lines(cfg, lane, lane, gains, fs, lines, n)
+    assert FREEVERB.strided_lanes - before == 1
+    for g, w in zip((out_l, out_r, fs, lines), want):
+        assert torch.equal(g, w)
 
 
 def test_freeverb_lines_too_long_for_shared_memory_take_the_twin(
