@@ -162,46 +162,43 @@ pipeline of sweep stage warps fed by replay warps
 (``srack_tpu_torch/ops/fused.py::_generate_bwd_pipeline``), the
 one-thread kernel staying as its twin (``fused_vjp_bwd_twin``); K7 reads
 its lanes as 2-D views of any strides through tiles of voices staged in
-shared memory (``csrc/sample_play.cu``, entry ``srk_sample_play``), the
-one-CTA-per-row kernel staying as its twin (``sample_play_twin``, entry
-``srk_sample_play_twin``).  Phase 2 builds both twins and logs each K10
-build's sweep stages, replay warps and sub-chunk; phase 3 requires every
-K10 case to take the split backward and holds K7 from transposed views
-too; phase 14 must launch the split backward and never its twin; phases
-11-13 time K7 on the render's own operands (the stage's transposed gate,
-no copy); phase 15 holds the split backward to its twin at 1,024 x
-48,000 and K7 to its twin on the operands of every Sample launch of the
-drums, sampler and kit-check renders (the twin on a contiguous copy), bit
-for bit, both timed in one call.
+shared memory (``csrc/sample_play.cu``, entry ``srk_sample_play``).
+Phase 2 builds the backward's twin and logs each K10 build's sweep
+stages, replay warps and sub-chunk; phase 3 requires every K10 case to
+take the split backward and holds K7 from transposed views too; phase 14
+must launch the split backward and never its twin; phases 11-13 time K7
+on the render's own operands (the stage's transposed gate, no copy);
+phase 15 holds the split backward to its twin at 1,024 x 48,000, bit for
+bit, both timed in one call, and times K7 on the operands of every
+Sample launch of the drums, sampler and kit-check renders, on the first
+at every tile shape, each equal to the main path's shape bit for bit.
 
 K10's forward (``fused_vjp_fwd``) also runs on K1's stage-warp
 pipeline, each stage warp storing its own checkpoint rows
 (``srack_tpu_torch/ops/fused.py::_generate_pipeline`` with ``t_chunk``),
 the one-thread forward staying as its twin (``fused_vjp_fwd_twin``); K9
 (``csrc/ring_align.cu``) moves the lines through a shared-memory tile of
-32 voices x P positions (entry ``srk_ring_align_tile``), the old kernel
-staying as its twin (``ring_align_twin``, entry ``srk_ring_align_twin``).
-Phase 2 builds both twins and the training voice's forward at chunks of
-64 and 128, and logs each K10 forward's stages, chunk and shared memory
-and K9's tile; phase 3 requires every K10 case to take the split forward;
+32 voices x P positions (entry ``srk_ring_align_tile``).  Phase 2 builds
+the forward's twin and the training voice's forward at chunks of 64 and
+128, and logs each K10 forward's stages, chunk and shared memory and
+K9's tile; phase 3 requires every K10 case to take the split forward;
 phase 14 must launch ``fused_vjp_fwd`` and never its twin; phases 6, 9
 and 10 time K9's launch alone (its arguments made once); phase 15 holds
 the split forward to its twin at 1,024 x 48,000 (farm_params and phase
 14's params: audio, final state and checkpoints bit for bit, also at T =
-64 and 128) and K9 to its twin on the operands of both K9 calls of the
-reverb and block-check renders (bit for bit, every tile length of
-``K9_TILES`` timed), each pair timed in one call.
+64 and 128), the pair timed in one call, and K9 to the plain gather on
+the operands of both K9 calls of the reverb and block-check renders (bit
+for bit at every tile length of ``K9_TILES``, each timed).
 
 For slice 10, exact precision (``AudioConfig(precision="exact")``): f64
 builds of K3 (``serial_stage_f64``: a stage with f64 leaves, the exact
 Oscillator's phase in double rows), K4 (``row_scan_f64``: entries
 ``srk_scan_{sum,max,fill}_f64``), K8 (``freeverb_f64`` and its twin
-``freeverb_twin_f64``: the Freeverb's f64 core) and K9 (``ring_align_f64``
-and ``ring_align_twin_f64``: 8-byte elements), each with a launch count
-of its own.  Phase 2 builds the exact stages' K3 (48 kHz and 4,800 Hz)
+``freeverb_twin_f64``: the Freeverb's f64 core) and K9 (``ring_align_f64``:
+8-byte elements), each with a launch count of its own.  Phase 2 builds the exact stages' K3 (48 kHz and 4,800 Hz)
 and finds the fixed sources' f64 entries in their libraries; phase 3
-holds K4 f64 (sum within 1e-12 relative, max and fills exact), K9 f64 and
-its twin (exact), K8 f64 through its wrapper (2e-5, n = 2048 and 2047,
+holds K4 f64 (sum within 1e-12 relative, max and fills exact), K9 f64
+(exact), K8 f64 through its wrapper (2e-5, n = 2048 and 2047,
 with and without automation) and its twin (bit for bit), the exact
 stages' K3 (outputs within 1e-6, f64 state within 1e-12) and the exact
 block engine against the exact scan engine at 4,800 Hz (subtractive_voice,
@@ -270,22 +267,16 @@ For slice 12, K4 (``csrc/row_scan.cu``) is a pipelined kernel: each
 thread's elements are prefetched with cp.async into a ring of 2-4 chunk
 stages in shared memory, the CTA scan takes two barriers a chunk, and
 an entry's 16-byte variant (``*_vec``) or its one-element variant (no
-suffix) is picked by the wrapper; the old kernel stays as its twin
-(``row_scan_twin``, ``row_scan_twin_f64``, entries ``*_twin``).  A
-render's initial state is made on its device (``init_state(device)``).
-Phase 2 logs each pipelined build's registers, spills, stack frame, ring
-bytes and CTAs per SM (the occupancy query); phase 3 holds every kind and
-dtype (sum and max of f32, int32 and f64, fills of 1-4 arrays of each,
-affine) to its plain version at [1,024, 48,000] (the 16-byte variant) and
-[1,024, 47,999] (the one-element one), each launch's entry checked, and
-times each dtype's sum through both variants, the twin and torch.cumsum;
-phases 10, 13 and 17 time K4's twin beside it in their splits; phase 15
-holds K4 to its twin bit for bit on the very operands of every K4 launch
-of the block-check, kit-check, exact headline and exact reverb renders
-(caught at the wrappers), both timed in turns; phase 19 traces the reverb
-render twice, its state built on the host as before and made by the
-render on the card (host-to-device copies, pageable ones, idle share),
-and holds ``init_state("cuda")`` of every patch the phases render (fast
+suffix) is picked by the wrapper.  A render's initial state is made on
+its device (``init_state(device)``).  Phase 2 logs each pipelined build's
+registers, spills, stack frame, ring bytes and CTAs per SM (the occupancy
+query); phase 3 holds every kind and dtype (sum and max of f32, int32 and
+f64, fills of 1-4 arrays of each, affine) to its plain version at
+[1,024, 48,000] (the 16-byte variant) and [1,024, 47,999] (the
+one-element one), each launch's entry checked, and times each dtype's sum
+through both variants and torch.cumsum; phase 19 traces the reverb render
+twice, its state built on the host as before and made by the render on
+the card (host-to-device copies, pageable ones, idle share), and holds ``init_state("cuda")`` of every patch the phases render (fast
 and exact, both feedback modes, the .srk fixture) to the host build bit
 for bit, broadcast over 1,024 voices.
 
@@ -300,7 +291,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 import gc
 import json
 import subprocess
@@ -545,22 +535,18 @@ def k8_shape(stt) -> dict:
 
 
 def k9_shape(stt) -> dict:
-    """Build K9's twin (the second entry of K9's source, found by hash) and
-    record the tile's shape at 48 kHz in ``K9_SHAPE``: voices and positions
-    a tile, warps a CTA, shared memory, and the CTAs of one launch over the
-    24 lines of 1,024 voices."""
+    """Record K9's tile shape at 48 kHz in ``K9_SHAPE``: voices and
+    positions a tile, warps a CTA, shared memory, and the CTAs of one
+    launch over the 24 lines of 1,024 voices."""
     from srack_tpu_torch.ops import freeverb_kernel as fvk
-    from srack_tpu_torch.ops.ring_roll import RING_ALIGN, RING_ALIGN_TWIN
-    RING_ALIGN_TWIN.build()
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN
     lens = fvk.all_lengths(stt.AudioConfig(sample_rate=SR))
     p = RING_ALIGN.tile
     tiles = sum(-(-x // p) for x in lens)
     K9_SHAPE.update(voices=32, positions=p, warps=8,
                     smem_bytes=4 * 32 * (p + 1),
                     ctas=tiles * -(-VOICES // 32))
-    log(f"[2 build] ring_align_twin: the library of ring_align (csrc/"
-        f"ring_align.cu, entry srk_ring_align_twin); ring_align: tiles of 32 "
-        f"voices x {p} positions, one CTA of 8 warps each, "
+    log(f"[2 build] ring_align: tiles of 32 voices x {p} positions, one CTA of 8 warps each, "
         f"{K9_SHAPE['smem_bytes']} B shared memory, {K9_SHAPE['ctas']} CTAs "
         f"for the 24 lines of {VOICES} voices at {SR} Hz; ptxas: "
         f"{ptxas(RING_ALIGN)}")
@@ -667,19 +653,16 @@ def _counters(kernels):
     from srack_tpu_torch.ops.freeverb_kernel import FREEVERB, FREEVERB_TWIN
     from srack_tpu_torch.ops.gather_kernel import ROW_GATHER, ROW_GATHER_LONG
     from srack_tpu_torch.ops.noise_kernel import NOISE_LANES
-    from srack_tpu_torch.ops.ring_roll import RING_ALIGN, RING_ALIGN_TWIN
-    from srack_tpu_torch.ops.sample_kernel import (SAMPLE_PLAY,
-                                                   SAMPLE_PLAY_TWIN)
-    from srack_tpu_torch.ops.scan_kernel import (ROW_SCAN, ROW_SCAN_TWIN,
-                                                 ROW_SCAN_TWIN_F64)
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN
+    from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
     out = [kernel for _, _, kernel in kernels.values()]
     out += [lib for _, _, k in VJP.values() for lib in (k.fwd, k.bwd)]
     # phase 15's K10 builds, the twins named apart
     out += [lib for k in VJP_AB.values() for lib in (k.fwd, k.bwd)]
     out += list(STAGES.values()) + list(CHECK_STAGES.values()) + [
-        ROW_SCAN, FREEVERB, FREEVERB_TWIN, RING_ALIGN, RING_ALIGN_TWIN,
-        ROW_GATHER, ROW_GATHER_LONG, SAMPLE_PLAY, SAMPLE_PLAY_TWIN,
-        NOISE_LANES, ROW_SCAN_TWIN, ROW_SCAN_TWIN_F64]
+        ROW_SCAN, FREEVERB, FREEVERB_TWIN, RING_ALIGN, ROW_GATHER,
+        ROW_GATHER_LONG, SAMPLE_PLAY, NOISE_LANES]
     # slice 10: exact precision's stages and the f64 builds
     out += list(EXACT_STAGES.values()) + f64_libs()
     # the one-thread twins of phase 15, named apart: a main path that
@@ -1110,10 +1093,8 @@ def compare_ring(stt, f64=False):
     with random write indices (the wrapper's entry), lines back to rings
     with a shift per line (its exit), and rings to rings: exact against
     the plain gather (and transpose).  ``f64``: K9's f64 build on f64
-    rings, and its twin's too."""
-    from srack_tpu_torch.ops.ring_roll import (RING_ALIGN_TWIN_F64,
-                                               ring_align_for,
-                                               ring_align_plain)
+    rings."""
+    from srack_tpu_torch.ops.ring_roll import ring_align_for, ring_align_plain
     lens, rings, idx = _ring_inputs(stt, f64)
     RING_ALIGN = ring_align_for(rings[0].dtype)
     lines = ring_to_lines(rings, lens, idx)
@@ -1131,15 +1112,9 @@ def compare_ring(stt, f64=False):
     for j, (b, r) in enumerate(zip(back, rings)):
         check(torch.equal(b, ring_align_plain(r, idx[j])),
               f"K9 rings -> rings differs from its plain version, line {j}")
-    if f64:
-        RING_ALIGN_TWIN_F64.move(rings, back, lens, VOICES, idx=idx)
-        for j, (b, r) in enumerate(zip(back, rings)):
-            check(torch.equal(b, ring_align_plain(r, idx[j])),
-                  f"K9's f64 twin differs from its plain version, line {j}")
     log(f"[3 compare] {RING_ALIGN.name}: 24 lines x {VOICES} voices, "
         f"lengths {min(lens)}..{max(lens)}, {rings[0].dtype}, rings -> "
-        f"lines, lines -> rings, rings -> rings"
-        + (" (and the twin)" if f64 else "") + ": exact")
+        f"lines, lines -> rings, rings -> rings: exact")
     return 0.0
 
 
@@ -1470,11 +1445,10 @@ def _split(stt, name, patch, params, n, automation, total_ms, card):
                                    0),
               "freeverb": freeverb_bound(lens, VOICES, n, 1, right)}
     if name == "block_check_patch":
-        from srack_tpu_torch.ops.scan_kernel import ROW_SCAN, ROW_SCAN_TWIN
+        from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
         x = torch.ones((VOICES, n), dtype=torch.int32, device="cuda")
         out["row_scan"] = cuda_ms(lambda: ROW_SCAN.run("sum", (x,)),
                                   warmup=1)
-        k4_twin = cuda_ms(lambda: ROW_SCAN_TWIN.run("sum", (x,)), warmup=1)
         bounds["row_scan"] = _bound(8 * x.numel(), x.numel())
         del x
         torch.cuda.empty_cache()
@@ -1487,7 +1461,7 @@ def _split(stt, name, patch, params, n, automation, total_ms, card):
         f"{k9_ms:.3f} ms x 2, K8 {k8_ms:.3f} ms, the rest (block phases, "
         f"K4, transposes, wrappers) {rest:.3f} ms of {total_ms:.3f} "
         + (f"(K4 alone: {out['row_scan']:.3f} ms per i32 sum over [{VOICES}, "
-           f"{n}], its twin {k4_twin:.3f}) " if "row_scan" in out else "")
+           f"{n}]) " if "row_scan" in out else "")
         + f"[{card}]")
 
 
@@ -2266,7 +2240,7 @@ def _kit_split(stt, name, total_ms, card):
     from srack_tpu_torch.ops.noise_kernel import (NOISE_LANES,
                                                   noise_lanes_plain)
     from srack_tpu_torch.ops.sample_kernel import SAMPLE_PLAY
-    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN, ROW_SCAN_TWIN
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN
     compiled = block_cases(stt)[name][1]
     prog = compiled.block_program()
     kernel = STAGES[name]
@@ -2341,10 +2315,8 @@ def _kit_split(stt, name, total_ms, card):
     if name == "kit_check_patch":
         x = torch.ones((VOICES, n), dtype=torch.int32, device="cuda")
         k4 = cuda_ms(lambda: ROW_SCAN.run("sum", (x,)), warmup=1)
-        k4_twin = cuda_ms(lambda: ROW_SCAN_TWIN.run("sum", (x,)), warmup=1)
         del x
-        parts.append(f"K4 {k4:.3f} ms per launch (int32 sum alone; its "
-                     f"twin {k4_twin:.3f})")
+        parts.append(f"K4 {k4:.3f} ms per launch (int32 sum alone)")
     torch.cuda.empty_cache()
     log(f"[split] {name} V={VOICES} n={n}: " + ", ".join(parts)
         + f"; the rest (block phases, wrappers, layout"
@@ -2956,7 +2928,9 @@ def phase_ab(stt, kernels, card) -> dict:
     audio (or stage outputs) and final state equal bit for bit, both timed
     in one call; the headline, the farm, the buffer cell and the reverb
     stage also at each sample group of ``SWEEP_GROUPS``, each equal to the
-    build bit for bit."""
+    build bit for bit; K10's split kernels against their twins; K7's tile
+    shapes and K9's tile lengths on the kit and reverb renders' operands
+    (``k7_tiles``, ``k9_tiles``)."""
     out = {}
     for cell, name, v, n in AB_CELLS:
         split, one = AB[name]
@@ -3000,10 +2974,9 @@ def phase_ab(stt, kernels, card) -> dict:
     out["k10 train"] = k10_ab(stt, card)
     out["k10 fwd"] = k10_fwd_ab(stt, card)
     for name in KIT_NAMES:
-        out[f"k7 {name}"] = k7_ab(stt, name, card)
+        out[f"k7 {name}"] = k7_tiles(stt, name, card)
     for cell, (patch, automation) in cells.items():
-        out[f"k9 {cell}"] = k9_ab(stt, cell, patch, automation, card)
-    out["k4"] = k4_ab(stt, card, cells["block check"])
+        out[f"k9 {cell}"] = k9_tiles(stt, cell, patch, automation, card)
     return out
 
 
@@ -3150,35 +3123,32 @@ def k10_fwd_ab(stt, card) -> dict:
 K9_TILES = (32, 64, 128, 256)   # positions a tile, timed in phase 15
 
 
-def k9_ab(stt, cell, patch, automation, card) -> dict:
-    """K9's tile against its twin on the very operands of both K9 calls of
-    one render (1,024 voices x 480,000 samples; caught at the wrapper, the
-    render going on): rings -> the Freeverb kernel's lines with the voices'
-    write indices ("in"), and lines -> rings with a shift per line ("out").
-    Each entry into buffers of its own: equal bit for bit; both launches
-    timed alone (arguments made once) in turns (twin, tile, tile, twin), a
-    mean over 20 launches each; the tile also at every length of
-    ``K9_TILES``, each equal to the twin."""
+def k9_tiles(stt, cell, patch, automation, card) -> dict:
+    """K9 on the very operands of both K9 calls of one render (1,024
+    voices x 480,000 samples, caught at the wrapper, the render going on):
+    rings -> the Freeverb kernel's lines with the voices' write indices
+    ("in"), and lines -> rings with a shift per line ("out").  The tile at
+    every length of ``K9_TILES``, into buffers of its own, timed alone
+    (arguments made once, a mean over 20 launches) and equal bit for bit
+    to the plain gather (and transpose)."""
     from srack_tpu_torch.ops import ring_roll as rr
     params = stt.presets.farm_params(patch, VOICES)
     recs = {}
     move = rr.RING_ALIGN.move
-    kernels = {"split": rr.RING_ALIGN, "one": rr.RING_ALIGN_TWIN}
 
     def hook(src, dst, lens, v, idx=None, shifts=None, src_lines=False,
              dst_lines=False):
         which = "out" if src_lines else "in"
         kw = dict(idx=idx, shifts=shifts, src_lines=src_lines,
                   dst_lines=dst_lines)
-        outs = {k: [torch.empty_like(d) for d in dst] for k in kernels}
-        calls = {k: k9_call(kern, src, outs[k], lens, v, **kw)
-                 for k, kern in kernels.items()}
-        times = {"one": [], "split": []}
-        for k in ("one", "split", "split", "one"):
-            times[k].append(cuda_ms(calls[k], repeats=20, warmup=1))
-        torch.cuda.synchronize()
-        check(_same(outs["split"], outs["one"]), f"K9 {cell} {which}: the "
-              f"tile differs from its twin")
+        want = []
+        for j, line in enumerate(src):
+            start = torch.full((v,), 0 if shifts is None else int(shifts[j]),
+                               dtype=torch.int64, device=line.device)
+            if idx is not None:
+                start += idx[j]
+            w = rr.ring_align_plain(line.T if src_lines else line, start)
+            want.append(w.T if dst_lines else w)
         by_tile, chosen = {}, rr.RING_ALIGN.tile
         try:
             for p in K9_TILES:
@@ -3187,28 +3157,24 @@ def k9_ab(stt, cell, patch, automation, card) -> dict:
                 by_tile[str(p)] = cuda_ms(k9_call(
                     rr.RING_ALIGN, src, got, lens, v, **kw), repeats=20,
                     warmup=1)
-                check(_same(got, outs["one"]), f"K9 {cell} {which}: the "
-                      f"tile of {p} positions differs from the twin")
+                check(_same(got, want), f"K9 {cell} {which}: the tile of "
+                      f"{p} positions differs from the plain gather")
                 del got
         finally:
             rr.RING_ALIGN.tile = chosen
-        one_ms, new_ms = min(times["one"]), min(times["split"])
+        ms = by_tile[str(chosen)]
         b_ms = _bound(8 * v * sum(lens) + (4 * idx.numel() if idx is not None
                                            else 0), 0)[0]
-        recs[which] = {"twin_ms": one_ms, "ms": new_ms,
-                       "ratio": new_ms / one_ms, "bound_ms": b_ms,
-                       "ms_by_tile": by_tile, **K9_SHAPE}
+        recs[which] = {"ms": ms, "bound_ms": b_ms, "ms_by_tile": by_tile,
+                       **K9_SHAPE}
         log(f"[15 a/b] K9 {cell} {which} ({'lines -> rings, a shift per '
             'line' if src_lines else 'rings -> lines, per-voice indices'}) "
-            f"V={v}, 24 lines: twin {one_ms:.4f} ms ({times['one'][0]:.4f}, "
-            f"{times['one'][1]:.4f}), tile {new_ms:.4f} ms "
-            f"({times['split'][0]:.4f}, {times['split'][1]:.4f}; 32 voices x "
-            f"{chosen} positions): tile / twin = {new_ms / one_ms:.3f}, "
-            f"{100 * b_ms / new_ms:.1f} % of its bound {b_ms:.4f} ms; by "
-            f"tile: " + ", ".join(f"{p} {ms:.4f} ms" for p, ms in
-                                  by_tile.items())
-            + f"; each equal bit for bit [{card}]")
-        del outs, calls
+            f"V={v}, 24 lines: tile {ms:.4f} ms (32 voices x {chosen} "
+            f"positions), {100 * b_ms / ms:.1f} % of its bound {b_ms:.4f} "
+            f"ms; by tile: " + ", ".join(f"{p} {t:.4f} ms" for p, t in
+                                         by_tile.items())
+            + f"; each equal to the plain gather bit for bit [{card}]")
+        del want
         return move(src, dst, lens, v, **kw)
     rr.RING_ALIGN.move = hook
     try:
@@ -3222,13 +3188,13 @@ def k9_ab(stt, cell, patch, automation, card) -> dict:
     return recs
 
 
-def k7_ab(stt, name, card) -> list:
-    """K7 against its twin on the very operands of every Sample launch of
-    one kit render (1,024 voices x 480,000 samples, caught at the wrapper):
-    the new kernel reads the gate (and CV) as given, the stage's
-    transposed view; the twin takes its contiguous copy (made before the
-    timing).  Audio and end state equal bit for bit, both timed in turns
-    (twin, new, new, twin).  Returns a record per launch."""
+def k7_tiles(stt, name, card) -> list:
+    """K7 on the very operands of every Sample launch of one kit render
+    (1,024 voices x 480,000 samples, caught at the wrapper): the gate (and
+    CV) as given, the stage's transposed view, timed after a warm-up; on
+    the first launch also at every tile shape of ``TILE_SHAPES``, each
+    equal bit for bit to the main path's shape (the order of combination
+    is one of positions, not of threads).  Returns a record per launch."""
     from srack_tpu_torch.ops import sample_kernel as sk
     patch = getattr(stt.presets, name)(stt.AudioConfig(sample_rate=SR,
                                                        channels=1))
@@ -3238,45 +3204,33 @@ def k7_ab(stt, name, card) -> list:
     run = sk.SAMPLE_PLAY.run
 
     def hook(*args):
-        dense = tuple(None if a is None else a.contiguous()
-                      for a in args[:2]) + tuple(args[2:])
-        times, outs = _turns("new", "twin", lambda k: run(*args) if
-                             k == "new" else sk.SAMPLE_PLAY_TWIN.run(*dense))
-        check(_same(outs["split"], outs["one"]), f"K7 {name}: the tiled "
-              f"kernel differs from its twin")
-        one_ms, new_ms = min(times["one"]), min(times["split"])
+        out = run(*args)
+        ms = cuda_ms(lambda: run(*args), warmup=1)
         layout = ("[R, n] rows" if args[0].stride(1) == 1
                   else "a transposed view")
-        recs.append({"twin_ms": one_ms, "ms": new_ms,
-                     "ratio": new_ms / one_ms, "gate": layout,
-                     "cv": args[1] is not None, "k": args[2].shape[1],
-                     "tile": list(tile)})
+        recs.append({"ms": ms, "gate": layout, "cv": args[1] is not None,
+                     "k": args[2].shape[1], "tile": list(tile)})
         if len(recs) == 1:   # every tile shape of the entry, in turn
             chosen, by_tile = sk.SAMPLE_PLAY.shape, {}
             try:
                 for i, shp in enumerate(sk.TILE_SHAPES):
                     sk.SAMPLE_PLAY.shape = i
                     by_tile[str(shp)] = cuda_ms(lambda: run(*args), warmup=1)
-                    check(_same(run(*args), outs["one"]), f"K7 {name}: tile "
-                          f"{shp} differs from the twin")
+                    check(_same(run(*args), out), f"K7 {name}: tile {shp} "
+                          f"differs from tile {tile}")
             finally:
                 sk.SAMPLE_PLAY.shape = chosen
             recs[-1]["ms_by_tile"] = by_tile
             log(f"[15 a/b] K7 {name} launch 1, tile shapes (voices a CTA, "
                 f"warps a voice): " + ", ".join(
-                    f"{k} {ms:.3f} ms" for k, ms in by_tile.items())
-                + f"; each equal to the twin bit for bit [{card}]")
+                    f"{k} {t:.3f} ms" for k, t in by_tile.items())
+                + f"; each equal to {tile} bit for bit [{card}]")
         log(f"[15 a/b] K7 {name} launch {len(recs)} (K={args[2].shape[1]}, "
             f"{'CV' if args[1] is not None else 'constant rate'}, the gate "
-            f"{layout}) V={VOICES} n={args[0].shape[1]}: twin on a "
-            f"contiguous copy {one_ms:.3f} ms ({times['one'][0]:.3f}, "
-            f"{times['one'][1]:.3f}), tiled K7 on the render's operands "
-            f"{new_ms:.3f} ms ({times['split'][0]:.3f}, "
-            f"{times['split'][1]:.3f}; {tile[0]} voices a CTA, {tile[1]} "
-            f"warps a voice): new / twin = {new_ms / one_ms:.3f}; audio and "
-            f"end state equal bit for bit [{card}]")
-        del dense
-        return outs["split"]
+            f"{layout}) V={VOICES} n={args[0].shape[1]}: {ms:.3f} ms on the "
+            f"render's operands ({tile[0]} voices a CTA, {tile[1]} warps a "
+            f"voice) [{card}]")
+        return out
     sk.SAMPLE_PLAY.run = hook
     try:
         stt.render_batch(patch, HEADLINE_N, params=params)
@@ -3535,15 +3489,13 @@ _EXACT = {}
 
 def f64_libs() -> list:
     """The fixed sources' f64 builds, each with a launch count of its own:
-    K4 (row_scan_f64), K8 and its twin (freeverb_f64, freeverb_twin_f64),
-    K9 and its twin (ring_align_f64, ring_align_twin_f64)."""
+    K4 (row_scan_f64), K8 and its twin (freeverb_f64, freeverb_twin_f64)
+    and K9 (ring_align_f64)."""
     from srack_tpu_torch.ops.freeverb_kernel import (FREEVERB_F64,
                                                      FREEVERB_TWIN_F64)
-    from srack_tpu_torch.ops.ring_roll import (RING_ALIGN_F64,
-                                               RING_ALIGN_TWIN_F64)
+    from srack_tpu_torch.ops.ring_roll import RING_ALIGN_F64
     from srack_tpu_torch.ops.scan_kernel import ROW_SCAN_F64
-    return [ROW_SCAN_F64, FREEVERB_F64, FREEVERB_TWIN_F64, RING_ALIGN_F64,
-            RING_ALIGN_TWIN_F64]
+    return [ROW_SCAN_F64, FREEVERB_F64, FREEVERB_TWIN_F64, RING_ALIGN_F64]
 
 
 def exact_cases(stt) -> dict:
@@ -3807,15 +3759,14 @@ def _exact_split(stt, name, compiled, n, launches, total_ms, card) -> dict:
     from srack_tpu_torch.modules import freeverb as fv
     from srack_tpu_torch.ops import freeverb_kernel as fvk
     from srack_tpu_torch.ops.ring_roll import RING_ALIGN_F64
-    from srack_tpu_torch.ops.scan_kernel import (ROW_SCAN_F64,
-                                                 ROW_SCAN_TWIN_F64)
+    from srack_tpu_torch.ops.scan_kernel import ROW_SCAN_F64
     prog = compiled.block_program()
     patch = exact_cases(stt)[(name, SR)][0]
     params = _cuda(stt, stt.presets.farm_params(patch, VOICES))
     state = _cuda(stt, stt.compiler.tree_map(
         lambda a: a.expand((VOICES,) + a.shape).contiguous(),
         compiled.init_state()))
-    alone, bounds, twin = {}, {}, {}
+    alone, bounds = {}, {}
     kernel = EXACT_STAGES[(name, SR)]
     stage_state = {"states": {m: state["states"][m]
                               for m in prog.stage_plan}, "fb": state["fb"]}
@@ -3830,8 +3781,6 @@ def _exact_split(stt, name, compiled, n, launches, total_ms, card) -> dict:
         x = torch.full((VOICES, n), 1e-3, dtype=F64, device="cuda")
         alone["row_scan_f64"] = cuda_ms(
             lambda: ROW_SCAN_F64.run("sum", (x,)), warmup=1, repeats=3)
-        twin["row_scan_f64"] = cuda_ms(
-            lambda: ROW_SCAN_TWIN_F64.run("sum", (x,)), warmup=1, repeats=3)
         bounds["row_scan_f64"] = _bound2(16 * x.numel(), 0, x.numel())
         del x
     if "freeverb_f64" in launches:
@@ -3868,12 +3817,10 @@ def _exact_split(stt, name, compiled, n, launches, total_ms, card) -> dict:
             f"bound")
     log(f"[17 exact] split of exact {name} V={VOICES} n={EXACT_N} in "
         f"launches of n={n}: " + ", ".join(
-            f"{k} {alone[k]:.3f} ms x {launches[k]}"
-            + (f" (its twin {twin[k]:.3f})" if k in twin else "")
-            for k in alone)
+            f"{k} {alone[k]:.3f} ms x {launches[k]}" for k in alone)
         + f", the rest (block phases, the f64 Oscillator forms, transposes, "
         f"wrappers) {rest:.3f} ms of {total_ms:.3f} [{card}]")
-    return {"alone_ms": alone, "rest_ms": rest, "n": n, "twin_ms": twin,
+    return {"alone_ms": alone, "rest_ms": rest, "n": n,
             "bounds": {k: b[:2] for k, b in bounds.items()}}
 
 
@@ -4784,13 +4731,10 @@ def _k4_ptxas(log_text) -> dict:
 
 
 def k4_shape(stt) -> dict:
-    """Build K4's twins (entries of K4's library, found by hash) and record
-    each pipelined build's registers, spills and stack frame (``-Xptxas
+    """Record each K4 build's registers, spills and stack frame (``-Xptxas
     -v``), ring bytes (its dynamic shared memory) and the CTAs of 256
     threads an SM holds (the card's occupancy query) in ``K4_SHAPE``."""
     from srack_tpu_torch.ops import scan_kernel as sk
-    sk.ROW_SCAN_TWIN.build()
-    sk.ROW_SCAN_TWIN_F64.build()
     regs = _k4_ptxas(sk.ROW_SCAN.build_log)
     fn = sk.ROW_SCAN.build().srk_scan_shape
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
@@ -4812,8 +4756,6 @@ def k4_shape(stt) -> dict:
                 f"registers, {regs[label]['spill_bytes']} bytes spilled, "
                 f"{regs[label]['stack_bytes']} bytes stack frame, a ring of "
                 f"{smem} B, {ctas} CTAs of 256 threads per SM")
-    log("[2 build] row_scan_twin, row_scan_twin_f64: the library of row_scan "
-        "(csrc/row_scan.cu, entries srk_scan_*_twin)")
     return K4_SHAPE
 
 
@@ -4832,14 +4774,11 @@ def _k4_inputs(n, seed):
         "a": dev(rng.uniform(0.99, 1.0, shape).astype(np.float32))}
 
 
-def _k4_call(kind, dt, k, x, twin=False):
+def _k4_call(kind, dt, k, x):
     """``(run, plain)`` of one K4 kind on phase 3's inputs ``x``: the
-    wrapper's call (or the twin's) and the plain version's."""
+    wrapper's call and the plain version's."""
     from srack_tpu_torch.ops import basic, scan_kernel as sk
-    lib = ({torch.float32: sk.ROW_SCAN_TWIN, torch.int32: sk.ROW_SCAN_TWIN,
-            F64: sk.ROW_SCAN_TWIN_F64} if twin else
-           {torch.float32: sk.ROW_SCAN, torch.int32: sk.ROW_SCAN,
-            F64: sk.ROW_SCAN_F64})[dt]
+    lib = sk.ROW_SCAN_F64 if dt == F64 else sk.ROW_SCAN
     if kind == "fill":
         vals = tuple(torch.roll(x[dt], 37 * j, -1) for j in range(k))
         return (lambda: lib.fill(vals, x["mask"]),
@@ -4859,8 +4798,8 @@ def compare_k4_forms(card) -> dict:
     exact (fills where a value is defined), f32 sum within 2e-4, affine
     3e-4, f64 sum 1e-12 (abs + rel); each launch's entry read off the
     build's per-entry count; then each dtype's sum timed through both
-    variants, the twin and torch.cumsum.  Returns the largest error of
-    each build."""
+    variants and torch.cumsum.  Returns the largest error of each
+    build."""
     from srack_tpu_torch.ops import scan_kernel as sk
     t0 = time.perf_counter()
     errs = {"row_scan": 0.0, "row_scan_f64": 0.0}
@@ -4892,10 +4831,8 @@ def compare_k4_forms(card) -> dict:
             del got, want
         for dt in (torch.float32, torch.int32, F64):
             run, _ = _k4_call("sum", dt, 0, x)
-            twin, _ = _k4_call("sum", dt, 0, x, twin=True)
             y = x[dt]
             rec = {"ms": cuda_ms(run, repeats=20, warmup=1),
-                   "twin_ms": cuda_ms(twin, repeats=20, warmup=1),
                    "library_ms": (cuda_ms(lambda: torch.cumsum(y, dim=-1),
                                           repeats=20, warmup=1)
                                   if dt != torch.int32 else None),
@@ -4906,90 +4843,13 @@ def compare_k4_forms(card) -> dict:
                    else f", torch.cumsum {rec['library_ms']:.4f} ms")
             log(f"[3 compare] row_scan sum {K4_DT[dt]} [{SCAN_ROWS}, {n}] "
                 f"({'16-byte' if vec else 'one-element'} variant): "
-                f"{rec['ms']:.4f} ms, twin {rec['twin_ms']:.4f} ms{lib}; "
+                f"{rec['ms']:.4f} ms{lib}; "
                 f"bound {rec['bound_ms']:.4f} ms (bytes), share "
                 f"{100 * rec['bound_ms'] / rec['ms']:.1f} % [{card}]")
         del x
         torch.cuda.empty_cache()
     log(f"[3 compare] row_scan forms: {time.perf_counter() - t0:.1f} s")
     return errs
-
-
-def k4_ab(stt, card, block_check) -> dict:
-    """Phase 15 for K4: the pipelined kernel against its twin on the very
-    operands of every K4 launch of the block-check, kit-check, exact
-    headline and exact reverb renders (1,024 voices x 480,000 samples;
-    the exact ones in segments of 96,000), caught at the wrappers
-    (``run``, ``fill``): every output equal bit for bit, both timed in
-    turns (twin, new, new, twin).  ``block_check``: the block-check
-    cell's ``(patch, automation)``.  Returns a record per cell."""
-    from srack_tpu_torch.ops import scan_kernel as sk
-    twins = {sk.ROW_SCAN: sk.ROW_SCAN_TWIN, sk.ROW_SCAN_F64:
-             sk.ROW_SCAN_TWIN_F64}
-    check_patch, automation = block_check
-    kit = stt.presets.kit_check_patch(stt.AudioConfig(sample_rate=SR,
-                                                      channels=1))
-    cells = {
-        "block check": lambda: stt.render_batch(
-            check_patch, HEADLINE_N,
-            params=stt.presets.farm_params(check_patch, VOICES),
-            automation=automation),
-        "kit check": lambda: stt.render_batch(
-            kit, HEADLINE_N, params=stt.presets.farm_params(kit, VOICES))}
-    for cell, name in (("exact headline", "subtractive_voice"),
-                       ("exact reverb", "reverb_patch")):
-        patch = exact_cases(stt)[(name, SR)][0]
-        cells[cell] = functools.partial(
-            stt.render_batch, patch, EXACT_N, segment=EXACT_SEGMENT,
-            params=stt.presets.farm_params(patch, VOICES))
-    out = {}
-    for cell, render in cells.items():
-        t0 = time.perf_counter()
-        recs = []
-
-        def hook(lib, method):
-            new = getattr(lib, method)
-            old = getattr(twins[lib], method)
-
-            def call(*args):
-                entries = {e: c for t in twins for e, c in t.by_entry.items()}
-                times, outs = _turns("new", "twin", lambda k: (
-                    new if k == "new" else old)(*args))
-                check(_same(outs["split"], outs["one"]), f"K4 {cell}: the "
-                      f"pipelined kernel differs from its twin ({method})")
-                entry = sorted({e for t in twins
-                                for e, c in t.by_entry.items()
-                                if c != entries.get(e, 0)})
-                x = args[1] if method == "fill" else args[1][0]
-                one_ms, new_ms = min(times["one"]), min(times["split"])
-                what = (f"{method} {args[0]}" if method == "run"
-                        else f"fill x{len(args[0])}")
-                recs.append({"call": what,
-                             "entry": entry, "shape": list(x.shape),
-                             "dtype": str(x.dtype)[6:], "ms": new_ms,
-                             "twin_ms": one_ms, "ratio": new_ms / one_ms})
-                return outs["split"]
-            return call
-        for lib in twins:
-            lib.run, lib.fill = hook(lib, "run"), hook(lib, "fill")
-        try:
-            with no_scan_engine():
-                render()
-        finally:
-            for lib in twins:
-                del lib.run, lib.fill
-        check(recs, f"K4 {cell}: the render launched no K4")
-        torch.cuda.empty_cache()
-        for i, r in enumerate(recs):
-            log(f"[15 a/b] K4 {cell} launch {i + 1} ({r['call']}, "
-                f"{r['dtype']} {r['shape']}, {'/'.join(r['entry'])}): "
-                f"twin {r['twin_ms']:.4f} ms, pipelined {r['ms']:.4f} ms: "
-                f"new / twin = {r['ratio']:.3f}; equal bit for bit "
-                f"[{card}]")
-        log(f"[15 a/b] K4 {cell}: {len(recs)} launches held, "
-            f"{time.perf_counter() - t0:.1f} s")
-        out[cell] = recs
-    return out
 
 
 def state_on_card(stt, card) -> dict:
@@ -5264,20 +5124,15 @@ def main() -> int:
             entries[-1]["split"] = {c: ab[c] for c in STAGES}
             entries[-1]["one_voice"] = one["reverb_patch"]
         if name == "sample_play":
-            entries[-1]["twin"] = {c: ab[f"k7 {c}"] for c in KIT_NAMES}
+            entries[-1]["tiles"] = {c: ab[f"k7 {c}"] for c in KIT_NAMES}
         if name == "ring_align":
-            entries[-1]["twin"] = {c: ab[f"k9 {c}"] for c in ("reverb",
-                                                            "block check")}
+            entries[-1]["tiles"] = {c: ab[f"k9 {c}"] for c in ("reverb",
+                                                             "block check")}
         if name == "row_scan":   # slice 12: the pipelined kernel
-            entries[-1]["twin"] = {c: r for c, r in ab["k4"].items()
-                                   if not c.startswith("exact")}
             entries[-1]["forms"] = K4_REC
             entries[-1]["builds"] = K4_SHAPE
         if name in F64_BUILDS:
             entries.append(f64_entry(name, source, replaces, errs, exact))
-            if name == "row_scan":
-                entries[-1]["twin"] = {c: r for c, r in ab["k4"].items()
-                                       if c.startswith("exact")}
     # the Noise lanes' kernel ports no Pallas kernel: the JAX package draws
     # them with jax.random.uniform in XLA
     entries.append({

@@ -18,48 +18,41 @@
 //
 // Bound: bytes, each element read once and written once: 2 x 108 MiB for
 // the 24 lines of 1,024 voices at 48 kHz, 0.068 ms at 3.35 TB/s.  A pure
-// move: exact.  Two entries:
+// move: exact.
 //
-// * srk_ring_align_tile (its tile length P chosen by the wrapper): a
-//   rotated transpose through a shared-memory tile.  One
-//   CTA of 8 warps per (tile of P destination positions of one line, 32
-//   voices); the tiles of all lines are numbered in one grid dimension
-//   (line j's first tile at tile0[j]), so no CTA idles on a short line.
-//   For voice v the tile's source positions are one run, (s_v + i0) ..
-//   (s_v + i0 + P - 1) mod L_j, which wraps at most once.  So each side is
-//   walked the way it lies: a [V, L_j] ring by warps that walk one voice's
-//   positions (128 contiguous bytes a warp access, the rotation folded into
-//   the run's start), an [L_j, V] line by warps that walk voices (128
-//   contiguous bytes at one position).  The tile sits in shared memory as
-//   [32][P + 1] floats: the padding puts both passes' 32 lanes on 32
-//   banks.  One __syncthreads between the pass in and the pass out.  The
-//   lines side of the exit call rotates by a per-line shift, the same for
-//   every voice, so its reads stay on one row; a lines source with
-//   per-voice indices (no call of the wrapper) would scatter them.  On an
-//   NVIDIA H100 80GB HBM3 at 700 W the 24 lines of 1,024 voices at 48 kHz
-//   take about 0.095 ms a call in either direction, 70 % of the bound,
-//   at P = 128 (P = 256 is as fast, 32 and 64 slower; chip_smoke.py
-//   phase 15 times each).
-// * srk_ring_align_twin, the kernel it replaced: a grid of (ceil(V / 32),
-//   ceil(max L / 256), n_lines) CTAs of 32 x 8 threads; threadIdx.x the
-//   voice, threadIdx.y the position within the CTA's 256, stepping by 8.
-//   In the lines layout a warp's 32 voices touch 128 contiguous bytes; in
-//   the rings layout its 32 lanes touch 32 rows L_j floats apart, 32
-//   sectors an access, and the 8 warps of a CTA leave L1 and L2 to merge
-//   them: about 0.13 ms rings -> lines and 0.61 ms lines -> rings at the
-//   same shapes.
+// The entry, srk_ring_align_tile (its tile length P chosen by the
+// wrapper), is a rotated transpose through a shared-memory tile.  One CTA
+// of 8 warps per (tile of P destination positions of one line, 32 voices);
+// the tiles of all lines are numbered in one grid dimension (line j's
+// first tile at tile0[j]), so no CTA idles on a short line.  For voice v
+// the tile's source positions are one run, (s_v + i0) .. (s_v + i0 + P -
+// 1) mod L_j, which wraps at most once.  So each side is walked the way it
+// lies: a [V, L_j] ring by warps that walk one voice's positions (128
+// contiguous bytes a warp access, the rotation folded into the run's
+// start), an [L_j, V] line by warps that walk voices (128 contiguous bytes
+// at one position).  The tile sits in shared memory as [32][P + 1] floats:
+// the padding puts both passes' 32 lanes on 32 banks.  One __syncthreads
+// between the pass in and the pass out.  The lines side of the exit call
+// rotates by a per-line shift, the same for every voice, so its reads stay
+// on one row; a lines source with per-voice indices (no call of the
+// wrapper) would scatter them.  On an NVIDIA H100 80GB HBM3 at 700 W the
+// 24 lines of 1,024 voices at 48 kHz take about 0.095 ms a call in either
+// direction, 70 % of the bound, at P = 128 (P = 256 is as fast, 32 and 64
+// slower; chip_smoke.py phase 15 times each).  One thread per voice and
+// position, a warp's 32 lanes on 32 rings L_j floats apart, took about
+// 0.13 ms rings -> lines and 0.61 ms lines -> rings at the same shapes.
 //
-// The f64 entries (srk_ring_align_tile_f64, srk_ring_align_twin_f64) are
-// the same templates at T = double, for exact precision's f64 Freeverb
-// lines: [V, L] rings of doubles.  Moving the doubles as pairs of 32-bit
-// words would not do: on the [L, V] side a pair would interleave two
-// voices' words.  The tile is [32][P + 1] doubles (33 KB at P = 128); the
-// padding still keeps both passes off bank conflicts (a half-warp's 16
-// doubles a row apart start 2 * 129 words apart: 16 distinct bank pairs).
-// Twice the bytes of the f32 build, the same bound by bytes; exact.
+// The f64 entry (srk_ring_align_tile_f64) is the same template at T =
+// double, for exact precision's f64 Freeverb lines: [V, L] rings of
+// doubles.  Moving the doubles as pairs of 32-bit words would not do: on
+// the [L, V] side a pair would interleave two voices' words.  The tile is
+// [32][P + 1] doubles (33 KB at P = 128); the padding still keeps both
+// passes off bank conflicts (a half-warp's 16 doubles a row apart start 2 *
+// 129 words apart: 16 distinct bank pairs).  Twice the bytes of the f32
+// build, the same bound by bytes; exact.
 //
 // The host build (g++, for the tests) runs the same tile passes, thread by
-// thread over a host tile, and the twin's per-element loop.
+// thread over a host tile.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -73,16 +66,10 @@
 #endif
 
 #define SRK_RING_MAX_LINES 32
-#define SRK_RING_VOICES 32  // threadIdx.x (the twin); voices per tile
-#define SRK_RING_ROWS 8     // threadIdx.y (the twin); warps per tile
-#define SRK_RING_CHUNK 256  // positions per CTA (the twin)
+#define SRK_RING_VOICES 32  // voices per tile
+#define SRK_RING_ROWS 8     // warps per tile
 #define SRK_RING_TILE_MIN 32
 #define SRK_RING_TILE_MAX 256
-
-// the offset of (voice v, position i) in a line of length len
-SRK_HD size_t srk_ring_at(int len, int V, int v, int i, int lines) {
-  return lines ? (size_t)i * V + v : (size_t)v * len + i;
-}
 
 // voice v's rotation of line j: (idx[j, v] + shift) mod len, in [0, len)
 SRK_HD int srk_ring_start(const int* idx, int shift, int j, int v, int V,
@@ -90,16 +77,6 @@ SRK_HD int srk_ring_start(const int* idx, int shift, int j, int v, int V,
   long long s = (long long)shift + (idx ? idx[(size_t)j * V + v] : 0);
   s %= len;
   return (int)(s < 0 ? s + len : s);
-}
-
-// one element: dst[v, i] = src[v, (s + i) % len]
-template <typename T>
-SRK_HD void srk_ring_move(const T* src, T* dst, int len, int V, int v, int i,
-                          int s, int src_lines, int dst_lines) {
-  int k = i + s;
-  if (k >= len) k -= len;
-  dst[srk_ring_at(len, V, v, i, dst_lines)] =
-      src[srk_ring_at(len, V, v, k, src_lines)];
 }
 
 template <typename T>
@@ -274,62 +251,6 @@ extern "C" int srk_ring_align_tile_f64(const double* const* src,
                                          stream);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(SRK_RING_VOICES * SRK_RING_ROWS)
-    srk_ring_align_twin_kernel(SrkRingLines<T> a, const int* __restrict__ idx,
-                               int V, int src_lines, int dst_lines) {
-  const int j = blockIdx.z, len = a.len[j];
-  const int v = blockIdx.x * SRK_RING_VOICES + threadIdx.x;
-  const int i0 = blockIdx.y * SRK_RING_CHUNK;
-  if (v >= V || i0 >= len) return;
-  const int s = srk_ring_start(idx, a.shift[j], j, v, V, len);
-  const int i1 = min(i0 + SRK_RING_CHUNK, len);
-  for (int i = i0 + threadIdx.y; i < i1; i += SRK_RING_ROWS)
-    srk_ring_move(a.src[j], a.dst[j], len, V, v, i, s, src_lines, dst_lines);
-}
-
-template <typename T>
-static int srk_ring_align_twin_run(const T* const* src, T* const* dst,
-                                   const int* lens, const int* shifts,
-                                   const int* idx, int n_lines, int V,
-                                   int src_lines, int dst_lines,
-                                   void* stream) {
-  SrkRingLines<T> a;
-  if (srk_ring_lines(&a, src, dst, lens, shifts, n_lines, 32) < 0)
-    return (int)cudaErrorInvalidValue;
-  int max_len = 0;
-  for (int j = 0; j < n_lines; ++j)
-    if (lens[j] > max_len) max_len = lens[j];
-  if (n_lines > 0 && V > 0) {
-    const dim3 grid((V + SRK_RING_VOICES - 1) / SRK_RING_VOICES,
-                    (max_len + SRK_RING_CHUNK - 1) / SRK_RING_CHUNK, n_lines);
-    srk_ring_align_twin_kernel<T><<<grid, dim3(SRK_RING_VOICES,
-                                               SRK_RING_ROWS),
-                                    0, (cudaStream_t)stream>>>(
-        a, idx, V, src_lines, dst_lines);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int srk_ring_align_twin(const float* const* src, float* const* dst,
-                                   const int* lens, const int* shifts,
-                                   const int* idx, int n_lines, int V,
-                                   int src_lines, int dst_lines,
-                                   void* stream) {
-  return srk_ring_align_twin_run<float>(src, dst, lens, shifts, idx, n_lines,
-                                        V, src_lines, dst_lines, stream);
-}
-
-extern "C" int srk_ring_align_twin_f64(const double* const* src,
-                                       double* const* dst, const int* lens,
-                                       const int* shifts, const int* idx,
-                                       int n_lines, int V, int src_lines,
-                                       int dst_lines, void* stream) {
-  return srk_ring_align_twin_run<double>(src, dst, lens, shifts, idx,
-                                         n_lines, V, src_lines, dst_lines,
-                                         stream);
-}
-
 #else
 
 template <typename T>
@@ -355,22 +276,6 @@ static int srk_ring_align_tile_run(const T* const* src, T* const* dst,
   return 0;
 }
 
-template <typename T>
-static int srk_ring_align_twin_run(const T* const* src, T* const* dst,
-                                   const int* lens, const int* shifts,
-                                   const int* idx, int n_lines, int V,
-                                   int src_lines, int dst_lines) {
-  if (n_lines < 0 || n_lines > SRK_RING_MAX_LINES) return 1;
-  for (int j = 0; j < n_lines; ++j)
-    for (int v = 0; v < V; ++v) {
-      const int s = srk_ring_start(idx, shifts[j], j, v, V, lens[j]);
-      for (int i = 0; i < lens[j]; ++i)
-        srk_ring_move(src[j], dst[j], lens[j], V, v, i, s, src_lines,
-                      dst_lines);
-    }
-  return 0;
-}
-
 extern "C" int srk_ring_align_tile(const float* const* src, float* const* dst,
                                    const int* lens, const int* shifts,
                                    const int* idx, int n_lines, int V,
@@ -386,23 +291,6 @@ extern "C" int srk_ring_align_tile_f64(const double* const* src,
                                        int dst_lines, int P) {
   return srk_ring_align_tile_run<double>(src, dst, lens, shifts, idx,
                                          n_lines, V, src_lines, dst_lines, P);
-}
-
-extern "C" int srk_ring_align_twin(const float* const* src, float* const* dst,
-                                   const int* lens, const int* shifts,
-                                   const int* idx, int n_lines, int V,
-                                   int src_lines, int dst_lines) {
-  return srk_ring_align_twin_run<float>(src, dst, lens, shifts, idx, n_lines,
-                                        V, src_lines, dst_lines);
-}
-
-extern "C" int srk_ring_align_twin_f64(const double* const* src,
-                                       double* const* dst, const int* lens,
-                                       const int* shifts, const int* idx,
-                                       int n_lines, int V, int src_lines,
-                                       int dst_lines) {
-  return srk_ring_align_twin_run<double>(src, dst, lens, shifts, idx,
-                                         n_lines, V, src_lines, dst_lines);
 }
 
 #endif

@@ -36,18 +36,17 @@
 // --fmad=false: a*b+c rounds twice.  A double moves through the warp
 // shuffle as two 32-bit words (srk_shfl_up).
 //
-// The main path's kernel, srk_scan_pipe_kernel, keeps that order and
-// launch shape (one CTA of 256 threads per row, walking the row's chunks in
-// order; every main path has at least 1,024 rows) and is designed for the
-// card's memory:
+// The kernel, srk_scan_pipe_kernel, takes one CTA of 256 threads per row,
+// walking the row's chunks in order (every main path has at least 1,024
+// rows), and is designed for the card's memory:
 //
 // * A prefetch ring.  A ring of STAGES chunk stages in shared memory
 //   (srk_ring: 4 stages of a 4 KB chunk for an f32 or int32 sum or max, 3
 //   for an 8 KB one (f64, affine, a fill of one 4-byte array), 2 above),
 //   filled by cp.async: the next STAGES - 1 chunks are in flight while a
 //   chunk is scanned and stored, 12-16 KB a CTA, about 96-128 KB an SM at
-//   8 CTAs of 256 threads (the one-chunk kernel had 4 KB a CTA in flight,
-//   and none while it scanned).  cp.async and not TMA bulk copies: each
+//   8 CTAs of 256 threads (a kernel that loads one chunk at a time has 4
+//   KB a CTA in flight, and none while it scans).  cp.async and not TMA bulk copies: each
 //   thread copies exactly the elements it folds (piece p of thread t of a
 //   stream at (p * 256 + t) * width in the stage, so a warp's copies and
 //   reads of a piece fall on consecutive words), waits for its own copies
@@ -65,15 +64,11 @@
 //   moves one element a copy and a store and takes any n and pointers: the
 //   wrapper (ops/scan_kernel.py) picks the variant.  Both are the same
 //   kernel.
-// * Two barriers a chunk (srk_cta_scan2 in row_scan.cuh): the carry and
-//   the warp totals in double-buffered shared slots.
+// * Two barriers a chunk (srk_cta_scan2 in row_scan.cuh), not three: the
+//   carry and the warp totals in double-buffered shared slots.
 //
-// Past the row's end the elements are the identity, as in the one-chunk
-// kernel; copies past it are not issued.
-//
-// The kernel it replaced stays as its twin, entries *_twin
-// (srk_scan_kernel: one chunk at a time, 4-byte loads and stores, three
-// barriers a chunk); only chip_smoke.py's comparison launches it.
+// Past the row's end the elements are the identity; copies past it are
+// not issued.
 //
 // Every body is written twice from one description: the kernels (cp.async,
 // shuffles, shared memory) and the host build (g++), which runs the same
@@ -173,10 +168,9 @@ struct srk_stream {
   }
 };
 
-// -- the kinds: element type, identity, combine, load and store ----------
+// -- the kinds: element type, identity, combine, copy, read and put -------
 //
-// load/store: the twin's element access; copy/read/put: the pipelined
-// kernel's (a thread's SRK_SCAN_ITEMS elements through the ring), BYTES
+// copy/read/put: a thread's SRK_SCAN_ITEMS elements through the ring, BYTES
 // the input bytes an element (a stage holds SRK_SCAN_CHUNK x BYTES).
 
 // sum and max: one array in, one out
@@ -189,10 +183,6 @@ struct srk_scan1 {
   static constexpr int BYTES = sizeof(V);
   SRK_HD static T id() { return C<V>::id(); }
   SRK_HD static T op(T a, T b) { return C<V>::op(a, b); }
-  SRK_HD T load(size_t row, int i) const { return x[row * (size_t)n + i]; }
-  SRK_HD void store(size_t row, int i, T v) const {
-    y[row * (size_t)n + i] = v;
-  }
   template <bool VEC>
   SRK_HD void copy(unsigned char* st, size_t row, int tid, int i0) const {
     srk_stream<V, VEC>::copy(st, x + row * (size_t)n, tid, i0, n);
@@ -242,18 +232,6 @@ struct srk_scan_fill {
     for (int k = 0; k < K; ++k) t.v[k] = b.ok != 0 ? b.v[k] : a.v[k];
     t.ok = a.ok | b.ok;
     return t;
-  }
-  SRK_HD T load(size_t row, int i) const {
-    T t;
-    const size_t plane = (size_t)rows * (size_t)n;
-    for (int k = 0; k < K; ++k) t.v[k] = vals[k * plane + row * n + i];
-    t.ok = mask[row * (size_t)n + i];
-    return t;
-  }
-  SRK_HD void store(size_t row, int i, T t) const {
-    const size_t plane = (size_t)rows * (size_t)n;
-    for (int k = 0; k < K; ++k) out_vals[k * plane + row * n + i] = t.v[k];
-    out_ok[row * (size_t)n + i] = t.ok;
   }
   // in a stage: the K value streams, then the mask
   template <bool VEC>
@@ -311,15 +289,6 @@ struct srk_scan_affine {
   static constexpr int BYTES = 2 * sizeof(float);
   SRK_HD static T id() { return T{1.0f, 0.0f}; }
   SRK_HD static T op(T e, T l) { return T{l.a * e.a, l.a * e.b + l.b}; }
-  SRK_HD T load(size_t row, int i) const {
-    const size_t j = row * (size_t)n + i;
-    return T{a[j], b[j]};
-  }
-  SRK_HD void store(size_t row, int i, T t) const {
-    const size_t j = row * (size_t)n + i;
-    out_a[j] = t.a;
-    out_b[j] = t.b;
-  }
   // in a stage: A, then B
   template <bool VEC>
   SRK_HD void copy(unsigned char* st, size_t row, int tid, int i0) const {
@@ -364,18 +333,8 @@ struct srk_ring {
   static constexpr int BYTES = STAGE * STAGES;
 };
 
-// -- phase A of the twin -----------------------------------------------------
-
-template <class S>
-SRK_HD void srk_scan_local(const S& s, size_t row, int i0, int n,
-                           typename S::T* loc) {
-  for (int k = 0; k < SRK_SCAN_ITEMS; ++k)
-    loc[k] = i0 + k < n ? s.load(row, i0 + k) : S::id();
-  srk_scan_fold<typename S::T, S>(loc);
-}
-
-// phase A of the pipelined kernel, after the thread's elements were read
-// from the ring: the identity past the row's end, then the fold
+// phase A, after the thread's elements were read from the ring: the
+// identity past the row's end, then the fold
 template <class S>
 SRK_HD void srk_pipe_local(int i0, int n, typename S::T* loc) {
   for (int k = 0; k < SRK_SCAN_ITEMS; ++k)
@@ -384,26 +343,6 @@ SRK_HD void srk_pipe_local(int i0, int n, typename S::T* loc) {
 }
 
 #ifdef __CUDACC__
-
-// the twin: one chunk at a time, 4-byte accesses, three barriers a chunk
-template <class S>
-__global__ void __launch_bounds__(SRK_SCAN_THREADS)
-    srk_scan_kernel(S s, int n) {
-  typedef typename S::T T;
-  __shared__ T warp_tot[SRK_SCAN_WARPS];
-  __shared__ T carry_s;
-  const size_t row = blockIdx.x;
-  T carry = S::id();
-  for (int base = 0; base < n; base += SRK_SCAN_CHUNK) {
-    const int i0 = base + threadIdx.x * SRK_SCAN_ITEMS;
-    T loc[SRK_SCAN_ITEMS];
-    srk_scan_local(s, row, i0, n, loc);                       // A
-    srk_cta_scan<T, S>(loc, carry, warp_tot, &carry_s);       // B-D
-#pragma unroll
-    for (int k = 0; k < SRK_SCAN_ITEMS; ++k)
-      if (i0 + k < n) s.store(row, i0 + k, loc[k]);
-  }
-}
 
 extern __shared__ __align__(16) unsigned char srk_ring_smem[];
 
@@ -445,14 +384,6 @@ __global__ void __launch_bounds__(SRK_SCAN_THREADS)
   }
 }
 
-template <class S>
-static int srk_twin_launch(const S& s, int rows, int n, void* stream) {
-  if (rows > 0 && n > 0)
-    srk_scan_kernel<S><<<rows, SRK_SCAN_THREADS, 0, (cudaStream_t)stream>>>(
-        s, n);
-  return (int)cudaGetLastError();
-}
-
 template <class S, bool VEC>
 static int srk_pipe_launch(const S& s, int rows, int n, void* stream) {
   const int smem = srk_ring<S>::BYTES;
@@ -484,29 +415,6 @@ static int srk_pipe_shape(int* ctas, int* smem) {
 }
 
 #else  // the host build: the same phases over arrays
-
-template <class S>
-static void srk_scan_row_host(const S& s, size_t row, int n) {
-  typedef typename S::T T;
-  static T loc[SRK_SCAN_THREADS][SRK_SCAN_ITEMS];
-  T carry = S::id();
-  for (int base = 0; base < n; base += SRK_SCAN_CHUNK) {
-    for (int tid = 0; tid < SRK_SCAN_THREADS; ++tid)          // A
-      srk_scan_local(s, row, base + tid * SRK_SCAN_ITEMS, n, loc[tid]);
-    srk_cta_scan_host<T, S>(loc, carry);                      // B-D
-    for (int tid = 0; tid < SRK_SCAN_THREADS; ++tid)
-      for (int k = 0; k < SRK_SCAN_ITEMS; ++k) {
-        const int i = base + tid * SRK_SCAN_ITEMS + k;
-        if (i < n) s.store(row, i, loc[tid][k]);
-      }
-  }
-}
-
-template <class S>
-static int srk_twin_host(const S& s, int rows, int n) {
-  for (int r = 0; r < rows; ++r) srk_scan_row_host(s, (size_t)r, n);
-  return 0;
-}
 
 // the pipelined kernel's row: the ring's stages, copies, reads and stores
 // in the kernel's order, each thread in turn
@@ -548,19 +456,17 @@ static int srk_pipe_host(const S& s, int rows, int n) {
 
 #endif
 
-// -- the three forms of every entry -----------------------------------------
+// -- the two forms of every entry -------------------------------------------
 
-enum { SRK_SCALAR = 0, SRK_VEC = 1, SRK_TWIN = 2 };
+enum { SRK_SCALAR = 0, SRK_VEC = 1 };
 
 template <class S>
 static int srk_scan_run(const S& s, int rows, int n, int form SRK_STREAM) {
   if (form == SRK_VEC && !s.fits()) return -2;
 #ifdef __CUDACC__
-  if (form == SRK_TWIN) return srk_twin_launch(s, rows, n, stream);
   if (form == SRK_VEC) return srk_pipe_launch<S, true>(s, rows, n, stream);
   return srk_pipe_launch<S, false>(s, rows, n, stream);
 #else
-  if (form == SRK_TWIN) return srk_twin_host(s, rows, n);
   if (form == SRK_VEC) return srk_pipe_host<S, true>(s, rows, n);
   return srk_pipe_host<S, false>(s, rows, n);
 #endif
@@ -591,13 +497,12 @@ static int srk_fill_run(const V* vals, const int* mask, V* out_vals,
   return -1;
 }
 
-// -- entry points: <name> (the scalar variant), <name>_vec, <name>_twin;
-// the host build takes no stream --------------------------------------------
+// -- entry points: <name> (the scalar variant) and <name>_vec; the host
+// build takes no stream ----------------------------------------------------
 
 #define SRK_FORMS(NAME, PARAMS, CALL)                                     \
   extern "C" int NAME PARAMS { return CALL(SRK_SCALAR); }                 \
-  extern "C" int NAME##_vec PARAMS { return CALL(SRK_VEC); }              \
-  extern "C" int NAME##_twin PARAMS { return CALL(SRK_TWIN); }
+  extern "C" int NAME##_vec PARAMS { return CALL(SRK_VEC); }
 
 #define SRK_SCAN1_PARAMS(V) (const V* x, V* y, int rows, int n SRK_STREAM)
 #define SRK_SCAN1_CALL(V, C)                                                \

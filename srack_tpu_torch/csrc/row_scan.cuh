@@ -20,14 +20,15 @@
 // the identity is exact for every kind, so a short row or a partial chunk
 // takes the same order as its elements' positions give.
 //
-// Phase A is the caller's (it loads its own elements); srk_cta_scan runs B
-// to D on the CTA, srk_cta_scan_host the same phases over arrays for the
-// host build (g++), which the CPU tests check against the plain versions.
-// srk_cta_scan2 (K4's pipelined kernel) runs the same phases with two
-// barriers a chunk instead of three: the warp totals and the carry sit in
-// double-buffered shared slots indexed by the chunk's parity, so chunk c's
-// carry is read in phase D of chunk c + 1, after that chunk's barriers,
-// and nothing is broadcast at the end of a chunk.
+// Phase A is the caller's (it loads its own elements); srk_cta_scan2 (K4's
+// kernel) runs B to D on the CTA, srk_cta_scan_host the same phases over
+// arrays for the host build (g++), which the CPU tests check against the
+// plain versions.  srk_cta_scan2 takes two barriers a chunk: the warp
+// totals and the carry sit in double-buffered shared slots indexed by the
+// chunk's parity, so chunk c's carry is read in phase D of chunk c + 1,
+// after that chunk's barriers, and nothing is broadcast at the end of a
+// chunk.  K7's tile kernel (sample_play.cu) runs the same phases with
+// srk_warp_scan and srk_shfl_up over the same positions.
 
 #ifndef SRK_ROW_SCAN_CUH
 #define SRK_ROW_SCAN_CUH
@@ -109,41 +110,13 @@ __device__ __forceinline__ T srk_warp_scan(T v, int lane) {
   return v;
 }
 
-// Phases B-D for one chunk on a CTA of SRK_SCAN_THREADS threads: ``loc``
-// holds this thread's phase-A values and gets the chunk's inclusive scan;
-// ``carry`` (the same in every thread) moves to this chunk's last value.
-// ``warp_tot`` (SRK_SCAN_WARPS) and ``carry_s`` are shared memory.
-template <class T, class C>
-__device__ __forceinline__ void srk_cta_scan(T* loc, T& carry, T* warp_tot,
-                                             T* carry_s) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T tot = srk_warp_scan<T, C>(loc[SRK_SCAN_ITEMS - 1], lane);  // B
-  T ex = srk_shfl_up(tot, 1);
-  if (lane == 0) ex = C::id();
-  if (lane == 31) warp_tot[warp] = tot;
-  __syncthreads();
-  if (warp == 0) {                                                  // C
-    T w = lane < SRK_SCAN_WARPS ? warp_tot[lane] : C::id();
-    w = srk_warp_scan<T, C>(w, lane);
-    if (lane < SRK_SCAN_WARPS) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  const T pw = warp == 0 ? C::id() : warp_tot[warp - 1];
-#pragma unroll
-  for (int k = 0; k < SRK_SCAN_ITEMS; ++k)                          // D
-    loc[k] = C::op(carry, C::op(pw, C::op(ex, loc[k])));
-  if (tid == SRK_SCAN_THREADS - 1) *carry_s = loc[SRK_SCAN_ITEMS - 1];
-  __syncthreads();
-  carry = *carry_s;
-}
-
 // Phases B-D for chunk ``c`` with two barriers: ``warp_tot`` is
 // [2][SRK_SCAN_WARPS] and ``carry_s`` [2] in shared memory; the carry is
 // carry_s[(c + 1) & 1], chunk c - 1's last value (thread 255 stores
 // carry_s[1] = identity before chunk 0), and chunk c's goes to
 // carry_s[c & 1].  A slot of parity c & 1 is written again only in chunk
 // c + 2, after every thread has passed chunk c + 1's barriers and so left
-// chunk c's phase D.  The combines are srk_cta_scan's, in its order.
+// chunk c's phase D.  The combines are those of the order above.
 template <class T, class C>
 __device__ __forceinline__ void srk_cta_scan2(T* loc, int c,
                                               T (*warp_tot)[SRK_SCAN_WARPS],

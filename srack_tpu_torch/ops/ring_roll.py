@@ -6,24 +6,18 @@ that its state stays interchangeable with the per-sample step.  The block
 path wants the lines in time order, oldest first: ``chrono[i] =
 buf[(idx + i) % L]``.  ``csrc/ring_align.cu`` does that for every line of
 a Freeverb in one launch, and moves each line between the module's ring
-layout ``[V, L]`` and the Freeverb kernel's ``[L, V]`` on the way.  It has
-two entries, each with a launch count here (its source note states the
-launch shapes and the bound, bytes):
+layout ``[V, L]`` and the Freeverb kernel's ``[L, V]`` on the way.  Its
+entry, ``srk_ring_align_tile`` (:data:`RING_ALIGN`), is a rotated
+transpose through a shared-memory tile of 32 voices x
+:attr:`RingAlign.tile` positions, each side read or written 128
+contiguous bytes a warp access (its source note states the launch shape
+and the bound, bytes).
 
-* ``ring_align`` (:data:`RING_ALIGN`, entry ``srk_ring_align_tile``), the
-  main path's: a rotated transpose through a shared-memory tile of 32
-  voices x :attr:`RingAlign.tile` positions, each side read or written
-  128 contiguous bytes a warp access;
-* ``ring_align_twin`` (:data:`RING_ALIGN_TWIN`, entry
-  ``srk_ring_align_twin``), the kernel it replaced, one thread per voice
-  and position; nothing but ``chip_smoke.py``'s comparison launches it.
-
-Exact precision's f64 Freeverb lines take the f64 build of both entries,
-:data:`RING_ALIGN_F64` (``srk_ring_align_tile_f64``) and
-:data:`RING_ALIGN_TWIN_F64` (``srk_ring_align_twin_f64``): the same
-templates on 8-byte elements, exact; the JAX package rotates its f64 rings
-in XLA, so these port no Pallas kernel.  :func:`ring_align_for` picks the
-build by dtype.
+Exact precision's f64 Freeverb lines take the f64 build,
+:data:`RING_ALIGN_F64` (``srk_ring_align_tile_f64``): the same template
+on 8-byte elements, exact; the JAX package rotates its f64 rings in XLA,
+so it ports no Pallas kernel.  :func:`ring_align_for` picks the build by
+dtype.
 
 The plain version is :func:`ring_align_plain`, a ``torch.gather`` with the
 rotated index (and a transpose where the layout changes); that gather is
@@ -55,11 +49,11 @@ TILE_MIN, TILE_MAX = 32, 256  # SRK_RING_TILE_MIN, _MAX
 
 
 class RingAlign(CudaLib):
-    """K9: :meth:`move` of up to 32 lines in one launch, through the tiled
-    entry (``tile``: positions per tile) or, with ``tile=None``, the
-    twin; for lines of ``dtype`` (f32, or f64: the ``_f64`` entries)."""
+    """K9: :meth:`move` of up to 32 lines in one launch (``tile``:
+    positions per tile); for lines of ``dtype`` (f32, or f64: the ``_f64``
+    entry)."""
 
-    def __init__(self, name: str, what: str, tile,
+    def __init__(self, name: str, what: str, tile: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__(name, csrc("ring_align.cu"), what)
         self.tile = tile
@@ -104,8 +98,6 @@ class RingAlign(CudaLib):
                 None if idx is None else idx.data_ptr(), n, v,
                 int(src_lines), int(dst_lines))
         argtypes = [P, P, P, P, P, I, I, I, I]
-        if self.tile is None:
-            return f"srk_ring_align_twin{self.suffix}", argtypes, args, device
         if not (TILE_MIN <= self.tile <= TILE_MAX and self.tile % 32 == 0):
             raise ValueError(f"a tile of {self.tile} positions (a multiple "
                              f"of 32 from {TILE_MIN} to {TILE_MAX})")
@@ -115,14 +107,9 @@ class RingAlign(CudaLib):
 
 # the tile's 128 positions: chip_smoke.py phase 15 times 32 to 256
 RING_ALIGN = RingAlign("ring_align", "ring-alignment kernel (K9)", 128)
-RING_ALIGN_TWIN = RingAlign("ring_align_twin",
-                            "ring-alignment kernel, twin (K9)", None)
 RING_ALIGN_F64 = RingAlign("ring_align_f64",
                            "ring-alignment kernel, f64 build (K9)", 128,
                            torch.float64)
-RING_ALIGN_TWIN_F64 = RingAlign(
-    "ring_align_twin_f64", "ring-alignment kernel, f64 build, twin (K9)",
-    None, torch.float64)
 
 
 def ring_align_for(dtype: torch.dtype) -> RingAlign:

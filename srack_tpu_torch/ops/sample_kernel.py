@@ -4,26 +4,19 @@
 One launch computes the whole Sample player of ``modules/sample.py``'s
 block form for ``[R, n]`` gate (and CV) lanes and per-row tables ``[R, K]``:
 edges, rate, the segmented prefix sum, the last-trigger fill, the end stop,
-the table read and the end state.  Two entries of ``csrc/sample_play.cu``,
-both in K4's order of combination (the CTA scan of ``csrc/row_scan.cuh``),
-so that they equal the unfused form on K4 and K6, and each other, bit for
-bit:
+the table read and the end state.  Its entry, ``srk_sample_play`` of
+``csrc/sample_play.cu`` (:data:`SAMPLE_PLAY`), combines in K4's order (the
+CTA scan of ``csrc/row_scan.cuh``), so that it equals the unfused form on
+K4 and K6 bit for bit.  A CTA takes 8 voices and stages each chunk of
+their gate (and CV) in shared memory one chunk ahead (``cp.async``),
+reading the lanes as 2-D views with any strides, so the block engine's
+transposed stage outputs (``[V, n]`` views of K3's ``[n, V]`` rows) go in
+without a copy; 4 warps play each voice's chunk.
 
-* ``sample_play`` (:data:`SAMPLE_PLAY`, entry ``srk_sample_play``), the
-  main path's: a CTA takes 8 voices and stages each chunk of their gate
-  (and CV) in shared memory one chunk ahead (``cp.async``), reading the
-  lanes as 2-D views with any strides, so the block engine's transposed
-  stage outputs (``[V, n]`` views of K3's ``[n, V]`` rows) go in without a
-  copy; 4 warps play each voice's chunk.
-* ``sample_play_twin`` (:data:`SAMPLE_PLAY_TWIN`, entry
-  ``srk_sample_play_twin``), the kernel it replaced: one CTA per row on
-  contiguous rows (its wrapper copies a strided lane first).  No main path
-  runs it; ``chip_smoke.py`` holds the new entry to it.
-
-Their source notes state what bounds them (bytes).  The plain version is
+Its source note states what bounds it (bytes).  The plain version is
 ``modules/sample.py::play_unfused`` (on CPU tensors the log-doubling scans
 and one ``torch.gather``), which the module's block form runs for CPU
-tensors.  These wrappers launch their kernel for CUDA tensors or raise.
+tensors.  This wrapper launches the kernel for CUDA tensors or raises.
 """
 
 from __future__ import annotations
@@ -45,11 +38,9 @@ class SamplePlay(CudaLib):
     """K7: ``run(gate, cv, table, base, pos0, playing0, gate_last0,
     length)``."""
 
-    def __init__(self, name: str = "sample_play",
-                 entry: str = "srk_sample_play",
-                 what: str = "Sample-player kernel (K7)"):
-        super().__init__(name, csrc("sample_play.cu"), what)
-        self.entry = entry
+    def __init__(self):
+        super().__init__("sample_play", csrc("sample_play.cu"),
+                         "Sample-player kernel (K7)")
         self.shape = TILE_SHAPES.index((8, 4))
 
     def operands(self, gate, cv, table, base, pos0, playing0, gate_last0,
@@ -95,49 +86,22 @@ class SamplePlay(CudaLib):
         pos_end = pos0.clone()
         playing_end, gate_last = ints[0].clone(), ints[1].clone()
         if n and rows:
-            self._launch(gate, cv, table, base, pos0, ints, out, pos_end,
-                         playing_end, gate_last, device)
+            lanes = [gate] if cv is None else [gate, cv]
+            vec = all(t.stride(1) == 1 and t.stride(0) % 4 == 0
+                      and t.data_ptr() % 16 == 0 for t in lanes)
+            c = cv if cv is not None else gate
+            self.launch("srk_sample_play", [P, LL, LL, P, LL, LL] + [P] * 10
+                        + [I, I, I, I, I], (
+                            gate.data_ptr(), gate.stride(0), gate.stride(1),
+                            None if cv is None else cv.data_ptr(),
+                            c.stride(0), c.stride(1), table.data_ptr(),
+                            base.data_ptr(), pos0.data_ptr(),
+                            ints[0].data_ptr(), ints[1].data_ptr(),
+                            ints[2].data_ptr(), out.data_ptr(),
+                            pos_end.data_ptr(), playing_end.data_ptr(),
+                            gate_last.data_ptr(), rows, n, table.shape[-1],
+                            int(vec), self.shape), device)
         return out, pos_end, playing_end != 0, gate_last != 0
-
-    def _launch(self, gate, cv, table, base, pos0, ints, out, pos_end,
-                playing_end, gate_last, device):
-        rows, n = gate.shape
-        lanes = [gate] if cv is None else [gate, cv]
-        vec = all(t.stride(1) == 1 and t.stride(0) % 4 == 0
-                  and t.data_ptr() % 16 == 0 for t in lanes)
-        c = cv if cv is not None else gate
-        self.launch(self.entry, [P, LL, LL, P, LL, LL] + [P] * 10
-                    + [I, I, I, I, I], (
-                        gate.data_ptr(), gate.stride(0), gate.stride(1),
-                        None if cv is None else cv.data_ptr(), c.stride(0),
-                        c.stride(1), table.data_ptr(), base.data_ptr(),
-                        pos0.data_ptr(), ints[0].data_ptr(),
-                        ints[1].data_ptr(), ints[2].data_ptr(),
-                        out.data_ptr(), pos_end.data_ptr(),
-                        playing_end.data_ptr(), gate_last.data_ptr(), rows,
-                        n, table.shape[-1], int(vec), self.shape), device)
-
-
-class SamplePlayTwin(SamplePlay):
-    """K7's one-CTA-per-row twin: contiguous rows only (a strided lane is
-    copied first)."""
-
-    def __init__(self):
-        super().__init__("sample_play_twin", "srk_sample_play_twin",
-                         "Sample-player kernel (K7, twin)")
-
-    def _launch(self, gate, cv, table, base, pos0, ints, out, pos_end,
-                playing_end, gate_last, device):
-        rows, n = gate.shape
-        gate = gate.contiguous()
-        cv = None if cv is None else cv.contiguous()
-        self.launch(self.entry, [P] * 12 + [I, I, I], (
-            gate.data_ptr(), None if cv is None else cv.data_ptr(),
-            table.data_ptr(), base.data_ptr(), pos0.data_ptr(),
-            ints[0].data_ptr(), ints[1].data_ptr(), ints[2].data_ptr(),
-            out.data_ptr(), pos_end.data_ptr(), playing_end.data_ptr(),
-            gate_last.data_ptr(), rows, n, table.shape[-1]), device)
 
 
 SAMPLE_PLAY = SamplePlay()
-SAMPLE_PLAY_TWIN = SamplePlayTwin()

@@ -23,10 +23,7 @@ what bounds it (bytes) and the design.  Each entry has two variants,
 picked here by :func:`vector_fits`: ``<entry>_vec`` moves a thread's
 elements as 16-byte pieces and needs every array's rows 16-byte aligned
 (``n`` times the element size a multiple of 16, base pointers aligned);
-``<entry>`` moves one element at a time and takes any row.  The kernel
-it replaced is the twin, :data:`ROW_SCAN_TWIN` and
-:data:`ROW_SCAN_TWIN_F64` (entries ``<entry>_twin``): nothing but
-``chip_smoke.py``'s comparison launches it.
+``<entry>`` moves one element at a time and takes any row.
 
 The plain versions are the log-doubling forms in ``ops/basic.py``
 (``cumsum_plain`` and its siblings), which the wrappers there run for CPU
@@ -54,20 +51,16 @@ def vector_fits(n: int, arrays) -> bool:
 class RowScan(CudaLib):
     """K4: ``run(kind, arrays)`` and ``fill(values, mask)``, for the row
     dtypes ``dtypes``; :meth:`fill` sends f64 value arrays to the f64
-    build.  ``twin``: the kernel K4 replaced (entries ``*_twin``)."""
+    build."""
 
-    def __init__(self, name: str, what: str, dtypes: tuple,
-                 twin: bool = False):
+    def __init__(self, name: str, what: str, dtypes: tuple):
         super().__init__(name, csrc("row_scan.cu"), what)
         self.dtypes = dtypes
-        self.twin = twin
 
     def entry(self, base: str, n: int, arrays) -> str:
         """The entry of this build for ``base`` over rows of ``n``: the
-        twin's, else the 16-byte variant where :func:`vector_fits`, else
-        the one-element variant."""
-        if self.twin:
-            return f"{base}_twin"
+        16-byte variant where :func:`vector_fits`, else the one-element
+        variant."""
         return f"{base}_vec" if vector_fits(n, arrays) else base
 
     @staticmethod
@@ -113,7 +106,7 @@ class RowScan(CudaLib):
         ``mask`` held.  Returns ``(filled_tuple, any_valid bool)``; where
         nothing held yet the filled value is 0.  Arrays of one dtype go in
         one launch of up to four; others take further launches, f64 arrays
-        on the f64 build (:data:`ROW_SCAN_F64`, or the twin's)."""
+        on the f64 build (:data:`ROW_SCAN_F64`)."""
         m = mask.to(torch.int32).contiguous()
         require_cuda(m)
         rows, n = self._rows(m)
@@ -128,7 +121,7 @@ class RowScan(CudaLib):
             dt = _SUFFIX.get(dtype)
             if dt is None:
                 raise TypeError(f"fill of {dtype}: f32, f64 or int32")
-            lib = _BUILDS[self.twin, dtype == torch.float64]
+            lib = ROW_SCAN_F64 if dtype == torch.float64 else ROW_SCAN
             for start in range(0, len(idx), 4):
                 part = idx[start:start + 4]
                 vals = torch.stack([values[i] for i in part]).contiguous()
@@ -152,11 +145,3 @@ ROW_SCAN = RowScan("row_scan", "row-scan kernel (K4)",
                    (torch.float32, torch.int32))
 ROW_SCAN_F64 = RowScan("row_scan_f64", "row-scan kernel, f64 build (K4)",
                        (torch.float64,))
-ROW_SCAN_TWIN = RowScan("row_scan_twin", "row-scan kernel, twin (K4)",
-                        (torch.float32, torch.int32), twin=True)
-ROW_SCAN_TWIN_F64 = RowScan("row_scan_twin_f64",
-                            "row-scan kernel, f64 build, twin (K4)",
-                            (torch.float64,), twin=True)
-# (twin, f64) -> the build a fill of that dtype launches
-_BUILDS = {(False, False): ROW_SCAN, (False, True): ROW_SCAN_F64,
-           (True, False): ROW_SCAN_TWIN, (True, True): ROW_SCAN_TWIN_F64}

@@ -10,13 +10,14 @@ held against its plain version on the same inputs:
   buffer mode (the feedback read from the previous block's lanes) and
   ``kit_check_patch`` (two input wires): bit-exact against
   ``BlockProgram.stage_plain`` (output lanes and state);
-* K4, the row scans (``csrc/row_scan.cu``), each entry in its three
-  forms (the pipelined kernel's one-element and 16-byte variants and the
-  twin): int32 sum, max and fill exact against the log-doubling plain
-  versions, f32 sum within ``2e-4`` and affine within ``3e-4``
-  (``tests/test_scan_kernel.py``'s tolerances: both reassociate), rows
-  longer than one chunk so the carried prefix is used; the 16-byte variant
-  refuses rows it does not fit;
+* K4, the row scans (``csrc/row_scan.cu``), each entry in three forms
+  (the one-element and 16-byte variants, and the one-element variant on
+  arrays whose base pointers lie 4 bytes off 16): int32 sum, max and fill
+  exact against the log-doubling plain versions, f32 sum within ``2e-4``
+  and affine within ``3e-4`` (``tests/test_scan_kernel.py``'s
+  tolerances: both reassociate), rows longer than one chunk so the carried
+  prefix is used; the 16-byte variant refuses rows it does not fit, by
+  length or by pointer;
 * K9, the ring alignment (``csrc/ring_align.cu``), rings to rings and
   to and from the Freeverb kernel's ``[L, V]`` lines: exact;
 * K8, the Freeverb (``csrc/freeverb.cu``) with the wrapper's layout around
@@ -88,8 +89,9 @@ def k4_lib(gxx, tmp_path_factory):
     return _host(ROW_SCAN, gxx, tmp_path_factory.mktemp("k4"))
 
 
-# K4's entry forms: the one-element variant, the 16-byte one, the twin
-FORMS = ("", "_vec", "_twin")
+# K4's entry forms: the one-element variant, the 16-byte one, and the
+# one-element variant on arrays one element into a larger buffer
+FORMS = ("", "_vec", "_off")
 
 
 def _fits(form, n, *sizes):
@@ -103,6 +105,26 @@ def _fn(lib, name, argtypes):
     fn.argtypes = argtypes
     fn.restype = I
     return fn
+
+
+def _at(form, t):
+    """``t`` as entry form ``form`` takes it: for ``_off`` a copy viewed
+    one element into a larger buffer, so its base pointer is 4 or 8 bytes
+    off 16."""
+    if form != "_off":
+        return t
+    off = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    assert off.data_ptr() % 16
+    return off.copy_(t)
+
+
+def _k4_call(lib, name, argtypes, form, *args):
+    """K4's entry ``name`` in ``form`` on ``args``: ``_off`` runs the
+    one-element variant after the 16-byte one refused the same views."""
+    if form == "_off":
+        assert _fn(lib, name + "_vec", argtypes)(*args) == -2
+        form = ""
+    return _fn(lib, name + form, argtypes)(*args)
 
 
 # -- K3 ----------------------------------------------------------------------
@@ -191,11 +213,11 @@ def _rows(dtype, shape, rng):
 @pytest.mark.parametrize("kind", ["sum", "max"])
 def test_row_scan_on_host_matches_plain(k4_lib, kind, dtype, n, form):
     rng = np.random.default_rng(n)
-    x = _rows(dtype, (3, n), rng)
+    x = _at(form, _rows(dtype, (3, n), rng))
     dt = "f32" if dtype == torch.float32 else "i32"
-    y = torch.empty_like(x)
-    rc = _fn(k4_lib, f"srk_scan_{kind}_{dt}{form}", [P, P, I, I])(
-        x.data_ptr(), y.data_ptr(), 3, n)
+    y = _at(form, torch.empty_like(x))
+    rc = _k4_call(k4_lib, f"srk_scan_{kind}_{dt}", [P, P, I, I], form,
+                  x.data_ptr(), y.data_ptr(), 3, n)
     if not _fits(form, n, 4):
         assert rc == -2
         return
@@ -213,16 +235,17 @@ def test_row_scan_on_host_matches_plain(k4_lib, kind, dtype, n, form):
 def test_row_fill_on_host_matches_plain(k4_lib, dtype, k, form):
     rng = np.random.default_rng(k)
     n = 2300
-    vals = _rows(dtype, (k, 3, n), rng)
+    vals = _at(form, _rows(dtype, (k, 3, n), rng))
     mask = torch.from_numpy(rng.uniform(size=(3, n)) < 0.01)
     mask[1] = False          # a row that never fills
     mask[2, 1500:] = False   # a fill held across chunks
     dt = "f32" if dtype == torch.float32 else "i32"
-    out, ok = torch.empty_like(vals), torch.empty((3, n), dtype=torch.int32)
-    m = mask.to(torch.int32)
-    assert _fn(k4_lib, f"srk_scan_fill_{dt}{form}", [P, P, P, P, I, I, I])(
-        vals.data_ptr(), m.data_ptr(), out.data_ptr(), ok.data_ptr(), k, 3,
-        n) == 0
+    out = _at(form, torch.empty_like(vals))
+    ok = _at(form, torch.empty((3, n), dtype=torch.int32))
+    m = _at(form, mask.to(torch.int32))
+    assert _k4_call(k4_lib, f"srk_scan_fill_{dt}", [P, P, P, P, I, I, I],
+                    form, vals.data_ptr(), m.data_ptr(), out.data_ptr(),
+                    ok.data_ptr(), k, 3, n) == 0
     want, want_ok = basic.forward_fill_multi_plain(tuple(vals), mask)
     assert torch.equal(ok != 0, want_ok)
     for j in range(k):
@@ -234,12 +257,15 @@ def test_row_fill_on_host_matches_plain(k4_lib, dtype, k, form):
 @pytest.mark.parametrize("n", [7, 2500])
 def test_row_affine_on_host_matches_plain(k4_lib, n, form):
     rng = np.random.default_rng(n)
-    a = torch.from_numpy(rng.uniform(0.9, 1.0, (3, n)).astype(np.float32))
-    b = torch.from_numpy(rng.standard_normal((3, n)).astype(np.float32))
-    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
-    rc = _fn(k4_lib, f"srk_scan_affine_f32{form}", [P, P, P, P, I, I])(
-        a.data_ptr(), b.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), 3,
-        n)
+    a = _at(form, torch.from_numpy(rng.uniform(0.9, 1.0, (3, n)).astype(
+        np.float32)))
+    b = _at(form, torch.from_numpy(rng.standard_normal((3, n)).astype(
+        np.float32)))
+    out_a = _at(form, torch.empty_like(a))
+    out_b = _at(form, torch.empty_like(b))
+    rc = _k4_call(k4_lib, "srk_scan_affine_f32", [P, P, P, P, I, I], form,
+                  a.data_ptr(), b.data_ptr(), out_a.data_ptr(),
+                  out_b.data_ptr(), 3, n)
     if not _fits(form, n, 4):
         assert rc == -2
         return

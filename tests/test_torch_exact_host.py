@@ -15,14 +15,15 @@ loops over the same functions:
   loop: audio within 1e-6, f64 state within 1e-12, int32 and bool state
   equal.
 * **K4's f64 entries**: ``srk_scan_sum_f64`` within 1e-12 relative of the
-  log-doubling sum, ``srk_scan_max_f64`` and ``srk_scan_fill_f64`` exact.
+  log-doubling sum, ``srk_scan_max_f64`` and ``srk_scan_fill_f64`` exact,
+  in both variants and in the one-element variant on arrays whose base
+  pointers lie 8 bytes off 16 (which the 16-byte variant refuses).
 * **K8's f64 build**: ``srk_freeverb_f64`` (the shared-memory schedule)
   and ``srk_freeverb_twin_f64`` within 2e-5 (abs + rel) of the f64
   ``block_plain``, at 4,800 Hz and 48 kHz, and equal to each other bit for
   bit; the f64 rule on line lengths.
-* **K9's f64 build**: ``srk_ring_align_tile_f64`` and
-  ``srk_ring_align_twin_f64`` exact against the plain gather, both
-  directions and rings to rings.
+* **K9's f64 build**: ``srk_ring_align_tile_f64`` exact against the plain
+  gather, both directions and rings to rings.
 """
 
 import ctypes
@@ -38,9 +39,11 @@ from srack_tpu_torch.compiler import tree_map
 from srack_tpu_torch.modules import freeverb as fv
 from srack_tpu_torch.ops import basic, freeverb_kernel as fvk, fused
 from srack_tpu_torch.ops.cuda_lib import build
-from srack_tpu_torch.ops.ring_roll import (RING_ALIGN_F64, RING_ALIGN_TWIN_F64,
-                                          ring_align_for, ring_align_plain)
+from srack_tpu_torch.ops.ring_roll import (RING_ALIGN_F64, ring_align_for,
+                                          ring_align_plain)
 from srack_tpu_torch.ops.scan_kernel import ROW_SCAN_F64
+
+from test_torch_block_host import _at, _k4_call
 
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
               "-shared", "-fPIC")
@@ -159,17 +162,17 @@ def k4_f64(gxx, tmp_path_factory):
 
 
 # K4's entry forms: the one-element variant, the 16-byte one (rows of an
-# even number of doubles; a fill's int32 mask asks a multiple of 4), the
-# twin
-@pytest.mark.parametrize("form", ["", "_vec", "_twin"])
+# even number of doubles; a fill's int32 mask asks a multiple of 4), and
+# the one-element variant on arrays one element into a larger buffer
+@pytest.mark.parametrize("form", ["", "_vec", "_off"])
 @pytest.mark.parametrize("n", [1, 1000, 2500])
 @pytest.mark.parametrize("kind", ["sum", "max"])
 def test_row_scan_f64_on_host_matches_plain(k4_f64, kind, n, form):
     rng = np.random.default_rng(n)
-    x = torch.from_numpy(rng.uniform(0.0, 0.1, (3, n)))
-    y = torch.empty_like(x)
-    rc = _fn(k4_f64, f"srk_scan_{kind}_f64{form}", [P, P, I, I])(
-        x.data_ptr(), y.data_ptr(), 3, n)
+    x = _at(form, torch.from_numpy(rng.uniform(0.0, 0.1, (3, n))))
+    y = _at(form, torch.empty_like(x))
+    rc = _k4_call(k4_f64, f"srk_scan_{kind}_f64", [P, P, I, I], form,
+                  x.data_ptr(), y.data_ptr(), 3, n)
     if form == "_vec" and n % 2:
         assert rc == -2
         return
@@ -182,19 +185,21 @@ def test_row_scan_f64_on_host_matches_plain(k4_f64, kind, n, form):
     assert ROW_SCAN_F64.launches == 0
 
 
-@pytest.mark.parametrize("form", ["", "_vec", "_twin"])
+@pytest.mark.parametrize("form", ["", "_vec", "_off"])
 @pytest.mark.parametrize("k", [1, 3])
 def test_row_fill_f64_on_host_matches_plain(k4_f64, k, form):
     rng = np.random.default_rng(k)
     n = 2300
-    vals = torch.from_numpy(rng.standard_normal((k, 3, n)))
+    vals = _at(form, torch.from_numpy(rng.standard_normal((k, 3, n))))
     mask = torch.from_numpy(rng.uniform(size=(3, n)) < 0.01)
     mask[1] = False
     mask[2, 1500:] = False
-    out, ok = torch.empty_like(vals), torch.empty((3, n), dtype=torch.int32)
-    assert _fn(k4_f64, f"srk_scan_fill_f64{form}", [P, P, P, P, I, I, I])(
-        vals.data_ptr(), mask.to(torch.int32).data_ptr(), out.data_ptr(),
-        ok.data_ptr(), k, 3, n) == 0
+    out = _at(form, torch.empty_like(vals))
+    ok = _at(form, torch.empty((3, n), dtype=torch.int32))
+    m = _at(form, mask.to(torch.int32))
+    assert _k4_call(k4_f64, "srk_scan_fill_f64", [P, P, P, P, I, I, I], form,
+                    vals.data_ptr(), m.data_ptr(), out.data_ptr(),
+                    ok.data_ptr(), k, 3, n) == 0
     want, want_ok = basic.forward_fill_multi_plain(tuple(vals), mask)
     assert torch.equal(ok != 0, want_ok)
     for j in range(k):
@@ -323,22 +328,21 @@ def test_freeverb_f64_rule_on_line_lengths():
 
 # -- K9 ----------------------------------------------------------------------
 
-def _k9_host(lib, entry, src, dst, lens, v, idx, shifts, src_lines,
-             dst_lines, tile):
+def _k9_host(lib, src, dst, lens, v, idx, shifts, src_lines, dst_lines):
     n = len(lens)
-    argtypes = [P, P, P, P, P, I, I, I, I] + ([I] if tile else [])
-    return _fn(lib, entry, argtypes)(
+    return _fn(lib, "srk_ring_align_tile_f64", [P, P, P, P, P, I, I, I, I,
+                                                I])(
         (P * n)(*[t.data_ptr() for t in src]),
         (P * n)(*[t.data_ptr() for t in dst]), (I * n)(*lens),
         (I * n)(*shifts), None if idx is None else idx.data_ptr(), n, v,
-        int(src_lines), int(dst_lines), *([tile] if tile else []))
+        int(src_lines), int(dst_lines), RING_ALIGN_F64.tile)
 
 
 @pytest.mark.parametrize("src_lines,dst_lines",
                          [(False, False), (False, True), (True, False)])
 def test_ring_align_f64_on_host_matches_plain(gxx, tmp_path, src_lines,
                                               dst_lines):
-    """The f64 tile and twin, rings to rings, rings to lines and back, with
+    """The f64 tile, rings to rings, rings to lines and back, with
     per-voice indices and per-line shifts, on 33 voices (two voice tiles)
     and lines 1-300 long: exact, doubles moved whole (no voice's word on
     another voice's row)."""
@@ -350,26 +354,22 @@ def test_ring_align_f64_on_host_matches_plain(gxx, tmp_path, src_lines,
     shifts = [int(s) for s in rng.integers(0, 1000, len(lens))]
     src = [r.T.contiguous() if src_lines else r for r in rings]
     lib = _lib(RING_ALIGN_F64.source, gxx, tmp_path)
-    for entry, tile in (("srk_ring_align_tile_f64", RING_ALIGN_F64.tile),
-                        ("srk_ring_align_twin_f64", None)):
-        dst = [torch.empty((n, v) if dst_lines else (v, n), dtype=F64)
-               for n in lens]
-        assert _k9_host(lib, entry, src, dst, lens, v, idx, shifts,
-                        src_lines, dst_lines, tile) == 0
-        for j, (d, r, n) in enumerate(zip(dst, rings, lens)):
-            want = ring_align_plain(r, (idx[j] + shifts[j]) % n)
-            assert torch.equal(d.T if dst_lines else d, want), (entry, j)
-    assert RING_ALIGN_F64.launches == 0 and RING_ALIGN_TWIN_F64.launches == 0
+    dst = [torch.empty((n, v) if dst_lines else (v, n), dtype=F64)
+           for n in lens]
+    assert _k9_host(lib, src, dst, lens, v, idx, shifts, src_lines,
+                    dst_lines) == 0
+    for j, (d, r, n) in enumerate(zip(dst, rings, lens)):
+        want = ring_align_plain(r, (idx[j] + shifts[j]) % n)
+        assert torch.equal(d.T if dst_lines else d, want), j
+    assert RING_ALIGN_F64.launches == 0
 
 
 def test_ring_align_f64_wrappers():
-    """The f64 builds take f64 lines only, name their entries, and are the
+    """The f64 build takes f64 lines only, names its entry, and is the
     main path's K9 for f64 lines."""
     assert ring_align_for(F64) is RING_ALIGN_F64
     assert RING_ALIGN_F64.name == "ring_align_f64"
-    assert RING_ALIGN_TWIN_F64.name == "ring_align_twin_f64"
     src, dst = [torch.zeros((2, 5))], [torch.zeros((2, 5))]
     with pytest.raises(ValueError, match="float32"):
         RING_ALIGN_F64.call(src, dst, (5,), 2)
-    for entry in ("srk_ring_align_tile_f64", "srk_ring_align_twin_f64"):
-        assert f'extern "C" int {entry}(' in RING_ALIGN_F64.source
+    assert 'extern "C" int srk_ring_align_tile_f64(' in RING_ALIGN_F64.source

@@ -7,14 +7,13 @@ plain version is held against the JAX package's Pallas kernel
 ``_align_rows`` in interpret mode (run by ``tests/torch_parity_worker.py``)
 and against ``np.roll``, for several row counts and line lengths: exact.
 The host build of K9 itself is checked in ``test_torch_block_host.py``;
-here its two entries are held against each other and the plain version
-on the host (g++, the same tile passes the card runs, thread by thread):
-the shared-memory tile ``srk_ring_align_tile`` at every tile length the
-wrapper takes against the twin ``srk_ring_align_twin``, both directions
-between rings and the Freeverb kernel's lines and rings to rings, per-voice
-write indices (negative and out of range) and per-line shifts, V of 1, 3
-and 33, lines shorter and longer than a tile and not a multiple of it:
-exact.
+here its entry is held against the plain version on the host (g++, the
+same tile passes the card runs, thread by thread): the shared-memory tile
+``srk_ring_align_tile`` at every tile length the wrapper takes, both
+directions between rings and the Freeverb kernel's lines and rings to
+rings, per-voice write indices (negative and out of range) and per-line
+shifts, V of 1, 3 and 33, lines shorter and longer than a tile and not a
+multiple of it: exact.
 """
 
 import ctypes
@@ -92,7 +91,7 @@ def test_ring_align_kernel_takes_cuda_tensors_only():
     assert RING_ALIGN.launches == launches
 
 
-# -- the tile against its twin, on the host ------------------------------------
+# -- the tile against the plain version, on the host ---------------------------
 
 @pytest.fixture(scope="module")
 def host_k9(tmp_path_factory):
@@ -104,27 +103,24 @@ def host_k9(tmp_path_factory):
     return ctypes.CDLL(str(path))
 
 
-def _host_move(lib, entry, src, dst, v, idx, shifts, src_lines, dst_lines,
-               tile=None):
-    """A host entry of K9 with the wrapper's arguments (and the tile's
-    length for ``srk_ring_align_tile``)."""
+def _host_move(lib, src, dst, v, idx, shifts, src_lines, dst_lines, tile):
+    """K9's host entry with the wrapper's arguments and a tile length."""
     n = len(LENS)
-    fn = getattr(lib, entry)
+    fn = lib.srk_ring_align_tile
     fn.restype = I
-    fn.argtypes = [P] * 5 + [I] * 4 + ([I] if tile else [])
+    fn.argtypes = [P] * 5 + [I] * 5
     assert fn((P * n)(*[t.data_ptr() for t in src]),
               (P * n)(*[t.data_ptr() for t in dst]), (I * n)(*LENS),
               (I * n)(*shifts), None if idx is None else idx.data_ptr(), n,
-              v, int(src_lines), int(dst_lines),
-              *([tile] if tile else [])) == 0
+              v, int(src_lines), int(dst_lines), tile) == 0
 
 
 @pytest.mark.parametrize("rotation", ["idx", "shift"])
 @pytest.mark.parametrize("direction", ["rings->lines", "lines->rings",
                                        "rings->rings"])
 @pytest.mark.parametrize("v", [1, 3, 33])
-def test_ring_align_tile_on_host_matches_its_twin_and_plain(
-        host_k9, v, direction, rotation):
+def test_ring_align_tile_on_host_matches_plain(host_k9, v, direction,
+                                               rotation):
     src_lines = direction.startswith("lines")
     dst_lines = direction.endswith("lines")
     rng = np.random.default_rng(v)
@@ -138,47 +134,35 @@ def test_ring_align_tile_on_host_matches_its_twin_and_plain(
     else:
         shifts = [int(x) for x in rng.integers(-5000, 5000, len(LENS))]
 
-    def empty():
-        return [torch.full((n, v) if dst_lines else (v, n), float("nan"))
-                for n in LENS]
-    twin = empty()
-    _host_move(host_k9, "srk_ring_align_twin", src, twin, v, idx, shifts,
-               src_lines, dst_lines)
+    want = []
     for j, n in enumerate(LENS):
         start = (idx[j].to(torch.int64) if idx is not None
                  else torch.zeros(v, dtype=torch.int64)) + shifts[j]
-        want = ring_align_plain(rings[j], start % n)
-        assert torch.equal(twin[j].T if dst_lines else twin[j], want), j
+        want.append(ring_align_plain(rings[j], start % n))
     for tile in range(rr.TILE_MIN, rr.TILE_MAX + 1, 32):
-        got = empty()
-        _host_move(host_k9, "srk_ring_align_tile", src, got, v, idx, shifts,
-                   src_lines, dst_lines, tile)
+        got = [torch.full((n, v) if dst_lines else (v, n), float("nan"))
+               for n in LENS]
+        _host_move(host_k9, src, got, v, idx, shifts, src_lines, dst_lines,
+                   tile)
         for j in range(len(LENS)):
-            assert torch.equal(got[j], twin[j]), (tile, j)
-    assert RING_ALIGN.launches == 0 and rr.RING_ALIGN_TWIN.launches == 0
+            assert torch.equal(got[j].T if dst_lines else got[j],
+                               want[j]), (tile, j)
+    assert RING_ALIGN.launches == 0
 
 
 def test_ring_align_entries_and_their_wrappers(monkeypatch):
     """The main path's K9 is the tile (``srk_ring_align_tile``, 128
-    positions); the twin is an entry of its own of the same source; both
-    wrappers refuse CPU tensors, and a tile length the kernel does not
-    take raises before a launch."""
+    positions); its wrapper refuses CPU tensors, and a tile length the
+    kernel does not take raises before a launch."""
     assert RING_ALIGN.name == "ring_align" and RING_ALIGN.tile == 128
-    assert rr.RING_ALIGN_TWIN.name == "ring_align_twin"
-    assert rr.RING_ALIGN_TWIN.tile is None
-    assert rr.RING_ALIGN_TWIN.source == RING_ALIGN.source
-    for entry in ("srk_ring_align_tile", "srk_ring_align_twin"):
-        assert f'extern "C" int {entry}(' in RING_ALIGN.source
+    assert 'extern "C" int srk_ring_align_tile(' in RING_ALIGN.source
     src, dst = [torch.zeros((2, 5))], [torch.zeros((2, 5))]
-    for wrapper in (RING_ALIGN, rr.RING_ALIGN_TWIN):
-        with pytest.raises(ValueError, match="CUDA"):
-            wrapper.move(src, dst, (5,), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        RING_ALIGN.move(src, dst, (5,), 2)
     monkeypatch.setattr(rr, "require_cuda", lambda *t: torch.device("cpu"))
     assert RING_ALIGN.call(src, dst, (5,), 2)[0] == "srk_ring_align_tile"
-    assert rr.RING_ALIGN_TWIN.call(src, dst, (5,), 2)[0] == \
-        "srk_ring_align_twin"
     for bad in (16, 100, 512):
         monkeypatch.setattr(RING_ALIGN, "tile", bad)
         with pytest.raises(ValueError, match="tile"):
             RING_ALIGN.call(src, dst, (5,), 2)
-    assert RING_ALIGN.launches == 0 and rr.RING_ALIGN_TWIN.launches == 0
+    assert RING_ALIGN.launches == 0

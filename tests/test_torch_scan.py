@@ -18,14 +18,14 @@ the fills exact (a fill where a value is defined), f32 sums within
 tolerances.
 
 K4 itself runs here in its host build (g++, the kernel's phases over
-arrays, its ring's copies as memcpy): the pipelined kernel's 16-byte and
-one-element variants (entries ``*_vec`` and ``*``) equal the twin (the
-kernel they replaced, ``*_twin``) bit for bit for every kind and dtype at
-row lengths around the chunk and the ring, and the plain versions (exact
-for the integer kinds, maxes and fills, bit for bit for sums and affine
-scans of exactly representable values, within the tolerances above for
-random f32 and ``1e-12`` for random f64); a mocked launch shows which
-variant and entry the wrapper picks.  ``test_torch_block_host.py`` and
+arrays, its ring's copies as memcpy): the kernel's 16-byte and
+one-element variants (entries ``*_vec`` and ``*``) equal each other bit
+for bit for every kind and dtype at row lengths around the chunk and the
+ring, and the plain versions (exact for the integer kinds, maxes and
+fills, bit for bit for sums and affine scans of exactly representable
+values, within the tolerances above for random f32 and ``1e-12`` for
+random f64); a mocked launch shows which variant and build the wrapper
+picks.  ``test_torch_block_host.py`` and
 ``test_torch_exact_host.py`` hold more of the host build.
 """
 
@@ -42,8 +42,7 @@ import torch
 
 from srack_tpu_torch.ops import basic, scan_kernel
 from srack_tpu_torch.ops.cuda_lib import build
-from srack_tpu_torch.ops.scan_kernel import (ROW_SCAN, ROW_SCAN_F64,
-                                             ROW_SCAN_TWIN, ROW_SCAN_TWIN_F64)
+from srack_tpu_torch.ops.scan_kernel import ROW_SCAN, ROW_SCAN_F64
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 WORKER = ROOT / "tests" / "torch_parity_worker.py"
@@ -158,7 +157,7 @@ def test_scan_wrappers_take_cuda_tensors_to_the_kernel_only():
     assert ROW_SCAN.launches == launches
 
 
-# -- K4's host build: both variants against the twin and the plain versions
+# -- K4's host build: both variants against each other and the plain versions
 
 HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
               "-shared", "-fPIC")
@@ -244,8 +243,7 @@ def _host_plain(kind, ins):
 @pytest.mark.parametrize("vec", [False, True])
 @pytest.mark.parametrize("n", HOST_NS)
 @pytest.mark.parametrize("kind,dtype,k", HOST_CASES)
-def test_k4_host_variants_equal_twin_and_plain(k4_host, kind, dtype, k, n,
-                                               vec):
+def test_k4_host_variants_equal_plain(k4_host, kind, dtype, k, n, vec):
     base = f"srk_scan_{kind}_{DT[dtype]}"
     fits = all(n * size % 16 == 0 for size in
                (dtype.itemsize, 4 if kind == "fill" else dtype.itemsize))
@@ -257,10 +255,11 @@ def test_k4_host_variants_equal_twin_and_plain(k4_host, kind, dtype, k, n,
             assert rc == -2      # the 16-byte variant refuses such rows
             return
         assert rc == 0
-        rc, twin = _host_scan(k4_host, base + "_twin", kind, ins, n)
-        assert rc == 0
-        for g, w in zip(got, twin):
-            assert torch.equal(g, w)
+        if vec:          # the same kernel as the one-element variant
+            rc, one = _host_scan(k4_host, base, kind, ins, n)
+            assert rc == 0
+            for g, w in zip(got, one):
+                assert torch.equal(g, w)
         want = _host_plain(kind, ins)
         if kind == "fill":
             ok = want[1]
@@ -279,10 +278,9 @@ def test_k4_host_variants_equal_twin_and_plain(k4_host, kind, dtype, k, n,
 def test_wrapper_picks_the_variant_by_row_alignment(monkeypatch):
     """On CUDA tensors (the wrapper asked; no card needed) rows that start
     on 16 bytes in every array take the 16-byte variant, other rows the
-    one-element variant, and the twins their own entries; f64 arrays go to
-    the f64 builds."""
+    one-element variant; f64 arrays go to the f64 build."""
     calls = []
-    for lib in (ROW_SCAN, ROW_SCAN_F64, ROW_SCAN_TWIN, ROW_SCAN_TWIN_F64):
+    for lib in (ROW_SCAN, ROW_SCAN_F64):
         monkeypatch.setattr(lib, "launch",
                             lambda entry, *a, lib=lib: calls.append(
                                 (lib.name, entry)))
@@ -298,8 +296,6 @@ def test_wrapper_picks_the_variant_by_row_alignment(monkeypatch):
     ROW_SCAN.fill((x, x.to(F64)), x > 0)
     ROW_SCAN.fill((x[:, :46].to(F64),), x[:, :46] > 0)  # the mask's rows
     ROW_SCAN_F64.run("sum", (x[:, :46].to(F64),))        # 46 doubles fit
-    ROW_SCAN_TWIN.run("sum", (x,))
-    ROW_SCAN_TWIN.fill((x.to(F64),), x > 0)
     assert calls == [
         ("row_scan", "srk_scan_sum_f32_vec"),
         ("row_scan", "srk_scan_sum_f32"),
@@ -309,6 +305,4 @@ def test_wrapper_picks_the_variant_by_row_alignment(monkeypatch):
         ("row_scan", "srk_scan_fill_f32_vec"),
         ("row_scan_f64", "srk_scan_fill_f64_vec"),
         ("row_scan_f64", "srk_scan_fill_f64"),
-        ("row_scan_f64", "srk_scan_sum_f64_vec"),
-        ("row_scan_twin", "srk_scan_sum_f32_twin"),
-        ("row_scan_twin_f64", "srk_scan_fill_f64_twin")]
+        ("row_scan_f64", "srk_scan_sum_f64_vec")]
