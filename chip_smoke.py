@@ -20,7 +20,10 @@ Phases, each reported on its own lines with its seconds:
    lane) and K2 on feedback_patch, block 1,024, at n = 2048 and n = 3072,
    through the kernel and through the scan engine (the kernels' plain
    version); audio within 1e-5, int32 and bool state bit-exact, float
-   state (K2's final fb ring included) within 1e-5;
+   state (K2's final fb ring included) within 1e-5; K1, K2 (block 66) and
+   K10's forward at 1,000 voices (a ragged last CTA for the store warp)
+   and n with and without a part last chunk, audio bit for bit (K1's
+   final float state too, K2's within 1e-5);
 4. the main path at full size: compile_patch(subtractive_voice(cfg))
    .render(480000, params=farm_params(patch, 1024), batched=True,
    device="cuda") with engine="auto" -- 1,024 voices x 10 s at 48 kHz;
@@ -383,8 +386,10 @@ def pipeline(kernel) -> str:
         return ""
     if part.n_stages == 1:
         return ", G=1: one thread per voice"
-    return (f", G={part.n_stages} stages of {list(part.costs)} ops, "
-            f"T={kernel.chunk} in groups of U={kernel.group}, "
+    store = (" and a store warp" if kernel.warps > part.n_stages
+             else "")
+    return (f", G={part.n_stages} stages of {list(part.costs)} ops"
+            f"{store}, T={kernel.chunk} in groups of U={kernel.group}, "
             f"{kernel.smem_bytes} B shared memory, "
             f"{len(part.wires)} cross-stage wires")
 
@@ -485,6 +490,7 @@ def phase_build(stt):
     jobs.update(ab_kernels(kernels))
     jobs.update(exact_kernels(stt))
     jobs.update(slice11_kernels(stt))
+    jobs.update(ragged_kernels(stt))
 
     def build(name):
         t0 = time.perf_counter()
@@ -2447,7 +2453,8 @@ def fwd_form(kernel) -> str:
     if kernel.fwd_twin:
         return "forward: one thread per voice (the twin)"
     part = kernel.fwd_partition
-    return (f"forward: G={part.n_stages} stages of {list(part.costs)} ops, "
+    return (f"forward: G={part.n_stages} stages of {list(part.costs)} ops "
+            f"and a store warp, "
             f"T={kernel.fwd_chunk} of t_chunk {kernel.t_chunk} in groups of "
             f"U={kernel.fwd_group}, "
             f"{kernel.fwd_smem_bytes} B shared memory, {len(part.wires)} "
@@ -2573,6 +2580,64 @@ def vjp_times(stt, kernel, params, state, n, xs):
                                                 VOICES, n),
                          repeats=3, warmup=1)
     return fwd_ms, bwd_ms
+
+
+RAGGED_V = 1000     # a last CTA of 8 voices
+RAGGED_BLOCK = 66   # K2's block: no multiple of the chunk
+RAGGED = {}         # K2 at RAGGED_BLOCK (its patch and compiled plan)
+
+
+def ragged_kernels(stt) -> dict:
+    """K2 of the buffer-feedback patch at a block of ``RAGGED_BLOCK``, for
+    :func:`compare_ragged`."""
+    from srack_tpu_torch.ops.fused import FusedKernel
+    patch = stt.presets.feedback_patch(stt.AudioConfig(
+        sample_rate=SR, block_size=RAGGED_BLOCK, channels=1,
+        buffer_feedback=True))
+    compiled = stt.compile_patch(patch)
+    RAGGED["K2"] = (patch, compiled, FusedKernel(compiled))
+    return {f"feedback_buffer block {RAGGED_BLOCK}": RAGGED["K2"][2]}
+
+
+def compare_ragged(stt, kernels) -> None:
+    """K1, K2 and K10's forward against the scan engine on the card, bit
+    for bit, where the store warp's tile is ragged: ``RAGGED_V`` voices (a
+    last CTA of 8), n with and without a part last chunk, K2's chunks
+    straddling its blocks."""
+    v = RAGGED_V
+    cases = [("K1", *kernels["subtractive_voice"], (1024, 1023)),
+             ("K2", *RAGGED["K2"], (4 * RAGGED_BLOCK, 3 * RAGGED_BLOCK)),
+             ("K10 forward", *VJP["train"], (512, 510))]
+    for what, patch, compiled, kernel, ns in cases:
+        for n in ns:
+            params = _cuda(stt, stt.presets.farm_params(patch, v))
+            state = _cuda(stt, stt.compiler.tree_map(
+                lambda a: a.expand((v,) + a.shape).contiguous(),
+                compiled.init_state()))
+            xs = compiled._make_xs(params, 0, n, {})
+            with torch.no_grad():
+                if what == "K10 forward":
+                    audio, final = kernel.apply(params, state, n, xs)
+                else:
+                    audio, final = kernel.render(params, state, n, xs)
+                want, want_final = compiled.render_scan(
+                    params, state, n, batched=True, nograd=True, xs=xs)
+            torch.cuda.synchronize()
+            check(torch.equal(audio, want), f"{what} n={n} V={v}: audio "
+                  f"off the scan engine by "
+                  f"{(audio - want).abs().max().item()}")
+            state_note = ""
+            if what != "K10 forward":   # phase 3's K10 check holds its audio
+                serr = _state_diff(final, want_final, f"{what} n={n}")
+                # K1 bit for bit, K2 within phase 3's limit
+                limit = ATOL if compiled.cfg.buffer_feedback else 0.0
+                check(serr <= limit, f"{what} n={n}: float state off by "
+                      f"{serr} (limit {limit:g})")
+                state_note = (f", max float-state err {serr:.3e} (limit "
+                              f"{limit:g})")
+            log(f"[3 compare] {what} V={v} n={n} (the store warp's last "
+                f"CTA of {v % 32} voices): audio bit for bit with the scan "
+                f"engine{state_note}")
 
 
 def phase_compare_vjp(stt):
@@ -4920,6 +4985,9 @@ def main() -> int:
     vjp_errs, vjp_keep = phase_compare_vjp(stt)
     errs.update(vjp_errs)
     log(f"[3 compare] slice 5 (K10): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    compare_ragged(stt, kernels)
+    log(f"[3 compare] ragged tiles: {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     errs.update(phase_compare_exact(stt))
     log(f"[3 compare] slice 10 (exact precision): "

@@ -67,9 +67,9 @@ Design:
   where the same stages one sample at a time, with the ADSR's branches,
   took 128.3, and the 16,384-voice farm 192,000 samples in 34.4 ms
   against 60.4 (chip_smoke.py phase 15).
-* **Occupancy.**  1,024 voices give 32 CTAs of 4 warps on 132 SMs, one
+* **Occupancy.**  1,024 voices give 32 CTAs of 5 warps on 132 SMs, one
   CTA per SM; 16,384 voices give 512 CTAs, all resident at once at
-  ``T = 32`` (28.8 KB of shared memory for the headline), about 16 warps
+  ``T = 32`` (33.0 KB of shared memory for the headline), about 20 warps
   per SM.  Longer chunks take more shared memory: at ``T = 128`` only two
   CTAs fit an SM, and the 16,384-voice farm took 96.4 ms against 60.5 at
   ``T = 32`` (and 78.1 with one thread per voice), while the 1,024-voice
@@ -116,14 +116,21 @@ Design:
   159.218 (chip_smoke.py phase 15, NVIDIA H100 80GB HBM3 at 700.00 W),
   0.490 of it; its costliest stage holds 0.39 of the operations.
 * **The audio writes.**  K1's Output stage writes each chunk into a
-  shared tile ``[C][32][T + 1]`` (a padded row per voice, so neither the
-  writes nor the reads meet a bank twice) and the warp then stores it row
-  by row, 32 consecutive samples of one voice per store: one 128-byte
-  transaction where the one-thread form's per-sample store touched 32
-  sectors; K2's Output stage does the same.  K3's output wires go to
-  ``[O, n, V]`` per sample, coalesced across the warp's voices.  The
-  one-thread form stores straight to ``[V, C, n]``, 32 separate sectors
-  per warp store.
+  shared tile ``[2][C][32][T + 1]`` (a padded row per voice, so neither
+  the writes nor the reads meet a bank twice), and a store warp, one more
+  warp of the CTA, stores it row by row at the next chunk step, 32
+  consecutive samples of one voice per store: one 128-byte transaction
+  where the one-thread form's per-sample store touched 32 sectors.  The
+  Output stage writes the next chunk into the tile's other buffer
+  meanwhile.  When the Output stage's warp stored the tile itself, its
+  32 dependent rows of loads and stores cost ~66 cycles a sample of the
+  headline voice on top of its ~126, and paced the kernel at ~196 (the
+  VCO's stage takes ~141; clock64, H100 80GB HBM3 at 700 W).  A row by
+  the bulk copy engine (``cp.async.bulk``), one a lane, cost ~62, and
+  from the store warp it was no faster than these stores.  K2 does the
+  same.  K3's output wires go to ``[O, n, V]`` per sample, coalesced
+  across the warp's voices.  The one-thread form stores straight to
+  ``[V, C, n]``, 32 separate sectors per warp store.
 * **Generated per plan.**  The module steps are the inline functions of
   ``csrc/modules.cuh`` (the pipeline's copies and barrier are in
   ``csrc/pipeline.cuh``); this file emits a small ``.cu`` per compiled
@@ -778,7 +785,8 @@ class SmemLayout:
     offset of its double buffer ``[2][chunk][32]``; ``fb`` maps ``(stage,
     feedback key)`` to the offset of K2's chunk of ring reads
     ``[chunk][32]``; ``tile`` is the offset of K1's (K2's) audio tile
-    ``[C][32][chunk + 1]`` (None for K3)."""
+    ``[2][C][32][chunk + 1]``, a buffer for the chunk the Output stage
+    writes and one for the chunk the store warp stores (None for K3)."""
     chunk: int
     wires: tuple
     lanes: tuple
@@ -810,7 +818,7 @@ def smem_layout(part, lanes_of, channels: int, chunk: int,
     tile = None
     if channels:
         tile = off
-        off += channels * WARP * (chunk + 1)
+        off += 2 * channels * WARP * (chunk + 1)
     return SmemLayout(chunk, tuple(wires), tuple(lanes), tuple(fb), tile,
                       off)
 
@@ -944,8 +952,9 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     buffer one chunk ahead (``cp.async``).  Each warp keeps its modules'
     params, state and feedback carries in a struct of registers and stores
     its part of the final state.  K1's Output stage writes each chunk of
-    audio into a tile ``[C][32][chunk + 1]`` and stores it row by row, 32
-    consecutive samples of one voice per warp store; K3's stages store
+    audio into a tile ``[2][C][32][chunk + 1]``, and a store warp stores
+    it at the next step row by row, 32 consecutive samples of one voice
+    per warp store; K3's stages store
     their output wires per sample (``[O, n, V]``, coalesced).  K2's
     feedback ring stays in device memory (``[n_fb, block, V]``): the warp
     of a key's reading stage copies the chunk's slots ``ring[k][t %
@@ -976,7 +985,7 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     chunk of its lanes.  The card runs them in the stage warps; the host
     build (``srk_fused_host``) runs the same lock step, stage after stage
     and lane after lane of each 32-voice block, through the same shared
-    buffers."""
+    buffers, and the store warp's store after each step's stages."""
     cfg = compiled.cfg
     plan = compiled.plan if stage is None else stage.stage_plan
     fb_lanes = cfg.buffer_feedback and stage is not None
@@ -1043,7 +1052,7 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
         L += [f"#define SRK_T_CHUNK {int(t_chunk)}",
               f"#define SRK_S_ROWS {layout.n_sf + layout.n_si}"]
     L += [f"#define SRK_STAGES {G}",
-          f"#define SRK_THREADS {WARP * G}",
+          f"#define SRK_THREADS {WARP * (G + (out_stage is not None))}",
           f"#define SRK_T {chunk}",
           f"#define SRK_U {group}",
           f"#define SRK_SMEM_FLOATS {sm.floats}",
@@ -1140,8 +1149,9 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
                 L.append(f"  const int ws{i} = {off} + (c % {slots}) * SRK_T"
                          " * 32 + lane;")
         if g == out_stage:
-            L += [f"  float* a{c} = sm + {sm.tile} + ({c} * 32 + lane) * "
-                  "(SRK_T + 1);" for c in range(n_ch)]
+            L += [f"  float* a{ch} = sm + {sm.tile} + ((c & 1) * "
+                  f"{n_ch * WARP} + {ch * WARP} + lane) * (SRK_T + 1);"
+                  for ch in range(n_ch)]
         read_keys = [k for k, gr, _ in rings if gr == g]
         write_keys = [k for k in compiled.fb_keys
                       if buffer and stage_of[k[0]] == g]
@@ -1260,8 +1270,9 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
     if out_stage is not None:
         L += ["",
               "// the Output stage's chunk of audio, from the tile to [V, C, "
-              "n]:",
-              "// one voice's row at a time, 32 consecutive samples a store",
+              "n], by the",
+              "// store warp: one voice's row at a time, 32 consecutive "
+              "samples a store",
               "SRK_HD void srk_tile_store(int c, int lane, int v0, int V, "
               "int n, float* __restrict__ audio, "
               "const float* __restrict__ sm) {",
@@ -1271,8 +1282,8 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
               f"    for (int ch = 0; ch < {n_ch}; ++ch) {{",
               f"      float* row = audio + ((size_t)(v0 + u) * {n_ch} + ch) "
               "* n + t0;",
-              f"      const float* tile = sm + {sm.tile} + (ch * 32 + u) * "
-              "(SRK_T + 1);",
+              f"      const float* tile = sm + {sm.tile} + ((c & 1) * "
+              f"{n_ch * WARP} + ch * 32 + u) * (SRK_T + 1);",
               "      for (int tc = lane; tc < cnt; tc += 32) row[tc] = "
               "tile[tc];",
               "    }",
@@ -1284,11 +1295,16 @@ def _generate_pipeline(compiled, layout: Layout, lanes: tuple, stage, part,
 
 def _pipeline_entries(part, lanes_of, out_stage, ckpt=False,
                       doubles=False) -> list:
-    """The split kernel (one warp per stage), its ``extern "C"`` launch
-    (which sets the dynamic shared memory) and the host build's lock-step
-    loop, with the one-thread kernel's arguments (``ckpt``: K10's forward,
-    entry ``srk_vjp_fwd``, with the checkpoints ``ck``; ``doubles``: the
-    double rows ``pd``, ``sd``, ``sd_out`` of exact precision)."""
+    """The split kernel (one warp per stage, and with an Output stage
+    ``out_stage`` a store warp), its ``extern "C"`` launch (which sets the
+    dynamic shared memory) and the host build's lock-step loop, with the
+    one-thread kernel's arguments (``ckpt``: K10's forward, entry
+    ``srk_vjp_fwd``, with the checkpoints ``ck``; ``doubles``: the double
+    rows ``pd``, ``sd``, ``sd_out`` of exact precision).  The store warp
+    stores chunk ``c`` of the audio tile at step ``c + out_stage + 1``, the
+    step after the Output stage wrote it, while that stage writes chunk
+    ``c + 1`` into the tile's other buffer; after the stages' last step it
+    stores the chunk that step wrote."""
     entry = "srk_vjp_fwd" if ckpt else "srk_fused"
     ck = ", int* ck" if ckpt else ""
     dd = _DOUBLE_DECL if doubles else ""
@@ -1302,6 +1318,9 @@ def _pipeline_entries(part, lanes_of, out_stage, ckpt=False,
     load = "pf, pi, sf, si" + (", pd, sd" if doubles else "")
     store = "sf_out, si_out" + (", sd_out" if doubles else "")
     chunk_args = f"lane, v, V, n, lanes, ring, audio, sm{ck}"
+    # the chunk the store warp stores at step k (k = n_chunks + SRK_STAGES
+    # - 1, one past the stages' last step, is the store warp's alone)
+    stored = None if out_stage is None else f"k - {out_stage + 1}"
     L = ["", "#ifdef __CUDACC__",
          "__global__ void __launch_bounds__(SRK_THREADS) "
          f"{entry}_kernel({decl}) {{",
@@ -1328,14 +1347,24 @@ def _pipeline_entries(part, lanes_of, out_stage, ckpt=False,
               "      if (c >= 0 && c < n_chunks) {",
               f"        if (live) srk_st{g}_chunk(S, c, n_chunks, "
               f"{chunk_args});"]
-        if g == out_stage:
-            L += ["        __syncwarp();",
-                  "        srk_tile_store(c, lane, v0, V, n, audio, sm);",
-                  "        __syncwarp();"]
         L += ["      }",
               "      srk_step_barrier(SRK_THREADS);",
               "    }",
               f"    if (live) srk_st{g}_store(S, v, V, {store});"]
+    if stored is not None:
+        # every trip of the loop ends at the barrier and the last chunk is
+        # stored after it.  The 16,384-voice farm (4 CTAs an SM) takes
+        # 29.9-35.4 ms on an H100 by where ptxas places the warps' code;
+        # this form measured fastest there (PERF.md §7)
+        L += ["  } else {  // the store warp",
+              "    for (int k = 0; k < n_chunks + SRK_STAGES - 1; ++k) {",
+              f"      if ({stored} >= 0 && {stored} < n_chunks)",
+              f"        srk_tile_store({stored}, lane, v0, V, n, audio, sm);",
+              "      srk_step_barrier(SRK_THREADS);",
+              "    }",
+              "    const int k = n_chunks + SRK_STAGES - 1;",
+              f"    if ({stored} >= 0 && {stored} < n_chunks)",
+              f"      srk_tile_store({stored}, lane, v0, V, n, audio, sm);"]
     L += ["  }", "}", "",
           f'extern "C" int {entry}_launch({decl}, void* stream) {{',
           "  const int blocks = (V + 31) / 32;",
@@ -1366,8 +1395,13 @@ def _pipeline_entries(part, lanes_of, out_stage, ckpt=False,
             L.append(f"      if (n_chunks > 0) srk_st{g}_fetch(0, lane, v, V, "
                      "n, lanes, sm);")
     L += ["    }",
-          "    // the card's lock step: at step k stage g runs chunk k - g",
-          "    for (int k = 0; k < n_chunks + SRK_STAGES - 1; ++k) {"]
+          "    // the card's lock step: at step k stage g runs chunk k - g"]
+    last = "<"
+    if stored is not None:
+        L += ["    // and the store warp stores the chunk the Output stage "
+              "wrote at k - 1"]
+        last = "<="
+    L += [f"    for (int k = 0; k {last} n_chunks + SRK_STAGES - 1; ++k) {{"]
     for g in range(part.n_stages):
         L += [f"      if (k - {g} >= 0 && k - {g} < n_chunks) {{",
               "        for (int lane = 0; lane < live; ++lane) {",
@@ -1375,10 +1409,12 @@ def _pipeline_entries(part, lanes_of, out_stage, ckpt=False,
               f"          srk_st{g}_chunk(S{g}[lane], k - {g}, n_chunks, "
               f"{chunk_args});",
               "        }"]
-        if g == out_stage:
-            L.append("        for (int lane = 0; lane < 32; ++lane) "
-                     f"srk_tile_store(k - {g}, lane, v0, V, n, audio, sm);")
         L.append("      }")
+    if stored is not None:
+        # after the stages' step, so a tile with one buffer would fail
+        L += [f"      if ({stored} >= 0 && {stored} < n_chunks)",
+              "        for (int lane = 0; lane < 32; ++lane) "
+              f"srk_tile_store({stored}, lane, v0, V, n, audio, sm);"]
     L += ["    }",
           "    for (int lane = 0; lane < live; ++lane) {",
           "      const int v = v0 + lane;"]
@@ -2330,10 +2366,17 @@ class FusedKernel(CudaLib):
                                           self.chunk, rings).nbytes
 
     @property
+    def warps(self) -> int:
+        """Warps per CTA as the generated source launches them
+        (``SRK_THREADS``): one per stage and K1's (K2's) store warp; 1 for
+        the one-thread form (one warp of voices)."""
+        found = re.search(r"^#define SRK_THREADS (\d+)$", self.source, re.M)
+        return int(found.group(1)) // WARP if found else 1
+
+    @property
     def threads(self) -> int:
-        """Threads per CTA: one warp per stage (the one-thread form: one
-        warp of voices)."""
-        return WARP * self.partition.n_stages
+        """Threads per CTA."""
+        return WARP * self.warps
 
     @property
     def ring_words(self) -> int:

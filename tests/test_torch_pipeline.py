@@ -20,6 +20,10 @@ kernels, checked on the CPU.
   build bit for bit against the one-thread K2 and the scan engine, at
   blocks of 64 and 1,024 and chunks of 16, 32 and the default; a chunk
   one ring step too long shows on the host.
+* The audio tile: two buffers past every ring; the store warp that stores
+  it keeps every preset's chunk; only K1's, K2's and K10's forward sources
+  have one; bit for bit at any last CTA; the host's lock step shows a tile
+  of one buffer.
 * One unbatched voice on the card takes the kernels' engines; on the CPU
   the one-voice path (a batch of one) equals the unbatched scan engine.
 """
@@ -198,7 +202,9 @@ def test_chunk_fits_the_shared_memory_budget():
         if kernel.partition.n_stages == 1:
             assert kernel.chunk is None and kernel.threads == 32
             continue
-        assert kernel.threads == 32 * kernel.partition.n_stages
+        # a warp per stage and the store warp
+        assert kernel.threads == 32 * (kernel.partition.n_stages + 1)
+        assert f"#define SRK_THREADS {kernel.threads}\n" in kernel.source
         assert kernel.chunk >= fused.CHUNK_MIN
         assert kernel.chunk & (kernel.chunk - 1) == 0
         assert kernel.smem_bytes <= fused.SMEM_BUDGET
@@ -412,17 +418,23 @@ def test_k2_chunk_never_outruns_its_feedback_ring(block):
             compiled, carried=False)) == 32
 
 
+# K2's render length by block: at block 66, no multiple of the chunk, the
+# chunks straddle the blocks, and three blocks end in a part chunk
+BUFFER_N = {64: 384, 66: 198, 1024: 2048}
+
+
 @pytest.mark.parametrize("group", GROUPS)
 @pytest.mark.parametrize("chunk", [None, 16, 32])
-@pytest.mark.parametrize("block", [64, 1024])
+@pytest.mark.parametrize("block", [64, 1024, 66])
 def test_split_buffer_kernel_on_host_is_bit_identical(gxx, host_root, block,
                                                       chunk, group):
     """K2 split into stages, on the host: audio, state and the final fb
     ring bit for bit equal to the one-thread K2 and to the scan engine; two
     halves cut at a block boundary equal the whole.  (Buffer mode renders
-    whole blocks, so every chunk is whole and a group never ends one.)"""
+    whole blocks; at blocks of 64 and 1,024 every chunk is whole and a
+    group never ends one.)"""
     compiled, params, state = _buffer_case(block)
-    n = 6 * block if block < 512 else 2 * block
+    n = BUFFER_N[block]
     kernel = fused.FusedKernel(compiled, chunk=chunk, group=group)
     assert kernel.name == "fused_voice_buffer"
     assert kernel.partition.n_stages == 3 and kernel.group == group
@@ -639,6 +651,167 @@ def test_a_launch_counts_under_its_group(gxx, host_root, monkeypatch):
     assert kernel.launches == 1 and kernel.by_entry == {"srk_fused_launch": 1}
     assert single.launches == 1 and single.by_entry == kernel.by_entry
     assert torch.equal(audio[kernel], audio[single])
+
+
+# -- the audio tile and the store warp -----------------------------------------
+
+TILED = ("subtractive_voice", "sequencer_patch", "feedback_patch",
+         "lane_check_patch", "kernel_check_patch", "feedback_buffer")
+# the 16,384-voice farm on an H100: 512 CTAs over 132 SMs of 228 KB of
+# shared memory and 64 warps each, 1 KB of shared memory reserved a CTA
+FARM_VOICES, SMS, SM_BYTES, SM_WARPS = 16384, 132, 228 * 1024, 64
+CTA_RESERVED = 1024
+
+
+def _fused_case(name, **kw):
+    """A split K1 (``feedback_buffer``: K2, block 1,024) of a preset at
+    4,800 Hz."""
+    if name == "feedback_buffer":
+        _, compiled = _compiled("feedback_patch", block_size=1024,
+                                buffer_feedback=True)
+        return fused.FusedKernel(compiled, **kw)
+    _, compiled = _compiled(name)
+    return fused.FusedKernel(compiled, compiled._make_xs(
+        compiled.default_params, 0, 8, {}), **kw)
+
+
+def _stage_case(name):
+    """K3 of a block preset's serial stage, its input wires and Noise as
+    lanes."""
+    _, compiled = _compiled(name)
+    prog = compiled.block_program()
+    keys = ([wire_key(w) for w in prog.stage_in]
+            + [m for m in prog.stage_plan
+               if compiled.instances[m][0].make_xs is not None])
+    return fused.StageKernel(prog, keys)
+
+
+@pytest.mark.parametrize("chunk", [None, 8, 16])
+@pytest.mark.parametrize("name", TILED)
+def test_the_tile_is_two_buffers_past_every_ring(name, chunk):
+    """The audio tile is the layout's last block: two buffers of a padded
+    row per voice and channel, past every wire ring, lane buffer and K2
+    ring chunk."""
+    kernel = _fused_case(name, chunk=chunk)
+    assert kernel.partition.n_stages > 1
+    lanes_of, channels, rings, _ = fused.split_needs(
+        kernel.compiled, kernel.partition, kernel.lanes, None, kernel.layout)
+    sm = fused.smem_layout(kernel.partition, lanes_of, channels,
+                           kernel.chunk, rings)
+    assert sm.nbytes == kernel.smem_bytes and channels >= 1
+    assert sm.floats == sm.tile + 2 * channels * 32 * (kernel.chunk + 1)
+    ends = [off + slots * kernel.chunk * 32 for _, off, slots in sm.wires]
+    ends += [off + 2 * kernel.chunk * 32 for _, off in sm.lanes]
+    ends += [off + kernel.chunk * 32 for _, off in sm.fb]
+    assert max(ends, default=0) <= sm.tile
+
+
+@pytest.mark.parametrize("name", ["subtractive_voice", "feedback_patch",
+                                  "sequencer_patch", "feedback_buffer",
+                                  "reverb_patch"])
+def test_the_store_warp_changes_no_chunk(name):
+    """The tile's second buffer keeps every preset at the longest chunk
+    within the shared-memory budget, and every CTA of the 16,384-voice
+    farm of the headline voice resident at once, store warp and all."""
+    kernel = (_stage_case(name) if name == "reverb_patch"
+              else _fused_case(name))
+    assert kernel.partition.n_stages > 1
+    assert kernel.chunk == fused.CHUNK_MAX
+    assert kernel.smem_bytes <= fused.SMEM_BUDGET
+    assert kernel.warps == kernel.partition.n_stages + (
+        name != "reverb_patch")
+    if name == "subtractive_voice":
+        per_sm = -(-(FARM_VOICES // 32) // SMS)
+        assert per_sm * (kernel.smem_bytes + CTA_RESERVED) <= SM_BYTES
+        assert per_sm * kernel.warps <= SM_WARPS
+
+
+@pytest.mark.parametrize("name", ["subtractive_voice", "feedback_buffer",
+                                  "k10_forward"])
+def test_a_tiled_source_stores_its_tile_from_a_store_warp(name):
+    """K1's, K2's and K10's forward split sources: one warp more than the
+    stages, and only that warp (at each step and after the last) and the
+    host's lock step store the tile; the Output stage's warp only writes
+    it."""
+    if name == "k10_forward":
+        from srack_tpu_torch.ops.fused_vjp import FusedVJPKernel
+        _, compiled = _compiled("subtractive_voice")
+        kernel = FusedVJPKernel(compiled)
+        assert not kernel.fwd_twin
+        source, stages = kernel.fwd.source, kernel.fwd_partition.n_stages
+    else:
+        kernel = _fused_case(name)
+        source, stages = kernel.source, kernel.partition.n_stages
+    assert f"#define SRK_THREADS {32 * (stages + 1)}\n" in source
+    card = source[source.index("__global__"):source.index("#else")]
+    warp = card[card.index("} else {  // the store warp"):]
+    assert card.count("srk_tile_store(") == warp.count("srk_tile_store(") == 2
+    host = source[source.index("_host("):]
+    assert host.count("srk_tile_store(") == 1
+
+
+@pytest.mark.parametrize("name", ["reverb_patch", "block_check_patch",
+                                  "one_thread", "one_thread_buffer"])
+def test_an_untiled_source_has_no_store_warp(name):
+    """K3 (its outputs stream per sample) and the one-thread forms (they
+    store straight to ``[V, C, n]``) have no tile, so no store warp."""
+    if name == "one_thread":
+        kernel = fused.FusedKernel(_compiled("subtractive_voice")[1],
+                                   stages=1)
+    elif name == "one_thread_buffer":
+        kernel = _fused_case("feedback_buffer", stages=1)
+    else:
+        kernel = _stage_case(name)
+        assert kernel.warps == kernel.partition.n_stages > 1
+        assert f"#define SRK_THREADS {kernel.threads}\n" in kernel.source
+    assert "srk_tile_store" not in kernel.source
+    assert "store warp" not in kernel.source
+
+
+def test_a_tile_of_one_buffer_shows_on_the_host(gxx, tmp_path):
+    """The host's lock step stores a chunk after the step in which the
+    Output stage writes the next one, as the card's store warp may: with
+    the tile's two buffers made one, the audio is wrong."""
+    v = 32
+    patch, compiled = _compiled("subtractive_voice")
+    kernel = fused.FusedKernel(compiled)
+    params = stt.presets.farm_params(patch, v, seed=13)
+    state = tree_map(lambda a: a.expand((v,) + a.shape).contiguous(),
+                     compiled.init_state())
+    want, _ = compiled.render_scan(params, state, NG, batched=True,
+                                   nograd=True)
+    shape = (lambda v: (v, 1, NG))
+    audio, _ = _host_run(kernel, _host(kernel, gxx, tmp_path), params, state,
+                         NG, {}, shape)
+    assert torch.equal(audio, want)
+    assert kernel.source.count("(c & 1)") == 2
+    kernel.source = kernel.source.replace("(c & 1)", "0")
+    audio, _ = _host_run(kernel, _host(kernel, gxx, tmp_path), params, state,
+                         NG, {}, shape)
+    assert not torch.equal(audio, want)
+
+
+@pytest.mark.parametrize("v", [1, 32, 33, 37])
+@pytest.mark.parametrize("name", ["subtractive_voice", "feedback_buffer"])
+def test_the_store_warp_is_bit_identical_at_any_last_cta(gxx, host_root,
+                                                        name, v):
+    """With a last CTA of 1, 32, 1 and 5 voices the host build's store warp
+    gives the scan engine's audio and final state."""
+    kernel = _fused_case(name)
+    compiled = kernel.compiled
+    buffer = compiled.cfg.buffer_feedback
+    n = 2 * compiled.cfg.block_size if buffer else NG
+    patch = (stt.presets.feedback_patch if buffer
+             else stt.presets.subtractive_voice)(compiled.cfg)
+    params = stt.presets.farm_params(patch, v, seed=17)
+    state = tree_map(lambda a: a.expand((v,) + a.shape).contiguous(),
+                     compiled.init_state())
+    audio, final = _host_run(kernel, _host(kernel, gxx, host_root), params,
+                             state, n, {}, lambda v: (v, 1, n))
+    want, want_final = compiled.render_scan(params, state, n, batched=True,
+                                            nograd=True)
+    assert torch.equal(audio, want) and (audio != 0).any()
+    _assert_state_equal(final, want_final)
 
 
 # -- one voice on the kernels ------------------------------------------------
